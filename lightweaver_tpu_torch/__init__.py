@@ -1,0 +1,30 @@
+"""lightweaver_tpu_torch: the PyTorch/CUDA port of lightweaver_tpu.
+
+MALI NLTE synthesis for optically-thick spectral lines in stratified
+atmospheres, as in lightweaver_tpu (the JAX package, kept as the
+reference), running on PyTorch with hand-written CUDA kernels for an
+NVIDIA Hopper GPU.  The port never imports jax.
+
+Ported so far: the 1D complete-redistribution MALI main path in float64
+(Bezier-3 formal solver, factored Gamma, no Ng, no charge conservation),
+with the depth sweep as the CUDA kernel csrc/sweep.cu.  Like the JAX
+package, the default working precision is float64; every tensor is
+created with an explicit dtype and device rather than by changing
+torch's global default.
+
+``ref:`` comments name files of the upstream Lightweaver source tree
+(``lightweaver/`` for its Python layer, ``Source/`` for its C++ core).
+"""
+from . import constants
+from .atmosphere import (Atmosphere, BoundaryCondition, NoBc,
+                         ThermalisedRadiation, ZeroRadiation)
+from .atomic_set import RadiativeSet
+from .context import DEFAULT_DTYPE, Context
+from .fal import Falc82
+from .iterate_ctx import iterate_ctx_se
+from .iteration_update import IterationUpdate
+from .ops.planck import planck_nu
+from .rh_atoms import CaII_atom, H_6_atom
+from .utils import ConvergenceError, ExplodingMatrixError, InitialSolution
+
+__version__ = '0.1.0'

@@ -1,0 +1,821 @@
+"""The Context: device state + the MALI iteration, in PyTorch.
+
+Port of the main path of lightweaver_tpu/context.py: 1D, complete
+redistribution, the 'piecewise_bezier3_1d' formal solver, factored Gamma,
+float64, no Ng and no charge conservation.  Everything outside that slice
+raises ValueError rather than running something else.
+
+All ray tensors are direction-major [2, Nlam, Nmu, Nk] (d = 0 the down
+sweep, d = 1 the up sweep), the layout the depth-sweep kernel takes.  The
+iteration is split into three stage functions with one interface each:
+
+    gather(cfg, params, scaJ)                  -> chiTot, srcNum
+    formal_solve(cfg, params, chiTot, srcNum)  -> I, Psi, IeffBase, moments
+    gamma_rates(cfg, params, I, Psi, IeffBase, srcNum, moments)
+                                               -> Gamma, Rij, Rji
+
+The formal solve goes through ops/sweep.py, which launches the CUDA kernel
+on a CUDA device; the other stages are plain torch ops on the chosen
+device, as the JAX package leaves them to XLA.
+"""
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import constants as Const
+from .atmosphere import Atmosphere, ThermalisedRadiation
+from .atomic_model import AtomicLine, AtomicModel, LineProfileState
+from .background import basic_background
+from .iteration_update import IterationUpdate
+from .ops.faddeeva import voigt_H
+from .ops.linalg import solve_KxK_over_depth
+from .ops.planck import planck_nu
+from .ops.sweep import formal_solve_sweep
+from .utils import ExplodingMatrixError, InitialSolution
+
+DEFAULT_DTYPE = torch.float64
+
+
+@dataclass
+class TransStatic:
+    """Static description of one transition's place in the global
+    wavelength grid, with its per-window constants on the device."""
+    isLine: bool
+    i: int
+    j: int
+    Nblue: int
+    Nred: int
+    lambda0: float
+    Aji: float = 0.0
+    Bji: float = 0.0
+    Bij: float = 0.0
+    wavelength: np.ndarray = None       # [W] window grid
+    wlambda: np.ndarray = None          # [W] integration weights
+    alpha: np.ndarray = None            # [W] continuum cross-section
+    # device copies of the three arrays above (IterConfig fills them)
+    wavelengthT: Optional[torch.Tensor] = None
+    wlambdaT: Optional[torch.Tensor] = None
+    alphaT: Optional[torch.Tensor] = None
+
+    @property
+    def W(self):
+        return self.Nred - self.Nblue
+
+
+def _wlambda(grid: np.ndarray, dopplerWidth: float) -> np.ndarray:
+    """Trapezoidal wavelength integration weights over a window
+    (ref: Source/LwTransition.hpp:72-82)."""
+    w = np.empty_like(grid)
+    w[0] = 0.5 * (grid[1] - grid[0])
+    w[-1] = 0.5 * (grid[-1] - grid[-2])
+    w[1:-1] = 0.5 * (grid[2:] - grid[:-2])
+    return w * dopplerWidth
+
+
+@dataclass
+class AtomStatic:
+    model: AtomicModel
+    Nlevel: int
+    trans: List[TransStatic]
+    detailed: bool = False
+    # overlap analysis: for each level, [(trans_idx, sign)] for chi sums
+    chiLists: List[List[Tuple[int, int]]] = field(default_factory=list)
+    # for each level, [trans_idx] with j == level (U accumulators)
+    ULists: List[List[int]] = field(default_factory=list)
+
+    def build_overlaps(self):
+        self.chiLists = [[] for _ in range(self.Nlevel)]
+        self.ULists = [[] for _ in range(self.Nlevel)]
+        for idx, t in enumerate(self.trans):
+            self.chiLists[t.i].append((idx, +1))
+            self.chiLists[t.j].append((idx, -1))
+            self.ULists[t.j].append(idx)
+
+
+@dataclass
+class IterConfig:
+    """Static configuration of the iteration, with the wavelength grid,
+    quadrature and per-transition constants placed on ``device``."""
+    activeAtoms: List[AtomStatic]
+    detailedAtoms: List[AtomStatic]
+    Nlam: int
+    Nmu: int
+    Nk: int
+    lowerThermalised: bool
+    upperThermalised: bool
+    wavelength: np.ndarray      # [Nlam]
+    muz: np.ndarray             # [Nmu]
+    wmu: np.ndarray             # [Nmu]
+    device: torch.device = torch.device('cpu')
+    dtype: torch.dtype = DEFAULT_DTYPE
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        t_ = self.tensor
+        self.wavelengthT = t_(self.wavelength)
+        self.muzT = t_(self.muz)
+        self.wmuT = t_(self.wmu)
+        for a in self.activeAtoms + self.detailedAtoms:
+            for t in a.trans:
+                t.wavelengthT = t_(t.wavelength)
+                t.wlambdaT = t_(t.wlambda)
+                t.alphaT = None if t.alpha is None else t_(t.alpha)
+
+    def tensor(self, x):
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device)
+
+    @property
+    def allAtoms(self):
+        return self.activeAtoms + self.detailedAtoms
+
+
+def _sum_mu(x, wmu):
+    """Angular moment: contract x [2, W, Nmu, Nk] against wmu [Nmu] over
+    the (up/down, mu) axes -> [W, Nk]."""
+    return torch.sum(x * wmu[None, None, :, None], dim=(0, 2))
+
+
+def _sum_lmd(x, wla, wmu):
+    """Full transition integral: contract x [2, W, Nmu, Nk] against
+    wla [W, Nk] and wmu [Nmu] over (up/down, lambda, mu) -> [Nk]."""
+    return torch.sum(x * wla[None, :, None, :] * wmu[None, None, :, None],
+                     dim=(0, 1, 2))
+
+
+def _uv(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic,
+        lo: Optional[int] = None, hi: Optional[int] = None):
+    """Uji, Vij, Vji for one transition on the GLOBAL wavelength rows
+    [lo, hi) of its window (default: the whole window).
+    Lines: [2, w, Nmu, Nk]; continua: [1, w, 1, Nk].
+    ref: Source/LwTransition.hpp:93-144"""
+    if lo is None:
+        lo, hi = t.Nblue, t.Nred
+    sl = slice(lo - t.Nblue, hi - t.Nblue)
+    lam = t.wavelengthT[sl]
+    if t.isLine:
+        phi = params['phi'][ai][ti][:, sl]
+        hnu_4pi = Const.HC_FOURPI * (t.lambda0 / lam)
+        Vij = hnu_4pi[None, :, None, None] * t.Bij * phi
+        Vji = (t.Bji / t.Bij) * Vij
+        Uji = (t.Aji / t.Bji) * Vji
+    else:
+        nStar = params['allNStar'][ai]
+        hc_kl = Const.HC_K / lam                        # [w]
+        gij = (nStar[t.i][None, :] / nStar[t.j][None, :]
+               * torch.exp(-hc_kl[:, None] / params['temperature'][None, :]))
+        alpha = t.alphaT[sl]
+        Vij = alpha[:, None].expand(gij.shape)[None, :, None, :]
+        Vji = (gij * alpha[:, None])[None, :, None, :]
+        twohc = Const.TwoHC / lam ** 3
+        Uji = twohc[None, :, None, None] * Vji
+    return Uji, Vij, Vji
+
+
+def _wla(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic):
+    """Integration weight wla [W, Nk] (without the 0.5 wmu factor).
+    ref: Source/LwAtom.hpp:82-128"""
+    wla = t.wlambdaT
+    if t.isLine:
+        wphi = params['wphi'][ai][ti]
+        return wla[:, None] * wphi[None, :] * Const.FOURPI_HC
+    w = (wla / t.wavelengthT) * Const.FOURPI_H
+    return w[:, None].expand(t.W, cfg.Nk)
+
+
+def chi_eta_w(cfg, params, ai, ti, lo, hi):
+    """(chi_t, eta_t) of transition (ai, ti) on rows [lo, hi)."""
+    t = cfg.allAtoms[ai].trans[ti]
+    n = params['allPops'][ai]
+    Uji, Vij, Vji = _uv(cfg, params, ai, ti, t, lo, hi)
+    return n[t.i] * Vij - n[t.j] * Vji, n[t.j] * Uji
+
+
+def chiW(cfg, params, ai, ti, lo, hi):
+    return chi_eta_w(cfg, params, ai, ti, lo, hi)[0]
+
+
+def etaW(cfg, params, ai, ti, lo, hi):
+    return chi_eta_w(cfg, params, ai, ti, lo, hi)[1]
+
+
+def UjiW(cfg, params, ai, ti, lo, hi):
+    t = cfg.allAtoms[ai].trans[ti]
+    return _uv(cfg, params, ai, ti, t, lo, hi)[0]
+
+
+def _with_all_atoms(params):
+    """params plus 'allPops'/'allNStar': active then detailed atoms."""
+    params = dict(params)
+    params['allPops'] = list(params['pops']) + list(params['detPops'])
+    params['allNStar'] = list(params['nStar']) + list(params['detNStar'])
+    return params
+
+
+# ---- stage 1: opacity/emissivity gather ---------------------------------
+def gather(cfg: IterConfig, params, scaJ):
+    """chiTot and srcNum = etaTot + sca*J as [2, Nlam, Nmu, Nk].
+
+    The grid is cut at every window edge; between two edges the covering
+    transition set is fixed, so each segment is background + covering
+    windows (+ scaJ last, the order of srcNum = etaTot + scaJ) and every
+    element is written once by the final concatenation."""
+    Nlam, Nmu, Nk = cfg.Nlam, cfg.Nmu, cfg.Nk
+    spans = [(t.Nblue, t.Nred, ai, ti)
+             for ai, a in enumerate(cfg.allAtoms)
+             for ti, t in enumerate(a.trans)]
+    edges = sorted({0, Nlam, *(s[0] for s in spans), *(s[1] for s in spans)})
+    segsChi, segsSrc = [], []
+    for s0, s1 in zip(edges[:-1], edges[1:]):
+        segChi = params['bgChi'][s0:s1][None, :, None, :]
+        segEta = params['bgEta'][s0:s1][None, :, None, :]
+        for (nb, nr, ai, ti) in spans:
+            if nb <= s0 and s1 <= nr:
+                c, e = chi_eta_w(cfg, params, ai, ti, s0, s1)
+                segChi = segChi + c
+                segEta = segEta + e
+        segEta = segEta + scaJ[s0:s1][None, :, None, :]
+        shape = (2, s1 - s0, Nmu, Nk)
+        segsChi.append(segChi.expand(shape))
+        segsSrc.append(segEta.expand(shape))
+    return torch.cat(segsChi, dim=1), torch.cat(segsSrc, dim=1)
+
+
+# ---- stage 2: formal solution + angular moments -------------------------
+def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
+    """Boundary intensities, then the depth sweep of every ray with its
+    angular moments (ops/sweep.py: the CUDA kernel on a CUDA device).
+    Returns (I, Psi, IeffBase, moments)."""
+    T = params['temperature']
+    height = params['height']
+    muz, wmu, lam = cfg.muzT, cfg.wmuT, cfg.wavelengthT
+    Nk = cfg.Nk
+
+    # down sweep (d = 0): upper BC
+    if params.get('upperBcData') is not None:
+        Iupw_d = params['upperBcData']
+    elif cfg.upperThermalised:
+        Bnu0 = planck_nu(T[0], lam)
+        Bnu1 = planck_nu(T[1], lam)
+        dtau = (0.5 * (chiTot[0, :, :, 0] + chiTot[0, :, :, 1])
+                * torch.abs(height[0] - height[1]) / muz[None, :])
+        Iupw_d = Bnu0[:, None] - (Bnu1[:, None] - Bnu0[:, None]) / dtau
+    else:
+        Iupw_d = torch.zeros((cfg.Nlam, cfg.Nmu), dtype=cfg.dtype,
+                             device=cfg.device)
+
+    # up sweep (d = 1): lower BC
+    if params.get('lowerBcData') is not None:
+        Iupw_u = params['lowerBcData']
+    elif cfg.lowerThermalised:
+        BnuN = planck_nu(T[Nk - 1], lam)
+        BnuN1 = planck_nu(T[Nk - 2], lam)
+        dtau = (0.5 * (chiTot[1, :, :, Nk - 1] + chiTot[1, :, :, Nk - 2])
+                * torch.abs(height[Nk - 1] - height[Nk - 2]) / muz[None, :])
+        Iupw_u = BnuN[:, None] - (BnuN1[:, None] - BnuN[:, None]) / dtau
+    else:
+        Iupw_u = torch.zeros((cfg.Nlam, cfg.Nmu), dtype=cfg.dtype,
+                             device=cfg.device)
+
+    return formal_solve_sweep(chiTot, srcNum, height, muz, Iupw_d, Iupw_u,
+                              wmu)
+
+
+# ---- stage 3: factored Gamma and rates ----------------------------------
+def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
+    """Preconditioned rate matrices Gamma [Nl, Nl, Nk] and radiative rates
+    Rij/Rji [Nk] per transition, for each active atom.
+
+    Factored: mu-independent (continuum) transitions contract against the
+    sweep's angular moments (PsiBar, IBar, IeffSrcBar) instead of the full
+    ray tensors; lines contract over their own windows.
+    ref: Source/SimdFullIterationTemplates.hpp:240-508"""
+    Nmu, Nk = cfg.Nmu, cfg.Nk
+    dt, dev = cfg.dtype, cfg.device
+    wmu2 = 0.5 * cfg.wmuT
+    oneBar = torch.sum(wmu2) * 2.0
+    PsiBar = moments['PsiBar']
+    IBar = moments['IBar']
+    IeffBaseSrcBar = moments['IeffSrcBar']
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    GammaOut, RijOut, RjiOut = [], [], []
+    for ai, a in enumerate(cfg.activeAtoms):
+        def fn_on(fn, t2i, lo, hi):
+            return fn(cfg, params, ai, t2i, lo, hi)
+
+        def level_sum_on_window(t, items, fn, signed):
+            """Level-list sum over t's window [2, W, Nmu, Nk], members
+            recomputed on the overlap rows via ``fn``."""
+            out = zeros(2, t.W, Nmu, Nk)
+            for item in items:
+                t2i, sign = item if signed else (item, 1)
+                t2 = a.trans[t2i]
+                lo, hi = max(t.Nblue, t2.Nblue), min(t.Nred, t2.Nred)
+                if hi <= lo:
+                    continue
+                out[:, lo - t.Nblue:hi - t.Nblue] += sign * fn_on(fn, t2i,
+                                                                  lo, hi)
+            return out
+
+        def eta_atom_on_window(lo, hi):
+            """Atom's total eta restricted to [lo, hi) as [2, hi-lo, ...]."""
+            out = zeros(2, hi - lo, Nmu, Nk)
+            for t2i, t2 in enumerate(a.trans):
+                l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
+                if h2 <= l2:
+                    continue
+                out[:, l2 - lo:h2 - lo] += fn_on(etaW, t2i, l2, h2)
+            return out
+
+        def cont_part_on(fn, items, signed, lo, hi):
+            """[hi-lo, Nk] sum of the continuum members of a level list
+            restricted to [lo, hi)."""
+            out = zeros(hi - lo, Nk)
+            for item in items:
+                t2i, sign = item if signed else (item, 1)
+                t2 = a.trans[t2i]
+                if t2.isLine:
+                    continue
+                l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
+                if h2 <= l2:
+                    continue
+                out[l2 - lo:h2 - lo] += sign * fn_on(fn, t2i, l2,
+                                                     h2)[0, :, 0, :]
+            return out
+
+        def cross_bar(t, listX, listU, wlaA):
+            """[Nk] = sum over t's window of wla * wmu2 * Psi * chiLevel
+            * ULevel (continuum x continuum through PsiBar, line terms
+            over their overlap rows)."""
+            lo, hi = t.Nblue, t.Nred
+            XC = cont_part_on(chiW, listX, True, lo, hi)
+            UC = cont_part_on(UjiW, listU, False, lo, hi)
+            total = torch.sum(XC * UC * wlaA * PsiBar[lo:hi], dim=0)
+            # line(chi) x continuum(U) and line x line terms
+            for t2i, sign in listX:
+                t2 = a.trans[t2i]
+                if not t2.isLine:
+                    continue
+                l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
+                if h2 <= l2:
+                    continue
+                chiSub = fn_on(chiW, t2i, l2, h2)
+                total = total + sign * _sum_lmd(
+                    chiSub * Psi[:, l2:h2],
+                    UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], wmu2)
+                for t3i in listU:
+                    t3 = a.trans[t3i]
+                    if not t3.isLine:
+                        continue
+                    l3, h3 = max(l2, t3.Nblue), min(h2, t3.Nred)
+                    if h3 <= l3:
+                        continue
+                    total = total + sign * _sum_lmd(
+                        fn_on(chiW, t2i, l3, h3) * fn_on(UjiW, t3i, l3, h3)
+                        * Psi[:, l3:h3], wlaA[l3 - lo:h3 - lo], wmu2)
+            # continuum(chi) x line(U) terms
+            for t3i in listU:
+                t3 = a.trans[t3i]
+                if not t3.isLine:
+                    continue
+                l3, h3 = max(lo, t3.Nblue), min(hi, t3.Nred)
+                if h3 <= l3:
+                    continue
+                total = total + _sum_lmd(
+                    fn_on(UjiW, t3i, l3, h3) * Psi[:, l3:h3],
+                    XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo], wmu2)
+            return total
+
+        Gamma = params['crsw'] * params['C'][ai]
+
+        # IeffBar for this atom: global moment minus the Psi*etaAtom
+        # moment (continua via PsiBar, lines over their windows)
+        PsiEtaBar = zeros(cfg.Nlam, Nk)
+        for ti, t in enumerate(a.trans):
+            sl = slice(t.Nblue, t.Nred)
+            eta = fn_on(etaW, ti, t.Nblue, t.Nred)
+            if t.isLine:
+                PsiEtaBar[sl] += _sum_mu(eta * Psi[:, sl], wmu2)
+            else:
+                PsiEtaBar[sl] += eta[0, :, 0, :] * PsiBar[sl]
+        IeffBarA = IeffBaseSrcBar - PsiEtaBar
+
+        Rij, Rji = [], []
+        for ti, t in enumerate(a.trans):
+            sl = slice(t.Nblue, t.Nred)
+            Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
+            wla = _wla(cfg, params, ai, ti, t)           # [W, Nk]
+
+            if not t.isLine:
+                UjiC, VijC, VjiC = (x[0, :, 0, :] for x in (Uji, Vij, Vji))
+                Ieff_b = IeffBarA[sl]
+                Gij = (torch.sum((UjiC * oneBar + VjiC * Ieff_b) * wla, dim=0)
+                       - cross_bar(t, a.chiLists[t.i], a.ULists[t.j], wla))
+                Gji = (torch.sum(VijC * Ieff_b * wla, dim=0)
+                       - cross_bar(t, a.chiLists[t.j], a.ULists[t.i], wla))
+                Gamma[t.i, t.j] += Gij
+                Gamma[t.j, t.i] += Gji
+                IBar_w = IBar[sl]
+                Rij.append(torch.sum(VijC * IBar_w * wla, dim=0))
+                Rji.append(torch.sum((UjiC * oneBar + VjiC * IBar_w) * wla,
+                                     dim=0))
+                continue
+
+            # compensated MALI effective intensity on the line window:
+            # I - Psi*etaAtom assembled from non-cancelling terms
+            etaA_w = eta_atom_on_window(t.Nblue, t.Nred)
+            Psi_w = Psi[:, sl]
+            I_w = I[:, sl]
+            Ieff_w = IeffBase[:, sl] + Psi_w * (srcNum[:, sl] - etaA_w)
+            chi_i = level_sum_on_window(t, a.chiLists[t.i], chiW, True)
+            chi_j = level_sum_on_window(t, a.chiLists[t.j], chiW, True)
+            U_i = level_sum_on_window(t, a.ULists[t.i], UjiW, False)
+            U_j = level_sum_on_window(t, a.ULists[t.j], UjiW, False)
+            integ_ij = (Uji + Vji * Ieff_w) - Psi_w * chi_i * U_j
+            integ_ji = (Vij * Ieff_w) - Psi_w * chi_j * U_i
+            Gamma[t.i, t.j] += _sum_lmd(integ_ij, wla, wmu2)
+            Gamma[t.j, t.i] += _sum_lmd(integ_ji, wla, wmu2)
+            Rij.append(_sum_lmd(I_w * Vij, wla, wmu2))
+            Rji.append(_sum_lmd(Uji + I_w * Vji, wla, wmu2))
+
+        # finalise: diagonal = -column sums of off-diagonals
+        eye = torch.eye(a.Nlevel, dtype=dt, device=dev)[:, :, None]
+        Gamma = Gamma * (1.0 - eye)
+        colSum = torch.sum(Gamma, dim=0)
+        Gamma = Gamma - eye * colSum[None, :, :]
+        GammaOut.append(Gamma)
+        RijOut.append(Rij)
+        RjiOut.append(Rji)
+    return GammaOut, RijOut, RjiOut
+
+
+def build_iteration_fn(cfg: IterConfig):
+    """The full MALI step as a function of the params dict.
+
+    params = {
+      'J': [Nlam, Nk], 'bgChi'/'bgEta'/'bgSca': [Nlam, Nk],
+      'temperature'/'height': [Nk],
+      'pops'/'nStar': per active atom [Nlevel, Nk],
+      'detPops'/'detNStar': per detailed atom,
+      'C': per active atom [Nl, Nl, Nk] collisional matrices,
+      'crsw': collisional-radiative switching factor (float),
+      'phi': nested [atom][trans] -> [2, W, Nmu, Nk] or None,
+      'wphi': nested [atom][trans] -> [Nk] or None,
+      'upperBcData'/'lowerBcData': [Nlam, Nmu] or None,
+    }
+    Returns {'Gamma', 'Rij', 'Rji', 'J', 'I' (emergent [Nlam, Nmu]),
+    'dJ' (0-d tensor)}.  The stages are exposed as attributes.
+    """
+    def iteration(params):
+        params = _with_all_atoms(params)
+        Jdag = params['J']
+        scaJ = params['bgSca'] * Jdag
+        chiTot, srcNum = gather(cfg, params, scaJ)
+        I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot, srcNum)
+        Jnew = moments['J']
+        dJ = torch.max(torch.abs(1.0 - torch.where(
+            Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
+        Gamma, Rij, Rji = gamma_rates(cfg, params, I, Psi, IeffBase, srcNum,
+                                      moments)
+        return {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
+                'I': I[1, :, :, 0], 'dJ': dJ}
+
+    iteration.gather = lambda params, scaJ: gather(
+        cfg, _with_all_atoms(params), scaJ)
+    iteration.formal_solve = lambda params, chiTot, srcNum: formal_solve(
+        cfg, params, chiTot, srcNum)
+    iteration.gamma_rates = lambda params, *rays: gamma_rates(
+        cfg, _with_all_atoms(params), *rays)
+    return iteration
+
+
+def _stat_eq_solve(Gamma, n, nTotal):
+    """Batched-over-depth statistical equilibrium: replace the row of the
+    largest population with particle conservation and solve.
+    ref: Source/UpdatePopulations.cpp:7-47"""
+    Nl = Gamma.shape[0]
+    iElim = torch.argmax(n, dim=0)                              # [Nk]
+    rowMask = (torch.arange(Nl, device=n.device)[:, None]
+               == iElim[None, :])                               # [Nl, Nk]
+    G = torch.where(rowMask[:, None, :], 1.0, Gamma)            # [Nl, Nl, Nk]
+    rhs = torch.where(rowMask, nTotal[None, :], 0.0)            # [Nl, Nk]
+    return solve_KxK_over_depth(G, rhs)
+
+
+def phi_direction_major(phi):
+    """[W, Nmu, 2, Nk] profile (the JAX package's layout) -> contiguous
+    [2, W, Nmu, Nk], the iteration's layout."""
+    return torch.movedim(phi, 2, 0).contiguous()
+
+
+class Context:
+    """NLTE radiative transfer context over a single 1D atmosphere.
+
+    Mirrors the user-facing API of lightweaver_tpu.Context on the ported
+    slice: construct from (atmos, spect, eqPops), then iterate
+    formal_sol_gamma_matrices / stat_equil to convergence (e.g. with
+    iterate_ctx_se), and read I / J / populations.  All state lives on
+    ``device``; on a CUDA device the formal solve runs the CUDA kernel.
+    """
+
+    def __init__(self, atmos: Atmosphere, spect, eqPops,
+                 ngOptions=None, initSol=None, conserveCharge: bool = False,
+                 hprd: bool = False,
+                 formalSolver: str = 'piecewise_bezier3_1d',
+                 crswCallback=None,
+                 dtype: torch.dtype = DEFAULT_DTYPE, device='cpu',
+                 gammaMode: str = 'factored'):
+        unsupported = {
+            'a 2D/3D atmosphere': atmos.Ndim != 1,
+            'hybrid PRD (hprd=True)': hprd,
+            'Ng acceleration (ngOptions)': ngOptions is not None,
+            'charge conservation': conserveCharge,
+            f'formalSolver={formalSolver!r}':
+                formalSolver != 'piecewise_bezier3_1d',
+            f'gammaMode={gammaMode!r}': gammaMode != 'factored',
+            f'dtype={dtype} (the f32 state)': dtype != torch.float64,
+            f'initSol={initSol}':
+                initSol not in (None, InitialSolution.Lte),
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise ValueError('lightweaver_tpu_torch does not support '
+                             + ', '.join(bad) + ' yet')
+        if atmos.muz is None:
+            raise ValueError('Atmosphere angular quadrature not set')
+
+        self.atmos = atmos
+        self.spect = spect
+        self.eqPops = eqPops
+        self.crswCallback = crswCallback
+        self.crswDone = crswCallback is None
+        self.dtype = dtype
+        self.device = torch.device(device)
+        radSet = spect.radSet
+
+        activeAtoms = [self._build_atom_static(m, False)
+                       for m in sorted(radSet.activeAtoms,
+                                       key=lambda a: a.element)]
+        detailedAtoms = [self._build_atom_static(m, True)
+                         for m in sorted(radSet.detailedAtoms,
+                                         key=lambda a: a.element)]
+        self.cfg = IterConfig(
+            activeAtoms=activeAtoms, detailedAtoms=detailedAtoms,
+            Nlam=spect.Nspect, Nmu=atmos.Nrays, Nk=atmos.Nspace,
+            lowerThermalised=isinstance(atmos.lowerBc, ThermalisedRadiation),
+            upperThermalised=isinstance(atmos.upperBc, ThermalisedRadiation),
+            wavelength=np.asarray(spect.wavelength),
+            muz=np.asarray(atmos.muz), wmu=np.asarray(atmos.wmu),
+            device=self.device, dtype=dtype)
+
+        bg = basic_background(spect, atmos, eqPops, radSet)
+        self.background = bg
+
+        t_ = self.cfg.tensor
+        self.bgChi = t_(bg.chi)
+        self.bgEta = t_(bg.eta)
+        self.bgSca = t_(bg.sca)
+        self.temperature = t_(atmos.temperature)
+        self.height = t_(atmos.height)
+
+        self.J = torch.zeros((spect.Nspect, atmos.Nspace), dtype=dtype,
+                             device=self.device)
+        self.I = torch.zeros((spect.Nspect, atmos.Nrays), dtype=dtype,
+                             device=self.device)
+        self.popsState = []
+        for a in activeAtoms:
+            st = eqPops.atomicPops[a.model.element]
+            self.popsState.append({'n': t_(st.n), 'nStar': t_(st.nStar)})
+        self.detailedPops = []
+        for a in detailedAtoms:
+            st = eqPops.atomicPops[a.model.element]
+            self.detailedPops.append({'n': t_(st.n), 'nStar': t_(st.nStar)})
+
+        self.C = [np.zeros((a.Nlevel, a.Nlevel, atmos.Nspace))
+                  for a in activeAtoms]
+        self.compute_collisions()
+        self.compute_profiles()
+
+        self._iter_fn = build_iteration_fn(self.cfg)
+        self._params = None
+        self._Gamma = None
+        self._Rij = None
+        self._Rji = None
+
+    @property
+    def activeAtoms(self):
+        return self.cfg.activeAtoms
+
+    @property
+    def detailedAtoms(self):
+        return self.cfg.detailedAtoms
+
+    # ------------------------------------------------------------------
+    def _build_atom_static(self, model: AtomicModel, detailed: bool) \
+            -> AtomStatic:
+        spect = self.spect
+        trans = []
+        for t in model.transitions:
+            ident = t.transId
+            if ident not in spect.blueIdx:
+                continue
+            Nblue = spect.blueIdx[ident]
+            Nred = spect.redIdx[ident]
+            grid = spect.wavelength[Nblue:Nred]
+            # PRD-typed lines run with rho = 1 (complete redistribution)
+            # until prd_redistribute is ported
+            if isinstance(t, AtomicLine):
+                ts = TransStatic(
+                    isLine=True, i=t.i, j=t.j, Nblue=Nblue, Nred=Nred,
+                    lambda0=t.lambda0, Aji=t.Aji, Bji=t.Bji, Bij=t.Bij,
+                    wavelength=np.asarray(grid),
+                    wlambda=_wlambda(grid, Const.CLight / t.lambda0))
+            else:
+                ts = TransStatic(
+                    isLine=False, i=t.i, j=t.j, Nblue=Nblue, Nred=Nred,
+                    lambda0=t.lambda0,
+                    wavelength=np.asarray(grid),
+                    wlambda=_wlambda(grid, 1.0),
+                    alpha=t.alpha(np.asarray(grid)))
+            trans.append(ts)
+        a = AtomStatic(model=model, Nlevel=len(model.levels), trans=trans,
+                       detailed=detailed)
+        a.build_overlaps()
+        return a
+
+    # ------------------------------------------------------------------
+    def compute_profiles(self):
+        """Voigt profiles phi [W, Nmu, 2, Nspace] and normalisation wphi
+        per line, evaluated in f64 on the device
+        (ref: Source/FormalScalar.cpp:28-134)."""
+        atmos = self.atmos
+        t_ = self.cfg.tensor
+        vlosMu = t_(atmos.vlos_mu())                    # [Nmu, Nk]
+        wmu = self.cfg.wmuT
+        s = t_([-1.0, 1.0])
+        self.phi = []      # [atom][trans] -> [W, Nmu, 2, Nk] or None
+        self.wphi = []     # [atom][trans] -> [Nk] or None
+        self.aDamp = []    # [atom][trans] -> [Nk] np or None
+        for a in self.cfg.allAtoms:
+            vBroad = a.model.vBroad(atmos)
+            phiA, wphiA, aDampA = [], [], []
+            lineByIdx = {(l.i, l.j): l for l in a.model.lines}
+            for t in a.trans:
+                if not t.isLine:
+                    for lst in (phiA, wphiA, aDampA):
+                        lst.append(None)
+                    continue
+                line = lineByIdx[(t.i, t.j)]
+                vBase = (t.wavelengthT - t.lambda0) * Const.CLight / t.lambda0
+
+                def voigt_cb(aDamp, vB, _vBase=vBase):
+                    aDamp = t_(aDamp)
+                    vB = t_(vB)
+                    vk = ((_vBase[:, None, None, None]
+                           + s[None, None, :, None] * vlosMu[None, :, None, :])
+                          / vB[None, None, None, :])
+                    return (voigt_H(aDamp[None, None, None, :], vk)
+                            / (Const.SqrtPi * vB[None, None, None, :]))
+
+                # LineProfileState protocol: AtomicLine subclasses may
+                # override compute_phi for custom profiles
+                res = line.compute_phi(LineProfileState(
+                    wavelength=np.asarray(t.wavelength),
+                    vlosMu=atmos.vlos_mu(), atmos=atmos, eqPops=self.eqPops,
+                    default_voigt_callback=voigt_cb,
+                    vBroad=np.asarray(vBroad)))
+                aDampA.append(np.asarray(res.aDamp))
+                phi = torch.as_tensor(res.phi, dtype=self.dtype,
+                                      device=self.device)
+                wphi_inv = torch.einsum('lmdk,l,m->k', phi, t.wlambdaT,
+                                        0.5 * wmu)
+                phiA.append(phi)
+                wphiA.append(1.0 / wphi_inv)
+            self.phi.append(phiA)
+            self.wphi.append(wphiA)
+            self.aDamp.append(aDampA)
+
+    # ------------------------------------------------------------------
+    def compute_collisions(self, force: bool = False):
+        """(Re)compute collisional rate matrices.  Cached: they depend only
+        on (T, ne, nStar), which do not change during MALI iteration."""
+        if not force and getattr(self, '_collisionsClean', False):
+            return
+        for a, C in zip(self.cfg.activeAtoms, self.C):
+            C.fill(0.0)
+            for col in a.model.collisions:
+                col.compute_rates(self.atmos, self.eqPops, C)
+            np.clip(C, 0.0, None, out=C)
+        self._collisionsClean = True
+        self._CDev = None
+
+    def _deviceC(self):
+        if self._CDev is None:
+            self._CDev = [self.cfg.tensor(C) for C in self.C]
+        return self._CDev
+
+    def _bc_data(self, bc):
+        """A user-callable boundary condition as I_incident[Nlam, Nmu],
+        or None for analytic BC types.
+        ref: Source/LwMiddleLayer.pyx:765-829"""
+        data = bc.compute_bc(self.atmos, self.spect)
+        if data is None:
+            return None
+        data = np.asarray(data, np.float64)
+        if data.ndim == 3:          # [Nlam, Nmu, Nspatial=1]
+            data = data[..., 0]
+        return self.cfg.tensor(data)
+
+    # ------------------------------------------------------------------
+    def build_params(self, crswVal: float = 1.0) -> Dict:
+        return {
+            'J': self.J,
+            'bgChi': self.bgChi, 'bgEta': self.bgEta, 'bgSca': self.bgSca,
+            'temperature': self.temperature, 'height': self.height,
+            'pops': [st['n'] for st in self.popsState],
+            'nStar': [st['nStar'] for st in self.popsState],
+            'detPops': [st['n'] for st in self.detailedPops],
+            'detNStar': [st['nStar'] for st in self.detailedPops],
+            'C': self._deviceC(),
+            'crsw': float(crswVal),
+            'phi': [[None if p is None else phi_direction_major(p)
+                     for p in pa] for pa in self.phi],
+            'wphi': self.wphi,
+            'upperBcData': self._bc_data(self.atmos.upperBc),
+            'lowerBcData': self._bc_data(self.atmos.lowerBc),
+        }
+
+    # ------------------------------------------------------------------
+    def formal_sol_gamma_matrices(self) -> IterationUpdate:
+        """One full MALI step: formal solution over all wavelengths with
+        Gamma-matrix and rate accumulation.
+        ref: Source/LwMiddleLayer.pyx:3152"""
+        crswVal = self.crswCallback() if self.crswCallback is not None else 1.0
+        self.crswDone = crswVal == 1.0
+        self.compute_collisions()
+        if self._params is None:
+            self._params = self.build_params(crswVal)
+        p = self._params
+        p['J'] = self.J
+        p['pops'] = [st['n'] for st in self.popsState]
+        p['C'] = self._deviceC()
+        p['crsw'] = float(crswVal)
+        out = self._iter_fn(p)
+        self._Gamma = out['Gamma']
+        self._Rij = out['Rij']
+        self._Rji = out['Rji']
+        self.J = out['J']
+        self.I = out['I']
+        return IterationUpdate(self, updatedJ=True, dJMax=out['dJ'],
+                               crsw=crswVal)
+
+    # ------------------------------------------------------------------
+    def stat_equil(self) -> IterationUpdate:
+        """Statistical equilibrium solve for each active atom.
+
+        The max relative population change and the finite flags are
+        formed on the device and fetched in ONE device-to-host copy.
+        dPops follows Ng.max_change: 0.0 until two post-solve solutions
+        exist, then max |(cur - old)/cur| over cur != 0.
+        ref: Source/LwMiddleLayer.pyx:3461-3560"""
+        if self._Gamma is None:
+            raise ValueError('Call formal_sol_gamma_matrices first')
+        flags = []
+        for ai, a in enumerate(self.cfg.activeAtoms):
+            st = self.popsState[ai]
+            nTotal = self.cfg.tensor(
+                self.eqPops.atomicPops[a.model.element].nTotal)
+            nNew = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
+            nOld = st.get('nLastSE')
+            if nOld is None:
+                dp = torch.zeros((), dtype=torch.float64, device=self.device)
+            else:
+                mask = nNew != 0.0
+                dp = torch.max(torch.where(
+                    mask, torch.abs((nNew - nOld)
+                                    / torch.where(mask, nNew, 1.0)), 0.0))
+            flags.append(dp.to(torch.float64))
+            flags.append(torch.all(torch.isfinite(nNew)).to(torch.float64))
+            st['n'] = nNew
+            st['nLastSE'] = nNew
+        vals = torch.stack(flags).cpu().numpy()
+        dPops = []
+        for ai in range(len(self.popsState)):
+            if vals[2 * ai + 1] == 0.0:
+                name = self.cfg.activeAtoms[ai].model.element.name
+                raise ExplodingMatrixError(
+                    f'Non-finite populations for atom {name} after '
+                    'the statistical-equilibrium solve (singular '
+                    'Gamma matrix)')
+            dPops.append(float(vals[2 * ai]))
+        return IterationUpdate(self, updatedPops=True, dPops=dPops)
+
+    def prd_redistribute(self, *args, **kwargs):
+        raise ValueError('PRD redistribution is not ported to '
+                         'lightweaver_tpu_torch yet; PRD-typed lines run '
+                         'with complete redistribution')
