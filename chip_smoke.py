@@ -5,26 +5,37 @@
 Phases (each prints its lines; any failure exits non-zero and prints no
 result):
 
-1. Environment: torch and CUDA versions, the card's name and power limit.
-2. Kernel: build the depth-sweep kernel (csrc/sweep.cu) from source and
-   compare it with its plain PyTorch version on the card, in f64, at the
-   main path's shapes (Nlam=1046, Nmu=5, Nk=82 and 500), inputs from a
-   numpy seed; times of both.
-3. Main path: falc_h6ca (FAL-C, H 6-level + Ca II active, 5 rays) on the
+1. Environment: torch and CUDA versions, the card's name and power limit;
+   then the four kernel libraries are built from csrc/ at once, one nvcc
+   each, with ptxas's registers and spills.
+2. Probes: the two toolchain probes (csrc/probe.cu) against their plain
+   versions (2x + 1 exactly, the recurrence within 1e-6 in f32).
+3. Sweep kernel: csrc/sweep.cu against its plain PyTorch version on the
+   card, in f64, at the main path's shapes (Nlam=1046, Nmu=5, Nk=82 and
+   500), inputs from a numpy seed; times of both.
+4. Scheme kernels: the line Gamma kernel (csrc/gamma.cu, every line group)
+   and the fused lambda step (csrc/fused.cu) against their plain versions
+   on the inputs of one iteration of falc_h6ca and of FALC-500; times.
+5. Main path: falc_h6ca (FAL-C, H 6-level + Ca II active, 5 rays) on the
    card through Context and iterate_ctx_se, against the compiled
    reference's golden run (tests/golden/falc_h6ca_ref.npz); the sweep
    kernel's launch count over that run.
-4. FALC-500 (the same setup interpolated to 500 depths, bench.py's
+6. The same under each iteration scheme, 'mali_full_precond_pallas' and
+   'mali_full_precond_fused', with the launch counts of their kernels.
+7. FALC-500 (the same setup interpolated to 500 depths, bench.py's
    problem): 50 formal_sol_gamma_matrices iterations, best of 3, and a
-   per-stage breakdown.
+   per-stage breakdown; then each scheme: best of 3 blocks of 20 and its
+   stage breakdown.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, the kernels' JSON record and the ok line.
 """
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +47,13 @@ GOLDEN_RTOL = 1e-7
 # nvcc contracts multiply-adds into FMAs, the plain version's separate
 # torch ops do not; the difference compounds along the depth chain
 KERNEL_TOL = 1e-9
+# the line kernel sums the same products as its plain version, rows then
+# rays instead of rays then rows, with FMAs; no depth chain
+GAMMA_TOL = 1e-11
+# float32 recurrence: one FMA rounding per row against two
+PROBE_TOL = 1e-6
+PALLAS = 'mali_full_precond_pallas'
+FUSED = 'mali_full_precond_fused'
 
 
 def phase(name):
@@ -78,17 +96,102 @@ def environment():
     return smi
 
 
+def counters():
+    from lightweaver_tpu_torch.ops import fused, gamma, probe, sweep
+    return {'sweep': sweep.sweep_cuda,
+            'gamma': gamma.group_gamma_rates_cuda,
+            'fused': fused.fused_cuda,
+            'probe_elementwise': probe.elementwise_cuda,
+            'probe_recurrence': probe.recurrence_cuda}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def build_kernels():
+    """Build the four libraries at once (one nvcc each, in threads: the
+    compiler runs outside the interpreter lock) and print ptxas's
+    registers and spills, also for a cached build."""
+    from lightweaver_tpu_torch.ops import _build, fused, gamma, probe, sweep
+    phase('build the CUDA kernels from csrc/ (nvcc, sm_90a)')
+    mods = {'probe': probe, 'sweep': sweep, 'gamma': gamma, 'fused': fused}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        list(ex.map(lambda m: m.load_library(), mods.values()))
+    print(f'built {", ".join(f"csrc/{n}.cu" for n in mods)} in '
+          f'{time.perf_counter() - t0:.1f} s; nvcc flags: '
+          f'{" ".join(_build.NVCC_FLAGS)}')
+    for name in mods:
+        for line in _build.build_log(name).splitlines():
+            if any(w in line for w in ('Compiling entry', 'registers',
+                                       'spill', 'error')):
+                print(f'  {name} ptxas: {line.strip()}')
+
+
+def max_rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def probe_check():
+    """pallas_probe.py's two checks on the card (the inputs of that
+    script), then random inputs for the recurrence; times."""
+    from lightweaver_tpu_torch.ops import probe
+    phase('probes: elementwise 2x+1 and the row recurrence (f32)')
+    x = torch.arange(8 * 128, dtype=torch.float32,
+                     device='cuda').reshape(8, 128)
+    a = torch.full((64, 256), 0.5, device='cuda')
+    b = torch.ones((64, 256), device='cuda')
+    reset_counts()
+    outE = probe.elementwise(x)
+    outR = probe.recurrence(a, b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rng = np.random.default_rng(0)
+    a2, b2 = (torch.tensor(rng.uniform(0, 1, (64, 256)), dtype=torch.float32,
+                           device='cuda') for _ in range(2))
+    absErr = {'probe_elementwise': (outE - probe.elementwise_plain(x))
+              .abs().max().item(),
+              'probe_recurrence': (outR - probe.recurrence_plain(a, b))
+              .abs().max().item()}
+    relRandom = max_rel(probe.recurrence(a2, b2),
+                        probe.recurrence_plain(a2, b2))
+    torch.cuda.synchronize()
+    print(f'  elementwise max|kernel-plain| = '
+          f'{absErr["probe_elementwise"]:.3e} (exact required); recurrence '
+          f'max|kernel-plain| = {absErr["probe_recurrence"]:.3e} on the '
+          f'probe inputs, max|kernel-plain|/max|plain| = {relRandom:.3e} on '
+          f'random ones (bar {PROBE_TOL})')
+    if absErr['probe_elementwise'] != 0.0:
+        raise AssertionError('elementwise probe is not exact')
+    if relRandom > PROBE_TOL or absErr['probe_recurrence'] > PROBE_TOL:
+        raise AssertionError('recurrence probe disagrees')
+    result = {}
+    for name, kern, plain in (
+            ('probe_elementwise', lambda: probe.elementwise(x),
+             lambda: probe.elementwise_plain(x)),
+            ('probe_recurrence', lambda: probe.recurrence(a2, b2),
+             lambda: probe.recurrence_plain(a2, b2))):
+        p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kern, kern, plain))
+        print(f'  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / '
+              f'{p2:.4f} ms per call; launches in the probe run '
+              f'{counts[name]}')
+        if counts[name] < 1:
+            raise AssertionError(f'{name} kernel did not launch')
+        result[name] = dict(launches=counts[name], max_abs_err=absErr[name],
+                            ms=min(k1, k2), plain_ms=min(p1, p2))
+    return result
+
+
 def kernel_check():
     from lightweaver_tpu_torch.ops import sweep
     from lightweaver_tpu_torch.problems import random_rays
-    phase('sweep kernel: build and compare with the plain version (f64)')
-    t0 = time.perf_counter()
-    sweep.load_library()
-    print(f'built csrc/sweep.cu in {time.perf_counter() - t0:.1f} s; '
-          f'nvcc flags: {" ".join(sweep.NVCC_FLAGS)}')
-    for line in sweep.build_log.splitlines():
-        if 'registers' in line or 'spill' in line or 'error' in line:
-            print(f'  ptxas: {line.strip()}')
+    phase('sweep kernel: compare with the plain version (f64)')
     names = ('I', 'Psi', 'IeffBase', 'J', 'PsiBar', 'IBar', 'IeffSrcBar')
     result = {}
     for Nk in (82, 500):
@@ -124,25 +227,132 @@ def kernel_check():
     return result
 
 
-def main_path():
+def one_iteration_inputs(Nk):
+    """The Context of falc_h6ca (Nk=82) or FALC-500 on the card after one
+    MALI step, its params and this iteration's rays (default scheme)."""
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+    atmos = Falc82() if Nk == 82 else falc_interpolated(Nk)
+    ctx = h6ca_context(atmos, 5, device='cuda')
+    ctx.formal_sol_gamma_matrices()
+    ctx.stat_equil()
+    params = ctx.build_params()
+    scaJ = params['bgSca'] * params['J']
+    chi, src = ctx._iter_fn.gather(params, scaJ)
+    rays = ctx._iter_fn.formal_solve(params, chi, src)
+    return ctx, params, scaJ, src, rays
+
+
+def compare_outputs(label, names, kern, plain, tol):
+    worstRel = worstAbs = 0.0
+    for n, a, b in zip(names, kern, plain):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f'non-finite {n} ({label})')
+        if not b.any():
+            # K = 1 groups have one zero pair row, on both sides
+            if a.any():
+                raise AssertionError(f'{n} should be zero ({label})')
+            continue
+        absErr = (a - b).abs().max().item()
+        rel = absErr / b.abs().max().item()
+        worstRel, worstAbs = max(worstRel, rel), max(worstAbs, absErr)
+        if rel > tol:
+            raise AssertionError(f'kernel disagrees on {n} ({label}): '
+                                 f'{rel:.3e} > {tol}')
+    return worstRel, worstAbs
+
+
+def scheme_kernel_check():
+    """The line Gamma kernel on every line group and the fused kernel, on
+    the inputs of one iteration at Nk=82 and 500, against their plain
+    versions; per-iteration times (all groups for the line kernel)."""
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.ops import fused, gamma
+    phase('scheme kernels: line Gamma (csrc/gamma.cu) and fused lambda '
+          'step (csrc/fused.cu) vs their plain versions (f64)')
+    result = {'gamma': {}, 'fused': {}}
+    for Nk in (82, 500):
+        ctx, params, scaJ, src, rays = one_iteration_inputs(Nk)
+        I, Psi, IeffBase = rays[:3]
+        cfg = ctx.cfg
+        # line kernel: the pack and inputs of the pallas scheme's stage
+        itP = build_iteration_fn(dataclasses.replace(cfg, fsIterScheme=PALLAS))
+        groups = itP.line_group_inputs(params, I, Psi, IeffBase, src,
+                                       itP.pack(params))
+        worst = [0.0, 0.0]
+        for ai, g, args in groups:
+            plain = gamma.group_gamma_rates_plain(*args)
+            kern = gamma.group_gamma_rates(*args)
+            torch.cuda.synchronize()
+            rel, absErr = compare_outputs(
+                f'Nk={Nk} atom {ai} group {g["members"]}',
+                ('G4', 'PPB', 'PairPPB'), kern, plain, GAMMA_TOL)
+            worst = [max(worst[0], rel), max(worst[1], absErr)]
+        print(f'  Nk={Nk} line Gamma, {len(groups)} groups: '
+              f'max|kernel-plain|/max|plain| = {worst[0]:.3e} (bar '
+              f'{GAMMA_TOL}), max abs {worst[1]:.3e}')
+
+        def kernAll():
+            return [gamma.group_gamma_rates(*a) for _, _, a in groups]
+
+        def plainAll():
+            return [gamma.group_gamma_rates_plain(*a) for _, _, a in groups]
+        p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
+            (plainAll, 3), (kernAll, 20), (kernAll, 20), (plainAll, 3)))
+        print(f'  Nk={Nk} line Gamma, all groups of one iteration: kernel '
+              f'{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms')
+        result['gamma'][Nk] = dict(max_abs_err=worst[1], max_rel_err=worst[0],
+                                   ms=min(k1, k2), plain_ms=min(p1, p2))
+
+        # fused kernel: the fused scheme's inputs for the same state
+        itF = build_iteration_fn(dataclasses.replace(cfg, fsIterScheme=FUSED))
+        args = itF.fused_inputs(params, scaJ, itF.pack(params))
+        plain = fused.fused_lambda_step_plain(*args)
+        kern = fused.fused_lambda_step(*args)
+        torch.cuda.synchronize()
+        names = ('I', 'Psi', 'IeffBase', 'J', 'PsiBar', 'IBar', 'IeffSrcBar')
+        rel, absErr = compare_outputs(
+            f'fused Nk={Nk}', names,
+            list(kern[:3]) + [kern[3][k] for k in names[3:]],
+            list(plain[:3]) + [plain[3][k] for k in names[3:]], KERNEL_TOL)
+        print(f'  Nk={Nk} fused: max|kernel-plain|/max|plain| = {rel:.3e} '
+              f'(bar {KERNEL_TOL}), max abs {absErr:.3e}')
+        p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
+            (lambda: fused.fused_lambda_step_plain(*args), 3),
+            (lambda: fused.fused_lambda_step(*args), 20),
+            (lambda: fused.fused_lambda_step(*args), 20),
+            (lambda: fused.fused_lambda_step_plain(*args), 3)))
+        print(f'  Nk={Nk} fused: kernel {k1:.4f} / {k2:.4f} ms, plain '
+              f'{p1:.4f} / {p2:.4f} ms per call (C={args[0].shape[0]} slots)')
+        result['fused'][Nk] = dict(max_abs_err=absErr, max_rel_err=rel,
+                                   ms=min(k1, k2), plain_ms=min(p1, p2))
+        del ctx, params, rays, groups, args, plain, kern
+        torch.cuda.empty_cache()
+    return result
+
+
+def converge_falc_h6ca(scheme):
+    """falc_h6ca converged on the card under ``scheme``, held against the
+    golden run; returns (iterations, launch counts of the run)."""
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.fal import Falc82
-    from lightweaver_tpu_torch.ops import sweep
     from lightweaver_tpu_torch.problems import h6ca_context
-    phase('main path: falc_h6ca on the card vs the golden reference')
     ref = np.load(ROOT / 'tests' / 'golden' / 'falc_h6ca_ref.npz')
     t0 = time.perf_counter()
     ctx = h6ca_context(Falc82(), 5, device='cuda')
+    if scheme is not None:
+        ctx.set_fs_iter_scheme(scheme)
     torch.cuda.synchronize()
     print(f'Context on {ctx.device}: Nlam={ctx.cfg.Nlam} Nmu={ctx.cfg.Nmu} '
-          f'Nk={ctx.cfg.Nk}, built in {time.perf_counter() - t0:.2f} s')
+          f'Nk={ctx.cfg.Nk}, scheme {ctx.cfg.fsIterScheme}, built in '
+          f'{time.perf_counter() - t0:.2f} s')
 
-    sweep.sweep_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sweep.sweep_cuda.launches
+    counts = read_counts()
 
     nIterRef = int(ref['out_niter'][0])
     errs = {f'pops_a{ia}': relerr(ctx.popsState[ia]['n'].cpu(),
@@ -154,16 +364,49 @@ def main_path():
           '(formal_sol_gamma_matrices + stat_equil, host clock)')
     print('max relative error vs golden: '
           + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
-    print(f'sweep kernel launches: {launches} over {nIter} MALI iterations '
-          '(one per formal_sol_gamma_matrices call)')
+    print('kernel launches over the run: '
+          + ', '.join(f'{k} {v}' for k, v in counts.items())
+          + f' ({nIter} formal_sol_gamma_matrices calls)')
     if abs(nIter - nIterRef) > NITER_REF_SLACK:
         raise AssertionError(f'{nIter} iterations vs reference {nIterRef}')
     bad = {k: v for k, v in errs.items() if not v < GOLDEN_RTOL}
     if bad:
         raise AssertionError(f'golden mismatch above {GOLDEN_RTOL}: {bad}')
-    if launches < nIter:
-        raise AssertionError(f'sweep kernel launched {launches} times in '
-                             f'{nIter} iterations')
+    return ctx, nIter, counts
+
+
+def main_path():
+    phase('main path: falc_h6ca on the card vs the golden reference')
+    _, nIter, counts = converge_falc_h6ca(None)
+    if counts['sweep'] < nIter:
+        raise AssertionError(f'sweep kernel launched {counts["sweep"]} '
+                             f'times in {nIter} iterations')
+    return counts['sweep']
+
+
+def scheme_paths():
+    """falc_h6ca under each kernel scheme; the launch counts show that the
+    scheme's kernel ran: the line kernel once per group per iteration, the
+    fused kernel once per iteration and the sweep never."""
+    from lightweaver_tpu_torch.ops import gamma
+    launches = {}
+    for scheme in (PALLAS, FUSED):
+        phase(f'scheme {scheme}: falc_h6ca on the card vs the golden '
+              'reference')
+        ctx, nIter, counts = converge_falc_h6ca(scheme)
+        if scheme == PALLAS:
+            nGroups = sum(len(gamma.line_groups(a)) for a in ctx.activeAtoms)
+            if counts['gamma'] < nGroups * nIter:
+                raise AssertionError(
+                    f'line kernel launched {counts["gamma"]} times, fewer '
+                    f'than {nGroups} groups x {nIter} iterations')
+            launches['gamma'] = counts['gamma']
+        else:
+            if counts['fused'] < nIter or counts['sweep'] != 0:
+                raise AssertionError(
+                    f'fused scheme launched fused {counts["fused"]} and '
+                    f'sweep {counts["sweep"]} times in {nIter} iterations')
+            launches['fused'] = counts['fused']
     return launches
 
 
@@ -213,19 +456,102 @@ def falc500():
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
 
 
+def falc500_schemes():
+    """FALC-500 under each kernel scheme: best of 3 blocks of 20
+    iterations and the stage breakdown (host clock, synchronised after
+    each stage, mean of 5)."""
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+    for scheme in (PALLAS, FUSED):
+        phase(f'FALC-500 under {scheme}: 20 iterations, best of 3')
+        ctx = h6ca_context(falc_interpolated(500), 5, device='cuda')
+        ctx.set_fs_iter_scheme(scheme)
+        for _ in range(2):
+            ctx.formal_sol_gamma_matrices()
+        torch.cuda.synchronize()
+        nIter, best = 20, np.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(nIter):
+                u = ctx.formal_sol_gamma_matrices()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        if not (np.isfinite(float(u.dJMax)) and torch.isfinite(ctx.J).all()):
+            raise AssertionError(f'non-finite J on FALC-500 ({scheme})')
+        cfg = ctx.cfg
+        gridPoints = cfg.Nlam * cfg.Nmu * 2 * cfg.Nk
+        print(f'{best / nIter * 1e3:.3f} ms/iter, '
+              f'{gridPoints * nIter / best:.4e} gridpoint-updates/s '
+              '(host clock, synchronised per block)')
+
+        it, params = ctx._iter_fn, ctx._params
+        reps = 5
+        stages = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + (time.perf_counter()
+                                                     - t0) / reps
+            return out
+        for _ in range(reps):
+            scaJ = params['bgSca'] * params['J']
+            if scheme == PALLAS:
+                chi, src = timed('gather', lambda: it.gather(params, scaJ))
+                rays = timed('formal_solve',
+                             lambda: it.formal_solve(params, chi, src))
+                lt = timed('line_kernel_stage', lambda: it.line_kernel_stage(
+                    params, *rays[:3], src, params['pack']))
+                timed('gamma_rates_rest', lambda: it.gamma_rates(
+                    params, rays[0], rays[1], rays[2], src, rays[3], lt))
+            else:
+                I, Psi, IeffB, mom, srcRowsA = timed(
+                    'fused_stage', lambda: it.fused_stage(params, scaJ,
+                                                          params['pack']))
+                timed('gamma_rates', lambda: it.gamma_rates(
+                    params, I, Psi, IeffB, None, mom, None, srcRowsA))
+        print('stage breakdown (ms, mean of 5): '
+              + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
+        del ctx, it, params
+        torch.cuda.empty_cache()
+
+
+KERNELS = {
+    'sweep': ('lightweaver_tpu_torch/csrc/sweep.cu',
+              'lightweaver_tpu/ops/pallas_sweep.py:196'),
+    'gamma': ('lightweaver_tpu_torch/csrc/gamma.cu',
+              'lightweaver_tpu/ops/pallas_gamma.py:152'),
+    'fused': ('lightweaver_tpu_torch/csrc/fused.cu',
+              'lightweaver_tpu/ops/pallas_fused.py:122'),
+    'probe_elementwise': ('lightweaver_tpu_torch/csrc/probe.cu',
+                          'scripts/pallas_probe.py:23'),
+    'probe_recurrence': ('lightweaver_tpu_torch/csrc/probe.cu',
+                         'scripts/pallas_probe.py:47'),
+}
+
+
 def main():
+    tStart = time.perf_counter()
     smi = environment()
+    build_kernels()
+    probes = probe_check()
     kern = kernel_check()
-    launches = main_path()
+    schemeKern = scheme_kernel_check()
+    launches = {'sweep': main_path(), **scheme_paths()}
     falc500()
-    k82 = kern[82]
+    falc500_schemes()
+    records = {'sweep': dict(kern[82], launches=launches['sweep'])}
+    for name in ('gamma', 'fused'):
+        records[name] = dict(schemeKern[name][82], launches=launches[name])
+    records.update(probes)
+    print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
+          '(kernel builds included)')
     print(smi)
     print(json.dumps({'kernels': [{
-        'name': 'sweep', 'route': 'cuda',
-        'source': 'lightweaver_tpu_torch/csrc/sweep.cu',
-        'replaces': 'lightweaver_tpu/ops/pallas_sweep.py:196',
-        'launches': launches, 'max_abs_err': k82['max_abs_err'],
-        'ms': k82['ms'], 'plain_ms': k82['plain_ms']}]}))
+        'name': name, 'route': 'cuda', 'source': KERNELS[name][0],
+        'replaces': KERNELS[name][1], 'launches': r['launches'],
+        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+        'plain_ms': r['plain_ms']} for name, r in records.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

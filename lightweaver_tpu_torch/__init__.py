@@ -7,8 +7,11 @@ NVIDIA Hopper GPU.  The port never imports jax.
 
 Ported so far: the 1D complete-redistribution MALI main path in float64
 (Bezier-3 formal solver, factored Gamma, no Ng, no charge conservation),
-with the depth sweep as the CUDA kernel csrc/sweep.cu.  Like the JAX
-package, the default working precision is float64; every tensor is
+with the depth sweep as the CUDA kernel csrc/sweep.cu, and the two
+iteration schemes of Context.set_fs_iter_scheme with their kernels:
+'mali_full_precond_pallas' (the line Gamma kernel csrc/gamma.cu) and
+'mali_full_precond_fused' (the fused lambda step csrc/fused.cu).  Like
+the JAX package, the default working precision is float64; every tensor is
 created with an explicit dtype and device rather than by changing
 torch's global default.
 

@@ -17,7 +17,16 @@ iteration is split into three stage functions with one interface each:
 The formal solve goes through ops/sweep.py, which launches the CUDA kernel
 on a CUDA device; the other stages are plain torch ops on the chosen
 device, as the JAX package leaves them to XLA.
+
+Two iteration schemes (Context.set_fs_iter_scheme) put a further kernel
+behind a stage:
+
+    'mali_full_precond_pallas': line_kernel_stage runs ops/gamma.py per
+        same-atom line group; gamma_rates takes the lines from it.
+    'mali_full_precond_fused': fused_stage runs ops/fused.py in place of
+        gather and formal_solve (chiTot and srcNum are never formed).
 """
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -29,6 +38,8 @@ from .atmosphere import Atmosphere, ThermalisedRadiation
 from .atomic_model import AtomicLine, AtomicModel, LineProfileState
 from .background import basic_background
 from .iteration_update import IterationUpdate
+from .ops import fused as fusedOps
+from .ops import gamma as gammaOps
 from .ops.faddeeva import voigt_H
 from .ops.linalg import solve_KxK_over_depth
 from .ops.planck import planck_nu
@@ -36,6 +47,10 @@ from .ops.sweep import formal_solve_sweep
 from .utils import ExplodingMatrixError, InitialSolution
 
 DEFAULT_DTYPE = torch.float64
+
+SCHEME_DEFAULT = 'mali_full_precond'
+SCHEME_PALLAS = 'mali_full_precond_pallas'
+SCHEME_FUSED = 'mali_full_precond_fused'
 
 
 @dataclass
@@ -110,6 +125,7 @@ class IterConfig:
     wmu: np.ndarray             # [Nmu]
     device: torch.device = torch.device('cpu')
     dtype: torch.dtype = DEFAULT_DTYPE
+    fsIterScheme: str = SCHEME_DEFAULT
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -283,14 +299,222 @@ def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
                               wmu)
 
 
+# ---- scheme 'mali_full_precond_fused': stages 1 and 2 in one kernel ----
+def _boundary(cfg, params, key, thermalised, k0, k1):
+    """One end's boundary for ops/fused.py: caller data, the Planck rows at
+    depths (k0, k1) of a thermalised end, or zero."""
+    if params.get(key) is not None:
+        return 'data', params[key].contiguous()
+    if thermalised:
+        T, lam = params['temperature'], cfg.wavelengthT
+        return 'therm', torch.stack([planck_nu(T[k0], lam),
+                                     planck_nu(T[k1], lam)], dim=1)
+    return 'zero', None
+
+
+def fused_pack(cfg: IterConfig, params):
+    """The iteration-constant input of the fused stage: the line profiles
+    slot-packed as phiP [C, 2, Nlam, Nmu, Nk] (ops/fused.py), and per slot
+    its members (ai, ti, a1 [W]) with a1 = (hc/4pi)(lambda0/lambda) Bij."""
+    slots, C = fusedOps.assign_line_slots(cfg.allAtoms)
+    phiP = torch.zeros((C, 2, cfg.Nlam, cfg.Nmu, cfg.Nk), dtype=cfg.dtype,
+                       device=cfg.device)
+    members = [[] for _ in range(C)]
+    for (ai, ti), c in sorted(slots.items()):
+        t = cfg.allAtoms[ai].trans[ti]
+        phiP[c, :, t.Nblue:t.Nred] = params['phi'][ai][ti]
+        a1 = cfg.tensor(Const.HC_FOURPI * (t.lambda0 / t.wavelength) * t.Bij)
+        members[c].append((ai, ti, a1))
+    return {'phiP': phiP, 'members': members}
+
+
+def fused_inputs(cfg: IterConfig, params, scaJ, pack):
+    """The arguments of ops/fused.py:fused_lambda_step for this iteration:
+    the background rows (continua folded in), the slots' coefficient rows
+    (they hold the populations) and the boundaries; and the continuum eta
+    rows of each atom of allAtoms."""
+    Nlam, Nk = cfg.Nlam, cfg.Nk
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
+
+    contChi = zeros(Nlam, Nk)
+    contEtaA = [zeros(Nlam, Nk) for _ in cfg.allAtoms]
+    for ai, a in enumerate(cfg.allAtoms):
+        for ti, t in enumerate(a.trans):
+            if t.isLine:
+                continue
+            c, e = chi_eta_w(cfg, params, ai, ti, t.Nblue, t.Nred)
+            contChi[t.Nblue:t.Nred] += c[0, :, 0, :]
+            contEtaA[ai][t.Nblue:t.Nred] += e[0, :, 0, :]
+    contEta = contEtaA[0]
+    for e in contEtaA[1:]:
+        contEta = contEta + e
+
+    C = pack['phiP'].shape[0]
+    chiCo, etaCo = zeros(C, Nlam, Nk), zeros(C, Nlam, Nk)
+    for c, members in enumerate(pack['members']):
+        for ai, ti, a1 in members:
+            t = cfg.allAtoms[ai].trans[ti]
+            n = params['allPops'][ai]
+            gS, uS = t.Bji / t.Bij, t.Aji / t.Bji
+            ni, nj = n[t.i][None, :], n[t.j][None, :]
+            chiCo[c, t.Nblue:t.Nred] = (ni - gS * nj) * a1[:, None]
+            etaCo[c, t.Nblue:t.Nred] = (uS * gS) * a1[:, None] * nj
+
+    upper = _boundary(cfg, params, 'upperBcData', cfg.upperThermalised, 0, 1)
+    lower = _boundary(cfg, params, 'lowerBcData', cfg.lowerThermalised,
+                      Nk - 1, Nk - 2)
+    args = (pack['phiP'], chiCo, etaCo, params['bgChi'] + contChi,
+            params['bgEta'] + contEta, scaJ, params['height'], cfg.muzT,
+            cfg.wmuT, upper, lower)
+    return args, contEtaA
+
+
+def fused_stage(cfg: IterConfig, params, scaJ, pack):
+    """Stages 1 and 2 of the fused scheme: fused_inputs, then one call of
+    ops/fused.py:fused_lambda_step (the CUDA kernel on a CUDA device).
+
+    Returns (I, Psi, IeffBase, moments, srcRowsA): srcRowsA[ai], per active
+    atom, is the mu-independent part of srcNum - etaAtom (bgEta + sca*J +
+    the other atoms' continua); gamma_rates adds the other atoms' line eta
+    to form the compensated Ieff from positive terms, since srcNum itself
+    is never formed."""
+    args, contEtaA = fused_inputs(cfg, params, scaJ, pack)
+    I, Psi, IeffBase, moments = fusedOps.fused_lambda_step(*args)
+    srcRowsA = []
+    for ai in range(len(cfg.activeAtoms)):
+        srcA = params['bgEta'] + scaJ
+        for aj in range(len(cfg.allAtoms)):
+            if aj != ai:
+                srcA = srcA + contEtaA[aj]
+        srcRowsA.append(srcA)
+    return I, Psi, IeffBase, moments, srcRowsA
+
+
+# ---- scheme 'mali_full_precond_pallas': the line part of stage 3 --------
+def line_pack(cfg: IterConfig, params):
+    """The iteration-constant input of the line Gamma kernel: per active
+    atom, per line group (ops/gamma.py:line_groups), the members' profiles
+    on the union window [K, 2, Wu, Nmu, Nk], rho (ones: complete
+    redistribution), the coefficient rows coef [K, Wu, 4] = (a1,
+    Bji/Bij, Aji/Bji, wlambda 4pi/hc), zero outside each member's window,
+    wphi [K, Nk] and the level statics."""
+    packs = []
+    for ai, a in enumerate(cfg.activeAtoms):
+        groups = []
+        for members in gammaOps.line_groups(a):
+            ts = [a.trans[ti] for ti in members]
+            K = len(ts)
+            row0 = min(t.Nblue for t in ts)
+            Wu = max(t.Nred for t in ts) - row0
+            phi = torch.zeros((K, 2, Wu, cfg.Nmu, cfg.Nk), dtype=cfg.dtype,
+                              device=cfg.device)
+            coef = np.zeros((K, Wu, 4))
+            for m, (t, ti) in enumerate(zip(ts, members)):
+                lo = t.Nblue - row0
+                phi[m, :, lo:lo + t.W] = params['phi'][ai][ti]
+                coef[m, lo:lo + t.W, 0] = (Const.HC_FOURPI
+                                           * (t.lambda0 / t.wavelength)
+                                           * t.Bij)
+                coef[m, lo:lo + t.W, 1] = t.Bji / t.Bij
+                coef[m, lo:lo + t.W, 2] = t.Aji / t.Bji
+                coef[m, lo:lo + t.W, 3] = t.wlambda * Const.FOURPI_HC
+            groups.append({
+                'members': members, 'row0': row0, 'phi': phi,
+                'rho': torch.ones_like(phi[:, 0, :, 0, :]),
+                'coef': cfg.tensor(coef),
+                'wphi': torch.stack([params['wphi'][ai][ti]
+                                     for ti in members]),
+                'statics': gammaOps.group_statics(ts)})
+        packs.append(groups)
+    return packs
+
+
+def line_group_inputs(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
+                      pack):
+    """For every line group of every active atom, (ai, the group's pack,
+    the arguments of ops/gamma.py:group_gamma_rates): the group's constant
+    input, the ray tensors, and the atom's per-level continuum chi/U rows
+    and continuum eta of this iteration."""
+    Nlam, Nk = cfg.Nlam, cfg.Nk
+    wmuHalf = 0.5 * cfg.wmuT
+    for ai, a in enumerate(cfg.activeAtoms):
+        chiCL = torch.zeros((a.Nlevel, Nlam, Nk), dtype=cfg.dtype,
+                            device=cfg.device)
+        UCL = torch.zeros_like(chiCL)
+        etaC = torch.zeros_like(chiCL[0])
+        for ti, t in enumerate(a.trans):
+            if t.isLine:
+                continue
+            sl = slice(t.Nblue, t.Nred)
+            c, e = chi_eta_w(cfg, params, ai, ti, t.Nblue, t.Nred)
+            etaC[sl] += e[0, :, 0, :]
+            chiCL[t.i, sl] += c[0, :, 0, :]
+            chiCL[t.j, sl] -= c[0, :, 0, :]
+            UCL[t.j, sl] += UjiW(cfg, params, ai, ti, t.Nblue,
+                                 t.Nred)[0, :, 0, :]
+        n = params['allPops'][ai].contiguous()
+        for g in pack[ai]:
+            yield ai, g, (g['phi'], g['rho'], Psi, IeffBase, I, srcNum,
+                          chiCL, UCL, etaC, n, g['coef'], g['wphi'], wmuHalf,
+                          g['statics'], g['row0'])
+
+
+def line_kernel_stage(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
+                      pack):
+    """The line kernel of every group of every active atom (ops/gamma.py:
+    group_gamma_rates, the CUDA kernel on a CUDA device).
+
+    Returns per active atom {'line': {ti: {'G4', 'row0', 'chiPsiBar',
+    'UPsiBar', 'etaPsiBar'}}, 'pair': {(ti, ti2): {'row0', 'chiU',
+    'UChi'}}}: the Gamma/rate block partials and the mu-reduced chi/U/eta
+    x Psi rows of each line (and line pair, ti < ti2) on its group's
+    window, which gamma_rates uses in place of the line windows."""
+    out = [{'line': {}, 'pair': {}} for _ in cfg.activeAtoms]
+    for ai, g, args in line_group_inputs(cfg, params, I, Psi, IeffBase,
+                                         srcNum, pack):
+        a = cfg.activeAtoms[ai]
+        n = params['allPops'][ai]
+        line, pair = out[ai]['line'], out[ai]['pair']
+        members, row0 = g['members'], g['row0']
+        G4, PPB, PairPPB = gammaOps.group_gamma_rates(*args)
+        chiFac, UFac = [], []
+        for m, ti in enumerate(members):
+            t = a.trans[ti]
+            a1 = g['coef'][m, :, 0][:, None]
+            rho = g['rho'][m]
+            gS, uS = t.Bji / t.Bij, t.Aji / t.Bji
+            chiFac.append((n[t.i][None, :] - gS * rho * n[t.j][None, :])
+                          * a1)
+            UFac.append(uS * gS * a1 * rho)
+            line[ti] = {'G4': G4[m], 'row0': row0,
+                        'chiPsiBar': chiFac[m] * PPB[m],
+                        'UPsiBar': UFac[m] * PPB[m],
+                        'etaPsiBar': n[t.j][None, :] * UFac[m] * PPB[m]}
+        pairs = [(m, m2) for m in range(len(members))
+                 for m2 in range(m + 1, len(members))]
+        for p, (m, m2) in enumerate(pairs):
+            pair[(members[m], members[m2])] = {
+                'row0': row0,
+                'chiU': chiFac[m] * UFac[m2] * PairPPB[p],
+                'UChi': UFac[m] * chiFac[m2] * PairPPB[p]}
+    return out
+
+
 # ---- stage 3: factored Gamma and rates ----------------------------------
-def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
+def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
+                lineTerms=None, srcRowsA=None):
     """Preconditioned rate matrices Gamma [Nl, Nl, Nk] and radiative rates
     Rij/Rji [Nk] per transition, for each active atom.
 
     Factored: mu-independent (continuum) transitions contract against the
     sweep's angular moments (PsiBar, IBar, IeffSrcBar) instead of the full
-    ray tensors; lines contract over their own windows.
+    ray tensors; lines contract over their own windows.  With
+    ``lineTerms`` (line_kernel_stage, scheme 'mali_full_precond_pallas')
+    the lines' Gamma/rates and their products with Psi come from the line
+    kernel instead.  Under the fused scheme srcNum is None and
+    ``srcRowsA`` (fused_stage) forms the compensated Ieff of the lines.
     ref: Source/SimdFullIterationTemplates.hpp:240-508"""
     Nmu, Nk = cfg.Nmu, cfg.Nk
     dt, dev = cfg.dtype, cfg.device
@@ -305,8 +529,15 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
 
     GammaOut, RijOut, RjiOut = [], [], []
     for ai, a in enumerate(cfg.activeAtoms):
+        lt = None if lineTerms is None else lineTerms[ai]
+
         def fn_on(fn, t2i, lo, hi):
             return fn(cfg, params, ai, t2i, lo, hi)
+
+        def kernel_rows(t2i, key, lo, hi):
+            """Rows [lo, hi) of the line kernel's [Wu, Nk] row ``key``."""
+            pl = lt['line'][t2i]
+            return pl[key][lo - pl['row0']:hi - pl['row0']]
 
         def level_sum_on_window(t, items, fn, signed):
             """Level-list sum over t's window [2, W, Nmu, Nk], members
@@ -330,6 +561,21 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
                 if h2 <= l2:
                     continue
                 out[:, l2 - lo:h2 - lo] += fn_on(etaW, t2i, l2, h2)
+            return out
+
+        def eta_lines_other_on_window(lo, hi):
+            """The OTHER atoms' line eta on [lo, hi): with srcRowsA it
+            completes srcNum - etaAtom as a sum of positive terms."""
+            out = zeros(2, hi - lo, Nmu, Nk)
+            for aj, a2 in enumerate(cfg.allAtoms):
+                if aj == ai:
+                    continue
+                for tj, t2 in enumerate(a2.trans):
+                    l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
+                    if not t2.isLine or h2 <= l2:
+                        continue
+                    out[:, l2 - lo:h2 - lo] += etaW(cfg, params, aj, tj, l2,
+                                                    h2)
             return out
 
         def cont_part_on(fn, items, signed, lo, hi):
@@ -364,16 +610,31 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
                 l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
                 if h2 <= l2:
                     continue
-                chiSub = fn_on(chiW, t2i, l2, h2)
-                total = total + sign * _sum_lmd(
-                    chiSub * Psi[:, l2:h2],
-                    UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], wmu2)
+                if lt is not None:
+                    # chi_t2 is mu-independent x phi: the angular sum
+                    # factors into the kernel's phi x Psi moment
+                    total = total + sign * torch.sum(
+                        kernel_rows(t2i, 'chiPsiBar', l2, h2)
+                        * UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], dim=0)
+                else:
+                    chiSub = fn_on(chiW, t2i, l2, h2)
+                    total = total + sign * _sum_lmd(
+                        chiSub * Psi[:, l2:h2],
+                        UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], wmu2)
                 for t3i in listU:
                     t3 = a.trans[t3i]
                     if not t3.isLine:
                         continue
                     l3, h3 = max(l2, t3.Nblue), min(h2, t3.Nred)
                     if h3 <= l3:
+                        continue
+                    if lt is not None:
+                        # the pair moment: chi_t2 U_t3 Psi, mu-reduced
+                        pp = lt['pair'][(min(t2i, t3i), max(t2i, t3i))]
+                        rows = pp['chiU'] if t2i < t3i else pp['UChi']
+                        total = total + sign * torch.sum(
+                            rows[l3 - pp['row0']:h3 - pp['row0']]
+                            * wlaA[l3 - lo:h3 - lo], dim=0)
                         continue
                     total = total + sign * _sum_lmd(
                         fn_on(chiW, t2i, l3, h3) * fn_on(UjiW, t3i, l3, h3)
@@ -385,6 +646,11 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
                     continue
                 l3, h3 = max(lo, t3.Nblue), min(hi, t3.Nred)
                 if h3 <= l3:
+                    continue
+                if lt is not None:
+                    total = total + torch.sum(
+                        kernel_rows(t3i, 'UPsiBar', l3, h3)
+                        * XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo], dim=0)
                     continue
                 total = total + _sum_lmd(
                     fn_on(UjiW, t3i, l3, h3) * Psi[:, l3:h3],
@@ -398,6 +664,10 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
         PsiEtaBar = zeros(cfg.Nlam, Nk)
         for ti, t in enumerate(a.trans):
             sl = slice(t.Nblue, t.Nred)
+            if t.isLine and lt is not None:
+                PsiEtaBar[sl] += kernel_rows(ti, 'etaPsiBar', t.Nblue,
+                                             t.Nred)
+                continue
             eta = fn_on(etaW, ti, t.Nblue, t.Nred)
             if t.isLine:
                 PsiEtaBar[sl] += _sum_mu(eta * Psi[:, sl], wmu2)
@@ -408,6 +678,14 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
         Rij, Rji = [], []
         for ti, t in enumerate(a.trans):
             sl = slice(t.Nblue, t.Nred)
+            if t.isLine and lt is not None:
+                # the kernel's lambda-block partials, summed here in f64
+                G4 = lt['line'][ti]['G4']
+                Gamma[t.i, t.j] += torch.sum(G4[0], dim=0)
+                Gamma[t.j, t.i] += torch.sum(G4[1], dim=0)
+                Rij.append(torch.sum(G4[2], dim=0))
+                Rji.append(torch.sum(G4[3], dim=0))
+                continue
             Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
             wla = _wla(cfg, params, ai, ti, t)           # [W, Nk]
 
@@ -428,10 +706,15 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments):
 
             # compensated MALI effective intensity on the line window:
             # I - Psi*etaAtom assembled from non-cancelling terms
-            etaA_w = eta_atom_on_window(t.Nblue, t.Nred)
             Psi_w = Psi[:, sl]
             I_w = I[:, sl]
-            Ieff_w = IeffBase[:, sl] + Psi_w * (srcNum[:, sl] - etaA_w)
+            if srcNum is None:
+                srcO = (srcRowsA[ai][sl][None, :, None, :]
+                        + eta_lines_other_on_window(t.Nblue, t.Nred))
+                Ieff_w = IeffBase[:, sl] + Psi_w * srcO
+            else:
+                etaA_w = eta_atom_on_window(t.Nblue, t.Nred)
+                Ieff_w = IeffBase[:, sl] + Psi_w * (srcNum[:, sl] - etaA_w)
             chi_i = level_sum_on_window(t, a.chiLists[t.i], chiW, True)
             chi_j = level_sum_on_window(t, a.chiLists[t.j], chiW, True)
             U_i = level_sum_on_window(t, a.ULists[t.i], UjiW, False)
@@ -467,28 +750,65 @@ def build_iteration_fn(cfg: IterConfig):
       'phi': nested [atom][trans] -> [2, W, Nmu, Nk] or None,
       'wphi': nested [atom][trans] -> [Nk] or None,
       'upperBcData'/'lowerBcData': [Nlam, Nmu] or None,
+      'pack': the scheme's iteration-constant kernel input (iteration.pack)
+              or None; built in the call when absent,
     }
     Returns {'Gamma', 'Rij', 'Rji', 'J', 'I' (emergent [Nlam, Nmu]),
     'dJ' (0-d tensor)}.  The stages are exposed as attributes.
+
+    cfg.fsIterScheme selects the stages: 'mali_full_precond' runs gather,
+    formal_solve and gamma_rates; 'mali_full_precond_pallas' adds the line
+    kernel stage before gamma_rates; 'mali_full_precond_fused' replaces
+    gather and formal_solve with fused_stage.
     """
+    scheme = cfg.fsIterScheme
+
+    def pack(params):
+        if scheme == SCHEME_PALLAS:
+            return line_pack(cfg, params)
+        if scheme == SCHEME_FUSED:
+            return fused_pack(cfg, params)
+        return None
+
     def iteration(params):
+        packed = params.get('pack')
+        if packed is None:
+            packed = pack(params)
         params = _with_all_atoms(params)
         Jdag = params['J']
         scaJ = params['bgSca'] * Jdag
-        chiTot, srcNum = gather(cfg, params, scaJ)
-        I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot, srcNum)
+        srcNum = srcRowsA = lineTerms = None
+        if scheme == SCHEME_FUSED:
+            I, Psi, IeffBase, moments, srcRowsA = fused_stage(
+                cfg, params, scaJ, packed)
+        else:
+            chiTot, srcNum = gather(cfg, params, scaJ)
+            I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot,
+                                                     srcNum)
+        if scheme == SCHEME_PALLAS:
+            lineTerms = line_kernel_stage(cfg, params, I, Psi, IeffBase,
+                                          srcNum, packed)
         Jnew = moments['J']
         dJ = torch.max(torch.abs(1.0 - torch.where(
             Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
         Gamma, Rij, Rji = gamma_rates(cfg, params, I, Psi, IeffBase, srcNum,
-                                      moments)
+                                      moments, lineTerms, srcRowsA)
         return {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
                 'I': I[1, :, :, 0], 'dJ': dJ}
 
+    iteration.pack = pack
     iteration.gather = lambda params, scaJ: gather(
         cfg, _with_all_atoms(params), scaJ)
     iteration.formal_solve = lambda params, chiTot, srcNum: formal_solve(
         cfg, params, chiTot, srcNum)
+    iteration.fused_stage = lambda params, scaJ, packed: fused_stage(
+        cfg, _with_all_atoms(params), scaJ, packed)
+    iteration.line_kernel_stage = lambda params, *rays: line_kernel_stage(
+        cfg, _with_all_atoms(params), *rays)
+    iteration.line_group_inputs = lambda params, *rays: list(
+        line_group_inputs(cfg, _with_all_atoms(params), *rays))
+    iteration.fused_inputs = lambda params, scaJ, packed: fused_inputs(
+        cfg, _with_all_atoms(params), scaJ, packed)[0]
     iteration.gamma_rates = lambda params, *rays: gamma_rates(
         cfg, _with_all_atoms(params), *rays)
     return iteration
@@ -529,7 +849,8 @@ class Context:
                  formalSolver: str = 'piecewise_bezier3_1d',
                  crswCallback=None,
                  dtype: torch.dtype = DEFAULT_DTYPE, device='cpu',
-                 gammaMode: str = 'factored'):
+                 gammaMode: str = 'factored',
+                 fsIterScheme: Optional[str] = None):
         unsupported = {
             'a 2D/3D atmosphere': atmos.Ndim != 1,
             'hybrid PRD (hprd=True)': hprd,
@@ -606,6 +927,8 @@ class Context:
         self._Gamma = None
         self._Rij = None
         self._Rji = None
+        if fsIterScheme is not None:
+            self.set_fs_iter_scheme(fsIterScheme)
 
     @property
     def activeAtoms(self):
@@ -699,6 +1022,8 @@ class Context:
             self.phi.append(phiA)
             self.wphi.append(wphiA)
             self.aDamp.append(aDampA)
+        # the params (and the schemes' packed profiles) hold the profiles
+        self._params = None
 
     # ------------------------------------------------------------------
     def compute_collisions(self, force: bool = False):
@@ -733,7 +1058,7 @@ class Context:
 
     # ------------------------------------------------------------------
     def build_params(self, crswVal: float = 1.0) -> Dict:
-        return {
+        params = {
             'J': self.J,
             'bgChi': self.bgChi, 'bgEta': self.bgEta, 'bgSca': self.bgSca,
             'temperature': self.temperature, 'height': self.height,
@@ -749,6 +1074,50 @@ class Context:
             'upperBcData': self._bc_data(self.atmos.upperBc),
             'lowerBcData': self._bc_data(self.atmos.lowerBc),
         }
+        params['pack'] = self._iter_fn.pack(params)
+        return params
+
+    # ------------------------------------------------------------------
+    def set_fs_iter_scheme(self, name: str):
+        """Select the iteration scheme (the reference's per-SIMD plugin
+        registry, LwMiddleLayer.pyx:3077-3098; the JAX package's names):
+        'mali_full_precond' (the stages in torch ops around the sweep
+        kernel), 'mali_full_precond_fused' (the fused lambda-step kernel,
+        ops/fused.py) or 'mali_full_precond_pallas' (the line Gamma
+        kernel, ops/gamma.py).  The reference's per-SIMD suffixes
+        (_scalar/_SSE2/_AVX*) alias the base name.  A configuration that
+        the scheme's kernel does not cover raises ValueError."""
+        base = name.partition('_scalar')[0].partition('_SSE2')[0] \
+                   .partition('_AVX')[0]
+        supported = {
+            SCHEME_DEFAULT: (lambda cfg: True, ''),
+            SCHEME_FUSED: (fusedOps.fused_scheme_supported,
+                           'needs float64'),
+            SCHEME_PALLAS: (gammaOps.gamma_scheme_supported,
+                            'needs float64 and same-atom line groups of at '
+                            f'most {gammaOps.KMAX} overlapping lines')}
+        if base not in supported:
+            raise ValueError(f'Unknown iteration scheme {name!r}; '
+                             "available: 'mali_full_precond', "
+                             "'mali_full_precond_fused', "
+                             "'mali_full_precond_pallas'")
+        check, needs = supported[base]
+        if not check(self.cfg):
+            raise ValueError(f'{base} does not support this configuration '
+                             f'({needs})')
+        self.cfg = dataclasses.replace(self.cfg, fsIterScheme=base)
+        self._iter_fn = build_iteration_fn(self.cfg)
+        self._params = None
+
+    def get_fs_iter_scheme_properties(self, fsIterScheme=None) -> dict:
+        """Properties of the selected iteration scheme, with the
+        reference's key layout (ref: LwMiddleLayer.pyx:4186-4194)."""
+        return {'name': self.cfg.fsIterScheme,
+                'Ndim': self.atmos.Ndim,
+                'dimensionSpecific': False,
+                'respectsFormalSolver': True,
+                'defaultPerAtomStorage': True,
+                'defaultWlaGijStorage': True}
 
     # ------------------------------------------------------------------
     def formal_sol_gamma_matrices(self) -> IterationUpdate:

@@ -19,7 +19,8 @@
 // Design.  The TPU kernel rode depth on the 128 vector lanes, hence its
 // lane-roll stencils, Kogge-Stone prefix and 128/RB padding; none of that
 // carries over.  Here one thread owns one ray and walks depth in order,
-// with the same summation order as formal_sol_1d.  It carries chi, S,
+// with the same summation order as formal_sol_1d (the per-ray step is
+// bezier3.cuh:bezier3_ray, shared with fused.cu).  It carries chi, S,
 // the path lengths, dchi, dtau and dS in registers, so each step reads
 // one new chi and one new srcNum value (the coefficients at m reach two
 // points downwind for chi and one for S).  A block holds whole lambda
@@ -43,70 +44,9 @@
 // separate torch ops do not, so the two differ by rounding that grows
 // along the chain.  The comparison tolerance states this.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "bezier3.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ T sgn(T x) {
-    return static_cast<T>((x > T(0)) - (x < T(0)));
-}
-
-// Steffen (1990) monotonic central derivative (ref Bezier.hpp:57-66).
-template <typename T>
-__device__ __forceinline__ T cent_deriv(T dsuw, T dsdw, T yuw, T y0, T ydw) {
-    const T S0 = (ydw - y0) / dsdw;
-    const T Suw = (y0 - yuw) / dsuw;
-    const T P0 = fabs((Suw * dsdw + S0 * dsuw) / (dsdw + dsuw));
-    return (sgn(S0) + sgn(Suw)) * fmin(fabs(Suw), fmin(fabs(S0), T(0.5) * P0));
-}
-
-// Cubic Bezier integration coefficients (ref Bezier.hpp:81-127).
-template <typename T>
-__device__ __forceinline__ void bezier3_coeffs(T dt, T& a, T& b, T& g, T& d,
-                                               T& e) {
-    const T dt2 = dt * dt;
-    const T dt3 = dt2 * dt;
-    if (dt < T(5e-2)) {
-        a = T(0.25) * dt - T(0.2) * dt2 + dt3 / T(12.0);
-        b = T(0.25) * dt - T(0.05) * dt2 + dt3 / T(120.0);
-        g = T(0.25) * dt - T(0.15) * dt2 + T(0.05) * dt3;
-        d = T(0.25) * dt - T(0.1) * dt2 + T(0.025) * dt3;
-        e = T(1.0) - dt + T(0.5) * dt2 - dt3 / T(6.0);
-    } else if (dt > T(30.0)) {
-        a = T(6.0) / dt3;
-        b = (T(-6.0) + T(6.0) * dt - T(3.0) * dt2 + dt3) / dt3;
-        g = T(3.0) * (T(2.0) * dt - T(6.0)) / dt3;
-        d = T(3.0) * (T(6.0) - T(4.0) * dt + dt2) / dt3;
-        e = T(0.0);
-    } else {
-        const T edt = exp(-dt);
-        a = (T(6.0) - edt * (T(6.0) + T(6.0) * dt + T(3.0) * dt2 + dt3)) / dt3;
-        b = (T(6.0) * edt - T(6.0) + T(6.0) * dt - T(3.0) * dt2 + dt3) / dt3;
-        g = T(3.0) * (T(2.0) * dt - T(6.0) + edt * (T(6.0) + T(4.0) * dt + dt2))
-            / dt3;
-        d = T(3.0) * (T(6.0) - T(4.0) * dt + dt2 - T(2.0) * edt * (T(3.0) + dt))
-            / dt3;
-        e = edt;
-    }
-}
-
-// Linear short-characteristics weights (ref LwInternal.hpp:90-110).
-template <typename T>
-__device__ __forceinline__ void w2(T dtau, T& w0, T& w1) {
-    if (dtau < T(5.0e-4)) {
-        w0 = dtau * (T(1.0) - T(0.5) * dtau);
-        w1 = dtau * dtau * (T(0.5) - dtau * (T(1.0) / T(3.0)));
-    } else if (dtau > T(50.0)) {
-        w0 = T(1.0);
-        w1 = T(1.0);
-    } else {
-        const T expdt = exp(-dtau);
-        w0 = T(1.0) - expdt;
-        w1 = w0 - dtau * expdt;
-    }
-}
 
 // Block: rowsPerBlock lambda rows x (2 * Nmu) rays, one thread per ray.
 template <typename T>
@@ -136,89 +76,12 @@ __global__ void sweep_kernel(const T* __restrict__ chi,
         T* IR = Iout + ray * N;
         T* psiR = psiOut + ray * N;
         T* ieffbR = ieffbOut + ray * N;
-        const bool up = dir == 1;
-        const T mu = muz[imu];
-        // depth index and path length of interval (m, m+1), sweep order m
-        auto kOf = [&](int m) { return up ? N - 1 - m : m; };
-        auto dsOf = [&](int m) { return dh[up ? N - 2 - m : m] / mu; };
-        const T three = T(3.0);
-
-        // sweep start: I = Iupw, Psi = 0, IeffBase = Iupw
-        const T I0 = iupw[ray];
-        IR[kOf(0)] = I0;
-        psiR[kOf(0)] = T(0.0);
-        ieffbR[kOf(0)] = I0;
-
-        // window at m = 1: chi/S at m-1, m, m+1; ds at m-1, m
-        T cm1 = chiR[kOf(0)], cm = chiR[kOf(1)], cp = chiR[kOf(2)];
-        T sm1 = srcR[kOf(0)] / cm1, sm = srcR[kOf(1)] / cm;
-        T sp = srcR[kOf(2)] / cp;
-        T dsm1 = dsOf(0), dsm = dsOf(1);
-        T dchim1 = (cm - cm1) / dsm1;
-        T dchim = cent_deriv(dsm1, dsm, cm1, cm, cp);
-        T dtaum1;
-        {
-            const T Cuw = cm1 + (dsm1 / three) * dchim1;
-            const T C0 = cm - (dsm1 / three) * dchim;
-            dtaum1 = dsm1 * (cm1 + cm + Cuw + C0) * T(0.25);
-        }
-        T dSm1 = (sm - sm1) / dtaum1;
-        T Iprev = I0;
-
-        // interior points m = 1..N-2: Bezier-3 over the upwind interval
-        for (int m = 1; m <= N - 2; ++m) {
-            T cpp = cp, spp = sp, dsp = dsm;
-            const bool hasNext = m + 2 <= N - 1;
-            if (hasNext) {
-                cpp = chiR[kOf(m + 2)];
-                spp = srcR[kOf(m + 2)] / cpp;
-                dsp = dsOf(m + 1);
-            }
-            const T dchip = hasNext ? cent_deriv(dsm, dsp, cm, cp, cpp)
-                                    : (cp - cm) / dsm;
-            const T Cuw = cm + (dsm / three) * dchim;
-            const T C0 = cp - (dsm / three) * dchip;
-            const T dtaum = dsm * (cm + cp + Cuw + C0) * T(0.25);
-            const T dSm = cent_deriv(dtaum1, dtaum, sm1, sm, sp);
-
-            T alphaC, betaC, gammaC, deltaC, edt;
-            bezier3_coeffs(dtaum1, alphaC, betaC, gammaC, deltaC, edt);
-            const T CuwS = sm1 + (dtaum1 / three) * dSm1;
-            const T C0S = sm - (dtaum1 / three) * dSm;
-            const T b = alphaC * sm1 + betaC * sm + gammaC * CuwS
-                        + deltaC * C0S;
-            const T psiN = betaC + deltaC;
-            const T bNL = alphaC * sm1 + gammaC * CuwS
-                          - deltaC * (dtaum1 / three) * dSm;
-            const T Inew = edt * Iprev + b;
-            const int k = kOf(m);
-            IR[k] = Inew;
-            psiR[k] = psiN / cm;
-            ieffbR[k] = edt * Iprev + bNL;
-
-            cm1 = cm; cm = cp; cp = cpp;
-            sm1 = sm; sm = sp; sp = spp;
-            dsm1 = dsm; dsm = dsp;
-            dchim1 = dchim; dchim = dchip;
-            dtaum1 = dtaum; dSm1 = dSm;
-            Iprev = Inew;
-        }
-
-        // final point: linear step with plain-average dtau
-        {
-            const T dtauE = T(0.5) * (cm + cm1) * dsm1;
-            const T dSE = (sm - sm1) / dtauE;
-            T w0e, w1e;
-            w2(dtauE, w0e, w1e);
-            const T A = T(1.0) - w0e;
-            const T b = w0e * sm - w1e * dSE;
-            const T psiN = w0e - w1e / dtauE;
-            const T bNL = (w1e / dtauE) * sm1;
-            const int k = kOf(N - 1);
-            IR[k] = A * Iprev + b;
-            psiR[k] = psiN / cm;
-            ieffbR[k] = A * Iprev + bNL;
-        }
+        const auto load = [&](int k, T& c, T& S) {
+            c = chiR[k];
+            S = srcR[k] / c;
+        };
+        lw::bezier3_ray<T>(load, dh, muz[imu], N, dir == 1, iupw[ray], IR,
+                           psiR, ieffbR);
     }
 
     __syncthreads();

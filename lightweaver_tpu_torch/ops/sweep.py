@@ -11,26 +11,14 @@ down sweep from the upper boundary, d = 1 the up sweep from the lower
 one), unpadded and contiguous.  S = srcNum / chi is formed inside.
 
 The kernel is built from the source at first use on a CUDA tensor with
-nvcc (sm_90a) into ``build/lightweaver_tpu_torch/`` and bound through
-ctypes.  A CUDA tensor either launches the kernel or raises; nothing
-falls back to the plain version.
+nvcc (sm_90a, ops/_build.py) and bound through ctypes.  A CUDA tensor
+either launches the kernel or raises; nothing falls back to the plain
+version.
 """
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
+from . import _build
 from .formal_solver import formal_sol_1d
-
-_SRC = Path(__file__).resolve().parent.parent / 'csrc' / 'sweep.cu'
-_BUILD_DIR = (Path(__file__).resolve().parents[2] / 'build'
-              / 'lightweaver_tpu_torch')
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 
 def angular_moments(I, Psi, IeffBase, srcNum, wmu):
@@ -132,17 +120,13 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
                              for _ in range(3))
     # one thread per ray, whole lambda rows per block, about a warp each
     rowsPerBlock = max(1, 32 // (2 * Nmu))
-    lib = load_library()
-    with torch.cuda.device(chi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lw_sweep_f64(
-            chi.data_ptr(), srcNum.data_ptr(), dh.data_ptr(), muz.data_ptr(),
-            wmuHalf.data_ptr(), iupw.data_ptr(), I.data_ptr(),
-            Psi.data_ptr(), IeffBase.data_ptr(), J.data_ptr(),
-            PsiBar.data_ptr(), IeffSrcBar.data_ptr(), NL, Nmu, Nk,
-            rowsPerBlock, stream)
-    if err != 0:
-        raise RuntimeError(f'sweep kernel launch failed: CUDA error {err}')
+    err = load_library().lw_sweep_f64(
+        chi.data_ptr(), srcNum.data_ptr(), dh.data_ptr(), muz.data_ptr(),
+        wmuHalf.data_ptr(), iupw.data_ptr(), I.data_ptr(), Psi.data_ptr(),
+        IeffBase.data_ptr(), J.data_ptr(), PsiBar.data_ptr(),
+        IeffSrcBar.data_ptr(), NL, Nmu, Nk, rowsPerBlock,
+        _build.cuda_stream(chi))
+    _build.check_launch(err, 'sweep')
     sweep_cuda.launches += 1
     return I, Psi, IeffBase, {'J': J, 'PsiBar': PsiBar, 'IBar': J,
                               'IeffSrcBar': IeffSrcBar}
@@ -157,34 +141,7 @@ def _contiguous(name, x):
     return x
 
 
-_LIB = None
-build_log = ''
-
-
 def load_library():
     """Build csrc/sweep.cu with nvcc (once per source hash) and load it."""
-    global _LIB, build_log
-    if _LIB is not None:
-        return _LIB
-    nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-    if not os.path.exists(nvcc):
-        raise RuntimeError('nvcc not found: the CUDA sweep kernel is built '
-                           'from source at first use')
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f'sweep_{tag}.so'
-    if not so.exists():
-        tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-        res = subprocess.run([nvcc, *NVCC_FLAGS, '-o', str(tmp), str(_SRC)],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {_SRC}:\n{build_log}')
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.lw_sweep_f64.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    lib.lw_sweep_f64.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+    return _build.load('sweep', {
+        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 4 + [_build.PTR]})

@@ -5,8 +5,8 @@
 - FALC-500: the same setup interpolated to 500 depths in log column mass,
   the problem the compiled reference and bench.py time.
 
-and random smooth rays that check the depth sweep against its plain
-version.
+and random inputs (rays, a line group, slot-packed lines) that check the
+kernels against their plain versions and against the JAX package.
 """
 import numpy as np
 
@@ -42,19 +42,90 @@ def random_rays(NL: int, Nmu: int, Nk: int, seed: int = 0) -> dict:
     six decades of opacity and four of source function (a 9-point
     running mean along depth), decreasing heights, sorted muz."""
     rng = np.random.default_rng(seed)
-
-    def smooth(x, w=9):
-        k = np.ones(w) / w
-        return np.apply_along_axis(
-            lambda r: np.convolve(r, k, mode='same'), -1, x)
     h = np.sort(rng.uniform(0, 1e6, Nk))[::-1].copy()
     muz = np.sort(rng.uniform(0.05, 1.0, Nmu))
     wmu = rng.uniform(0.2, 0.5, Nmu)
-    chi = smooth(10 ** rng.uniform(-8, -2, (2, NL, Nmu, Nk)))
-    src = chi * smooth(10 ** rng.uniform(-2, 2, (2, NL, Nmu, Nk)))
+    chi = _smooth(10 ** rng.uniform(-8, -2, (2, NL, Nmu, Nk)))
+    src = chi * _smooth(10 ** rng.uniform(-2, 2, (2, NL, Nmu, Nk)))
     return dict(chi=chi, srcNum=src, height=h, muz=muz,
                 IupwD=rng.uniform(0, 1, (NL, Nmu)),
                 IupwU=rng.uniform(0, 1, (NL, Nmu)), wmu=wmu)
+
+
+def _smooth(x, w=9):
+    k = np.ones(w) / w
+    return np.apply_along_axis(lambda r: np.convolve(r, k, mode='same'),
+                               -1, x)
+
+
+# (i, j) of the members of random_line_group, sharing levels so that every
+# level sum has several terms
+_GROUP_LEVELS = ((0, 1), (0, 2), (1, 2), (2, 3))
+
+
+def random_line_group(K: int, Nlam: int, Nmu: int, Nk: int, row0: int,
+                      Wu: int, seed: int = 0, Nlev: int = 5) -> dict:
+    """A random same-atom group of K <= 4 overlapping lines on the window
+    [row0, row0 + Wu) as numpy arrays keyed as the arguments of
+    ops.gamma.group_gamma_rates (plus 'levels'): member m's profile and
+    coefficient rows are zero outside its own sub-window, rho != 1."""
+    rng = np.random.default_rng(seed)
+    phi = rng.uniform(0.1, 1.0, (K, 2, Wu, Nmu, Nk))
+    coef = np.stack([rng.uniform(0.5, 1.5, (K, Wu)),
+                     rng.uniform(0.5, 2.0, (K, Wu)),
+                     rng.uniform(0.5, 2.0, (K, Wu)),
+                     rng.uniform(0.1, 1.0, (K, Wu))], axis=-1)
+    for m in range(K):
+        # overlapping sub-windows whose union is the whole window
+        lo = 0 if m == 0 else (m * Wu) // (K + 1)
+        hi = Wu if m == K - 1 else ((m + 2) * Wu) // (K + 1)
+        phi[m, :, :lo] = phi[m, :, hi:] = 0.0
+        coef[m, :lo] = coef[m, hi:] = 0.0
+
+    def rays(lo, hi):
+        return rng.uniform(lo, hi, (2, Nlam, Nmu, Nk))
+    return dict(phi=phi, rho=rng.uniform(0.5, 1.5, (K, Wu, Nk)),
+                Psi=rays(0.0, 1.0), IeffBase=rays(0.0, 1.0), I=rays(0.0, 1.0),
+                srcNum=rays(1.0, 2.0),
+                chiCL=rng.uniform(-0.1, 0.1, (Nlev, Nlam, Nk)),
+                UCL=rng.uniform(0.0, 0.1, (Nlev, Nlam, Nk)),
+                etaC=rng.uniform(0.0, 0.1, (Nlam, Nk)),
+                n=rng.uniform(0.1, 1.0, (Nlev, Nk)), coef=coef,
+                wphi=rng.uniform(0.5, 1.5, (K, Nk)),
+                wmuHalf=rng.uniform(0.1, 0.3, Nmu), row0=row0,
+                levels=_GROUP_LEVELS[:K])
+
+
+def random_slots(C: int, NL: int, Nmu: int, Nk: int, seed: int = 0) -> dict:
+    """Random smooth slot-packed lines as numpy arrays keyed as the array
+    arguments of ops.fused.fused_lambda_step (the boundaries aside, see
+    random_boundaries): every slot holds two line windows with zeros
+    around them; opacities span five decades."""
+    rng = np.random.default_rng(seed)
+    h = np.sort(rng.uniform(0, 1e6, Nk))[::-1].copy()
+    bgChi = _smooth(10 ** rng.uniform(-8, -3, (NL, Nk)))
+    phiP = _smooth(rng.uniform(0.0, 1.0, (C, 2, NL, Nmu, Nk)))
+    for c in range(C):
+        edges = np.sort(rng.choice(np.arange(1, NL), 4, replace=False))
+        mask = np.zeros(NL, bool)
+        mask[edges[0]:edges[1]] = mask[edges[2]:edges[3]] = True
+        phiP[c, :, ~mask] = 0.0
+    chiCo = bgChi * _smooth(rng.uniform(0.0, 10.0, (C, NL, Nk)))
+    return dict(phiP=phiP, chiCo=chiCo,
+                etaCo=chiCo * _smooth(10 ** rng.uniform(-1, 1, (C, NL, Nk))),
+                bgChi=bgChi,
+                bgEta=bgChi * _smooth(10 ** rng.uniform(-2, 2, (NL, Nk))),
+                scaJ=bgChi * rng.uniform(0.0, 0.1, (NL, Nk)), height=h,
+                muz=np.sort(rng.uniform(0.05, 1.0, Nmu)),
+                wmu=rng.uniform(0.2, 0.5, Nmu))
+
+
+def random_boundaries(NL: int, Nmu: int, seed: int = 0) -> dict:
+    """Boundary rows for ops.fused.fused_lambda_step: incident intensities
+    [NL, Nmu] ('data') and Planck-like rows [NL, 2] ('therm')."""
+    rng = np.random.default_rng(seed)
+    return {'data': rng.uniform(0.0, 1.0, (NL, Nmu)),
+            'therm': rng.uniform(1.0, 2.0, (NL, 2))}
 
 
 def h6ca_context(atmos: Atmosphere, Nrays: int = 5, device='cpu') -> Context:

@@ -1,7 +1,9 @@
-"""The depth-sweep wrapper of lightweaver_tpu_torch and its CUDA kernel.
+"""The kernel wrappers of lightweaver_tpu_torch and their CUDA kernels:
+the depth sweep, the line Gamma kernel, the fused lambda step and the two
+toolchain probes.
 
 No jax here, so the file also runs where only torch is installed; on a
-machine with an NVIDIA GPU the kernel is compared with its plain version:
+machine with an NVIDIA GPU each kernel is compared with its plain version:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
@@ -12,8 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from lightweaver_tpu_torch.ops import fused as tfused
+from lightweaver_tpu_torch.ops import gamma as tgamma
+from lightweaver_tpu_torch.ops import probe as tprobe
 from lightweaver_tpu_torch.ops import sweep as tsweep
-from lightweaver_tpu_torch.problems import random_rays
+from lightweaver_tpu_torch.problems import (random_boundaries,
+                                            random_line_group, random_rays,
+                                            random_slots)
+
+SCHEMES = ('mali_full_precond', 'mali_full_precond_pallas',
+           'mali_full_precond_fused')
 
 # one intra-op thread per process: the tier-1 run has six pytest workers
 torch.set_num_threads(1)
@@ -117,3 +127,237 @@ def test_context_on_cuda_goes_through_the_kernel():
     J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
     err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
     assert err.max() < 1e-9
+
+
+def _group_case(K, device='cpu', Nlam=40, Nmu=3, Nk=20, seed=0):
+    """Arguments of ops.gamma.group_gamma_rates for a random group."""
+    g = random_line_group(K, Nlam, Nmu, Nk, row0=5, Wu=Nlam - 12, seed=seed)
+    st = tgamma.group_statics([type('T', (), {'i': i, 'j': j})
+                               for i, j in g.pop('levels')])
+    row0 = g.pop('row0')
+    args = {k: torch.tensor(v, dtype=torch.float64, device=device)
+            for k, v in g.items()}
+    return {**args, 'st': st, 'row0': row0}
+
+
+def _slots_case(C, upper, lower, device='cpu', NL=24, Nmu=3, Nk=20, seed=0):
+    """Arguments of ops.fused.fused_lambda_step for random slots and the
+    named boundary kinds."""
+    def t_(x):
+        return torch.tensor(x, dtype=torch.float64, device=device)
+    args = {k: t_(v) for k, v in random_slots(C, NL, Nmu, Nk, seed).items()}
+    rows = random_boundaries(NL, Nmu, seed)
+    for name, kind in (('upper', upper), ('lower', lower)):
+        args[name] = (kind, None if kind == 'zero' else t_(rows[kind]))
+    return args
+
+
+def _max_rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def test_probe_plain_versions():
+    """2x + 1 and the recurrence o_k = a_k o_{k-1} + b_k (pallas_probe's
+    check: a = 0.5, b = 1 down 64 rows), against numpy."""
+    x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
+    assert torch.equal(tprobe.elementwise(x), x * 2.0 + 1.0)
+    a = torch.full((64, 256), 0.5)
+    b = torch.ones((64, 256))
+    ref, refs = np.zeros(256, np.float32), []
+    for _ in range(64):
+        ref = np.float32(0.5) * ref + np.float32(1.0)
+        refs.append(ref)
+    np.testing.assert_array_equal(tprobe.recurrence(a, b).numpy(),
+                                  np.stack(refs))
+
+
+def test_group_gamma_block_sums_and_moments():
+    """The plain line kernel: G4's blocks sum to the window integrals, PPB
+    is the mu moment of Psi phi, and K = 1 has one zero pair row."""
+    c = _group_case(2)
+    G4, PPB, PairPPB = tgamma.group_gamma_rates(**c)
+    K, _, Wu, Nmu, Nk = c['phi'].shape
+    assert G4.shape == (K, 4, -(-Wu // tgamma.BW), Nk)
+    rows = slice(c['row0'], c['row0'] + Wu)
+    w = c['wmuHalf'][None, None, :, None]
+    Psi = c['Psi'][:, rows]
+    for m in range(K):
+        ref = (w * c['phi'][m] * Psi).sum(dim=(0, 2))
+        np.testing.assert_allclose(PPB[m], ref, rtol=1e-13)
+        # Rij = sum w wl I Vij with Vij = a1 phi
+        wl = c['coef'][m, :, 3][:, None] * c['wphi'][m][None, :]
+        Vij = c['coef'][m, :, 0][None, :, None, None] * c['phi'][m]
+        Rij = (c['I'][:, rows] * Vij * w * wl[None, :, None, :]).sum(
+            dim=(0, 1, 2))
+        np.testing.assert_allclose(G4[m, 2].sum(dim=0), Rij, rtol=1e-12)
+    np.testing.assert_allclose(
+        PairPPB[0], (w * c['phi'][0] * c['phi'][1] * Psi).sum(dim=(0, 2)),
+        rtol=1e-13)
+    _, _, pair1 = tgamma.group_gamma_rates(**_group_case(1))
+    assert pair1.shape[0] == 1 and not pair1.any()
+
+
+def test_group_gamma_checks_inputs():
+    c = _group_case(2)
+    with pytest.raises(ValueError, match='srcNum'):
+        tgamma.group_gamma_rates(**{**c, 'srcNum': c['srcNum'][:, :5]})
+    with pytest.raises(ValueError, match='window'):
+        tgamma.group_gamma_rates(**{**c, 'row0': 30})
+    with pytest.raises(ValueError, match='outside the kernel'):
+        tgamma.group_gamma_rates(**{**c, 'phi': c['phi'].repeat(3, 1, 1, 1,
+                                                                  1)})
+
+
+def test_fused_plain_is_assembly_then_sweep():
+    """The plain fused step is the slot assembly fed to the plain sweep
+    with the boundary values of context.formal_solve."""
+    c = _slots_case(2, 'therm', 'data')
+    I, Psi, IeffB, mom = tfused.fused_lambda_step(**c)
+    chi, src = tfused.assemble(c['phiP'], c['chiCo'], c['etaCo'],
+                               c['bgChi'], c['bgEta'], c['scaJ'])
+    bnu = c['upper'][1]
+    dtau = (0.5 * (chi[0, :, :, 0] + chi[0, :, :, 1])
+            * torch.abs(c['height'][0] - c['height'][1]) / c['muz'][None, :])
+    IupwD = bnu[:, 0:1] - (bnu[:, 1:2] - bnu[:, 0:1]) / dtau
+    ref = tsweep.formal_solve_sweep_plain(chi, src, c['height'], c['muz'],
+                                          IupwD, c['lower'][1], c['wmu'])
+    for a, b in zip((I, Psi, IeffB), ref[:3]):
+        assert torch.equal(a, b)
+    for k in ('J', 'PsiBar', 'IeffSrcBar'):
+        assert torch.equal(mom[k], ref[3][k])
+
+
+def test_fused_checks_inputs():
+    c = _slots_case(2, 'zero', 'therm')
+    with pytest.raises(ValueError, match='boundary kind'):
+        tfused.fused_lambda_step(**{**c, 'upper': ('hot', None)})
+    with pytest.raises(ValueError, match='lower must be'):
+        tfused.fused_lambda_step(**{**c, 'lower': ('therm',
+                                                   c['lower'][1][:, :1])})
+    with pytest.raises(ValueError, match='chiCo'):
+        tfused.fused_lambda_step(**{**c, 'chiCo': c['chiCo'][:1]})
+
+
+def test_kernel_dispatch_never_falls_back():
+    """As for the sweep: a tensor on another device raises, and each CUDA
+    route refuses CPU tensors without counting a launch."""
+    g = _group_case(1)
+    f = _slots_case(1, 'zero', 'zero')
+    x = torch.ones(4)
+
+    def meta(d):
+        return {k: (v.to('meta') if torch.is_tensor(v) else v)
+                for k, v in d.items()}
+    with pytest.raises(RuntimeError, match='no line Gamma kernel'):
+        tgamma.group_gamma_rates(**meta(g))
+    with pytest.raises(RuntimeError, match='no fused kernel'):
+        tfused.fused_lambda_step(**meta(f))
+    with pytest.raises(RuntimeError, match='no probe kernel'):
+        tprobe.elementwise(x.to('meta'))
+    counters = (tgamma.group_gamma_rates_cuda, tfused.fused_cuda,
+                tprobe.elementwise_cuda, tprobe.recurrence_cuda)
+    before = [fn.launches for fn in counters]
+    for call in (lambda: tgamma.group_gamma_rates_cuda(**g),
+                 lambda: tfused.fused_cuda(**f),
+                 lambda: tprobe.elementwise_cuda(x),
+                 lambda: tprobe.recurrence_cuda(x[None], x[None])):
+        with pytest.raises(ValueError, match='CUDA'):
+            call()
+    assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.gpu
+def test_probe_kernels_match_plain():
+    """The elementwise probe is exact (2x is exact, so an FMA rounds as
+    the plain version does); the recurrence's FMA rounds once per row
+    where the plain version rounds twice: 1e-6 in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    x = torch.arange(8 * 128, dtype=torch.float32, device='cuda') \
+        .reshape(8, 128)
+    assert torch.equal(tprobe.elementwise(x), tprobe.elementwise_plain(x))
+    rng = np.random.default_rng(0)
+    a, b = (torch.tensor(rng.uniform(0, 1, (64, 256)), dtype=torch.float32,
+                         device='cuda') for _ in range(2))
+    before = tprobe.recurrence_cuda.launches
+    out = tprobe.recurrence(a, b)
+    torch.cuda.synchronize()
+    assert tprobe.recurrence_cuda.launches == before + 1
+    assert _max_rel(out, tprobe.recurrence_plain(a, b)) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [1, 2, 4])
+def test_group_gamma_kernel_matches_plain(K):
+    """The line kernel against its plain version on the card: the same
+    terms summed rows-then-rays instead of rays-then-rows, and FMA
+    contraction: 1e-11 of each output's maximum."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c = _group_case(K, device='cuda', Nlam=300, Nmu=5, Nk=82, seed=K)
+    plain = tgamma.group_gamma_rates_plain(**c)
+    before = tgamma.group_gamma_rates_cuda.launches
+    kern = tgamma.group_gamma_rates(**c)
+    torch.cuda.synchronize()
+    assert tgamma.group_gamma_rates_cuda.launches == before + 1
+    for name, a, b in zip(('G4', 'PPB', 'PairPPB'), kern, plain):
+        if name == 'PairPPB' and K == 1:
+            assert not a.any()
+            continue
+        assert _max_rel(a, b) < 1e-11, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bcs', [('zero', 'therm'), ('therm', 'data'),
+                                 ('data', 'zero')])
+def test_fused_kernel_matches_plain(bcs):
+    """The fused kernel against its plain version on the card, as the
+    sweep kernel: 1e-9 of each output's maximum (FMA contraction in the
+    assembly and along the depth chain)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c = _slots_case(2, *bcs, device='cuda', NL=200, Nmu=5, Nk=82, seed=3)
+    plain = tfused.fused_lambda_step_plain(**c)
+    before = tfused.fused_cuda.launches
+    kern = tfused.fused_lambda_step(**c)
+    torch.cuda.synchronize()
+    assert tfused.fused_cuda.launches == before + 1
+    for name, a, b in zip(('I', 'Psi', 'IeffBase'), kern[:3], plain[:3]):
+        assert _max_rel(a, b) < 1e-9, name
+    for name in ('J', 'IBar', 'PsiBar', 'IeffSrcBar'):
+        assert _max_rel(kern[3][name], plain[3][name]) < 1e-9, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES[1:])
+def test_scheme_on_cuda_goes_through_its_kernel(scheme):
+    """One MALI iteration of a small problem on the card under each
+    kernel scheme: the scheme's kernel runs (the line kernel once per line
+    group, the fused kernel once and the sweep not at all), and J and
+    Gamma agree with the same scheme on the CPU to 1e-9 (FMA contraction
+    and the card's exp along the depth chain)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+    cpu = h6ca_context(falc_interpolated(20), 3)
+    gpu = h6ca_context(falc_interpolated(20), 3, device='cuda')
+    for ctx in (cpu, gpu):
+        ctx.set_fs_iter_scheme(scheme)
+    cpu.formal_sol_gamma_matrices()
+    counts = (tsweep.sweep_cuda, tgamma.group_gamma_rates_cuda,
+              tfused.fused_cuda)
+    before = [fn.launches for fn in counts]
+    gpu.formal_sol_gamma_matrices()
+    torch.cuda.synchronize()
+    sweeps, groups, fused = (fn.launches - b for fn, b in zip(counts,
+                                                               before))
+    nGroups = sum(len(tgamma.line_groups(a)) for a in gpu.activeAtoms)
+    if scheme == 'mali_full_precond_pallas':
+        assert (sweeps, groups, fused) == (1, nGroups, 0)
+    else:
+        assert (sweeps, groups, fused) == (0, 0, 1)
+    J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
+    err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
+    assert err.max() < 1e-9
+    for ai in range(2):
+        assert _max_rel(gpu._Gamma[ai].cpu(), cpu._Gamma[ai]) < 1e-9
