@@ -22,11 +22,25 @@ result):
    kernel's launch count over that run.
 6. The same under each iteration scheme, 'mali_full_precond_pallas' and
    'mali_full_precond_fused', with the launch counts of their kernels.
-7. FALC-500 (the same setup interpolated to 500 depths, bench.py's
-   problem): 50 formal_sol_gamma_matrices iterations, best of 3, and a
-   per-stage breakdown; then each scheme: best of 3 blocks of 20 and its
-   stage breakdown.
+7. PRD kernel inputs: falc_h6mg (FAL-C, H 6-level + Mg II active, 5
+   rays, Ly-alpha, Ly-beta and Mg II h & k in PRD) after three MALI
+   steps and one prd_redistribute, so rho != 1: the line Gamma kernel on
+   every group (Mg II's four-line group among them), the fused kernel
+   with its three rho-scaled slots and the sweep on the PRD subset rows,
+   each against its plain version; times.
+8. falc_h6mg PRD converged under each scheme through
+   iterate_ctx_se(prd=True), and its hybrid-PRD variant (0-5 km/s
+   outflow) under the default scheme, against their golden runs
+   (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
+   sub-iterations, wall time and launch counts; the kernel schemes must
+   refuse hybrid PRD.  Then a stage breakdown of one PRD iteration.
+9. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
+   bench.py's problem): 50 formal_sol_gamma_matrices iterations, best of
+   3, and a per-stage breakdown; then each scheme: best of 3 blocks of
+   20 and its stage breakdown.
 
+The kernels' JSON record holds phase 7's errors and times and phase 8's
+launch counts for the three kernels of the PRD path, and the probes'.
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, the kernels' JSON record and the ok line.
 """
@@ -189,42 +203,25 @@ def probe_check():
 
 
 def kernel_check():
+    """The sweep kernel against its plain version on random rays at the
+    main path's shapes; times."""
     from lightweaver_tpu_torch.ops import sweep
     from lightweaver_tpu_torch.problems import random_rays
     phase('sweep kernel: compare with the plain version (f64)')
-    names = ('I', 'Psi', 'IeffBase', 'J', 'PsiBar', 'IBar', 'IeffSrcBar')
-    result = {}
     for Nk in (82, 500):
         c = {k: torch.tensor(v, dtype=torch.float64, device='cuda')
              for k, v in random_rays(1046, 5, Nk, seed=Nk).items()}
         plain = sweep.formal_solve_sweep_plain(**c)
         kern = sweep.formal_solve_sweep(**c)
         torch.cuda.synchronize()
-        outs = {n: (a, b) for n, a, b in zip(
-            names, list(kern[:3]) + [kern[3][k] for k in names[3:]],
-            list(plain[:3]) + [plain[3][k] for k in names[3:]])}
-        worstRel = worstAbs = 0.0
-        for n, (a, b) in outs.items():
-            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-                raise AssertionError(f'non-finite {n} at Nk={Nk}')
-            absErr = (a - b).abs().max().item()
-            rel = absErr / b.abs().max().item()
-            worstRel, worstAbs = max(worstRel, rel), max(worstAbs, absErr)
-            print(f'  Nk={Nk} {n}: max|kernel-plain|/max|plain| = {rel:.3e}'
-                  f'  (max abs {absErr:.3e})')
-            if rel > KERNEL_TOL:
-                raise AssertionError(f'kernel disagrees on {n} at Nk={Nk}: '
-                                     f'{rel:.3e} > {KERNEL_TOL}')
-        # turns: plain, kernel, kernel, plain
-        p1 = cuda_ms(lambda: sweep.formal_solve_sweep_plain(**c), 3)
-        k1 = cuda_ms(lambda: sweep.formal_solve_sweep(**c), 20)
-        k2 = cuda_ms(lambda: sweep.formal_solve_sweep(**c), 20)
-        p2 = cuda_ms(lambda: sweep.formal_solve_sweep_plain(**c), 3)
-        print(f'  Nk={Nk}: kernel {k1:.4f} / {k2:.4f} ms, plain '
-              f'{p1:.4f} / {p2:.4f} ms per call (1046 x 5 x 2 rays)')
-        result[Nk] = dict(max_abs_err=worstAbs, max_rel_err=worstRel,
-                          ms=min(k1, k2), plain_ms=min(p1, p2))
-    return result
+        rel, absErr = compare_outputs(f'sweep Nk={Nk}', RAY_NAMES,
+                                      ray_outputs(kern), ray_outputs(plain),
+                                      KERNEL_TOL)
+        print(f'  Nk={Nk} sweep: max|kernel-plain|/max|plain| = {rel:.3e} '
+              f'(bar {KERNEL_TOL}), max abs {absErr:.3e}')
+        timed_pair(f'Nk={Nk} sweep, per call (1046 x 5 x 2 rays)',
+                   lambda: sweep.formal_solve_sweep(**c),
+                   lambda: sweep.formal_solve_sweep_plain(**c))
 
 
 def one_iteration_inputs(Nk):
@@ -262,72 +259,147 @@ def compare_outputs(label, names, kern, plain, tol):
     return worstRel, worstAbs
 
 
+RAY_NAMES = ('I', 'Psi', 'IeffBase', 'J', 'PsiBar', 'IBar', 'IeffSrcBar')
+
+
+def ray_outputs(out):
+    """(I, Psi, IeffBase, moments) as one list in RAY_NAMES order."""
+    return list(out[:3]) + [out[3][k] for k in RAY_NAMES[3:]]
+
+
+def timed_pair(label, kern, plain, reps=20):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain);
+    the min of each pair."""
+    p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
+        (plain, 3), (kern, reps), (kern, reps), (plain, 3)))
+    print(f'  {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / '
+          f'{p2:.4f} ms')
+    return min(k1, k2), min(p1, p2)
+
+
+def check_line_kernel(label, ctx, params, src, rays):
+    """The line Gamma kernel on every line group of one iteration against
+    its plain version; the time of all groups."""
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.ops import gamma
+    itP = build_iteration_fn(dataclasses.replace(ctx.cfg,
+                                                 fsIterScheme=PALLAS))
+    groups = list(itP.line_group_inputs(params, *rays[:3], src,
+                                        itP.pack(params)))
+    worst = [0.0, 0.0]
+    for ai, g, args in groups:
+        plain = gamma.group_gamma_rates_plain(*args)
+        kern = gamma.group_gamma_rates(*args)
+        torch.cuda.synchronize()
+        rel, absErr = compare_outputs(
+            f'{label} atom {ai} group {g["members"]}',
+            ('G4', 'PPB', 'PairPPB'), kern, plain, GAMMA_TOL)
+        worst = [max(worst[0], rel), max(worst[1], absErr)]
+        rhoDev = (args[1] - 1.0).abs().max().item()
+        if rhoDev > 0.0 or len(g['members']) > 3:
+            print(f'  {label} atom {ai} group {g["members"]} (K = '
+                  f'{len(g["members"])}, max|rho-1| = {rhoDev:.3e}): '
+                  f'max|kernel-plain|/max|plain| = {rel:.3e}')
+    print(f'  {label} line Gamma, {len(groups)} groups: '
+          f'max|kernel-plain|/max|plain| = {worst[0]:.3e} (bar '
+          f'{GAMMA_TOL}), max abs {worst[1]:.3e}')
+    ms, plainMs = timed_pair(
+        f'{label} line Gamma, all groups of one iteration',
+        lambda: [gamma.group_gamma_rates(*a) for _, _, a in groups],
+        lambda: [gamma.group_gamma_rates_plain(*a) for _, _, a in groups])
+    return dict(max_abs_err=worst[1], max_rel_err=worst[0], ms=ms,
+                plain_ms=plainMs,
+                K=max(len(g['members']) for _, g, _ in groups))
+
+
+def check_fused_kernel(label, ctx, params, scaJ):
+    """The fused kernel on the fused scheme's inputs for the same state
+    against its plain version; its time."""
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.ops import fused
+    itF = build_iteration_fn(dataclasses.replace(ctx.cfg, fsIterScheme=FUSED))
+    args = itF.fused_inputs(params, scaJ, itF.pack(params))
+    plain = fused.fused_lambda_step_plain(*args)
+    kern = fused.fused_lambda_step(*args)
+    torch.cuda.synchronize()
+    rel, absErr = compare_outputs(f'fused {label}', RAY_NAMES,
+                                  ray_outputs(kern), ray_outputs(plain),
+                                  KERNEL_TOL)
+    C = args[0].shape[0]
+    print(f'  {label} fused (C={C} slots): max|kernel-plain|/max|plain| = '
+          f'{rel:.3e} (bar {KERNEL_TOL}), max abs {absErr:.3e}')
+    ms, plainMs = timed_pair(f'{label} fused, per call',
+                             lambda: fused.fused_lambda_step(*args),
+                             lambda: fused.fused_lambda_step_plain(*args))
+    return dict(max_abs_err=absErr, max_rel_err=rel, ms=ms, plain_ms=plainMs,
+                C=C)
+
+
 def scheme_kernel_check():
     """The line Gamma kernel on every line group and the fused kernel, on
     the inputs of one iteration at Nk=82 and 500, against their plain
     versions; per-iteration times (all groups for the line kernel)."""
-    from lightweaver_tpu_torch.context import build_iteration_fn
-    from lightweaver_tpu_torch.ops import fused, gamma
     phase('scheme kernels: line Gamma (csrc/gamma.cu) and fused lambda '
           'step (csrc/fused.cu) vs their plain versions (f64)')
-    result = {'gamma': {}, 'fused': {}}
     for Nk in (82, 500):
         ctx, params, scaJ, src, rays = one_iteration_inputs(Nk)
-        I, Psi, IeffBase = rays[:3]
-        cfg = ctx.cfg
-        # line kernel: the pack and inputs of the pallas scheme's stage
-        itP = build_iteration_fn(dataclasses.replace(cfg, fsIterScheme=PALLAS))
-        groups = itP.line_group_inputs(params, I, Psi, IeffBase, src,
-                                       itP.pack(params))
-        worst = [0.0, 0.0]
-        for ai, g, args in groups:
-            plain = gamma.group_gamma_rates_plain(*args)
-            kern = gamma.group_gamma_rates(*args)
-            torch.cuda.synchronize()
-            rel, absErr = compare_outputs(
-                f'Nk={Nk} atom {ai} group {g["members"]}',
-                ('G4', 'PPB', 'PairPPB'), kern, plain, GAMMA_TOL)
-            worst = [max(worst[0], rel), max(worst[1], absErr)]
-        print(f'  Nk={Nk} line Gamma, {len(groups)} groups: '
-              f'max|kernel-plain|/max|plain| = {worst[0]:.3e} (bar '
-              f'{GAMMA_TOL}), max abs {worst[1]:.3e}')
-
-        def kernAll():
-            return [gamma.group_gamma_rates(*a) for _, _, a in groups]
-
-        def plainAll():
-            return [gamma.group_gamma_rates_plain(*a) for _, _, a in groups]
-        p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
-            (plainAll, 3), (kernAll, 20), (kernAll, 20), (plainAll, 3)))
-        print(f'  Nk={Nk} line Gamma, all groups of one iteration: kernel '
-              f'{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms')
-        result['gamma'][Nk] = dict(max_abs_err=worst[1], max_rel_err=worst[0],
-                                   ms=min(k1, k2), plain_ms=min(p1, p2))
-
-        # fused kernel: the fused scheme's inputs for the same state
-        itF = build_iteration_fn(dataclasses.replace(cfg, fsIterScheme=FUSED))
-        args = itF.fused_inputs(params, scaJ, itF.pack(params))
-        plain = fused.fused_lambda_step_plain(*args)
-        kern = fused.fused_lambda_step(*args)
-        torch.cuda.synchronize()
-        names = ('I', 'Psi', 'IeffBase', 'J', 'PsiBar', 'IBar', 'IeffSrcBar')
-        rel, absErr = compare_outputs(
-            f'fused Nk={Nk}', names,
-            list(kern[:3]) + [kern[3][k] for k in names[3:]],
-            list(plain[:3]) + [plain[3][k] for k in names[3:]], KERNEL_TOL)
-        print(f'  Nk={Nk} fused: max|kernel-plain|/max|plain| = {rel:.3e} '
-              f'(bar {KERNEL_TOL}), max abs {absErr:.3e}')
-        p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
-            (lambda: fused.fused_lambda_step_plain(*args), 3),
-            (lambda: fused.fused_lambda_step(*args), 20),
-            (lambda: fused.fused_lambda_step(*args), 20),
-            (lambda: fused.fused_lambda_step_plain(*args), 3)))
-        print(f'  Nk={Nk} fused: kernel {k1:.4f} / {k2:.4f} ms, plain '
-              f'{p1:.4f} / {p2:.4f} ms per call (C={args[0].shape[0]} slots)')
-        result['fused'][Nk] = dict(max_abs_err=absErr, max_rel_err=rel,
-                                   ms=min(k1, k2), plain_ms=min(p1, p2))
-        del ctx, params, rays, groups, args, plain, kern
+        check_line_kernel(f'Nk={Nk}', ctx, params, src, rays)
+        check_fused_kernel(f'Nk={Nk}', ctx, params, scaJ)
+        del ctx, params, rays
         torch.cuda.empty_cache()
+
+
+def prd_kernel_check():
+    """The three kernels on the inputs of one iteration of falc_h6mg after
+    three MALI steps and one prd_redistribute (rho != 1): the line Gamma
+    kernel on every group (Mg II's four-line group among them), the fused
+    kernel with C = 3 rho-scaled slots, and the sweep on the PRD subset
+    rows, each against its plain version; times."""
+    from lightweaver_tpu_torch.context import build_prd_subset_fn
+    from lightweaver_tpu_torch.ops import sweep
+    from lightweaver_tpu_torch.problems import h6mg_context
+    phase('PRD kernel inputs: falc_h6mg after 3 MALI steps and one '
+          'prd_redistribute (f64, rho != 1)')
+    ctx = h6mg_context(device='cuda')
+    for _ in range(3):
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+    ctx.prd_redistribute()
+    rhoDev = max((r - 1.0).abs().max().item() for row in ctx.rhoPrd
+                 for r in row if r is not None)
+    print(f'  max|rho-1| over the PRD lines = {rhoDev:.3e}')
+    if not rhoDev > 0.1:
+        raise AssertionError('rho stayed at 1 after prd_redistribute')
+    params = ctx.build_params()
+    scaJ = params['bgSca'] * params['J']
+    chi, src = ctx._iter_fn.gather(params, scaJ)
+    rays = ctx._iter_fn.formal_solve(params, chi, src)
+    result = {'gamma': check_line_kernel('PRD', ctx, params, src, rays),
+              'fused': check_fused_kernel('PRD', ctx, params, scaJ)}
+    if result['gamma']['K'] != 4 or result['fused']['C'] != 3:
+        raise AssertionError(f'expected a K = 4 line group and C = 3 slots, '
+                             f'got {result["gamma"]["K"]} and '
+                             f'{result["fused"]["C"]}')
+
+    sub = ctx._prd_subset_idxs()
+    lines = [(ai, ti) for ai, ti, _, _ in ctx._prd_lines()]
+    args = build_prd_subset_fn(ctx.cfg, sub, lines).sweep_inputs(params)
+    plain = sweep.formal_solve_sweep_plain(*args)
+    kern = sweep.formal_solve_sweep(*args)
+    torch.cuda.synchronize()
+    rel, absErr = compare_outputs('PRD subset sweep', RAY_NAMES,
+                                  ray_outputs(kern), ray_outputs(plain),
+                                  KERNEL_TOL)
+    print(f'  PRD subset sweep ({len(sub)} of {ctx.cfg.Nlam} rows): '
+          f'max|kernel-plain|/max|plain| = {rel:.3e} (bar {KERNEL_TOL}), '
+          f'max abs {absErr:.3e}')
+    ms, plainMs = timed_pair('PRD subset sweep, per call',
+                             lambda: sweep.formal_solve_sweep(*args),
+                             lambda: sweep.formal_solve_sweep_plain(*args))
+    result['sweep'] = dict(max_abs_err=absErr, max_rel_err=rel, ms=ms,
+                           plain_ms=plainMs)
+    del ctx, params, rays, args, plain, kern
+    torch.cuda.empty_cache()
     return result
 
 
@@ -381,7 +453,6 @@ def main_path():
     if counts['sweep'] < nIter:
         raise AssertionError(f'sweep kernel launched {counts["sweep"]} '
                              f'times in {nIter} iterations')
-    return counts['sweep']
 
 
 def scheme_paths():
@@ -389,7 +460,6 @@ def scheme_paths():
     scheme's kernel ran: the line kernel once per group per iteration, the
     fused kernel once per iteration and the sweep never."""
     from lightweaver_tpu_torch.ops import gamma
-    launches = {}
     for scheme in (PALLAS, FUSED):
         phase(f'scheme {scheme}: falc_h6ca on the card vs the golden '
               'reference')
@@ -400,14 +470,149 @@ def scheme_paths():
                 raise AssertionError(
                     f'line kernel launched {counts["gamma"]} times, fewer '
                     f'than {nGroups} groups x {nIter} iterations')
-            launches['gamma'] = counts['gamma']
+        elif counts['fused'] < nIter or counts['sweep'] != 0:
+            raise AssertionError(
+                f'fused scheme launched fused {counts["fused"]} and '
+                f'sweep {counts["sweep"]} times in {nIter} iterations')
+
+
+def converge_h6mg(scheme, hprd=False):
+    """falc_h6mg (PRD, or hybrid PRD with the outflow ramp) converged on
+    the card under ``scheme`` with iterate_ctx_se(prd=True), held against
+    its golden run; the launch counts show the path's kernels ran: the
+    sweep once per MALI step (default, _pallas) and once per PRD
+    sub-iteration (the subset solve, every scheme), the line kernel once
+    per group per MALI step, the fused kernel once per MALI step.
+    Returns (Context, launch counts)."""
+    from lightweaver_tpu_torch import iterate_ctx_se
+    from lightweaver_tpu_torch.ops import gamma
+    from lightweaver_tpu_torch.problems import h6mg_context
+    name = 'hprd' if hprd else 'prd'
+    phase(f'falc_h6mg {name.upper()} under {scheme}: converged on the card '
+          'vs the golden reference')
+    ref = np.load(ROOT / 'tests' / 'golden' / f'falc_h6mg_{name}_ref.npz')
+    t0 = time.perf_counter()
+    ctx = h6mg_context(hprd=hprd, device='cuda')
+    ctx.set_fs_iter_scheme(scheme)
+    torch.cuda.synchronize()
+    print(f'Context on {ctx.device}: Nlam={ctx.cfg.Nlam} Nmu={ctx.cfg.Nmu} '
+          f'Nk={ctx.cfg.Nk}, {len(ctx._prd_lines())} PRD lines, built in '
+          f'{time.perf_counter() - t0:.2f} s')
+
+    # count the PRD sub-iterations of the run
+    redistribute, subIters = ctx.prd_redistribute, []
+
+    def counted(**kwargs):
+        update = redistribute(**kwargs)
+        subIters.append(update.NprdSubIter)
+        return update
+    ctx.prd_redistribute = counted
+
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter = iterate_ctx_se(ctx, NmaxIter=500, prd=True, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del ctx.prd_redistribute
+    nSub = sum(subIters)
+
+    errs = {f'pops_a{ia}': relerr(ctx.popsState[ia]['n'].cpu(),
+                                  ref[f'out_pops_a{ia}']) for ia in range(2)}
+    for key in ('J', 'I'):
+        ours, refA = getattr(ctx, key).cpu().numpy(), ref[f'out_{key}']
+        if hprd:
+            # amplitude-normalised per wavelength, as the golden test
+            errs[key] = float((np.abs(ours - refA).max(axis=1)
+                               / np.abs(refA).max(axis=1)).max())
         else:
-            if counts['fused'] < nIter or counts['sweep'] != 0:
-                raise AssertionError(
-                    f'fused scheme launched fused {counts["fused"]} and '
-                    f'sweep {counts["sweep"]} times in {nIter} iterations')
-            launches['fused'] = counts['fused']
+            errs[key] = relerr(ours, refA)
+    for ai, ti, _, _ in ctx._prd_lines():
+        errs[f'rho_a{ai}t{ti}'] = relerr(ctx.rhoPrd[ai][ti].cpu(),
+                                         ref[f'out_rho_a{ai}t{ti}'])
+    nIterRef = int(ref['out_niter'][0])
+    print(f'converged in {nIter} iterations (reference {nIterRef}); '
+          f'{wall:.2f} s, {wall / nIter * 1e3:.3f} ms/iter '
+          '(formal_sol_gamma_matrices + stat_equil + prd_redistribute, '
+          f'host clock); {nSub} PRD sub-iterations in all')
+    print('max relative error vs golden'
+          + (' (J, I amplitude-normalised per wavelength)' if hprd else '')
+          + ': ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+    print('kernel launches over the run: '
+          + ', '.join(f'{k} {v}' for k, v in counts.items())
+          + f' ({nIter} MALI steps, {nSub} subset solves)')
+    if abs(nIter - nIterRef) > NITER_REF_SLACK:
+        raise AssertionError(f'{nIter} iterations vs reference {nIterRef}')
+    bad = {k: v for k, v in errs.items() if not v < GOLDEN_RTOL}
+    if bad:
+        raise AssertionError(f'golden mismatch above {GOLDEN_RTOL}: {bad}')
+    sizes = [len(g) for a in ctx.activeAtoms for g in gamma.line_groups(a)]
+    nGroups = len(sizes)
+    if scheme == PALLAS:
+        print(f'line kernel: {nGroups} groups per MALI step, K = {sizes}')
+    expected = {
+        'mali_full_precond': dict(sweep=nIter + nSub, gamma=0, fused=0),
+        PALLAS: dict(sweep=nIter + nSub, gamma=nGroups * nIter, fused=0),
+        FUSED: dict(sweep=nSub, gamma=0, fused=nIter)}[scheme]
+    got = {k: counts[k] for k in expected}
+    if got != expected or nSub < 1:
+        raise AssertionError(f'launches {got}, expected {expected}')
+    return ctx, counts
+
+
+def prd_paths():
+    """falc_h6mg PRD under each scheme, then hybrid PRD under the default
+    scheme (the kernel schemes refuse it); then the stage breakdown of one
+    PRD iteration on the default scheme's converged Context."""
+    launches = dict.fromkeys(('sweep', 'gamma', 'fused'), 0)
+    runs = [('mali_full_precond', False), (PALLAS, False), (FUSED, False),
+            ('mali_full_precond', True)]
+    for scheme, hprd in runs:
+        ctx, counts = converge_h6mg(scheme, hprd)
+        for k in launches:
+            launches[k] += counts[k]
+        if scheme == 'mali_full_precond' and not hprd:
+            breakdownCtx = ctx
+    for scheme in (PALLAS, FUSED):
+        try:
+            ctx.set_fs_iter_scheme(scheme)
+        except ValueError as e:
+            print(f'  hybrid PRD under {scheme}: ValueError ({e})')
+        else:
+            raise AssertionError(f'{scheme} accepted hybrid PRD')
+    del ctx
+    prd_breakdown(breakdownCtx)
     return launches
+
+
+def prd_breakdown(ctx, reps=5):
+    """One PRD iteration on the default scheme, stage by stage (host
+    clock, synchronised after each stage, mean of ``reps``): the MALI step
+    (formal_sol_gamma_matrices + stat_equil), prd_scatter_rho for every
+    PRD line, the host pulls of rho that Ng takes, the subset solve; and
+    one whole prd_redistribute call."""
+    phase('PRD stage breakdown: falc_h6mg, default scheme')
+    nLines = len(ctx._prd_lines())
+    stages = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + (time.perf_counter()
+                                                 - t0) / reps
+        return out
+    for _ in range(reps):
+        timed('mali_step', lambda: (ctx.formal_sol_gamma_matrices(),
+                                    ctx.stat_equil()))
+        rhos = timed('prd_scatter_rho', lambda: [ctx._scatter_rho(li)
+                                                 for li in range(nLines)])
+        timed('ng_host_pulls', lambda: [r.cpu().numpy() for r in rhos])
+        timed('subset_solve', ctx._prd_subset_fs)
+        timed('prd_redistribute', ctx.prd_redistribute)
+    print(f'stage breakdown (ms, mean of {reps}; {nLines} PRD lines, '
+          f'{len(ctx._prdSubIdxs)} subset rows): '
+          + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
 
 
 def falc500():
@@ -535,14 +740,17 @@ def main():
     smi = environment()
     build_kernels()
     probes = probe_check()
-    kern = kernel_check()
-    schemeKern = scheme_kernel_check()
-    launches = {'sweep': main_path(), **scheme_paths()}
+    kernel_check()
+    scheme_kernel_check()
+    main_path()
+    scheme_paths()
+    prdKern = prd_kernel_check()
+    launches = prd_paths()
     falc500()
     falc500_schemes()
-    records = {'sweep': dict(kern[82], launches=launches['sweep'])}
-    for name in ('gamma', 'fused'):
-        records[name] = dict(schemeKern[name][82], launches=launches[name])
+    # the kernels' record: this slice's path (PRD) and its kernel inputs
+    records = {name: dict(prdKern[name], launches=launches[name])
+               for name in ('sweep', 'gamma', 'fused')}
     records.update(probes)
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')

@@ -5,12 +5,14 @@ atmospheres, as in lightweaver_tpu (the JAX package, kept as the
 reference), running on PyTorch with hand-written CUDA kernels for an
 NVIDIA Hopper GPU.  The port never imports jax.
 
-Ported so far: the 1D complete-redistribution MALI main path in float64
-(Bezier-3 formal solver, factored Gamma, no Ng, no charge conservation),
-with the depth sweep as the CUDA kernel csrc/sweep.cu, and the two
-iteration schemes of Context.set_fs_iter_scheme with their kernels:
-'mali_full_precond_pallas' (the line Gamma kernel csrc/gamma.cu) and
-'mali_full_precond_fused' (the fused lambda step csrc/fused.cu).  Like
+Ported so far: the 1D MALI main path in float64 (Bezier-3 formal solver,
+factored Gamma, no Ng on the populations, no charge conservation) with
+complete redistribution, angle-averaged PRD and hybrid PRD
+(Context.prd_redistribute, iterate_ctx_se(ctx, prd=True)), the depth
+sweep as the CUDA kernel csrc/sweep.cu, and the two iteration schemes of
+Context.set_fs_iter_scheme with their kernels: 'mali_full_precond_pallas'
+(the line Gamma kernel csrc/gamma.cu) and 'mali_full_precond_fused' (the
+fused lambda step csrc/fused.cu), both with PRD's rho.  Like
 the JAX package, the default working precision is float64; every tensor is
 created with an explicit dtype and device rather than by changing
 torch's global default.
@@ -27,7 +29,7 @@ from .fal import Falc82
 from .iterate_ctx import iterate_ctx_se
 from .iteration_update import IterationUpdate
 from .ops.planck import planck_nu
-from .rh_atoms import CaII_atom, H_6_atom
+from .rh_atoms import CaII_atom, H_6_atom, MgII_atom
 from .utils import ConvergenceError, ExplodingMatrixError, InitialSolution
 
 __version__ = '0.1.0'

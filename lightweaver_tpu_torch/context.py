@@ -1,9 +1,10 @@
 """The Context: device state + the MALI iteration, in PyTorch.
 
-Port of the main path of lightweaver_tpu/context.py: 1D, complete
-redistribution, the 'piecewise_bezier3_1d' formal solver, factored Gamma,
-float64, no Ng and no charge conservation.  Everything outside that slice
-raises ValueError rather than running something else.
+Port of the 1D path of lightweaver_tpu/context.py: the
+'piecewise_bezier3_1d' formal solver, factored Gamma, float64, no Ng on
+the populations and no charge conservation; complete redistribution,
+angle-averaged PRD and hybrid PRD (prd_redistribute).  Everything outside
+that slice raises ValueError rather than running something else.
 
 All ray tensors are direction-major [2, Nlam, Nmu, Nk] (d = 0 the down
 sweep, d = 1 the up sweep), the layout the depth-sweep kernel takes.  The
@@ -16,7 +17,11 @@ iteration is split into three stage functions with one interface each:
 
 The formal solve goes through ops/sweep.py, which launches the CUDA kernel
 on a CUDA device; the other stages are plain torch ops on the chosen
-device, as the JAX package leaves them to XLA.
+device, as the JAX package leaves them to XLA.  PRD lines carry their
+emission-profile ratio rho (params['rhoPrd']) into every stage through
+_uv; between MALI steps prd_redistribute refreshes rho (ops/prd.py) and
+re-solves the PRD-active wavelengths (build_prd_subset_fn, again through
+ops/sweep.py).
 
 Two iteration schemes (Context.set_fs_iter_scheme) put a further kernel
 behind a stage:
@@ -25,6 +30,8 @@ behind a stage:
         same-atom line group; gamma_rates takes the lines from it.
     'mali_full_precond_fused': fused_stage runs ops/fused.py in place of
         gather and formal_solve (chiTot and srcNum are never formed).
+
+Both take rho from the params of each call; neither covers hybrid PRD.
 """
 import dataclasses
 from dataclasses import dataclass, field
@@ -35,14 +42,17 @@ import torch
 
 from . import constants as Const
 from .atmosphere import Atmosphere, ThermalisedRadiation
-from .atomic_model import AtomicLine, AtomicModel, LineProfileState
+from .atomic_model import (AtomicLine, AtomicModel, LineProfileState,
+                           LineType)
 from .background import basic_background
 from .iteration_update import IterationUpdate
 from .ops import fused as fusedOps
 from .ops import gamma as gammaOps
 from .ops.faddeeva import voigt_H
 from .ops.linalg import solve_KxK_over_depth
+from .ops.ng import Ng
 from .ops.planck import planck_nu
+from .ops.prd import interp, prd_scatter_rho
 from .ops.sweep import formal_solve_sweep
 from .utils import ExplodingMatrixError, InitialSolution
 
@@ -69,6 +79,7 @@ class TransStatic:
     wavelength: np.ndarray = None       # [W] window grid
     wlambda: np.ndarray = None          # [W] integration weights
     alpha: np.ndarray = None            # [W] continuum cross-section
+    isPrd: bool = False                 # a PRD line of an active atom
     # device copies of the three arrays above (IterConfig fills them)
     wavelengthT: Optional[torch.Tensor] = None
     wlambdaT: Optional[torch.Tensor] = None
@@ -126,6 +137,16 @@ class IterConfig:
     device: torch.device = torch.device('cpu')
     dtype: torch.dtype = DEFAULT_DTYPE
     fsIterScheme: str = SCHEME_DEFAULT
+    # hybrid PRD (Context._configure_hprd_coeffs; ref: Source/Prd.cpp:
+    # 697-945): the PRD-active wavelength rows, the map from the global
+    # grid to them (-1 elsewhere), the comoving-frame interpolation
+    # coefficients per PRD line ((ai, ti) -> (i0, frac), each
+    # [W, Nmu, 2, Nk] as the JAX package lays them out) and vlos mu [Nmu, Nk]
+    hprd: bool = False
+    prdIdxs: Optional[np.ndarray] = None
+    laToPrdLa: Optional[np.ndarray] = None
+    hprdCoeffs: Optional[Dict] = None
+    vlosMu: Optional[np.ndarray] = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -161,6 +182,14 @@ def _sum_lmd(x, wla, wmu):
                      dim=(0, 1, 2))
 
 
+def line_rho(params, ai: int, ti: int, t: TransStatic):
+    """The PRD emission-profile ratio rho [W, Nk] of line (ai, ti) in
+    this call's params, or None (complete redistribution)."""
+    if not t.isPrd or params.get('rhoPrd') is None:
+        return None
+    return params['rhoPrd'][ai][ti]
+
+
 def _uv(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic,
         lo: Optional[int] = None, hi: Optional[int] = None):
     """Uji, Vij, Vji for one transition on the GLOBAL wavelength rows
@@ -176,6 +205,23 @@ def _uv(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic,
         hnu_4pi = Const.HC_FOURPI * (t.lambda0 / lam)
         Vij = hnu_4pi[None, :, None, None] * t.Bij * phi
         Vji = (t.Bji / t.Bij) * Vij
+        rho = line_rho(params, ai, ti, t)
+        if rho is not None:
+            i0s = params.get('hprdI0')
+            if cfg.hprd and i0s is not None and i0s[ai][ti] is not None:
+                # comoving-frame rho: linear interpolation at the
+                # Doppler-shifted window position per (d, mu, k); rho
+                # stays full-window (shifts cross rows), i0/frac slice
+                # (ref: Source/LwTransition.hpp:118-126)
+                i0 = i0s[ai][ti][:, sl]
+                frac = params['hprdFrac'][ai][ti][:, sl]
+                kIdx = torch.arange(rho.shape[1], device=rho.device)
+                Vji = Vji * ((1.0 - frac) * rho[i0, kIdx]
+                             + frac * rho[i0 + 1, kIdx])
+            else:
+                # emission profile psi = rho phi: scales Vji and Uji
+                # (ref: Source/LwAtom.hpp:119-123)
+                Vji = Vji * rho[sl][None, :, None, :]
         Uji = (t.Aji / t.Bji) * Vji
     else:
         nStar = params['allNStar'][ai]
@@ -264,14 +310,29 @@ def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
     """Boundary intensities, then the depth sweep of every ray with its
     angular moments (ops/sweep.py: the CUDA kernel on a CUDA device).
     Returns (I, Psi, IeffBase, moments)."""
+    Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiTot,
+                                         cfg.wavelengthT)
+    return formal_solve_sweep(chiTot, srcNum, params['height'], cfg.muzT,
+                              Iupw_d, Iupw_u, cfg.wmuT)
+
+
+def _upwind_intensities(cfg: IterConfig, params, chiTot, lam, rows=None):
+    """Boundary intensities [NL, Nmu] of the down (upper BC) and up (lower
+    BC) sweeps over the rows of chiTot [2, NL, Nmu, Nk], whose wavelengths
+    are lam [NL] and, when ``rows`` is given, global grid rows ``rows``."""
     T = params['temperature']
     height = params['height']
-    muz, wmu, lam = cfg.muzT, cfg.wmuT, cfg.wavelengthT
+    muz = cfg.muzT
     Nk = cfg.Nk
+    shape = chiTot.shape[1:3]
+
+    def data(key):
+        x = params[key]
+        return x if rows is None else x[rows]
 
     # down sweep (d = 0): upper BC
     if params.get('upperBcData') is not None:
-        Iupw_d = params['upperBcData']
+        Iupw_d = data('upperBcData')
     elif cfg.upperThermalised:
         Bnu0 = planck_nu(T[0], lam)
         Bnu1 = planck_nu(T[1], lam)
@@ -279,12 +340,11 @@ def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
                 * torch.abs(height[0] - height[1]) / muz[None, :])
         Iupw_d = Bnu0[:, None] - (Bnu1[:, None] - Bnu0[:, None]) / dtau
     else:
-        Iupw_d = torch.zeros((cfg.Nlam, cfg.Nmu), dtype=cfg.dtype,
-                             device=cfg.device)
+        Iupw_d = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
 
     # up sweep (d = 1): lower BC
     if params.get('lowerBcData') is not None:
-        Iupw_u = params['lowerBcData']
+        Iupw_u = data('lowerBcData')
     elif cfg.lowerThermalised:
         BnuN = planck_nu(T[Nk - 1], lam)
         BnuN1 = planck_nu(T[Nk - 2], lam)
@@ -292,11 +352,8 @@ def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
                 * torch.abs(height[Nk - 1] - height[Nk - 2]) / muz[None, :])
         Iupw_u = BnuN[:, None] - (BnuN1[:, None] - BnuN[:, None]) / dtau
     else:
-        Iupw_u = torch.zeros((cfg.Nlam, cfg.Nmu), dtype=cfg.dtype,
-                             device=cfg.device)
-
-    return formal_solve_sweep(chiTot, srcNum, height, muz, Iupw_d, Iupw_u,
-                              wmu)
+        Iupw_u = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
+    return Iupw_d, Iupw_u
 
 
 # ---- scheme 'mali_full_precond_fused': stages 1 and 2 in one kernel ----
@@ -331,8 +388,8 @@ def fused_pack(cfg: IterConfig, params):
 def fused_inputs(cfg: IterConfig, params, scaJ, pack):
     """The arguments of ops/fused.py:fused_lambda_step for this iteration:
     the background rows (continua folded in), the slots' coefficient rows
-    (they hold the populations) and the boundaries; and the continuum eta
-    rows of each atom of allAtoms."""
+    (they hold the populations and a PRD line's rho) and the boundaries;
+    and the continuum eta rows of each atom of allAtoms."""
     Nlam, Nk = cfg.Nlam, cfg.Nk
 
     def zeros(*shape):
@@ -359,8 +416,14 @@ def fused_inputs(cfg: IterConfig, params, scaJ, pack):
             n = params['allPops'][ai]
             gS, uS = t.Bji / t.Bij, t.Aji / t.Bji
             ni, nj = n[t.i][None, :], n[t.j][None, :]
-            chiCo[c, t.Nblue:t.Nred] = (ni - gS * nj) * a1[:, None]
-            etaCo[c, t.Nblue:t.Nred] = (uS * gS) * a1[:, None] * nj
+            rho = line_rho(params, ai, ti, t)
+            if rho is None:
+                chiCo[c, t.Nblue:t.Nred] = (ni - gS * nj) * a1[:, None]
+                etaCo[c, t.Nblue:t.Nred] = (uS * gS) * a1[:, None] * nj
+            else:
+                chiCo[c, t.Nblue:t.Nred] = (ni - gS * rho * nj) * a1[:, None]
+                etaCo[c, t.Nblue:t.Nred] = ((uS * gS) * a1[:, None] * rho
+                                            * nj)
 
     upper = _boundary(cfg, params, 'upperBcData', cfg.upperThermalised, 0, 1)
     lower = _boundary(cfg, params, 'lowerBcData', cfg.lowerThermalised,
@@ -396,10 +459,11 @@ def fused_stage(cfg: IterConfig, params, scaJ, pack):
 def line_pack(cfg: IterConfig, params):
     """The iteration-constant input of the line Gamma kernel: per active
     atom, per line group (ops/gamma.py:line_groups), the members' profiles
-    on the union window [K, 2, Wu, Nmu, Nk], rho (ones: complete
-    redistribution), the coefficient rows coef [K, Wu, 4] = (a1,
-    Bji/Bij, Aji/Bji, wlambda 4pi/hc), zero outside each member's window,
-    wphi [K, Nk] and the level statics."""
+    on the union window [K, 2, Wu, Nmu, Nk], the coefficient rows
+    coef [K, Wu, 4] = (a1, Bji/Bij, Aji/Bji, wlambda 4pi/hc), zero outside
+    each member's window, wphi [K, Nk] and the level statics.  rho
+    changes between calls (prd_redistribute), so line_group_inputs builds
+    it from each call's params."""
     packs = []
     for ai, a in enumerate(cfg.activeAtoms):
         groups = []
@@ -422,7 +486,6 @@ def line_pack(cfg: IterConfig, params):
                 coef[m, lo:lo + t.W, 3] = t.wlambda * Const.FOURPI_HC
             groups.append({
                 'members': members, 'row0': row0, 'phi': phi,
-                'rho': torch.ones_like(phi[:, 0, :, 0, :]),
                 'coef': cfg.tensor(coef),
                 'wphi': torch.stack([params['wphi'][ai][ti]
                                      for ti in members]),
@@ -435,8 +498,10 @@ def line_group_inputs(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
                       pack):
     """For every line group of every active atom, (ai, the group's pack,
     the arguments of ops/gamma.py:group_gamma_rates): the group's constant
-    input, the ray tensors, and the atom's per-level continuum chi/U rows
-    and continuum eta of this iteration."""
+    input, the members' rho [K, Wu, Nk] from this call's params (ones
+    outside a PRD member's window and for the other lines), the ray
+    tensors, and the atom's per-level continuum chi/U rows and continuum
+    eta of this iteration."""
     Nlam, Nk = cfg.Nlam, cfg.Nk
     wmuHalf = 0.5 * cfg.wmuT
     for ai, a in enumerate(cfg.activeAtoms):
@@ -456,7 +521,14 @@ def line_group_inputs(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
                                  t.Nred)[0, :, 0, :]
         n = params['allPops'][ai].contiguous()
         for g in pack[ai]:
-            yield ai, g, (g['phi'], g['rho'], Psi, IeffBase, I, srcNum,
+            rho = torch.ones_like(g['phi'][:, 0, :, 0, :])
+            for m, ti in enumerate(g['members']):
+                t = a.trans[ti]
+                r = line_rho(params, ai, ti, t)
+                if r is not None:
+                    lo = t.Nblue - g['row0']
+                    rho[m, lo:lo + t.W] = r
+            yield ai, g, (g['phi'], rho, Psi, IeffBase, I, srcNum,
                           chiCL, UCL, etaC, n, g['coef'], g['wphi'], wmuHalf,
                           g['statics'], g['row0'])
 
@@ -483,7 +555,7 @@ def line_kernel_stage(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
         for m, ti in enumerate(members):
             t = a.trans[ti]
             a1 = g['coef'][m, :, 0][:, None]
-            rho = g['rho'][m]
+            rho = args[1][m]
             gS, uS = t.Bji / t.Bij, t.Aji / t.Bji
             chiFac.append((n[t.i][None, :] - gS * rho * n[t.j][None, :])
                           * a1)
@@ -749,12 +821,18 @@ def build_iteration_fn(cfg: IterConfig):
       'crsw': collisional-radiative switching factor (float),
       'phi': nested [atom][trans] -> [2, W, Nmu, Nk] or None,
       'wphi': nested [atom][trans] -> [Nk] or None,
+      'rhoPrd': nested [atom][trans] -> [W, Nk] for PRD lines, else None
+                (the key may be absent: complete redistribution),
+      'vlosMu': [Nmu, Nk], 'hprdI0'/'hprdFrac': nested [atom][trans] ->
+                [2, W, Nmu, Nk] (int64 / float) for PRD lines, under
+                cfg.hprd only,
       'upperBcData'/'lowerBcData': [Nlam, Nmu] or None,
       'pack': the scheme's iteration-constant kernel input (iteration.pack)
               or None; built in the call when absent,
     }
     Returns {'Gamma', 'Rij', 'Rji', 'J', 'I' (emergent [Nlam, Nmu]),
-    'dJ' (0-d tensor)}.  The stages are exposed as attributes.
+    'dJ' (0-d tensor)}, and under cfg.hprd 'JRest' [Nprd, Nk].  The
+    stages are exposed as attributes.
 
     cfg.fsIterScheme selects the stages: 'mali_full_precond' runs gather,
     formal_solve and gamma_rates; 'mali_full_precond_pallas' adds the line
@@ -793,8 +871,11 @@ def build_iteration_fn(cfg: IterConfig):
             Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
         Gamma, Rij, Rji = gamma_rates(cfg, params, I, Psi, IeffBase, srcNum,
                                       moments, lineTerms, srcRowsA)
-        return {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
-                'I': I[1, :, :, 0], 'dJ': dJ}
+        out = {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
+               'I': I[1, :, :, 0], 'dJ': dJ}
+        if cfg.hprd:
+            out['JRest'] = rest_frame_J(cfg, params, cfg.wavelengthT, I)
+        return out
 
     iteration.pack = pack
     iteration.gather = lambda params, scaJ: gather(
@@ -812,6 +893,116 @@ def build_iteration_fn(cfg: IterConfig):
     iteration.gamma_rates = lambda params, *rays: gamma_rates(
         cfg, _with_all_atoms(params), *rays)
     return iteration
+
+
+def rest_frame_J(cfg: IterConfig, params, lam, I):
+    """Hybrid PRD's rest-frame mean intensity JRest [Nprd, Nk] on the
+    PRD-active rows cfg.prdIdxs: each ray's spectrum I [2, NL, Nmu, Nk] on
+    the wavelengths lam [NL], Doppler-shifted by its vlos mu, resampled
+    linearly at the rest wavelengths, then the mu moment -- the adjoint-
+    tent accumulation of the reference expressed as resampling (ref:
+    Source/Prd.cpp:816-897, SimdFullIterationTemplates.hpp:397-408)."""
+    lamPrd = cfg.wavelengthT[torch.as_tensor(cfg.prdIdxs, device=cfg.device)]
+    sgn = cfg.tensor([-1.0, 1.0])
+    fac = 1.0 + (sgn[:, None, None] * params['vlosMu'][None]
+                 / Const.CLight)                         # [2, Nmu, Nk]
+    IRest = interp(lamPrd, lam * fac[..., None],
+                   I.permute(0, 2, 3, 1))                # [2, Nmu, Nk, Nprd]
+    return torch.sum(IRest * (0.5 * cfg.wmuT)[None, :, None, None],
+                     dim=(0, 1)).T
+
+
+def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
+                        prdLines: List[tuple]):
+    """Formal solution restricted to the PRD-active wavelength subset.
+
+    The reference's ``FsMode::UpdateJ | UpdateRates | PrdOnly``
+    (ref: Source/PrdTemplates.hpp:19-113), as lightweaver_tpu's
+    build_prd_subset_fn: solve I only at the ``subIdxs`` rows of the
+    global grid, update J (and JRest under hybrid PRD) there, and
+    accumulate Rij/Rji for the PRD lines alone; Gamma and all other
+    transitions' rates are untouched.  The sweep is ops/sweep.py's, the
+    CUDA kernel on a CUDA device, over the Nsub rows.
+
+    ``subIdxs`` is a sorted index array; each PRD line's window must be
+    contained in it.  ``prdLines`` is a list of (ai, ti) into
+    cfg.activeAtoms.  Returns prd_subset_stage(params) -> {'J' [Nsub, Nk],
+    'I' [Nsub, Nmu] (up sweep at k = 0), 'dJ', 'Rij', 'Rji' (per PRD
+    line, [Nk])}, plus 'JRest' [Nprd, Nk] under cfg.hprd.
+    """
+    subIdxs = np.asarray(subIdxs, np.int64)
+    Nsub = len(subIdxs)
+    Nmu, Nk = cfg.Nmu, cfg.Nk
+    subT = torch.as_tensor(subIdxs, device=cfg.device)
+    lamSub = cfg.wavelengthT[subT]
+
+    # per transition that meets the subset: the subset positions [p0, p1)
+    # inside its window, the global rows [lo, hi) they span, and the
+    # window rows relative to lo (a slice where they are contiguous)
+    spans = []
+    for ai, a in enumerate(cfg.allAtoms):
+        for ti, t in enumerate(a.trans):
+            p0, p1 = np.searchsorted(subIdxs, [t.Nblue, t.Nred])
+            if p1 <= p0:
+                continue
+            lo, hi = int(subIdxs[p0]), int(subIdxs[p1 - 1]) + 1
+            rows = (slice(None) if hi - lo == p1 - p0 else torch.as_tensor(
+                subIdxs[p0:p1] - lo, device=cfg.device))
+            spans.append((ai, ti, int(p0), int(p1), lo, hi, rows))
+
+    lineStarts = []
+    for (ai, ti) in prdLines:
+        t = cfg.activeAtoms[ai].trans[ti]
+        s0 = int(np.searchsorted(subIdxs, t.Nblue))
+        if not np.array_equal(subIdxs[s0:s0 + t.W],
+                              np.arange(t.Nblue, t.Nred)):
+            raise ValueError('PRD line window not contained in subset')
+        lineStarts.append(s0)
+
+    def sweep_inputs(params):
+        """The arguments of formal_solve_sweep on the subset rows."""
+        shape = (2, Nsub, Nmu, Nk)
+        chiSub = params['bgChi'][subT][None, :, None, :].expand(shape).clone()
+        etaSub = params['bgEta'][subT][None, :, None, :].expand(shape).clone()
+        for ai, ti, p0, p1, lo, hi, rows in spans:
+            c, e = chi_eta_w(cfg, params, ai, ti, lo, hi)
+            chiSub[:, p0:p1] += c[:, rows]
+            etaSub[:, p0:p1] += e[:, rows]
+
+        srcSub = etaSub + (params['bgSca'][subT]
+                           * params['J'][subT])[None, :, None, :]
+        Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiSub, lamSub,
+                                             rows=subT)
+        return (chiSub, srcSub, params['height'], cfg.muzT, Iupw_d, Iupw_u,
+                cfg.wmuT)
+
+    def prd_subset_stage(params):
+        params = _with_all_atoms(params)
+        I, Psi, IeffBase, moments = formal_solve_sweep(*sweep_inputs(params))
+        Jdag = params['J'][subT]
+        Jnew = moments['J']
+        dJ = torch.max(torch.abs(1.0 - torch.where(
+            Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
+
+        wmu2 = 0.5 * cfg.wmuT
+        RijOut, RjiOut = [], []
+        for (ai, ti), s0 in zip(prdLines, lineStarts):
+            t = cfg.activeAtoms[ai].trans[ti]
+            I_w = I[:, s0:s0 + t.W]
+            Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
+            wla = _wla(cfg, params, ai, ti, t)
+            RijOut.append(_sum_lmd(I_w * Vij, wla, wmu2))
+            RjiOut.append(_sum_lmd(Uji + I_w * Vji, wla, wmu2))
+
+        out = {'J': Jnew, 'I': I[1, :, :, 0], 'dJ': dJ, 'Rij': RijOut,
+               'Rji': RjiOut}
+        if cfg.hprd:
+            out['JRest'] = rest_frame_J(cfg, params, lamSub, I)
+        return out
+
+    prd_subset_stage.sweep_inputs = lambda params: sweep_inputs(
+        _with_all_atoms(params))
+    return prd_subset_stage
 
 
 def _stat_eq_solve(Gamma, n, nTotal):
@@ -838,9 +1029,11 @@ class Context:
 
     Mirrors the user-facing API of lightweaver_tpu.Context on the ported
     slice: construct from (atmos, spect, eqPops), then iterate
-    formal_sol_gamma_matrices / stat_equil to convergence (e.g. with
-    iterate_ctx_se), and read I / J / populations.  All state lives on
-    ``device``; on a CUDA device the formal solve runs the CUDA kernel.
+    formal_sol_gamma_matrices / stat_equil (and prd_redistribute for PRD
+    lines) to convergence (e.g. with iterate_ctx_se(ctx, prd=True)), and
+    read I / J / populations / rhoPrd.  All state lives on ``device``; on
+    a CUDA device the formal solve runs the CUDA kernel.  ``hprd=True``
+    selects hybrid PRD (comoving-frame rho, default scheme only).
     """
 
     def __init__(self, atmos: Atmosphere, spect, eqPops,
@@ -853,7 +1046,6 @@ class Context:
                  fsIterScheme: Optional[str] = None):
         unsupported = {
             'a 2D/3D atmosphere': atmos.Ndim != 1,
-            'hybrid PRD (hprd=True)': hprd,
             'Ng acceleration (ngOptions)': ngOptions is not None,
             'charge conservation': conserveCharge,
             f'formalSolver={formalSolver!r}':
@@ -922,6 +1114,29 @@ class Context:
         self.compute_collisions()
         self.compute_profiles()
 
+        # PRD emission-profile ratio rho per (active atom, PRD line);
+        # detailed atoms padded with None so all-atom indexing works
+        self.rhoPrd = [[t_(np.ones((t.W, atmos.Nspace)))
+                        if (t.isLine and t.isPrd) else None
+                        for t in a.trans] for a in activeAtoms]
+        self.rhoPrd += [[None] * len(a.trans) for a in detailedAtoms]
+        self.JRest = None
+        if hprd and self._prd_lines():
+            self._configure_hprd_coeffs()
+        # persistent per-line Ng accelerators on rho.  The reference
+        # tracks rho with Ng(0,0,0) (ref: PrdTemplates.hpp:205,263);
+        # prdNgOptions opts in to actual extrapolation.
+        self.prdNgOptions = None
+        self._prdNgs = None
+        # 'subset' = the reference's FsMode::PrdOnly (the formal solution
+        # of a rho sub-iteration covers the PRD-active wavelengths only);
+        # 'full' re-runs the full-grid MALI step instead
+        self.prdFsMode = 'subset'
+        self._crswVal = 1.0
+        self._prd_fs_fn = None
+        self._prdSubIdxs = None
+        self._rhoHost = {}
+
         self._iter_fn = build_iteration_fn(self.cfg)
         self._params = None
         self._Gamma = None
@@ -950,14 +1165,15 @@ class Context:
             Nblue = spect.blueIdx[ident]
             Nred = spect.redIdx[ident]
             grid = spect.wavelength[Nblue:Nred]
-            # PRD-typed lines run with rho = 1 (complete redistribution)
-            # until prd_redistribute is ported
+            # a PRD-typed line of a detailed (fixed-population) atom runs
+            # with complete redistribution, as in the JAX package
             if isinstance(t, AtomicLine):
                 ts = TransStatic(
                     isLine=True, i=t.i, j=t.j, Nblue=Nblue, Nred=Nred,
                     lambda0=t.lambda0, Aji=t.Aji, Bji=t.Bji, Bij=t.Bij,
                     wavelength=np.asarray(grid),
-                    wlambda=_wlambda(grid, Const.CLight / t.lambda0))
+                    wlambda=_wlambda(grid, Const.CLight / t.lambda0),
+                    isPrd=(t.type == LineType.PRD and not detailed))
             else:
                 ts = TransStatic(
                     isLine=False, i=t.i, j=t.j, Nblue=Nblue, Nred=Nred,
@@ -974,8 +1190,9 @@ class Context:
     # ------------------------------------------------------------------
     def compute_profiles(self):
         """Voigt profiles phi [W, Nmu, 2, Nspace] and normalisation wphi
-        per line, evaluated in f64 on the device
-        (ref: Source/FormalScalar.cpp:28-134)."""
+        per line, evaluated in f64 on the device, with each line's damping
+        aDamp and elastic collision rate Qelast [Nspace] (numpy; PRD's
+        inputs) (ref: Source/FormalScalar.cpp:28-134)."""
         atmos = self.atmos
         t_ = self.cfg.tensor
         vlosMu = t_(atmos.vlos_mu())                    # [Nmu, Nk]
@@ -984,13 +1201,14 @@ class Context:
         self.phi = []      # [atom][trans] -> [W, Nmu, 2, Nk] or None
         self.wphi = []     # [atom][trans] -> [Nk] or None
         self.aDamp = []    # [atom][trans] -> [Nk] np or None
+        self.Qelast = []   # [atom][trans] -> [Nk] np or None
         for a in self.cfg.allAtoms:
             vBroad = a.model.vBroad(atmos)
-            phiA, wphiA, aDampA = [], [], []
+            phiA, wphiA, aDampA, QelastA = [], [], [], []
             lineByIdx = {(l.i, l.j): l for l in a.model.lines}
             for t in a.trans:
                 if not t.isLine:
-                    for lst in (phiA, wphiA, aDampA):
+                    for lst in (phiA, wphiA, aDampA, QelastA):
                         lst.append(None)
                     continue
                 line = lineByIdx[(t.i, t.j)]
@@ -1013,6 +1231,7 @@ class Context:
                     default_voigt_callback=voigt_cb,
                     vBroad=np.asarray(vBroad)))
                 aDampA.append(np.asarray(res.aDamp))
+                QelastA.append(np.asarray(res.Qelast))
                 phi = torch.as_tensor(res.phi, dtype=self.dtype,
                                       device=self.device)
                 wphi_inv = torch.einsum('lmdk,l,m->k', phi, t.wlambdaT,
@@ -1022,8 +1241,11 @@ class Context:
             self.phi.append(phiA)
             self.wphi.append(wphiA)
             self.aDamp.append(aDampA)
-        # the params (and the schemes' packed profiles) hold the profiles
+            self.Qelast.append(QelastA)
+        # the params (and the schemes' packed profiles) hold the profiles,
+        # the PRD statics the damping
         self._params = None
+        self._prdStatics = None
 
     # ------------------------------------------------------------------
     def compute_collisions(self, force: bool = False):
@@ -1071,11 +1293,40 @@ class Context:
             'phi': [[None if p is None else phi_direction_major(p)
                      for p in pa] for pa in self.phi],
             'wphi': self.wphi,
+            'rhoPrd': self.rhoPrd,
             'upperBcData': self._bc_data(self.atmos.upperBc),
             'lowerBcData': self._bc_data(self.atmos.lowerBc),
+            'vlosMu': (self.cfg.tensor(self.cfg.vlosMu) if self.cfg.hprd
+                       else None),
+            'hprdI0': self._hprd_coeff_params(0),
+            'hprdFrac': self._hprd_coeff_params(1),
         }
         params['pack'] = self._iter_fn.pack(params)
         return params
+
+    def _hprd_coeff_params(self, which: int):
+        """Nested [atom][trans] list of the hybrid-PRD interpolation
+        coefficients in the direction-major layout [2, W, Nmu, Nk]
+        (0 = the i0 indices, int64; 1 = the fractions), None-padded like
+        phi; None without hybrid PRD."""
+        if not self.cfg.hprd:
+            return None
+        out = []
+        for ai, a in enumerate(self.cfg.allAtoms):
+            row = []
+            for ti in range(len(a.trans)):
+                c = self.cfg.hprdCoeffs.get((ai, ti))
+                if c is None:
+                    row.append(None)
+                    continue
+                x = np.moveaxis(c[which], 2, 0)
+                row.append(torch.as_tensor(
+                    np.ascontiguousarray(x, np.int64) if which == 0
+                    else np.ascontiguousarray(x),
+                    dtype=torch.int64 if which == 0 else self.dtype,
+                    device=self.device))
+            out.append(row)
+        return out
 
     # ------------------------------------------------------------------
     def set_fs_iter_scheme(self, name: str):
@@ -1092,10 +1343,11 @@ class Context:
         supported = {
             SCHEME_DEFAULT: (lambda cfg: True, ''),
             SCHEME_FUSED: (fusedOps.fused_scheme_supported,
-                           'needs float64'),
+                           'needs float64 and no hybrid PRD'),
             SCHEME_PALLAS: (gammaOps.gamma_scheme_supported,
-                            'needs float64 and same-atom line groups of at '
-                            f'most {gammaOps.KMAX} overlapping lines')}
+                            'needs float64, no hybrid PRD and same-atom '
+                            f'line groups of at most {gammaOps.KMAX} '
+                            'overlapping lines')}
         if base not in supported:
             raise ValueError(f'Unknown iteration scheme {name!r}; '
                              "available: 'mali_full_precond', "
@@ -1108,6 +1360,7 @@ class Context:
         self.cfg = dataclasses.replace(self.cfg, fsIterScheme=base)
         self._iter_fn = build_iteration_fn(self.cfg)
         self._params = None
+        self._prd_fs_fn = None
 
     def get_fs_iter_scheme_properties(self, fsIterScheme=None) -> dict:
         """Properties of the selected iteration scheme, with the
@@ -1134,12 +1387,16 @@ class Context:
         p['pops'] = [st['n'] for st in self.popsState]
         p['C'] = self._deviceC()
         p['crsw'] = float(crswVal)
+        p['rhoPrd'] = self.rhoPrd
         out = self._iter_fn(p)
+        self._crswVal = crswVal
         self._Gamma = out['Gamma']
         self._Rij = out['Rij']
         self._Rji = out['Rji']
         self.J = out['J']
         self.I = out['I']
+        if 'JRest' in out:
+            self.JRest = out['JRest']
         return IterationUpdate(self, updatedJ=True, dJMax=out['dJ'],
                                crsw=crswVal)
 
@@ -1184,7 +1441,234 @@ class Context:
             dPops.append(float(vals[2 * ai]))
         return IterationUpdate(self, updatedPops=True, dPops=dPops)
 
-    def prd_redistribute(self, *args, **kwargs):
-        raise ValueError('PRD redistribution is not ported to '
-                         'lightweaver_tpu_torch yet; PRD-typed lines run '
-                         'with complete redistribution')
+    # ------------------------------------------------------------------
+    def _configure_hprd_coeffs(self):
+        """Precompute the hybrid-PRD machinery: the PRD-active wavelength
+        subset and, per PRD line, the (i0, frac) linear-interpolation
+        coefficients locating each window wavelength's Doppler-shifted
+        (comoving) position per (mu, +/-, depth), [W, Nmu, 2, Nk] as the
+        JAX package computes them (_hprd_coeff_params moves them to the
+        port's direction-major layout).
+        ref: Source/Prd.cpp:697-945"""
+        cfg = self.cfg
+        cfg.hprd = True
+        vlosMu = np.asarray(self.atmos.vlos_mu())       # [Nmu, Nk]
+        cfg.vlosMu = vlosMu
+
+        prdActive = np.zeros(cfg.Nlam, bool)
+        for ai, ti, a, t in self._prd_lines():
+            prdActive[t.Nblue:t.Nred] = True
+        cfg.prdIdxs = np.nonzero(prdActive)[0]
+        laToPrd = np.full(cfg.Nlam, -1, np.int64)
+        laToPrd[cfg.prdIdxs] = np.arange(len(cfg.prdIdxs))
+        cfg.laToPrdLa = laToPrd
+
+        sgn = np.array([-1.0, 1.0])
+        fac = 1.0 + (sgn[None, :, None] * vlosMu[:, None, :]
+                     / Const.CLight)                    # [Nmu, 2, Nk]
+        cfg.hprdCoeffs = {}
+        for ai, ti, a, t in self._prd_lines():
+            w = t.wavelength                            # [W]
+            lamRest = w[:, None, None, None] * fac[None]   # [W, Nmu, 2, Nk]
+            i0 = np.searchsorted(w, lamRest, side='right') - 1
+            i0 = np.clip(i0, 0, t.W - 2)
+            frac = (lamRest - w[i0]) / (w[i0 + 1] - w[i0])
+            frac = np.clip(frac, 0.0, 1.0)
+            cfg.hprdCoeffs[(ai, ti)] = (i0.astype(np.int32),
+                                        frac.astype(np.float64))
+
+    # ------------------------------------------------------------------
+    def _prd_lines(self):
+        return [(ai, ti, a, t)
+                for ai, a in enumerate(self.cfg.activeAtoms)
+                for ti, t in enumerate(a.trans) if t.isLine and t.isPrd]
+
+    def _prd_subset_idxs(self) -> np.ndarray:
+        """Static PRD-active wavelength subset for redistribution
+        sub-iterations: the union of the PRD lines' windows, widened
+        (for hPRD) to every wavelength whose Doppler-shifted neighbour
+        range scatters into the PRD region
+        (ref: Source/Prd.cpp:740-811)."""
+        cfg = self.cfg
+        prdActive = np.zeros(cfg.Nlam, bool)
+        for ai, ti, a, t in self._prd_lines():
+            prdActive[t.Nblue:t.Nred] = True
+        if cfg.hprd and cfg.vlosMu is not None:
+            w = np.asarray(cfg.wavelength, np.float64)
+            facs = (1.0 + np.array([-1.0, 1.0])[None, :, None]
+                    * np.asarray(cfg.vlosMu)[:, None, :]
+                    / Const.CLight).ravel()               # [Nmu*2*Nk]
+            prevLam = w[np.maximum(np.arange(cfg.Nlam) - 1, 0)]
+            nextLam = w[np.minimum(np.arange(cfg.Nlam) + 1, cfg.Nlam - 1)]
+            lo = prevLam[:, None] * facs[None, :]         # [Nlam, M]
+            hi = nextLam[:, None] * facs[None, :]
+            # the reference's scan (Prd.cpp:766-793) is inclusive one
+            # grid point on EACH side: the rollback lands on the largest
+            # w <= prevLambda and checks it, and the forward loop checks
+            # prdActive BEFORE the lambdaI > nextLambda break -- both
+            # points enter the criterion.  This puts the first grid
+            # point outside each PRD window into the hPRD subset, which
+            # matters: those scattering-dominated edge wavelengths then
+            # get the same number of scattering relaxations per
+            # redistribution as the reference gives them.
+            iLo = np.maximum(np.searchsorted(w, lo, side='right') - 1, 0)
+            iHi = np.minimum(np.searchsorted(w, hi, side='right') + 1,
+                             cfg.Nlam)
+            cum = np.concatenate([[0], np.cumsum(prdActive)])
+            scatters = (cum[iHi] - cum[iLo]) > 0
+            prdActive |= scatters.any(axis=1)
+        return np.nonzero(prdActive)[0]
+
+    def _prd_subset_fs(self):
+        """Subset formal solution for PRD sub-iterations: refresh J (and
+        JRest) and the PRD lines' radiative rates at the PRD-active
+        wavelengths only, leaving Gamma and every other rate untouched
+        (ref: FsMode::PrdOnly, PrdTemplates.hpp:19-113).  Returns dJ on
+        the subset (0-d tensor)."""
+        if self._prd_fs_fn is None:
+            prdLines = [(ai, ti) for ai, ti, a, t in self._prd_lines()]
+            self._prdSubIdxs = self._prd_subset_idxs()
+            self._prdSubIdxsT = torch.as_tensor(self._prdSubIdxs,
+                                                device=self.device)
+            self._prd_fs_fn = build_prd_subset_fn(
+                self.cfg, self._prdSubIdxs, prdLines)
+        p = self._params
+        p['J'] = self.J
+        p['pops'] = [st['n'] for st in self.popsState]
+        p['rhoPrd'] = self.rhoPrd
+        out = self._prd_fs_fn(p)
+        sub = self._prdSubIdxsT
+        self.J = self.J.index_copy(0, sub, out['J'])
+        self.I = self.I.index_copy(0, sub, out['I'])
+        for li, (ai, ti, a, t) in enumerate(self._prd_lines()):
+            self._Rij[ai][ti] = out['Rij'][li]
+            self._Rji[ai][ti] = out['Rji'][li]
+        if 'JRest' in out:
+            self.JRest = out['JRest']
+        return out['dJ']
+
+    def _prd_line_statics(self):
+        """Per PRD line the device-side constants of its scattering
+        integral: qWave [W, Nk] (emission frequency in Doppler units),
+        aDamp [Nk], Qelast [Nk], and under hybrid PRD the first row of its
+        window in JRest."""
+        if self._prdStatics is None:
+            t_ = self.cfg.tensor
+            self._prdStatics = []
+            for ai, ti, a, t in self._prd_lines():
+                vBroad = a.model.vBroad(self.atmos)
+                qWave = ((t.wavelength[:, None] - t.lambda0) * Const.CLight
+                         / (t.lambda0 * vBroad[None, :]))
+                prd0 = (int(self.cfg.laToPrdLa[t.Nblue]) if self.cfg.hprd
+                        else None)
+                self._prdStatics.append(
+                    (t_(qWave), t_(self.aDamp[ai][ti]),
+                     t_(self.Qelast[ai][ti]), prd0))
+        return self._prdStatics
+
+    def _rho_on_host(self, ai, ti):
+        """rho of line (ai, ti) as a flat numpy array, for Ng: the copy
+        kept when prd_redistribute last set it, else one device pull."""
+        rho = self.rhoPrd[ai][ti]
+        kept = self._rhoHost.get((ai, ti))
+        if kept is not None and kept[0] is rho:
+            return kept[1]
+        return rho.cpu().numpy().ravel()
+
+    def _scatter_rho(self, li: int) -> torch.Tensor:
+        """The new rho [W, Nk] of PRD line ``li`` of _prd_lines() from the
+        current J (JRest under hybrid PRD), rates and populations, formed
+        on the device (ref: Source/Prd.cpp:9-30, 468-645)."""
+        ai, ti, a, t = self._prd_lines()[li]
+        qWave, aDamp, Qelast, prd0 = self._prd_line_statics()[li]
+        # Pj + Qj: total upper-level depopulation + elastic rate
+        PjQj = Qelast + self._deviceC()[ai][:, t.j, :].sum(dim=0)
+        for t2i, t2 in enumerate(a.trans):
+            if t2.j == t.j:
+                PjQj = PjQj + self._Rji[ai][t2i]
+            if t2.i == t.j:
+                PjQj = PjQj + self._Rij[ai][t2i]
+
+        n = self.popsState[ai]['n']
+        gammaPre = n[t.i] / n[t.j] * t.Bij / PjQj
+        Jbar = self._Rij[ai][ti] / t.Bij
+        if self.cfg.hprd and self.JRest is not None:
+            Jw = self.JRest[prd0:prd0 + t.W]
+        else:
+            Jw = self.J[t.Nblue:t.Nred]
+        return prd_scatter_rho(qWave, aDamp, Jw, gammaPre, Jbar)
+
+    def prd_redistribute(self, maxIter: int = 3,
+                         tol: float = 1e-2) -> IterationUpdate:
+        """Iterate the PRD emission-profile ratios rho: per line compute
+        the angle-averaged scattering integral against the current J and
+        rates, then refresh J/rates with a formal solution, until
+        drho < tol or maxIter.
+
+        PjQj, gammaPre, Jbar and rho are formed on the device; the one
+        host pull per line and sub-iteration is the flattened rho that
+        the numpy Ng tracks (the reference's Ng semantics).
+        ref: Source/PrdTemplates.hpp:176-351, Source/Prd.cpp:9-30, 468-645"""
+        prdLines = self._prd_lines()
+        if not prdLines:
+            return IterationUpdate(self)
+        if self._Rij is None:
+            raise ValueError('Call formal_sol_gamma_matrices first')
+
+        if self.prdNgOptions is None:
+            # reference behaviour: fresh tracking-only Ng per call
+            ngs = [Ng(0, 0, 0, self._rho_on_host(ai, ti))
+                   for ai, ti, a, t in prdLines]
+        else:
+            # opt-in: persistent per-line accelerators whose history
+            # spans sub-iterations AND outer MALI iterations
+            o = self.prdNgOptions
+            if (self._prdNgs is None or len(self._prdNgs) != len(prdLines)
+                    or any(ng.init and ng.len != self.rhoPrd[ai][ti].numel()
+                           for ng, (ai, ti, a, t)
+                           in zip(self._prdNgs, prdLines))):
+                self._prdNgs = [
+                    Ng(o.Norder, o.Nperiod, o.Ndelay,
+                       self._rho_on_host(ai, ti))
+                    for ai, ti, a, t in prdLines]
+            ngs = self._prdNgs
+
+        dRho = [0.0] * len(prdLines)
+        nIter = 0
+        for it in range(maxIter):
+            nIter += 1
+            dRhoMax = 0.0
+            for li, (ai, ti, a, t) in enumerate(prdLines):
+                rho = self._scatter_rho(li)
+                rhoHost = rho.cpu().numpy().ravel()
+                accelerated, rhoFlat = ngs[li].accelerate(rhoHost,
+                                                          trustFactor=2.0)
+                dRho[li] = ngs[li].max_change()
+                dRhoMax = max(dRhoMax, dRho[li])
+                if accelerated:
+                    rhoHost = rhoFlat
+                    rho = self.cfg.tensor(rhoFlat.reshape(rho.shape))
+                self.rhoPrd[ai][ti] = rho
+                self._rhoHost[(ai, ti)] = (rho, rhoHost)
+
+            # refresh J and the PRD lines' rates with the new rho on the
+            # PRD-active wavelength subset only (ref FsMode::PrdOnly), or
+            # with the full-grid MALI step under prdFsMode == 'full'
+            if self.prdFsMode == 'subset' and self._params is not None:
+                self._prd_subset_fs()
+            else:
+                # freeze the CRSW schedule across sub-iterations
+                cur = self._crswVal
+                cb = self.crswCallback
+                self.crswCallback = (lambda: cur) if cb is not None else None
+                try:
+                    self.formal_sol_gamma_matrices()
+                finally:
+                    self.crswCallback = cb
+            if dRhoMax < tol:
+                break
+
+        upd = IterationUpdate(self, updatedRho=True, dRho=dRho,
+                              NprdSubIter=nIter)
+        upd.updatedJ = True
+        return upd

@@ -57,10 +57,12 @@ def assign_line_slots(allAtoms):
 
 def fused_scheme_supported(cfg) -> bool:
     """Whether the fused kernel covers this configuration: float64, the
-    one instance built.  The port's Context refuses 2D, hybrid PRD, dense
-    Gamma and solvers other than Bezier-3 at construction, which are
-    fused_scheme_supported's other checks in the JAX package."""
-    return cfg.dtype == torch.float64
+    one instance built, and no hybrid PRD (a slot's coefficient rows hold
+    one rho per row, not the comoving-frame rho of each ray).  The port's
+    Context refuses 2D, dense Gamma and solvers other than Bezier-3 at
+    construction, which are fused_scheme_supported's other checks in the
+    JAX package."""
+    return cfg.dtype == torch.float64 and not cfg.hprd
 
 
 def assemble(phiP, chiCo, etaCo, bgChi, bgEta, scaJ):

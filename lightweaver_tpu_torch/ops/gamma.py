@@ -60,10 +60,11 @@ def line_groups(atom) -> List[List[int]]:
 
 def gamma_scheme_supported(cfg) -> bool:
     """Whether the line Gamma kernel covers this configuration: float64
-    (the one instance built) and no line group above KMAX members.  The
-    port's Context refuses 2D, hybrid PRD and dense Gamma at construction,
-    which are pallas_scheme_supported's other checks."""
-    return (cfg.dtype == torch.float64
+    (the one instance built), no hybrid PRD (its comoving-frame rho
+    varies per ray, the kernel's per row) and no line group above KMAX
+    members.  The port's Context refuses 2D and dense Gamma at
+    construction, which are pallas_scheme_supported's other checks."""
+    return (cfg.dtype == torch.float64 and not cfg.hprd
             and all(len(g) <= KMAX for a in cfg.activeAtoms
                     for g in line_groups(a)))
 

@@ -1,9 +1,13 @@
-"""The two problems of the main path, built the way their users build them.
+"""The problems of the main path, built the way their users build them.
 
 - falc_h6ca: FAL-C (82 depths) with H 6-level and Ca II active, 5 rays
   (the golden problem, tests/golden/falc_h6ca_*.npz).
 - FALC-500: the same setup interpolated to 500 depths in log column mass,
   the problem the compiled reference and bench.py time.
+- falc_h6mg: FAL-C with H 6-level and Mg II active, 5 rays, Ly-alpha,
+  Ly-beta and Mg II h & k in PRD (BASELINE config 3, the golden problem
+  tests/golden/falc_h6mg_prd_*.npz), and its hybrid-PRD variant with a
+  0-5 km/s outflow ramp (tests/golden/falc_h6mg_hprd_*.npz).
 
 and random inputs (rays, a line group, slot-packed lines) that check the
 kernels against their plain versions and against the JAX package.
@@ -14,7 +18,7 @@ from .atmosphere import Atmosphere
 from .atomic_set import RadiativeSet
 from .context import Context
 from .fal import Falc82
-from .rh_atoms import CaII_atom, H_6_atom
+from .rh_atoms import CaII_atom, H_6_atom, MgII_atom
 
 
 def falc_interpolated(Nspace: int) -> Atmosphere:
@@ -137,3 +141,32 @@ def h6ca_context(atmos: Atmosphere, Nrays: int = 5, device='cpu') -> Context:
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, device=device)
+
+
+def vlos_ramp(atmos: Atmosphere, vMax: float = 5e3) -> Atmosphere:
+    """Set a line-of-sight velocity rising linearly with height from 0 at
+    the bottom to ``vMax`` m/s at the top (an outflow, as the hybrid-PRD
+    golden run uses); returns ``atmos``."""
+    h = atmos.height
+    atmos.vlos = vMax * (h - h.min()) / (h.max() - h.min())
+    return atmos
+
+
+def h6mg_context(atmos: Atmosphere = None, Nrays: int = 5,
+                 hprd: bool = False, device='cpu') -> Context:
+    """H 6-level + Mg II, both active, PRD lines in PRD, on ``atmos``
+    (default FAL-C, 82 depths) with an ``Nrays`` quadrature.  With
+    ``hprd`` the atmosphere gets the 0-5 km/s outflow ramp (vlos_ramp) and
+    the Context runs hybrid PRD.  The defaults build BASELINE config 3 as
+    tests/test_vs_reference_golden.py:540-546 does, and with hprd=True its
+    hybrid variant as lines 411-420 there do."""
+    if atmos is None:
+        atmos = Falc82()
+    atmos.quadrature(Nrays)
+    if hprd:
+        vlos_ramp(atmos)
+    rs = RadiativeSet([H_6_atom(), MgII_atom()])
+    rs.set_active('H', 'Mg')
+    spect = rs.compute_wavelength_grid()
+    eqPops = rs.compute_eq_pops(atmos)
+    return Context(atmos, spect, eqPops, hprd=hprd, device=device)

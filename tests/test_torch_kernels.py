@@ -361,3 +361,111 @@ def test_scheme_on_cuda_goes_through_its_kernel(scheme):
     assert err.max() < 1e-9
     for ai in range(2):
         assert _max_rel(gpu._Gamma[ai].cpu(), cpu._Gamma[ai]) < 1e-9
+
+
+@pytest.mark.gpu
+def test_fused_kernel_matches_plain_on_rho_scaled_slots():
+    """C = 3 slots whose coefficient rows carry a PRD ratio rho != 1, as
+    context.fused_inputs forms them: chiCo = (ni - g rho nj) a1 and
+    etaCo = u g a1 rho nj, here chiCo - rho x and etaCo x rho for random
+    rho in [0.5, 1.5].  The bar is the plain slots' 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c = _slots_case(3, 'therm', 'therm', device='cuda', NL=200, Nmu=5,
+                    Nk=82, seed=7)
+    rho = torch.tensor(np.random.default_rng(7).uniform(0.5, 1.5,
+                                                        c['chiCo'].shape),
+                       dtype=torch.float64, device='cuda')
+    c['chiCo'] = c['chiCo'] * (1.5 - 0.5 * rho)
+    c['etaCo'] = c['etaCo'] * rho
+    plain = tfused.fused_lambda_step_plain(**c)
+    before = tfused.fused_cuda.launches
+    kern = tfused.fused_lambda_step(**c)
+    torch.cuda.synchronize()
+    assert tfused.fused_cuda.launches == before + 1
+    for name, a, b in zip(('I', 'Psi', 'IeffBase'), kern[:3], plain[:3]):
+        assert _max_rel(a, b) < 1e-9, name
+    for name in ('J', 'IBar', 'PsiBar', 'IeffSrcBar'):
+        assert _max_rel(kern[3][name], plain[3][name]) < 1e-9, name
+
+
+def _h6mg_after_redistribution(device, scheme='mali_full_precond'):
+    """A small falc_h6mg (20 depths, 3 rays) after one MALI step and one
+    prd_redistribute, so that rho != 1 on every PRD line."""
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6mg_context
+    ctx = h6mg_context(falc_interpolated(20), 3, device=device)
+    ctx.set_fs_iter_scheme(scheme)
+    ctx.formal_sol_gamma_matrices()
+    ctx.stat_equil()
+    ctx.prd_redistribute(maxIter=1)
+    return ctx
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_prd_inputs():
+    """The line kernel on every group of falc_h6mg (Mg II's four-line
+    group among them) and the fused kernel (C = 3 slots) with the live
+    rho != 1, each against its plain version at its bar: 1e-11 and 1e-9
+    of each output's maximum."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    import dataclasses
+
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    ctx = _h6mg_after_redistribution('cuda')
+    params = ctx.build_params()
+    scaJ = params['bgSca'] * params['J']
+    chi, src = ctx._iter_fn.gather(params, scaJ)
+    rays = ctx._iter_fn.formal_solve(params, chi, src)
+    cfg = ctx.cfg
+    itP = build_iteration_fn(dataclasses.replace(
+        cfg, fsIterScheme='mali_full_precond_pallas'))
+    Ks = []
+    for _, g, args in itP.line_group_inputs(params, *rays[:3], src,
+                                            itP.pack(params)):
+        Ks.append(len(g['members']))
+        kern = tgamma.group_gamma_rates(*args)
+        plain = tgamma.group_gamma_rates_plain(*args)
+        for name, a, b in zip(('G4', 'PPB', 'PairPPB'), kern, plain):
+            if b.any():
+                assert _max_rel(a, b) < 1e-11, (g['members'], name)
+    assert max(Ks) == 4
+    itF = build_iteration_fn(dataclasses.replace(
+        cfg, fsIterScheme='mali_full_precond_fused'))
+    args = itF.fused_inputs(params, scaJ, itF.pack(params))
+    assert args[0].shape[0] == 3
+    kern = tfused.fused_lambda_step(*args)
+    plain = tfused.fused_lambda_step_plain(*args)
+    for name, a, b in zip(('I', 'Psi', 'IeffBase'), kern[:3], plain[:3]):
+        assert _max_rel(a, b) < 1e-9, name
+    for name in ('J', 'IBar', 'PsiBar', 'IeffSrcBar'):
+        assert _max_rel(kern[3][name], plain[3][name]) < 1e-9, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES)
+def test_prd_on_cuda_goes_through_its_kernels(scheme):
+    """falc_h6mg (20 depths, 3 rays) under each scheme on the card: the
+    MALI step launches the scheme's kernels, each PRD sub-iteration's
+    subset solve launches the sweep once, and J and rho after a MALI step
+    and a prd_redistribute agree with the CPU's to 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    counts = (tsweep.sweep_cuda, tgamma.group_gamma_rates_cuda,
+              tfused.fused_cuda)
+    before = [fn.launches for fn in counts]
+    gpu = _h6mg_after_redistribution('cuda', scheme)
+    torch.cuda.synchronize()
+    sweeps, groups, fused = (fn.launches - b for fn, b in zip(counts,
+                                                               before))
+    nGroups = sum(len(tgamma.line_groups(a)) for a in gpu.activeAtoms)
+    expected = {'mali_full_precond': (2, 0, 0),
+                'mali_full_precond_pallas': (2, nGroups, 0),
+                'mali_full_precond_fused': (1, 0, 1)}[scheme]
+    assert (sweeps, groups, fused) == expected
+    cpu = _h6mg_after_redistribution('cpu', scheme)
+    J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
+    err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
+    assert err.max() < 1e-9
+    for ai, ti, _, _ in cpu._prd_lines():
+        assert _max_rel(gpu.rhoPrd[ai][ti].cpu(), cpu.rhoPrd[ai][ti]) < 1e-9

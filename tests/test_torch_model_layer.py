@@ -9,6 +9,7 @@ and the reference-path prefix of ``ref:`` comments, and the falc_h6ca inputs bot
 torch's vs XLA's reduction order in wphi).  The profiles are the one
 exception, see test_falc_h6ca_profiles_match_jax.
 """
+import inspect
 import re
 from pathlib import Path
 
@@ -16,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+import lightweaver_tpu.ops.ng as jng
 import lightweaver_tpu.rh_atoms as jatoms
 import lightweaver_tpu_torch as tlw
+import lightweaver_tpu_torch.ops.ng as tng
 from lightweaver_tpu import Context as JContext
 from lightweaver_tpu import Falc82 as JFalc82
 from lightweaver_tpu import RadiativeSet as JRadiativeSet
@@ -58,6 +61,14 @@ def test_copy_matches_original(module):
     assert copy == orig, f'{module}.py drifted from lightweaver_tpu'
     assert not re.search(r'^\s*(import|from)\s+(jax|lightweaver_tpu)\b',
                          copy, re.M)
+
+
+@pytest.mark.parametrize('name', ['NgOptions', 'Ng'])
+def test_ng_classes_match_original(name):
+    """ops/ng.py copies the two host-side classes of the JAX package's
+    ops/ng.py (not its device variants), source text and all."""
+    assert (inspect.getsource(getattr(tng, name))
+            == inspect.getsource(getattr(jng, name)))
 
 
 def _h6ca(Falc82, RadiativeSet, Context, atoms):
@@ -119,3 +130,32 @@ def test_falc_h6ca_profiles_match_jax(contexts):
             _close(phi, jphi, rtol=1e-9)
             _close(tctx.wphi[ia][it], jctx.wphi[ia][it])
     assert nLines == 15
+
+
+def _h6mg(Falc82, RadiativeSet, Context, atoms):
+    atmos = Falc82()
+    atmos.quadrature(5)
+    rs = RadiativeSet([atoms.H_6_atom(), atoms.MgII_atom()])
+    rs.set_active('H', 'Mg')
+    spect = rs.compute_wavelength_grid()
+    eqPops = rs.compute_eq_pops(atmos)
+    return Context(atmos, spect, eqPops)
+
+
+def test_falc_h6mg_inputs_match_jax():
+    """BASELINE config 3's PRD inputs: the wavelength grid, and per line
+    the damping aDamp and elastic rate Qelast (PjQj's), the PRD flags."""
+    jctx = _h6mg(JFalc82, JRadiativeSet, JContext, jatoms)
+    tctx = _h6mg(tlw.Falc82, tlw.RadiativeSet, tlw.Context, tlw)
+    _close(tctx.spect.wavelength, jctx.spect.wavelength)
+    nPrd = 0
+    for ia, a in enumerate(tctx.activeAtoms):
+        for it, t in enumerate(a.trans):
+            assert t.isPrd == jctx.activeAtoms[ia].trans[it].isPrd
+            if not t.isLine:
+                assert tctx.Qelast[ia][it] is None
+                continue
+            nPrd += t.isPrd
+            _close(tctx.aDamp[ia][it], jctx.aDamp[ia][it])
+            _close(tctx.Qelast[ia][it], jctx.Qelast[ia][it])
+    assert nPrd == 4

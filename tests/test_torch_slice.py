@@ -35,7 +35,6 @@ from lightweaver_tpu.ops.ng import NgOptions
 from lightweaver_tpu_torch import ExplodingMatrixError, InitialSolution
 from lightweaver_tpu_torch.context import Context
 from lightweaver_tpu_torch.convert import params_from_numpy
-from lightweaver_tpu_torch.iterate_ctx import iterate_ctx_se
 from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
 
 NSPACE, NRAYS = 30, 3
@@ -179,7 +178,6 @@ def small_inputs():
 
 
 @pytest.mark.parametrize('option', [
-    {'hprd': True},
     {'ngOptions': NgOptions(2, 5, 10)},
     {'conserveCharge': True},
     {'formalSolver': 'piecewise_linear_1d'},
@@ -190,9 +188,3 @@ def small_inputs():
 def test_options_outside_the_slice_raise(small_inputs, option):
     with pytest.raises(ValueError, match='does not support'):
         Context(*small_inputs, **option)
-
-
-def test_prd_iteration_raises(small_inputs):
-    ctx = Context(*small_inputs)
-    with pytest.raises(ValueError, match='PRD'):
-        iterate_ctx_se(ctx, NmaxIter=5, prd=True, quiet=True)
