@@ -7,7 +7,9 @@ result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit;
    then the four kernel libraries are built from csrc/ at once, one nvcc
-   each, with ptxas's registers and spills.
+   each, with ptxas's registers and spills, and the float64 instructions
+   of each float32 instance in its SASS (cuobjdump): J's double
+   accumulator only.
 2. Probes: the two toolchain probes (csrc/probe.cu) against their plain
    versions (2x + 1 exactly, the recurrence within 1e-6 in f32).
 3. Sweep kernel: csrc/sweep.cu against its plain PyTorch version on the
@@ -34,18 +36,40 @@ result):
    (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
    sub-iterations, wall time and launch counts; the kernel schemes must
    refuse hybrid PRD.  Then a stage breakdown of one PRD iteration.
-9. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
-   bench.py's problem): 50 formal_sol_gamma_matrices iterations, best of
-   3, and a per-stage breakdown; then each scheme: best of 3 blocks of
-   20 and its stage breakdown.
+9. The float32 state (dtype=torch.float32, J/Gamma/rates in float64):
+   (a) the float32 instances against their plain versions, every output
+   held to err(kernel f32, plain f64) <= 2 err(plain f32, plain f64) +
+   1e-6 with plain f64 on the same inputs, and J to the float64 sum of
+   the kernel's own float32 products (1e-13): the sweep on random rays at
+   Nk = 82 and 500 and on one falc_h6ca float32 iteration, line Gamma on
+   falc_h6ca's 13 groups and falc_h6mg's (K = 4, rho != 1), fused with
+   C = 2 (falc_h6ca) and C = 3 (falc_h6mg); float32 and float64 instance
+   times side by side.  (b) The mixed-precision problem (FAL-C decimated
+   to 40 depths, 3 rays, Ca II active) converged under each scheme in
+   fewer than 600 iterations.  (c) falc_h6ca at full width under each
+   scheme, 500 iterations (the float32 state does not converge there, in
+   the JAX package either): the last dJ and dPops, the emergent spectrum
+   against the golden file (rows brighter than 1e-3 of the peak within
+   6.5e-2, median within 5e-3), the populations' largest error, and the
+   float32 instances' launches.
+10. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
+   bench.py's problem) under each scheme, float64 then float32: best of 3
+   blocks of formal_sol_gamma_matrices iterations (50 for the default
+   scheme, 20 for the others) and a per-stage breakdown.
 
 The kernels' JSON record holds phase 7's errors and times and phase 8's
-launch counts for the three kernels of the PRD path, and the probes'.
-The last three lines are the card's name and power limit as nvidia-smi
-prints them, the kernels' JSON record and the ok line.
+launch counts for the float64 instances (the PRD path), phase 9 (a)'s
+falc_h6ca errors and times and (c)'s launch counts for the float32 ones,
+and the probes'; each with the least time the card could take for its
+inputs (bound_ms) and, where one PyTorch call computes the same function,
+that call's time.  The last three lines are the card's name and power
+limit as nvidia-smi prints them, the kernels' JSON record and the ok
+line.
 """
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -111,21 +135,26 @@ def environment():
 
 
 def counters():
+    """Kernel name -> (wrapper, its launch-count attribute): the float64
+    and float32 instances of a wrapper keep separate counts."""
     from lightweaver_tpu_torch.ops import fused, gamma, probe, sweep
-    return {'sweep': sweep.sweep_cuda,
-            'gamma': gamma.group_gamma_rates_cuda,
-            'fused': fused.fused_cuda,
-            'probe_elementwise': probe.elementwise_cuda,
-            'probe_recurrence': probe.recurrence_cuda}
+    return {'sweep': (sweep.sweep_cuda, 'launches'),
+            'gamma': (gamma.group_gamma_rates_cuda, 'launches'),
+            'fused': (fused.fused_cuda, 'launches'),
+            'sweep_f32': (sweep.sweep_cuda, 'launches_f32'),
+            'gamma_f32': (gamma.group_gamma_rates_cuda, 'launches_f32'),
+            'fused_f32': (fused.fused_cuda, 'launches_f32'),
+            'probe_elementwise': (probe.elementwise_cuda, 'launches'),
+            'probe_recurrence': (probe.recurrence_cuda, 'launches')}
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def build_kernels():
@@ -146,6 +175,54 @@ def build_kernels():
             if any(w in line for w in ('Compiling entry', 'registers',
                                        'spill', 'error')):
                 print(f'  {name} ptxas: {line.strip()}')
+    sass_double_ops({n: mods[n] for n in ('sweep', 'gamma', 'fused')})
+
+
+# float64 instructions a float32 instance may hold: J's double accumulator
+# (DADD) and the conversions of its float products (F2F.F64.F32) in the
+# sweep and fused kernels; none in the line Gamma kernel
+F32_DOUBLE_OPS = {'sweep': {'DADD', 'F2F.F64.F32'}, 'gamma': set(),
+                  'fused': {'DADD', 'F2F.F64.F32'}}
+_SASS_FN = re.compile(r'Function : (\S+)')
+_SASS_OP = re.compile(r'\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)')
+
+
+def sass_double_ops(mods):
+    """The float64 instructions in each float32 instance's SASS
+    (cuobjdump -sass): fails on any outside F32_DOUBLE_OPS, so that no
+    float ray step or partial is computed in float64."""
+    from lightweaver_tpu_torch.ops import _build
+    cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    for name in mods:
+        sass = subprocess.run([cuobjdump, '-sass', _build.library_path(name)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        fn, ops = None, {}
+        for line in sass.splitlines():
+            m = _SASS_FN.search(line)
+            if m:
+                fn = m.group(1)
+                ops[fn] = {}
+                continue
+            m = _SASS_OP.search(line)
+            if fn is None or not m:
+                continue
+            op = m.group(1)
+            if ((op.startswith('D') and not op.startswith('DEPBAR'))
+                    or 'F64' in op or '64H' in op):
+                ops[fn][op] = ops[fn].get(op, 0) + 1
+        # mangled template arguments: IfE / IfLi<K> float, IdE / IdLi double
+        f32 = {fn: c for fn, c in ops.items() if re.search(r'IfE|IfLi', fn)}
+        if len(f32) != {'gamma': 4}.get(name, 1):
+            raise AssertionError(f'{name}: float32 instances not found in the '
+                                 f'SASS ({sorted(ops)})')
+        for fn, c in sorted(f32.items()):
+            print(f'  {name} float32 instance {fn[-40:]}: float64 '
+                  f'instructions {c or "none"}')
+            bad = set(c) - F32_DOUBLE_OPS[name]
+            if bad:
+                raise AssertionError(f'{name}: float64 instructions {bad} in '
+                                     f'the float32 instance {fn}')
 
 
 def max_rel(a, b):
@@ -186,19 +263,32 @@ def probe_check():
     if relRandom > PROBE_TOL or absErr['probe_recurrence'] > PROBE_TOL:
         raise AssertionError('recurrence probe disagrees')
     result = {}
+    # the one PyTorch call computing 2x + 1: ones + 2 x; the recurrence
+    # has none
+    ones = torch.ones_like(x)
+    library = {'probe_elementwise': lambda: torch.add(ones, x, alpha=2.0),
+               'probe_recurrence': None}
+    # 2 operations per element; bytes: x in, o out / a, b in, o out
+    bounds = {'probe_elementwise': bound(2 * nbytes([x]), 2 * x.numel(),
+                                         torch.float32),
+              'probe_recurrence': bound(3 * nbytes([a2]), 2 * a2.numel(),
+                                        torch.float32)}
     for name, kern, plain in (
             ('probe_elementwise', lambda: probe.elementwise(x),
              lambda: probe.elementwise_plain(x)),
             ('probe_recurrence', lambda: probe.recurrence(a2, b2),
              lambda: probe.recurrence_plain(a2, b2))):
         p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kern, kern, plain))
+        libMs = None if library[name] is None else cuda_ms(library[name], 20)
         print(f'  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / '
-              f'{p2:.4f} ms per call; launches in the probe run '
-              f'{counts[name]}')
+              f'{p2:.4f} ms, one PyTorch call '
+              f'{"none" if libMs is None else f"{libMs:.4f} ms"} per call; '
+              f'launches in the probe run {counts[name]}')
         if counts[name] < 1:
             raise AssertionError(f'{name} kernel did not launch')
         result[name] = dict(launches=counts[name], max_abs_err=absErr[name],
-                            ms=min(k1, k2), plain_ms=min(p1, p2))
+                            ms=min(k1, k2), plain_ms=min(p1, p2),
+                            library_ms=libMs, **bounds[name])
     return result
 
 
@@ -221,7 +311,8 @@ def kernel_check():
               f'(bar {KERNEL_TOL}), max abs {absErr:.3e}')
         timed_pair(f'Nk={Nk} sweep, per call (1046 x 5 x 2 rays)',
                    lambda: sweep.formal_solve_sweep(**c),
-                   lambda: sweep.formal_solve_sweep_plain(**c))
+                   lambda: sweep.formal_solve_sweep_plain(**c),
+                   bnd=sweep_bound(list(c.values()), kern))
 
 
 def one_iteration_inputs(Nk):
@@ -267,13 +358,18 @@ def ray_outputs(out):
     return list(out[:3]) + [out[3][k] for k in RAY_NAMES[3:]]
 
 
-def timed_pair(label, kern, plain, reps=20):
+def bound_text(bnd):
+    return ('' if bnd is None else f'; bound {bnd["bound_ms"]:.4g} ms by '
+            f'{bnd["bound_by"]}')
+
+
+def timed_pair(label, kern, plain, reps=20, bnd=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain);
     the min of each pair."""
     p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
         (plain, 3), (kern, reps), (kern, reps), (plain, 3)))
     print(f'  {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / '
-          f'{p2:.4f} ms')
+          f'{p2:.4f} ms{bound_text(bnd)}')
     return min(k1, k2), min(p1, p2)
 
 
@@ -303,13 +399,15 @@ def check_line_kernel(label, ctx, params, src, rays):
     print(f'  {label} line Gamma, {len(groups)} groups: '
           f'max|kernel-plain|/max|plain| = {worst[0]:.3e} (bar '
           f'{GAMMA_TOL}), max abs {worst[1]:.3e}')
+    bnd = gamma_bound([a for _, _, a in groups])
     ms, plainMs = timed_pair(
         f'{label} line Gamma, all groups of one iteration',
         lambda: [gamma.group_gamma_rates(*a) for _, _, a in groups],
-        lambda: [gamma.group_gamma_rates_plain(*a) for _, _, a in groups])
+        lambda: [gamma.group_gamma_rates_plain(*a) for _, _, a in groups],
+        bnd=bnd)
     return dict(max_abs_err=worst[1], max_rel_err=worst[0], ms=ms,
                 plain_ms=plainMs,
-                K=max(len(g['members']) for _, g, _ in groups))
+                K=max(len(g['members']) for _, g, _ in groups), **bnd)
 
 
 def check_fused_kernel(label, ctx, params, scaJ):
@@ -328,11 +426,13 @@ def check_fused_kernel(label, ctx, params, scaJ):
     C = args[0].shape[0]
     print(f'  {label} fused (C={C} slots): max|kernel-plain|/max|plain| = '
           f'{rel:.3e} (bar {KERNEL_TOL}), max abs {absErr:.3e}')
+    bnd = fused_bound(args, kern)
     ms, plainMs = timed_pair(f'{label} fused, per call',
                              lambda: fused.fused_lambda_step(*args),
-                             lambda: fused.fused_lambda_step_plain(*args))
+                             lambda: fused.fused_lambda_step_plain(*args),
+                             bnd=bnd)
     return dict(max_abs_err=absErr, max_rel_err=rel, ms=ms, plain_ms=plainMs,
-                C=C)
+                C=C, **bnd)
 
 
 def scheme_kernel_check():
@@ -357,23 +457,9 @@ def prd_kernel_check():
     rows, each against its plain version; times."""
     from lightweaver_tpu_torch.context import build_prd_subset_fn
     from lightweaver_tpu_torch.ops import sweep
-    from lightweaver_tpu_torch.problems import h6mg_context
     phase('PRD kernel inputs: falc_h6mg after 3 MALI steps and one '
           'prd_redistribute (f64, rho != 1)')
-    ctx = h6mg_context(device='cuda')
-    for _ in range(3):
-        ctx.formal_sol_gamma_matrices()
-        ctx.stat_equil()
-    ctx.prd_redistribute()
-    rhoDev = max((r - 1.0).abs().max().item() for row in ctx.rhoPrd
-                 for r in row if r is not None)
-    print(f'  max|rho-1| over the PRD lines = {rhoDev:.3e}')
-    if not rhoDev > 0.1:
-        raise AssertionError('rho stayed at 1 after prd_redistribute')
-    params = ctx.build_params()
-    scaJ = params['bgSca'] * params['J']
-    chi, src = ctx._iter_fn.gather(params, scaJ)
-    rays = ctx._iter_fn.formal_solve(params, chi, src)
+    ctx, params, scaJ, src, rays = prd_state(torch.float64)
     result = {'gamma': check_line_kernel('PRD', ctx, params, src, rays),
               'fused': check_fused_kernel('PRD', ctx, params, scaJ)}
     if result['gamma']['K'] != 4 or result['fused']['C'] != 3:
@@ -393,11 +479,13 @@ def prd_kernel_check():
     print(f'  PRD subset sweep ({len(sub)} of {ctx.cfg.Nlam} rows): '
           f'max|kernel-plain|/max|plain| = {rel:.3e} (bar {KERNEL_TOL}), '
           f'max abs {absErr:.3e}')
+    bnd = sweep_bound(args, kern)
     ms, plainMs = timed_pair('PRD subset sweep, per call',
                              lambda: sweep.formal_solve_sweep(*args),
-                             lambda: sweep.formal_solve_sweep_plain(*args))
+                             lambda: sweep.formal_solve_sweep_plain(*args),
+                             bnd=bnd)
     result['sweep'] = dict(max_abs_err=absErr, max_rel_err=rel, ms=ms,
-                           plain_ms=plainMs)
+                           plain_ms=plainMs, **bnd)
     del ctx, params, rays, args, plain, kern
     torch.cuda.empty_cache()
     return result
@@ -615,15 +703,19 @@ def prd_breakdown(ctx, reps=5):
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
 
 
-def falc500():
+def falc500(scheme, dtype, nIter):
+    """FALC-500 under ``scheme`` in the working ``dtype``: best of 3 blocks
+    of ``nIter`` formal_sol_gamma_matrices iterations, then the stage
+    breakdown (host clock, synchronised after each stage, mean of 5)."""
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
-    phase('FALC-500: 50 formal_sol_gamma_matrices iterations, best of 3')
-    ctx = h6ca_context(falc_interpolated(500), 5, device='cuda')
-    cfg = ctx.cfg
+    name = {torch.float64: 'float64', F32: 'float32'}[dtype]
+    phase(f'FALC-500 under {scheme}, {name}: {nIter} iterations, best of 3')
+    ctx = h6ca_context(falc_interpolated(500), 5, device='cuda', dtype=dtype)
+    ctx.set_fs_iter_scheme(scheme)
     for _ in range(2):
         ctx.formal_sol_gamma_matrices()
     torch.cuda.synchronize()
-    nIter, best = 50, np.inf
+    best = np.inf
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(nIter):
@@ -631,108 +723,456 @@ def falc500():
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     if not (np.isfinite(float(u.dJMax)) and torch.isfinite(ctx.J).all()):
-        raise AssertionError('non-finite J on FALC-500')
+        raise AssertionError(f'non-finite J on FALC-500 ({scheme}, {name})')
+    cfg = ctx.cfg
     gridPoints = cfg.Nlam * cfg.Nmu * 2 * cfg.Nk
-    print(f'Nlam={cfg.Nlam} Nmu={cfg.Nmu} Nk={cfg.Nk}: '
+    print(f'Nlam={cfg.Nlam} Nmu={cfg.Nmu} Nk={cfg.Nk}, {name}: '
           f'{best / nIter * 1e3:.3f} ms/iter, '
           f'{gridPoints * nIter / best:.4e} gridpoint-updates/s '
           '(host clock, synchronised per block)')
 
-    # per-stage breakdown, host clock with a synchronise after each stage
-    it = ctx._iter_fn
-    params = ctx._params
-    stages = {'gather': 0.0, 'formal_solve': 0.0, 'gamma_rates': 0.0}
+    it, params = ctx._iter_fn, ctx._params
     reps = 5
-    for _ in range(reps):
+    stages = {}
+
+    def timed(stage, fn):
         t0 = time.perf_counter()
-        scaJ = params['bgSca'] * params['J']
-        chi, src = it.gather(params, scaJ)
+        out = fn()
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        rays = it.formal_solve(params, chi, src)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        it.gamma_rates(params, *rays[:3], src, rays[3])
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
-            stages[k] += dt / reps
-    print('stage breakdown (ms, mean of 5): '
+        stages[stage] = stages.get(stage, 0.0) + (time.perf_counter()
+                                                   - t0) / reps
+        return out
+    for _ in range(reps):
+        scaJ = it.scaJ(params)
+        if scheme == FUSED:
+            I, Psi, IeffB, mom, srcRowsA = timed(
+                'fused_stage', lambda: it.fused_stage(params, scaJ,
+                                                      params['pack']))
+            timed('gamma_rates', lambda: it.gamma_rates(
+                params, I, Psi, IeffB, None, mom, None, srcRowsA))
+            continue
+        chi, src = timed('gather', lambda: it.gather(params, scaJ))
+        rays = timed('formal_solve', lambda: it.formal_solve(params, chi,
+                                                             src))
+        if scheme == PALLAS:
+            lt = timed('line_kernel_stage', lambda: it.line_kernel_stage(
+                params, *rays[:3], src, params['pack']))
+            timed('gamma_rates_rest', lambda: it.gamma_rates(
+                params, rays[0], rays[1], rays[2], src, rays[3], lt))
+        else:
+            timed('gamma_rates', lambda: it.gamma_rates(
+                params, *rays[:3], src, rays[3]))
+    print(f'stage breakdown (ms, mean of {reps}): '
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
+    del ctx, it, params
+    torch.cuda.empty_cache()
 
 
-def falc500_schemes():
-    """FALC-500 under each kernel scheme: best of 3 blocks of 20
-    iterations and the stage breakdown (host clock, synchronised after
-    each stage, mean of 5)."""
-    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
-    for scheme in (PALLAS, FUSED):
-        phase(f'FALC-500 under {scheme}: 20 iterations, best of 3')
-        ctx = h6ca_context(falc_interpolated(500), 5, device='cuda')
-        ctx.set_fs_iter_scheme(scheme)
-        for _ in range(2):
-            ctx.formal_sol_gamma_matrices()
+# ---- float32 instances -----------------------------------------------
+F32 = torch.float32
+# err(kernel f32, plain f64) <= F32_SLACK err(plain f32, plain f64)
+# + F32_FLOOR on every output, plain f64 run on the same (float32)
+# inputs: the kernel must be as close to the float64 answer as the float32
+# plain version, whose sums run in another order
+F32_SLACK, F32_FLOOR = 2.0, 1e-6
+# J of a float32 instance against the float64 sum of its own float32
+# products w I, in its order
+J_OWN_TOL = 1e-13
+
+
+def upcast(args):
+    """float64 copies of the floating tensors of a kernel's arguments
+    (boundary pairs (kind, rows) included)."""
+    def up(a):
+        if torch.is_tensor(a):
+            return a.double() if a.is_floating_point() else a
+        if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], str):
+            return (a[0], up(a[1]))
+        return a
+    return [up(a) for a in args]
+
+
+def f32_rule(label, names, kern, plain, ref):
+    """Each float32 kernel output against the float64 plain version, beside
+    the float32 plain version's distance to it; returns the largest
+    |kernel - plain f32|."""
+    worstAbs, parts = 0.0, []
+    for n, k, p, r in zip(names, kern, plain, ref):
+        if not all(torch.isfinite(x).all() for x in (k, p, r)):
+            raise AssertionError(f'non-finite {n} ({label})')
+        if not r.any():
+            if k.any():
+                raise AssertionError(f'{n} should be zero ({label})')
+            continue
+        ek, ep = max_rel(k.double(), r), max_rel(p.double(), r)
+        worstAbs = max(worstAbs, (k.double() - p.double()).abs().max().item())
+        parts.append(f'{n} {ek:.2e}/{ep:.2e}')
+        if not ek <= F32_SLACK * ep + F32_FLOOR:
+            raise AssertionError(f'float32 kernel too far from float64 on {n} '
+                                 f'({label}): {ek:.3e} > {F32_SLACK} x '
+                                 f'{ep:.3e} + {F32_FLOOR}')
+    print(f'  {label}: err(kernel f32, plain f64) / err(plain f32, plain '
+          f'f64): ' + ', '.join(parts))
+    return worstAbs
+
+
+def j_own_products(label, out, wmu):
+    """J of a float32 instance equals the float64 sum of its own float32
+    products w I, mu ascending within a direction, then down + up."""
+    I, J = out[0], out[3]['J']
+    w = 0.5 * wmu
+    own = [sum((w[m] * I[d, :, m]).double() for m in range(I.shape[2]))
+           for d in range(2)]
+    err = max_rel(J, own[0] + own[1])
+    print(f'  {label}: J against the float64 sum of its float32 products '
+          f'{err:.1e} (bar {J_OWN_TOL})')
+    if J.dtype != torch.float64 or not err <= J_OWN_TOL:
+        raise AssertionError(f'J is not the float64 sum of the float32 '
+                             f'products ({label}): {err:.3e}')
+
+
+def timed_instances(label, kern, plain, kern64, bnd, reps=20):
+    """The float32 instance, its plain version and the float64 instance
+    on the upcast inputs, in turns (plain, f32, f64, f64, f32, plain)."""
+    runs = [(plain, 3), (kern, reps), (kern64, reps), (kern64, reps),
+            (kern, reps), (plain, 3)]
+    p1, k1, d1, d2, k2, p2 = (cuda_ms(f, r) for f, r in runs)
+    print(f'  {label}: float32 kernel {k1:.4f} / {k2:.4f} ms, float64 '
+          f'kernel {d1:.4f} / {d2:.4f} ms, float32 plain {p1:.4f} / '
+          f'{p2:.4f} ms{bound_text(bnd)} (float32)')
+    return min(k1, k2), min(p1, p2), min(d1, d2)
+
+
+def check_sweep_f32(label, args):
+    from lightweaver_tpu_torch.ops import sweep
+    args64 = upcast(args)
+    kern = sweep.formal_solve_sweep(*args)
+    plain = sweep.formal_solve_sweep_plain(*args)
+    ref = sweep.formal_solve_sweep_plain(*args64)
+    torch.cuda.synchronize()
+    absErr = f32_rule(f'{label} sweep', RAY_NAMES, ray_outputs(kern),
+                      ray_outputs(plain), ray_outputs(ref))
+    j_own_products(f'{label} sweep', kern, args[6])
+    bnd = sweep_bound(args, kern)
+    ms, plainMs, ms64 = timed_instances(
+        f'{label} sweep, per call', lambda: sweep.formal_solve_sweep(*args),
+        lambda: sweep.formal_solve_sweep_plain(*args),
+        lambda: sweep.formal_solve_sweep(*args64), bnd)
+    return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, f64_ms=ms64,
+                **bnd)
+
+
+def check_line_f32(label, ctx, params, src, rays):
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.ops import gamma
+    itP = build_iteration_fn(dataclasses.replace(ctx.cfg,
+                                                 fsIterScheme=PALLAS))
+    groups = [a for _, _, a in itP.line_group_inputs(params, *rays[:3], src,
+                                                     itP.pack(params))]
+    worst, Ks = 0.0, []
+    for args in groups:
+        K = args[0].shape[0]
+        Ks.append(K)
+        kern = gamma.group_gamma_rates(*args)
+        plain = gamma.group_gamma_rates_plain(*args)
+        ref = gamma.group_gamma_rates_plain(*upcast(args))
         torch.cuda.synchronize()
-        nIter, best = 20, np.inf
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(nIter):
-                u = ctx.formal_sol_gamma_matrices()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-        if not (np.isfinite(float(u.dJMax)) and torch.isfinite(ctx.J).all()):
-            raise AssertionError(f'non-finite J on FALC-500 ({scheme})')
-        cfg = ctx.cfg
-        gridPoints = cfg.Nlam * cfg.Nmu * 2 * cfg.Nk
-        print(f'{best / nIter * 1e3:.3f} ms/iter, '
-              f'{gridPoints * nIter / best:.4e} gridpoint-updates/s '
-              '(host clock, synchronised per block)')
-
-        it, params = ctx._iter_fn, ctx._params
-        reps = 5
-        stages = {}
-
-        def timed(name, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + (time.perf_counter()
-                                                     - t0) / reps
-            return out
-        for _ in range(reps):
-            scaJ = params['bgSca'] * params['J']
-            if scheme == PALLAS:
-                chi, src = timed('gather', lambda: it.gather(params, scaJ))
-                rays = timed('formal_solve',
-                             lambda: it.formal_solve(params, chi, src))
-                lt = timed('line_kernel_stage', lambda: it.line_kernel_stage(
-                    params, *rays[:3], src, params['pack']))
-                timed('gamma_rates_rest', lambda: it.gamma_rates(
-                    params, rays[0], rays[1], rays[2], src, rays[3], lt))
-            else:
-                I, Psi, IeffB, mom, srcRowsA = timed(
-                    'fused_stage', lambda: it.fused_stage(params, scaJ,
-                                                          params['pack']))
-                timed('gamma_rates', lambda: it.gamma_rates(
-                    params, I, Psi, IeffB, None, mom, None, srcRowsA))
-        print('stage breakdown (ms, mean of 5): '
-              + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
-        del ctx, it, params
-        torch.cuda.empty_cache()
+        rhoDev = (args[1] - 1.0).abs().max().item()
+        worst = max(worst, f32_rule(
+            f'{label} group of K = {K} at row {args[-1]} (max|rho-1| = '
+            f'{rhoDev:.2e})', ('G4', 'PPB', 'PairPPB'), kern, plain, ref))
+    groups64 = [upcast(a) for a in groups]
+    bnd = gamma_bound(groups)
+    ms, plainMs, ms64 = timed_instances(
+        f'{label} line Gamma, all {len(groups)} groups of one iteration',
+        lambda: [gamma.group_gamma_rates(*a) for a in groups],
+        lambda: [gamma.group_gamma_rates_plain(*a) for a in groups],
+        lambda: [gamma.group_gamma_rates(*a) for a in groups64], bnd)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plainMs, f64_ms=ms64,
+                K=max(Ks), **bnd)
 
 
+def check_fused_f32(label, ctx, params, scaJ):
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.ops import fused
+    itF = build_iteration_fn(dataclasses.replace(ctx.cfg, fsIterScheme=FUSED))
+    args = itF.fused_inputs(params, scaJ, itF.pack(params))
+    args64 = upcast(args)
+    kern = fused.fused_lambda_step(*args)
+    plain = fused.fused_lambda_step_plain(*args)
+    ref = fused.fused_lambda_step_plain(*args64)
+    torch.cuda.synchronize()
+    C = args[0].shape[0]
+    absErr = f32_rule(f'{label} fused (C = {C})', RAY_NAMES,
+                      ray_outputs(kern), ray_outputs(plain),
+                      ray_outputs(ref))
+    j_own_products(f'{label} fused', kern, args[8])
+    bnd = fused_bound(args, kern)
+    ms, plainMs, ms64 = timed_instances(
+        f'{label} fused, per call', lambda: fused.fused_lambda_step(*args),
+        lambda: fused.fused_lambda_step_plain(*args),
+        lambda: fused.fused_lambda_step(*args64), bnd)
+    return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, f64_ms=ms64,
+                C=C, **bnd)
+
+
+def prd_state(dtype):
+    """falc_h6mg on the card after three MALI steps and one
+    prd_redistribute (rho != 1): the Context, its params, scaJ, srcNum and
+    the rays of one iteration (default scheme)."""
+    from lightweaver_tpu_torch.problems import h6mg_context
+    ctx = h6mg_context(device='cuda', dtype=dtype)
+    for _ in range(3):
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+    ctx.prd_redistribute()
+    rhoDev = max((r - 1.0).abs().max().item() for row in ctx.rhoPrd
+                 for r in row if r is not None)
+    print(f'  falc_h6mg ({dtype}): max|rho-1| over the PRD lines = '
+          f'{rhoDev:.3e}')
+    if not rhoDev > 0.1:
+        raise AssertionError('rho stayed at 1 after prd_redistribute')
+    params = ctx.build_params()
+    it = ctx._iter_fn
+    scaJ = it.scaJ(params)
+    chi, src = it.gather(params, scaJ)
+    return ctx, params, scaJ, src, it.formal_solve(params, chi, src)
+
+
+def f32_kernel_check():
+    """(a) The float32 instances against their plain versions, each output
+    by the rule of f32_rule: the sweep on random rays at Nk = 82 and 500
+    and on one falc_h6ca float32 iteration's inputs, line Gamma on its 13
+    groups and on falc_h6mg's (the K = 4 Mg II group, rho != 1), fused
+    with C = 2 on falc_h6ca and C = 3 on falc_h6mg; float32 and float64
+    instance times side by side.  Returns falc_h6ca's records."""
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context, random_rays
+    phase('float32 instances vs their plain versions (bar: err(kernel '
+          f'f32, plain f64) <= {F32_SLACK} err(plain f32, plain f64) + '
+          f'{F32_FLOOR})')
+    for Nk in (82, 500):
+        rays = random_rays(1046, 5, Nk, seed=Nk)
+        check_sweep_f32(f'Nk={Nk} random rays', [
+            torch.tensor(rays[k], dtype=F32, device='cuda') for k in
+            ('chi', 'srcNum', 'height', 'muz', 'IupwD', 'IupwU', 'wmu')])
+    ctx = h6ca_context(Falc82(), 5, device='cuda', dtype=F32)
+    ctx.formal_sol_gamma_matrices()
+    ctx.stat_equil()
+    params = ctx.build_params()
+    it = ctx._iter_fn
+    scaJ = it.scaJ(params)
+    chi, src = it.gather(params, scaJ)
+    args = it.sweep_inputs(params, chi, src)
+    records = {'sweep_f32': check_sweep_f32('falc_h6ca', args)}
+    rays = it.formal_solve(params, chi, src)
+    records['gamma_f32'] = check_line_f32('falc_h6ca', ctx, params, src,
+                                          rays)
+    records['fused_f32'] = check_fused_f32('falc_h6ca', ctx, params, scaJ)
+    ctx, params, scaJ, src, rays = prd_state(F32)
+    K = check_line_f32('falc_h6mg PRD', ctx, params, src, rays)['K']
+    C = check_fused_f32('falc_h6mg PRD', ctx, params, scaJ)['C']
+    if K != 4 or C != 3 or records['fused_f32']['C'] != 2:
+        raise AssertionError(f'expected K = 4 and C = 3 on falc_h6mg, C = 2 '
+                             f'on falc_h6ca; got {K}, {C}, '
+                             f'{records["fused_f32"]["C"]}')
+    del ctx, params, rays, chi, src, args
+    torch.cuda.empty_cache()
+    return records
+
+
+def converge_mixed(scheme):
+    """(b) The mixed-precision problem (tests/test_mixed_precision.py's) in
+    float32 under ``scheme`` through iterate_ctx_se; fewer than 600
+    iterations required (the JAX float32 state: 408 on the CPU)."""
+    from lightweaver_tpu_torch.problems import mixed_precision_context
+    ctx = mixed_precision_context(device='cuda', dtype=F32)
+    ctx.set_fs_iter_scheme(scheme)
+    nIter, updates, wall, counts = run_counted(ctx, 600)
+    print(f'  mixed-precision problem under {scheme}: {nIter} iterations '
+          f'(bar < 600), last dJ {float(updates[0].dJMax):.3e}, dPops '
+          f'{updates[1].dPopsMax:.3e}, {wall:.2f} s; float32 launches '
+          + ', '.join(f'{k} {counts[k]}' for k in F32_NAMES))
+    if not nIter < 600:
+        raise AssertionError(f'the mixed-precision problem did not converge '
+                             f'under {scheme} in {nIter} iterations')
+    if not torch.isfinite(ctx.I).all():
+        raise AssertionError('non-finite emergent intensity')
+
+
+F32_NAMES = ('sweep_f32', 'gamma_f32', 'fused_f32')
+
+
+def run_counted(ctx, NmaxIter):
+    """iterate_ctx_se on ``ctx`` with the launch counts set to 0 before and
+    read after; returns (formal_sol_gamma_matrices calls, the last J and
+    populations updates, wall s, counts)."""
+    from lightweaver_tpu_torch import iterate_ctx_se
+    fsgm, calls = ctx.formal_sol_gamma_matrices, []
+
+    def counted():
+        calls.append(1)
+        return fsgm()
+    ctx.formal_sol_gamma_matrices = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    updates = iterate_ctx_se(ctx, NmaxIter=NmaxIter, quiet=True,
+                             returnFinalConvergence=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del ctx.formal_sol_gamma_matrices
+    return len(calls), updates, wall, counts
+
+
+# (c)'s bars on the emergent spectrum against the golden file: twice the
+# JAX float32 state's distances on the CPU (3.26e-2 on the rows brighter
+# than 1e-3 of the peak, median 2.46e-3: scripts/precision_floors.py's
+# measure)
+F32_BRIGHT_BAR, F32_MEDIAN_BAR = 6.5e-2, 5e-3
+
+
+def falc_h6ca_f32(scheme):
+    """(c) falc_h6ca at full width with a float32 state under ``scheme``,
+    iterate_ctx_se with NmaxIter = 500; the float32 state does not
+    converge there (nor does the JAX package's), so the checks are its
+    envelope: finite, and the emergent spectrum within the bars above.
+    Returns the launch counts of the run."""
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    ref = np.load(ROOT / 'tests' / 'golden' / 'falc_h6ca_ref.npz')
+    ctx = h6ca_context(Falc82(), 5, device='cuda', dtype=F32)
+    ctx.set_fs_iter_scheme(scheme)
+    nIter, updates, wall, counts = run_counted(ctx, 500)
+    I = ctx.I.double().cpu().numpy()[:, -1]
+    Iref = ref['out_I'][:, -1]
+    rel = np.abs(I - Iref) / np.maximum(np.abs(Iref), 1e-300)
+    bright = Iref > 1e-3 * Iref.max()
+    popsErr = max(relerr(ctx.popsState[ia]['n'].cpu(),
+                         ref[f'out_pops_a{ia}']) for ia in range(2))
+    dJ, dPops = float(updates[0].dJMax), updates[1].dPopsMax
+    converged = dJ < 5e-3 and dPops < 1e-3 and nIter < 500
+    print(f'  falc_h6ca float32 under {scheme}: {nIter} iterations, '
+          f'converged {converged}, last dJ {dJ:.3e}, dPops {dPops:.3e}; '
+          f'{wall:.2f} s, {wall / nIter * 1e3:.3f} ms/iter')
+    print(f'    emergent I (mu = last ray) vs golden: bright rows max '
+          f'{rel[bright].max():.3e} (bar {F32_BRIGHT_BAR}), median '
+          f'{np.median(rel):.3e} (bar {F32_MEDIAN_BAR}); pops max rel '
+          f'{popsErr:.3e}; float32 launches '
+          + ', '.join(f'{k} {counts[k]}' for k in F32_NAMES)
+          + ', float64 launches '
+          + ', '.join(f'{k} {counts[k]}' for k in ('sweep', 'gamma',
+                                                   'fused')))
+    if not (np.isfinite(I).all() and all(
+            torch.isfinite(st['n']).all() for st in ctx.popsState)):
+        raise AssertionError(f'non-finite float32 state under {scheme}')
+    if not (rel[bright].max() <= F32_BRIGHT_BAR
+            and np.median(rel) <= F32_MEDIAN_BAR):
+        raise AssertionError(f'float32 spectrum outside its envelope under '
+                             f'{scheme}')
+    expected = {'mali_full_precond': ('sweep_f32',),
+                PALLAS: ('sweep_f32', 'gamma_f32'),
+                FUSED: ('fused_f32',)}[scheme]
+    if (any(counts[k] < nIter for k in expected)
+            or any(counts[k] for k in ('sweep', 'gamma', 'fused'))):
+        raise AssertionError(f'launches under {scheme}: {counts}')
+    return counts
+
+
+# ---- the least time the card could take for a kernel's work -----------
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+# peak rates outside the tensor cores, float32 and float64, from NVIDIA's
+# H100 SXM data sheet
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# floating-point operations per (ray, depth) point of the Bezier-3 step
+# and its moments, counted from csrc/bezier3.cuh and sweep.cu: two
+# Steffen derivatives (~13 each), control points and dtau (~10), the
+# Bezier weights (~30 with the exp), b, psiN, bNL and the recurrence
+# (~20), Psi and IeffBase (~5), the moment pass (~8)
+SWEEP_FLOPS = 100
+# per member, row, ray and depth of the line Gamma kernel: Vij, Vji, Uji,
+# chi and eta (~9), Ieff (~3), the level sums (~4 per member) and the
+# four accumulations (~16), PPB (~3)
+GAMMA_FLOPS = 31
+
+
+def nbytes(xs):
+    seen, total = set(), 0
+    for x in xs:
+        if torch.is_tensor(x) and id(x) not in seen:
+            seen.add(id(x))
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound(nBytes, flops, dtype):
+    """bound_ms and bound_by: the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    tBytes = nBytes / HBM_BYTES_PER_S
+    tOps = flops / PEAK_FLOPS[dtype]
+    return {'bound_ms': max(tBytes, tOps) * 1e3,
+            'bound_by': 'bytes' if tBytes >= tOps else 'operations'}
+
+
+def sweep_bound(args, out):
+    """Every input read once and every output written once."""
+    chi = args[0]
+    return bound(nbytes(list(args) + list(out[:3]) + list(out[3].values())),
+                 SWEEP_FLOPS * chi.numel(), chi.dtype)
+
+
+def gamma_bound(groups):
+    """Per group: phi, rho, the four ray tensors on the window rows, the
+    members' level rows of chiCL and UCL and etaC on the window, n, coef,
+    wphi; G4, PPB and PairPPB out."""
+    total = flops = 0
+    for (phi, rho, Psi, IeffB, I, src, chiCL, UCL, etaC, n, coef, wphi,
+         wmuHalf, st, row0) in groups:
+        K, _, Wu, Nmu, Nk = phi.shape
+        item = phi.element_size()
+        nLev = len({lv for ij in st.levels for lv in ij})
+        nBlk = -(-Wu // 8)
+        P = K * (K - 1) // 2
+        total += nbytes([phi, rho, n, coef, wphi, wmuHalf]) + item * (
+            4 * 2 * Wu * Nmu * Nk + 2 * nLev * Wu * Nk + Wu * Nk
+            + K * 4 * nBlk * Nk + (K + max(P, 1)) * Wu * Nk)
+        flops += (GAMMA_FLOPS + 4 * K) * K * Wu * 2 * Nmu * Nk \
+            + 4 * P * Wu * 2 * Nmu * Nk
+    return bound(total, flops, groups[0][0].dtype)
+
+
+def fused_bound(args, out):
+    """phiP, the coefficient and background rows and the boundaries in;
+    the rays and moments out; the sweep's operations plus the assembly of
+    chi and srcNum from C slots, twice (the ray pass and the moment
+    pass)."""
+    phiP = args[0]
+    C = phiP.shape[0]
+    ins = list(args[:9]) + [rows for _, rows in args[9:]]
+    return bound(nbytes(ins + list(out[:3]) + list(out[3].values())),
+                 (SWEEP_FLOPS + 8 * C) * phiP[0].numel(), phiP.dtype)
+
+
+# name -> (source, the pallas_call of the TPU kernel it replaces)
 KERNELS = {
     'sweep': ('lightweaver_tpu_torch/csrc/sweep.cu',
-              'lightweaver_tpu/ops/pallas_sweep.py:196'),
+              'lightweaver_tpu/ops/pallas_sweep.py:297'),
     'gamma': ('lightweaver_tpu_torch/csrc/gamma.cu',
-              'lightweaver_tpu/ops/pallas_gamma.py:152'),
+              'lightweaver_tpu/ops/pallas_gamma.py:249'),
     'fused': ('lightweaver_tpu_torch/csrc/fused.cu',
-              'lightweaver_tpu/ops/pallas_fused.py:122'),
+              'lightweaver_tpu/ops/pallas_fused.py:240'),
+    'sweep_f32': ('lightweaver_tpu_torch/csrc/sweep.cu',
+                  'lightweaver_tpu/ops/pallas_sweep.py:297'),
+    'gamma_f32': ('lightweaver_tpu_torch/csrc/gamma.cu',
+                  'lightweaver_tpu/ops/pallas_gamma.py:249'),
+    'fused_f32': ('lightweaver_tpu_torch/csrc/fused.cu',
+                  'lightweaver_tpu/ops/pallas_fused.py:240'),
     'probe_elementwise': ('lightweaver_tpu_torch/csrc/probe.cu',
-                          'scripts/pallas_probe.py:23'),
+                          'scripts/pallas_probe.py:28'),
     'probe_recurrence': ('lightweaver_tpu_torch/csrc/probe.cu',
-                         'scripts/pallas_probe.py:47'),
+                         'scripts/pallas_probe.py:57'),
 }
+SCHEMES = ('mali_full_precond', PALLAS, FUSED)
 
 
 def main():
@@ -746,11 +1186,28 @@ def main():
     scheme_paths()
     prdKern = prd_kernel_check()
     launches = prd_paths()
-    falc500()
-    falc500_schemes()
-    # the kernels' record: this slice's path (PRD) and its kernel inputs
+    f32Kern = f32_kernel_check()
+    phase('mixed-precision problem (40 depths, 3 rays, Ca II active) in '
+          'float32 under each scheme')
+    for scheme in SCHEMES:
+        converge_mixed(scheme)
+    phase('falc_h6ca at full width in float32 under each scheme, '
+          'NmaxIter = 500')
+    f32Launches = dict.fromkeys(F32_NAMES, 0)
+    for scheme in SCHEMES:
+        counts = falc_h6ca_f32(scheme)
+        for k in F32_NAMES:
+            f32Launches[k] += counts[k]
+    for scheme, nIter in zip(SCHEMES, (50, 20, 20)):
+        for dtype in (torch.float64, F32):
+            falc500(scheme, dtype, nIter)
+    # the kernels' record: the float64 instances on the PRD path (phase 8's
+    # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
+    # path (phase (c)'s launches, phase (a)'s inputs), the probes
     records = {name: dict(prdKern[name], launches=launches[name])
                for name in ('sweep', 'gamma', 'fused')}
+    records.update({name: dict(f32Kern[name], launches=f32Launches[name])
+                    for name in F32_NAMES})
     records.update(probes)
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')
@@ -759,7 +1216,9 @@ def main():
         'name': name, 'route': 'cuda', 'source': KERNELS[name][0],
         'replaces': KERNELS[name][1], 'launches': r['launches'],
         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-        'plain_ms': r['plain_ms']} for name, r in records.items()]}))
+        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+        'bound_by': r['bound_by'], 'library_ms': r.get('library_ms')}
+        for name, r in records.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,10 +1,21 @@
 """The Context: device state + the MALI iteration, in PyTorch.
 
 Port of the 1D path of lightweaver_tpu/context.py: the
-'piecewise_bezier3_1d' formal solver, factored Gamma, float64, no Ng on
-the populations and no charge conservation; complete redistribution,
+'piecewise_bezier3_1d' formal solver, factored Gamma, no Ng on the
+populations and no charge conservation; complete redistribution,
 angle-averaged PRD and hybrid PRD (prd_redistribute).  Everything outside
 that slice raises ValueError rather than running something else.
+
+Precision, as in the JAX package: a float64 state, or a float32 working
+dtype (the f32 state, lightweaverrc ``Precision: mixed``) with the
+accumulation dtype accumDtype = float64.  In the f32 state the ray
+tensors and the kernels run in float32; the Context's own state
+(populations, background, thermodynamics, rho, collisional rates) stays
+float64 and _working_params casts what the ray math reads; J, Gamma and
+the rates are float64 (the sweep and fused kernels sum J in float64, the
+line Gamma kernel's float block partials are summed in float64, and the
+lambda contractions of gamma_rates run through _sum_lmd_split or, with
+gammaAccum='blocked', _sum_lam_blocked).
 
 All ray tensors are direction-major [2, Nlam, Nmu, Nk] (d = 0 the down
 sweep, d = 1 the up sweep), the layout the depth-sweep kernel takes.  The
@@ -57,6 +68,10 @@ from .ops.sweep import formal_solve_sweep
 from .utils import ExplodingMatrixError, InitialSolution
 
 DEFAULT_DTYPE = torch.float64
+# the dtype of the Context's state and of J, Gamma and the rates in both
+# precisions (the JAX package's accumDtype for the f32 state)
+STATE_DTYPE = torch.float64
+GAMMA_ACCUM = ('exact', 'blocked')
 
 SCHEME_DEFAULT = 'mali_full_precond'
 SCHEME_PALLAS = 'mali_full_precond_pallas'
@@ -134,8 +149,15 @@ class IterConfig:
     wavelength: np.ndarray      # [Nlam]
     muz: np.ndarray             # [Nmu]
     wmu: np.ndarray             # [Nmu]
-    device: torch.device = torch.device('cpu')
+    device: torch.device = torch.device('cuda')
+    # working dtype of the ray tensors and kernels
     dtype: torch.dtype = DEFAULT_DTYPE
+    # dtype of J, Gamma and the rates (float64 for either working dtype)
+    accumDtype: torch.dtype = STATE_DTYPE
+    # lambda reduction of Gamma/rates under the f32 state: 'exact' in
+    # accumDtype, 'blocked' with working-dtype partials of _GAMMA_BLOCK
+    # rows (the line Gamma kernel's contract); ignored in float64
+    gammaAccum: str = 'exact'
     fsIterScheme: str = SCHEME_DEFAULT
     # hybrid PRD (Context._configure_hprd_coeffs; ref: Source/Prd.cpp:
     # 697-945): the PRD-active wavelength rows, the map from the global
@@ -161,7 +183,13 @@ class IterConfig:
                 t.alphaT = None if t.alpha is None else t_(t.alpha)
 
     def tensor(self, x):
+        """x in the working dtype on the device."""
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device)
+
+    def state(self, x):
+        """x in the state dtype (float64) on the device."""
+        return torch.as_tensor(np.asarray(x), dtype=STATE_DTYPE,
                                device=self.device)
 
     @property
@@ -180,6 +208,33 @@ def _sum_lmd(x, wla, wmu):
     wla [W, Nk] and wmu [Nmu] over (up/down, lambda, mu) -> [Nk]."""
     return torch.sum(x * wla[None, :, None, :] * wmu[None, None, :, None],
                      dim=(0, 1, 2))
+
+
+_GAMMA_BLOCK = 32
+
+
+def _sum_lam_blocked(x, adt):
+    """Lambda reduction of x [W, Nk]: working-dtype partials of at most
+    _GAMMA_BLOCK rows, the sum of the partials in ``adt`` (the line Gamma
+    kernel's contract; gammaAccum='blocked')."""
+    W, Nk = x.shape
+    nb = -(-W // _GAMMA_BLOCK)
+    x = torch.cat([x, x.new_zeros((nb * _GAMMA_BLOCK - W, Nk))])
+    part = x.reshape(nb, _GAMMA_BLOCK, Nk).sum(dim=1)
+    return part.to(adt).sum(dim=0)
+
+
+def _sum_lmd_split(x, wla_adt, wmu_adt, wmu_dt, adt, blocked=False):
+    """_sum_lmd with the (up/down, mu) contraction in the dtype of x and
+    the lambda sum, the one with thousands of terms whose weights span
+    decades, in ``adt`` (blocked: _sum_lam_blocked).  x already in adt
+    takes the single-pass _sum_lmd (the float64 path)."""
+    if x.dtype == adt:
+        return _sum_lmd(x, wla_adt, wmu_adt)
+    xm = torch.sum(x * wmu_dt[None, None, :, None], dim=(0, 2))
+    if blocked:
+        return _sum_lam_blocked(xm * wla_adt.to(x.dtype), adt)
+    return torch.sum(xm.to(adt) * wla_adt, dim=0)
 
 
 def line_rho(params, ai: int, ti: int, t: TransStatic):
@@ -268,11 +323,24 @@ def UjiW(cfg, params, ai, ti, lo, hi):
     return _uv(cfg, params, ai, ti, t, lo, hi)[0]
 
 
-def _with_all_atoms(params):
-    """params plus 'allPops'/'allNStar': active then detailed atoms."""
+def _working_params(cfg: IterConfig, params):
+    """params with everything the ray-tensor math reads in the working
+    dtype, plus 'allPops'/'allNStar' (active then detailed atoms): the
+    populations, background, thermodynamics, profiles and rho are cast (no
+    copy in float64); J stays in accumDtype, C in float64."""
+    def cast(x):
+        return None if x is None else x.to(cfg.dtype)
     params = dict(params)
-    params['allPops'] = list(params['pops']) + list(params['detPops'])
-    params['allNStar'] = list(params['nStar']) + list(params['detNStar'])
+    params['allPops'] = [cast(n) for n in
+                         list(params['pops']) + list(params['detPops'])]
+    params['allNStar'] = [cast(n) for n in
+                          list(params['nStar']) + list(params['detNStar'])]
+    for key in ('bgChi', 'bgEta', 'bgSca', 'temperature', 'height',
+                'upperBcData', 'lowerBcData'):
+        params[key] = cast(params.get(key))
+    for key in ('phi', 'wphi', 'rhoPrd'):
+        if params.get(key) is not None:
+            params[key] = [[cast(x) for x in row] for row in params[key]]
     return params
 
 
@@ -306,14 +374,20 @@ def gather(cfg: IterConfig, params, scaJ):
 
 
 # ---- stage 2: formal solution + angular moments -------------------------
+def sweep_inputs(cfg: IterConfig, params, chiTot, srcNum):
+    """The arguments of ops/sweep.py:formal_solve_sweep for the full grid:
+    the ray tensors, the boundary intensities and the quadrature."""
+    Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiTot,
+                                         cfg.wavelengthT)
+    return (chiTot, srcNum, params['height'], cfg.muzT, Iupw_d, Iupw_u,
+            cfg.wmuT)
+
+
 def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
     """Boundary intensities, then the depth sweep of every ray with its
     angular moments (ops/sweep.py: the CUDA kernel on a CUDA device).
     Returns (I, Psi, IeffBase, moments)."""
-    Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiTot,
-                                         cfg.wavelengthT)
-    return formal_solve_sweep(chiTot, srcNum, params['height'], cfg.muzT,
-                              Iupw_d, Iupw_u, cfg.wmuT)
+    return formal_solve_sweep(*sweep_inputs(cfg, params, chiTot, srcNum))
 
 
 def _upwind_intensities(cfg: IterConfig, params, chiTot, lam, rows=None):
@@ -587,17 +661,36 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
     the lines' Gamma/rates and their products with Psi come from the line
     kernel instead.  Under the fused scheme srcNum is None and
     ``srcRowsA`` (fused_stage) forms the compensated Ieff of the lines.
+
+    Gamma, Rij and Rji come out in accumDtype.  The ray-tensor integrands
+    are in the working dtype; the moments are cast to accumDtype and every
+    lambda contraction runs in it (_sum_lmd_split, lam_sum), the JAX
+    package's mixed-precision contract (lightweaver_tpu/context.py:
+    1098-1522); in float64 all of it is float64.
     ref: Source/SimdFullIterationTemplates.hpp:240-508"""
     Nmu, Nk = cfg.Nmu, cfg.Nk
-    dt, dev = cfg.dtype, cfg.device
-    wmu2 = 0.5 * cfg.wmuT
+    dt, adt, dev = cfg.dtype, cfg.accumDtype, cfg.device
+    wmu2 = (0.5 * cfg.wmuT).to(adt)
+    wmu2w = 0.5 * cfg.wmuT
     oneBar = torch.sum(wmu2) * 2.0
-    PsiBar = moments['PsiBar']
-    IBar = moments['IBar']
-    IeffBaseSrcBar = moments['IeffSrcBar']
+    blockedAcc = cfg.gammaAccum == 'blocked' and dt != adt
+    # element dtype of the [W, Nk] lambda integrands
+    cdt = dt if blockedAcc else adt
+    PsiBar = moments['PsiBar'].to(adt)
+    IBar = moments['IBar'].to(adt)
+    IeffBaseSrcBar = moments['IeffSrcBar'].to(adt)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def lam_sum(x):
+        """Lambda reduction of a [W, Nk] integrand in cdt."""
+        if blockedAcc:
+            return _sum_lam_blocked(x, adt)
+        return torch.sum(x, dim=0)
+
+    def sum_lmd(x, wlaA):
+        return _sum_lmd_split(x, wlaA, wmu2, wmu2w, adt, blockedAcc)
 
     GammaOut, RijOut, RjiOut = [], [], []
     for ai, a in enumerate(cfg.activeAtoms):
@@ -652,8 +745,8 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
 
         def cont_part_on(fn, items, signed, lo, hi):
             """[hi-lo, Nk] sum of the continuum members of a level list
-            restricted to [lo, hi)."""
-            out = zeros(hi - lo, Nk)
+            restricted to [lo, hi), in cdt."""
+            out = zeros(hi - lo, Nk, dtype=cdt)
             for item in items:
                 t2i, sign = item if signed else (item, 1)
                 t2 = a.trans[t2i]
@@ -662,8 +755,8 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                 l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
                 if h2 <= l2:
                     continue
-                out[l2 - lo:h2 - lo] += sign * fn_on(fn, t2i, l2,
-                                                     h2)[0, :, 0, :]
+                out[l2 - lo:h2 - lo] += sign * fn_on(
+                    fn, t2i, l2, h2)[0, :, 0, :].to(cdt)
             return out
 
         def cross_bar(t, listX, listU, wlaA):
@@ -673,7 +766,7 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
             lo, hi = t.Nblue, t.Nred
             XC = cont_part_on(chiW, listX, True, lo, hi)
             UC = cont_part_on(UjiW, listU, False, lo, hi)
-            total = torch.sum(XC * UC * wlaA * PsiBar[lo:hi], dim=0)
+            total = lam_sum(XC * UC * wlaA.to(cdt) * PsiBar[lo:hi].to(cdt))
             # line(chi) x continuum(U) and line x line terms
             for t2i, sign in listX:
                 t2 = a.trans[t2i]
@@ -686,13 +779,13 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                     # chi_t2 is mu-independent x phi: the angular sum
                     # factors into the kernel's phi x Psi moment
                     total = total + sign * torch.sum(
-                        kernel_rows(t2i, 'chiPsiBar', l2, h2)
+                        kernel_rows(t2i, 'chiPsiBar', l2, h2).to(adt)
                         * UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], dim=0)
                 else:
                     chiSub = fn_on(chiW, t2i, l2, h2)
-                    total = total + sign * _sum_lmd(
+                    total = total + sign * sum_lmd(
                         chiSub * Psi[:, l2:h2],
-                        UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], wmu2)
+                        UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo])
                 for t3i in listU:
                     t3 = a.trans[t3i]
                     if not t3.isLine:
@@ -705,12 +798,12 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                         pp = lt['pair'][(min(t2i, t3i), max(t2i, t3i))]
                         rows = pp['chiU'] if t2i < t3i else pp['UChi']
                         total = total + sign * torch.sum(
-                            rows[l3 - pp['row0']:h3 - pp['row0']]
+                            rows[l3 - pp['row0']:h3 - pp['row0']].to(adt)
                             * wlaA[l3 - lo:h3 - lo], dim=0)
                         continue
-                    total = total + sign * _sum_lmd(
+                    total = total + sign * sum_lmd(
                         fn_on(chiW, t2i, l3, h3) * fn_on(UjiW, t3i, l3, h3)
-                        * Psi[:, l3:h3], wlaA[l3 - lo:h3 - lo], wmu2)
+                        * Psi[:, l3:h3], wlaA[l3 - lo:h3 - lo])
             # continuum(chi) x line(U) terms
             for t3i in listU:
                 t3 = a.trans[t3i]
@@ -721,59 +814,61 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                     continue
                 if lt is not None:
                     total = total + torch.sum(
-                        kernel_rows(t3i, 'UPsiBar', l3, h3)
+                        kernel_rows(t3i, 'UPsiBar', l3, h3).to(adt)
                         * XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo], dim=0)
                     continue
-                total = total + _sum_lmd(
+                total = total + sum_lmd(
                     fn_on(UjiW, t3i, l3, h3) * Psi[:, l3:h3],
-                    XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo], wmu2)
+                    XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo])
             return total
 
-        Gamma = params['crsw'] * params['C'][ai]
+        Gamma = (params['crsw'] * params['C'][ai]).to(adt)
 
         # IeffBar for this atom: global moment minus the Psi*etaAtom
         # moment (continua via PsiBar, lines over their windows)
-        PsiEtaBar = zeros(cfg.Nlam, Nk)
+        PsiEtaBar = zeros(cfg.Nlam, Nk, dtype=adt)
         for ti, t in enumerate(a.trans):
             sl = slice(t.Nblue, t.Nred)
             if t.isLine and lt is not None:
                 PsiEtaBar[sl] += kernel_rows(ti, 'etaPsiBar', t.Nblue,
-                                             t.Nred)
+                                             t.Nred).to(adt)
                 continue
             eta = fn_on(etaW, ti, t.Nblue, t.Nred)
             if t.isLine:
-                PsiEtaBar[sl] += _sum_mu(eta * Psi[:, sl], wmu2)
+                PsiEtaBar[sl] += _sum_mu(eta * Psi[:, sl], wmu2w).to(adt)
             else:
-                PsiEtaBar[sl] += eta[0, :, 0, :] * PsiBar[sl]
+                PsiEtaBar[sl] += eta[0, :, 0, :].to(adt) * PsiBar[sl]
         IeffBarA = IeffBaseSrcBar - PsiEtaBar
 
         Rij, Rji = [], []
         for ti, t in enumerate(a.trans):
             sl = slice(t.Nblue, t.Nred)
             if t.isLine and lt is not None:
-                # the kernel's lambda-block partials, summed here in f64
-                G4 = lt['line'][ti]['G4']
+                # the kernel's lambda-block partials, summed here in adt
+                G4 = lt['line'][ti]['G4'].to(adt)
                 Gamma[t.i, t.j] += torch.sum(G4[0], dim=0)
                 Gamma[t.j, t.i] += torch.sum(G4[1], dim=0)
                 Rij.append(torch.sum(G4[2], dim=0))
                 Rji.append(torch.sum(G4[3], dim=0))
                 continue
             Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
-            wla = _wla(cfg, params, ai, ti, t)           # [W, Nk]
+            wlaA = _wla(cfg, params, ai, ti, t).to(adt)  # [W, Nk]
 
             if not t.isLine:
-                UjiC, VijC, VjiC = (x[0, :, 0, :] for x in (Uji, Vij, Vji))
-                Ieff_b = IeffBarA[sl]
-                Gij = (torch.sum((UjiC * oneBar + VjiC * Ieff_b) * wla, dim=0)
-                       - cross_bar(t, a.chiLists[t.i], a.ULists[t.j], wla))
-                Gji = (torch.sum(VijC * Ieff_b * wla, dim=0)
-                       - cross_bar(t, a.chiLists[t.j], a.ULists[t.i], wla))
+                UjiC, VijC, VjiC = (x[0, :, 0, :].to(cdt)
+                                    for x in (Uji, Vij, Vji))
+                wlaB = wlaA.to(cdt)
+                oneBarC = oneBar.to(cdt)
+                Ieff_b = IeffBarA[sl].to(cdt)
+                Gij = (lam_sum((UjiC * oneBarC + VjiC * Ieff_b) * wlaB)
+                       - cross_bar(t, a.chiLists[t.i], a.ULists[t.j], wlaA))
+                Gji = (lam_sum(VijC * Ieff_b * wlaB)
+                       - cross_bar(t, a.chiLists[t.j], a.ULists[t.i], wlaA))
                 Gamma[t.i, t.j] += Gij
                 Gamma[t.j, t.i] += Gji
-                IBar_w = IBar[sl]
-                Rij.append(torch.sum(VijC * IBar_w * wla, dim=0))
-                Rji.append(torch.sum((UjiC * oneBar + VjiC * IBar_w) * wla,
-                                     dim=0))
+                IBar_w = IBar[sl].to(cdt)
+                Rij.append(lam_sum(VijC * IBar_w * wlaB))
+                Rji.append(lam_sum((UjiC * oneBarC + VjiC * IBar_w) * wlaB))
                 continue
 
             # compensated MALI effective intensity on the line window:
@@ -793,13 +888,13 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
             U_j = level_sum_on_window(t, a.ULists[t.j], UjiW, False)
             integ_ij = (Uji + Vji * Ieff_w) - Psi_w * chi_i * U_j
             integ_ji = (Vij * Ieff_w) - Psi_w * chi_j * U_i
-            Gamma[t.i, t.j] += _sum_lmd(integ_ij, wla, wmu2)
-            Gamma[t.j, t.i] += _sum_lmd(integ_ji, wla, wmu2)
-            Rij.append(_sum_lmd(I_w * Vij, wla, wmu2))
-            Rji.append(_sum_lmd(Uji + I_w * Vji, wla, wmu2))
+            Gamma[t.i, t.j] += sum_lmd(integ_ij, wlaA)
+            Gamma[t.j, t.i] += sum_lmd(integ_ji, wlaA)
+            Rij.append(sum_lmd(I_w * Vij, wlaA))
+            Rji.append(sum_lmd(Uji + I_w * Vji, wlaA))
 
         # finalise: diagonal = -column sums of off-diagonals
-        eye = torch.eye(a.Nlevel, dtype=dt, device=dev)[:, :, None]
+        eye = torch.eye(a.Nlevel, dtype=adt, device=dev)[:, :, None]
         Gamma = Gamma * (1.0 - eye)
         colSum = torch.sum(Gamma, dim=0)
         Gamma = Gamma - eye * colSum[None, :, :]
@@ -807,6 +902,13 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
         RijOut.append(Rij)
         RjiOut.append(Rji)
     return GammaOut, RijOut, RjiOut
+
+
+def _sca_j(cfg: IterConfig, params):
+    """The coherent scattering emissivity bgSca * J of working params in
+    the working dtype: J is carried in accumDtype, the formal solve reads
+    it in the working dtype."""
+    return params['bgSca'] * params['J'].to(cfg.dtype)
 
 
 def build_iteration_fn(cfg: IterConfig):
@@ -852,9 +954,9 @@ def build_iteration_fn(cfg: IterConfig):
         packed = params.get('pack')
         if packed is None:
             packed = pack(params)
-        params = _with_all_atoms(params)
-        Jdag = params['J']
-        scaJ = params['bgSca'] * Jdag
+        params = _working_params(cfg, params)
+        Jdag = params['J'].to(cfg.accumDtype)
+        scaJ = _sca_j(cfg, params)
         srcNum = srcRowsA = lineTerms = None
         if scheme == SCHEME_FUSED:
             I, Psi, IeffBase, moments, srcRowsA = fused_stage(
@@ -879,19 +981,22 @@ def build_iteration_fn(cfg: IterConfig):
 
     iteration.pack = pack
     iteration.gather = lambda params, scaJ: gather(
-        cfg, _with_all_atoms(params), scaJ)
+        cfg, _working_params(cfg, params), scaJ)
     iteration.formal_solve = lambda params, chiTot, srcNum: formal_solve(
-        cfg, params, chiTot, srcNum)
+        cfg, _working_params(cfg, params), chiTot, srcNum)
+    iteration.sweep_inputs = lambda params, chiTot, srcNum: sweep_inputs(
+        cfg, _working_params(cfg, params), chiTot, srcNum)
+    iteration.scaJ = lambda params: _sca_j(cfg, _working_params(cfg, params))
     iteration.fused_stage = lambda params, scaJ, packed: fused_stage(
-        cfg, _with_all_atoms(params), scaJ, packed)
+        cfg, _working_params(cfg, params), scaJ, packed)
     iteration.line_kernel_stage = lambda params, *rays: line_kernel_stage(
-        cfg, _with_all_atoms(params), *rays)
+        cfg, _working_params(cfg, params), *rays)
     iteration.line_group_inputs = lambda params, *rays: list(
-        line_group_inputs(cfg, _with_all_atoms(params), *rays))
+        line_group_inputs(cfg, _working_params(cfg, params), *rays))
     iteration.fused_inputs = lambda params, scaJ, packed: fused_inputs(
-        cfg, _with_all_atoms(params), scaJ, packed)[0]
+        cfg, _working_params(cfg, params), scaJ, packed)[0]
     iteration.gamma_rates = lambda params, *rays: gamma_rates(
-        cfg, _with_all_atoms(params), *rays)
+        cfg, _working_params(cfg, params), *rays)
     return iteration
 
 
@@ -969,30 +1074,32 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
             chiSub[:, p0:p1] += c[:, rows]
             etaSub[:, p0:p1] += e[:, rows]
 
-        srcSub = etaSub + (params['bgSca'][subT]
-                           * params['J'][subT])[None, :, None, :]
+        srcSub = etaSub + _sca_j(cfg, params)[subT][None, :, None, :]
         Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiSub, lamSub,
                                              rows=subT)
         return (chiSub, srcSub, params['height'], cfg.muzT, Iupw_d, Iupw_u,
                 cfg.wmuT)
 
     def prd_subset_stage(params):
-        params = _with_all_atoms(params)
+        params = _working_params(cfg, params)
         I, Psi, IeffBase, moments = formal_solve_sweep(*sweep_inputs(params))
-        Jdag = params['J'][subT]
+        adt = cfg.accumDtype
+        Jdag = params['J'][subT].to(adt)
         Jnew = moments['J']
         dJ = torch.max(torch.abs(1.0 - torch.where(
             Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
 
-        wmu2 = 0.5 * cfg.wmuT
+        wmu2w = 0.5 * cfg.wmuT
+        wmu2 = wmu2w.to(adt)
         RijOut, RjiOut = [], []
         for (ai, ti), s0 in zip(prdLines, lineStarts):
             t = cfg.activeAtoms[ai].trans[ti]
             I_w = I[:, s0:s0 + t.W]
             Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
-            wla = _wla(cfg, params, ai, ti, t)
-            RijOut.append(_sum_lmd(I_w * Vij, wla, wmu2))
-            RjiOut.append(_sum_lmd(Uji + I_w * Vji, wla, wmu2))
+            wlaA = _wla(cfg, params, ai, ti, t).to(adt)
+            RijOut.append(_sum_lmd_split(I_w * Vij, wlaA, wmu2, wmu2w, adt))
+            RjiOut.append(_sum_lmd_split(Uji + I_w * Vji, wlaA, wmu2, wmu2w,
+                                         adt))
 
         out = {'J': Jnew, 'I': I[1, :, :, 0], 'dJ': dJ, 'Rij': RijOut,
                'Rji': RjiOut}
@@ -1001,7 +1108,7 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
         return out
 
     prd_subset_stage.sweep_inputs = lambda params: sweep_inputs(
-        _with_all_atoms(params))
+        _working_params(cfg, params))
     return prd_subset_stage
 
 
@@ -1031,9 +1138,17 @@ class Context:
     slice: construct from (atmos, spect, eqPops), then iterate
     formal_sol_gamma_matrices / stat_equil (and prd_redistribute for PRD
     lines) to convergence (e.g. with iterate_ctx_se(ctx, prd=True)), and
-    read I / J / populations / rhoPrd.  All state lives on ``device``; on
-    a CUDA device the formal solve runs the CUDA kernel.  ``hprd=True``
-    selects hybrid PRD (comoving-frame rho, default scheme only).
+    read I / J / populations / rhoPrd.  All state lives on ``device``, the
+    card unless the caller passes device='cpu'; on a CUDA device every
+    stage with a kernel launches it.  ``hprd=True`` selects hybrid PRD
+    (comoving-frame rho, default scheme only).
+
+    ``dtype`` is the working dtype: float64, or float32 for the f32 state
+    (the default under lightweaverrc ``Precision: mixed``), whose J, Gamma
+    and rates are in ``accumDtype`` = float64.  ``gammaAccum`` ('exact' or
+    'blocked'; default config.params' ``GammaAccum``, else 'exact', as in
+    the JAX package) picks the lambda reduction of Gamma/rates under the
+    f32 state.
     """
 
     def __init__(self, atmos: Atmosphere, spect, eqPops,
@@ -1041,9 +1156,19 @@ class Context:
                  hprd: bool = False,
                  formalSolver: str = 'piecewise_bezier3_1d',
                  crswCallback=None,
-                 dtype: torch.dtype = DEFAULT_DTYPE, device='cpu',
+                 dtype: Optional[torch.dtype] = None,
+                 accumDtype: Optional[torch.dtype] = None, device='cuda',
                  gammaMode: str = 'factored',
-                 fsIterScheme: Optional[str] = None):
+                 fsIterScheme: Optional[str] = None,
+                 gammaAccum: Optional[str] = None):
+        from .config import params as cfgParams
+        if dtype is None:
+            dtype = (torch.float32 if cfgParams.get('Precision') == 'mixed'
+                     else DEFAULT_DTYPE)
+        if accumDtype is None:
+            accumDtype = STATE_DTYPE
+        if gammaAccum is None:
+            gammaAccum = cfgParams.get('GammaAccum', 'exact')
         unsupported = {
             'a 2D/3D atmosphere': atmos.Ndim != 1,
             'Ng acceleration (ngOptions)': ngOptions is not None,
@@ -1051,7 +1176,11 @@ class Context:
             f'formalSolver={formalSolver!r}':
                 formalSolver != 'piecewise_bezier3_1d',
             f'gammaMode={gammaMode!r}': gammaMode != 'factored',
-            f'dtype={dtype} (the f32 state)': dtype != torch.float64,
+            f'dtype={dtype}': dtype not in (torch.float64, torch.float32),
+            f'accumDtype={accumDtype}': accumDtype != STATE_DTYPE,
+            f'gammaAccum={gammaAccum!r}': gammaAccum not in GAMMA_ACCUM,
+            'hybrid PRD with a float32 state':
+                hprd and dtype == torch.float32,
             f'initSol={initSol}':
                 initSol not in (None, InitialSolution.Lte),
         }
@@ -1061,6 +1190,11 @@ class Context:
                              + ', '.join(bad) + ' yet')
         if atmos.muz is None:
             raise ValueError('Atmosphere angular quadrature not set')
+        device = torch.device(device)
+        if device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for the Context (the default "
+                               "device is 'cuda'; pass device='cpu' to run "
+                               "on the CPU)")
 
         self.atmos = atmos
         self.spect = spect
@@ -1068,7 +1202,8 @@ class Context:
         self.crswCallback = crswCallback
         self.crswDone = crswCallback is None
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.accumDtype = accumDtype
+        self.device = device
         radSet = spect.radSet
 
         activeAtoms = [self._build_atom_static(m, False)
@@ -1084,19 +1219,22 @@ class Context:
             upperThermalised=isinstance(atmos.upperBc, ThermalisedRadiation),
             wavelength=np.asarray(spect.wavelength),
             muz=np.asarray(atmos.muz), wmu=np.asarray(atmos.wmu),
-            device=self.device, dtype=dtype)
+            device=self.device, dtype=dtype, accumDtype=accumDtype,
+            gammaAccum=gammaAccum)
 
         bg = basic_background(spect, atmos, eqPops, radSet)
         self.background = bg
 
-        t_ = self.cfg.tensor
+        # the state stays float64 in either precision (_working_params
+        # casts what the ray math reads)
+        t_ = self.cfg.state
         self.bgChi = t_(bg.chi)
         self.bgEta = t_(bg.eta)
         self.bgSca = t_(bg.sca)
         self.temperature = t_(atmos.temperature)
         self.height = t_(atmos.height)
 
-        self.J = torch.zeros((spect.Nspect, atmos.Nspace), dtype=dtype,
+        self.J = torch.zeros((spect.Nspect, atmos.Nspace), dtype=accumDtype,
                              device=self.device)
         self.I = torch.zeros((spect.Nspect, atmos.Nrays), dtype=dtype,
                              device=self.device)
@@ -1189,8 +1327,9 @@ class Context:
 
     # ------------------------------------------------------------------
     def compute_profiles(self):
-        """Voigt profiles phi [W, Nmu, 2, Nspace] and normalisation wphi
-        per line, evaluated in f64 on the device, with each line's damping
+        """Voigt profiles phi [W, Nmu, 2, Nspace] (Voigt evaluated in f64
+        on the device, kept in the working dtype) and normalisation wphi
+        per line, with each line's damping
         aDamp and elastic collision rate Qelast [Nspace] (numpy; PRD's
         inputs) (ref: Source/FormalScalar.cpp:28-134)."""
         atmos = self.atmos
@@ -1215,10 +1354,14 @@ class Context:
                 vBase = (t.wavelengthT - t.lambda0) * Const.CLight / t.lambda0
 
                 def voigt_cb(aDamp, vB, _vBase=vBase):
-                    aDamp = t_(aDamp)
-                    vB = t_(vB)
-                    vk = ((_vBase[:, None, None, None]
-                           + s[None, None, :, None] * vlosMu[None, :, None, :])
+                    # float64 whatever the working dtype, as the JAX
+                    # package evaluates it: correctly rounded f32 profiles
+                    f64 = self.cfg.state
+                    aDamp = f64(aDamp)
+                    vB = f64(vB)
+                    vk = ((_vBase.double()[:, None, None, None]
+                           + (s.double()[None, None, :, None]
+                              * vlosMu.double()[None, :, None, :]))
                           / vB[None, None, None, :])
                     return (voigt_H(aDamp[None, None, None, :], vk)
                             / (Const.SqrtPi * vB[None, None, None, :]))
@@ -1263,7 +1406,7 @@ class Context:
 
     def _deviceC(self):
         if self._CDev is None:
-            self._CDev = [self.cfg.tensor(C) for C in self.C]
+            self._CDev = [self.cfg.state(C) for C in self.C]
         return self._CDev
 
     def _bc_data(self, bc):
@@ -1343,9 +1486,10 @@ class Context:
         supported = {
             SCHEME_DEFAULT: (lambda cfg: True, ''),
             SCHEME_FUSED: (fusedOps.fused_scheme_supported,
-                           'needs float64 and no hybrid PRD'),
+                           'needs float64 or float32 and no hybrid PRD'),
             SCHEME_PALLAS: (gammaOps.gamma_scheme_supported,
-                            'needs float64, no hybrid PRD and same-atom '
+                            'needs float64 or float32, no hybrid PRD and '
+                            'same-atom '
                             f'line groups of at most {gammaOps.KMAX} '
                             'overlapping lines')}
         if base not in supported:
@@ -1414,7 +1558,7 @@ class Context:
         flags = []
         for ai, a in enumerate(self.cfg.activeAtoms):
             st = self.popsState[ai]
-            nTotal = self.cfg.tensor(
+            nTotal = self.cfg.state(
                 self.eqPops.atomicPops[a.model.element].nTotal)
             nNew = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
             nOld = st.get('nLastSE')
@@ -1553,7 +1697,7 @@ class Context:
         aDamp [Nk], Qelast [Nk], and under hybrid PRD the first row of its
         window in JRest."""
         if self._prdStatics is None:
-            t_ = self.cfg.tensor
+            t_ = self.cfg.state
             self._prdStatics = []
             for ai, ti, a, t in self._prd_lines():
                 vBroad = a.model.vBroad(self.atmos)
@@ -1647,7 +1791,7 @@ class Context:
                 dRhoMax = max(dRhoMax, dRho[li])
                 if accelerated:
                     rhoHost = rhoFlat
-                    rho = self.cfg.tensor(rhoFlat.reshape(rho.shape))
+                    rho = self.cfg.state(rhoFlat.reshape(rho.shape))
                 self.rhoPrd[ai][ti] = rho
                 self._rhoHost[(ai, ti)] = (rho, rhoHost)
 

@@ -10,23 +10,36 @@ inputs, PRD state included.  Nothing here imports jax.
 import numpy as np
 import torch
 
-from .context import DEFAULT_DTYPE, phi_direction_major
+from .context import DEFAULT_DTYPE, STATE_DTYPE, phi_direction_major
 
 # params of the 2D path, which the port does not carry: they must be
 # absent or None
 _UNSUPPORTED = ('xLowerBcData', 'xUpperBcData')
 
 
-def params_from_numpy(params, device='cpu', dtype=DEFAULT_DTYPE):
-    """JAX ``build_params()`` pytree -> the port's params dict on
-    ``device``.  Profiles and the hybrid-PRD coefficients hprdI0/hprdFrac
-    move from the JAX layout [W, Nmu, 2, Nk] to the direction-major
-    [2, W, Nmu, Nk]; the PRD ratios rhoPrd [W, Nk] and vlosMu [Nmu, Nk]
-    keep theirs."""
-    def t_(x, dt=dtype):
+def params_from_numpy(params, cfg=None, device='cuda'):
+    """JAX ``build_params()`` pytree -> the port's params dict, in the
+    dtypes and on the device of the target IterConfig ``cfg`` (without
+    one: float64 on ``device``).  The state (J, populations, background,
+    thermodynamics, collisional rates, rho) becomes float64, as the port's
+    Context keeps it in either precision; the profiles, their weights and
+    the boundary data take the working dtype.  A JAX float32 Context's
+    values are all float32-representable, so the port's float32 iteration
+    reads exactly the JAX one's inputs.  Profiles and the hybrid-PRD
+    coefficients hprdI0/hprdFrac move from the JAX layout [W, Nmu, 2, Nk]
+    to the direction-major [2, W, Nmu, Nk]; the PRD ratios rhoPrd [W, Nk]
+    and vlosMu [Nmu, Nk] keep theirs."""
+    if cfg is not None:
+        device = cfg.device
+    working = DEFAULT_DTYPE if cfg is None else cfg.dtype
+
+    def t_(x, dt=STATE_DTYPE):
         return None if x is None else torch.as_tensor(
             np.array(x, dtype=np.int64 if dt == torch.int64 else np.float64),
             dtype=dt, device=device)
+
+    def w_(x):
+        return t_(x, working)
 
     def nested(key, fn):
         rows = params.get(key)
@@ -39,15 +52,17 @@ def params_from_numpy(params, device='cpu', dtype=DEFAULT_DTYPE):
 
     out = {key: t_(params.get(key)) for key in
            ('J', 'bgChi', 'bgEta', 'bgSca', 'temperature', 'height',
-            'upperBcData', 'lowerBcData', 'vlosMu')}
+            'vlosMu')}
+    for key in ('upperBcData', 'lowerBcData'):
+        out[key] = w_(params.get(key))
     for key in ('pops', 'nStar', 'detPops', 'detNStar', 'C'):
         out[key] = [t_(x) for x in params[key]]
     out['crsw'] = float(np.asarray(params['crsw']))
-    out['phi'] = nested('phi', lambda p: phi_direction_major(t_(p)))
-    out['wphi'] = nested('wphi', t_)
+    out['phi'] = nested('phi', lambda p: phi_direction_major(w_(p)))
+    out['wphi'] = nested('wphi', w_)
     out['rhoPrd'] = nested('rhoPrd', t_)
     out['hprdI0'] = nested('hprdI0', lambda x: phi_direction_major(
         t_(x, torch.int64)))
     out['hprdFrac'] = nested('hprdFrac', lambda x: phi_direction_major(
-        t_(x)))
+        w_(x)))
     return out

@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace lw {
 
 template <typename T>
@@ -23,13 +25,60 @@ __device__ __forceinline__ T cent_deriv(T dsuw, T dsdw, T yuw, T y0, T ydw) {
     return (sgn(S0) + sgn(Suw)) * fmin(fabs(Suw), fmin(fabs(S0), T(0.5) * P0));
 }
 
-// Cubic Bezier integration coefficients (ref Bezier.hpp:81-127).
+// sum_i c_i x^i, i = 1..12, by Horner's rule in T (c_i constant-folded)
+template <typename T>
+__device__ __forceinline__ T series12(T x, T c1, T c2, T c3, T c4, T c5,
+                                      T c6, T c7, T c8, T c9, T c10, T c11,
+                                      T c12) {
+    T acc = c12;
+    acc = acc * x + c11;
+    acc = acc * x + c10;
+    acc = acc * x + c9;
+    acc = acc * x + c8;
+    acc = acc * x + c7;
+    acc = acc * x + c6;
+    acc = acc * x + c5;
+    acc = acc * x + c4;
+    acc = acc * x + c3;
+    acc = acc * x + c2;
+    acc = acc * x + c1;
+    return acc * x;
+}
+
+// Cubic Bezier integration coefficients (ref Bezier.hpp:81-127).  In
+// float the middle branch's closed forms cancel near its lower end
+// (alpha dt^3 = 6 - e^-dt (...) ~ dt^4 / 4 against terms of 6), so for
+// 5e-2 <= dt < 1 the float instance sums the same functions' power
+// series instead (ops/formal_solver.py:B3_SERIES, the same coefficients);
+// double keeps the closed forms, as the reference.
 template <typename T>
 __device__ __forceinline__ void bezier3_coeffs(T dt, T& a, T& b, T& g, T& d,
                                                T& e) {
     const T dt2 = dt * dt;
     const T dt3 = dt2 * dt;
-    if (dt < T(5e-2)) {
+    if (std::is_same<T, float>::value && dt >= T(5e-2) && dt < T(1.0)) {
+        a = series12<T>(dt, T(1.0 / 4), T(-1.0 / 5), T(1.0 / 12),
+                        T(-1.0 / 42), T(1.0 / 192), T(-1.0 / 1080),
+                        T(1.0 / 7200), T(-1.0 / 55440), T(1.0 / 483840),
+                        T(-1.0 / 4717440), T(1.0 / 50803200),
+                        T(-1.0 / 598752000));
+        b = series12<T>(dt, T(1.0 / 4), T(-1.0 / 20), T(1.0 / 120),
+                        T(-1.0 / 840), T(1.0 / 6720), T(-1.0 / 60480),
+                        T(1.0 / 604800), T(-1.0 / 6652800),
+                        T(1.0 / 79833600), T(-1.0 / 1037836800),
+                        T(1.0 / 14529715200.0), T(-1.0 / 217945728000.0));
+        g = series12<T>(dt, T(1.0 / 4), T(-3.0 / 20), T(1.0 / 20),
+                        T(-1.0 / 84), T(1.0 / 448), T(-1.0 / 2880),
+                        T(1.0 / 21600), T(-1.0 / 184800), T(1.0 / 1774080),
+                        T(-1.0 / 18869760), T(1.0 / 220147200),
+                        T(-1.0 / 2794176000.0));
+        d = series12<T>(dt, T(1.0 / 4), T(-1.0 / 10), T(1.0 / 40),
+                        T(-1.0 / 210), T(1.0 / 1344), T(-1.0 / 10080),
+                        T(1.0 / 86400), T(-1.0 / 831600), T(1.0 / 8870400),
+                        T(-1.0 / 103783680), T(1.0 / 1320883200),
+                        T(-1.0 / 18162144000.0));
+        e = exp(-dt);
+    } else if (dt < T(5e-2)) {
         a = T(0.25) * dt - T(0.2) * dt2 + dt3 / T(12.0);
         b = T(0.25) * dt - T(0.05) * dt2 + dt3 / T(120.0);
         g = T(0.25) * dt - T(0.15) * dt2 + T(0.05) * dt3;

@@ -3,7 +3,9 @@
 // (iteration scheme 'mali_full_precond_fused').
 //
 // Replaces the TPU kernel lightweaver_tpu/ops/pallas_fused.py:
-// _fused_kernel (launched by fused_lambda_step).  Computes the same
+// _fused_kernel (launched by fused_lambda_step), in two instances: float64
+// (lw_fused_f64) and float32 (lw_fused_f32), the precision the TPU runs it
+// in.  Computes the same
 // function as the plain PyTorch version lightweaver_tpu_torch/ops/
 // fused.py:fused_lambda_step_plain:
 //
@@ -26,17 +28,22 @@
 // background rows and the C slots, so chiTot and srcNum are never written
 // to device memory; the moment pass after __syncthreads forms srcNum again
 // the same way (the same value, bit for bit) and reduces in sweep.cu's
-// fixed order, with no atomics.  J is accumulated in f64 directly; the
-// TwoSum (Jhi, Jlo) pair of the TPU kernel belongs to a later float
-// instance of the template.
+// fixed order, with no atomics.  J is accumulated in a double register
+// from the working-type products w I, as in sweep.cu (the TPU kernel's
+// TwoSum pair met the same contract); in float32 chi, eta and srcNum are
+// assembled in float registers and the other moments accumulate in float,
+// IBar = sum w I among them (in float64 IBar is J).
 //
 // Bound on an H100.  It reads phiP (83.7 MB at FALC-500 in f64, C = 2)
-// and writes I, Psi and IeffBase (125 MB): ~210 MB, ~63 us at 3.35 TB/s.
+// and writes I, Psi and IeffBase (125 MB): ~210 MB, ~63 us at 3.35 TB/s;
+// half in float32.
 // Like sweep.cu it runs 10,460 threads each through a dependent chain
 // along depth with loads Nk elements apart between neighbouring threads,
 // so it is latency-bound far above that bound.
 
 #include "bezier3.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -80,10 +87,13 @@ __global__ void fused_kernel(Slots<T> sl,
                              const T* __restrict__ bcLo,
                              T* __restrict__ Iout, T* __restrict__ psiOut,
                              T* __restrict__ ieffbOut,
-                             T* __restrict__ Jout, T* __restrict__ psiBarOut,
+                             double* __restrict__ Jout,
+                             T* __restrict__ psiBarOut,
+                             T* __restrict__ iBarOut,
                              T* __restrict__ isBarOut, int NL, int Nmu,
                              int N, int upKind, int loKind,
                              int rowsPerBlock) {
+    constexpr bool kIBar = !std::is_same<T, double>::value;
     const int raysPerRow = 2 * Nmu;
     const int tid = threadIdx.x;
     const int row0 = blockIdx.x * rowsPerBlock;
@@ -132,9 +142,11 @@ __global__ void fused_kernel(Slots<T> sl,
         const int lr = row0 + idx / N;
         const int k = idx % N;
         const size_t rowOff = static_cast<size_t>(lr) * N;
-        T J = T(0.0), psiBar = T(0.0), isBar = T(0.0);
+        double J = 0.0;
+        T psiBar = T(0.0), iBar = T(0.0), isBar = T(0.0);
         for (int d = 0; d < 2; ++d) {
-            T Jd = T(0.0), psiD = T(0.0), isD = T(0.0);
+            double Jd = 0.0;
+            T psiD = T(0.0), iD = T(0.0), isD = T(0.0);
             for (int m = 0; m < Nmu; ++m) {
                 const size_t rayOff =
                     ((static_cast<size_t>(d) * NL + lr) * Nmu + m) * N;
@@ -143,19 +155,41 @@ __global__ void fused_kernel(Slots<T> sl,
                 sl.at(rayOff, rowOff, k, chi, src);
                 const T w = wmuHalf[m];
                 const T psi = psiOut[off];
-                Jd += w * Iout[off];
+                const T wI = w * Iout[off];
+                Jd += static_cast<double>(wI);
+                if constexpr (kIBar) iD += wI;
                 psiD += w * psi;
                 isD += w * (ieffbOut[off] + psi * src);
             }
             J += Jd;
             psiBar += psiD;
+            iBar += iD;
             isBar += isD;
         }
         const size_t o = rowOff + k;
         Jout[o] = J;
         psiBarOut[o] = psiBar;
+        if constexpr (kIBar) iBarOut[o] = iBar;
         isBarOut[o] = isBar;
     }
+}
+
+template <typename T>
+int launch(const T* phiP, const T* chiCo, const T* etaCo, const T* bgChi,
+           const T* bgEta, const T* scaJ, const T* dh, const T* muz,
+           const T* wmuHalf, const T* bcUp, const T* bcLo, T* Iout, T* psi,
+           T* ieffb, double* J, T* psiBar, T* iBar, T* isBar, int C, int NL,
+           int Nmu, int Nk, int upKind, int loKind, int rowsPerBlock,
+           void* stream) {
+    Slots<T> sl{phiP, chiCo, etaCo, bgChi, bgEta, scaJ, C,
+                static_cast<size_t>(2) * NL * Nmu * Nk,
+                static_cast<size_t>(NL) * Nk};
+    const int threads = rowsPerBlock * 2 * Nmu;
+    const int blocks = (NL + rowsPerBlock - 1) / rowsPerBlock;
+    fused_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        sl, dh, muz, wmuHalf, bcUp, bcLo, Iout, psi, ieffb, J, psiBar, iBar,
+        isBar, NL, Nmu, Nk, upKind, loKind, rowsPerBlock);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -170,14 +204,24 @@ extern "C" int lw_fused_f64(const double* phiP, const double* chiCo,
                             double* isBar, int C, int NL, int Nmu, int Nk,
                             int upKind, int loKind, int rowsPerBlock,
                             void* stream) {
-    Slots<double> sl{phiP, chiCo, etaCo, bgChi, bgEta, scaJ, C,
-                     static_cast<size_t>(2) * NL * Nmu * Nk,
-                     static_cast<size_t>(NL) * Nk};
-    const int threads = rowsPerBlock * 2 * Nmu;
-    const int blocks = (NL + rowsPerBlock - 1) / rowsPerBlock;
-    fused_kernel<double><<<blocks, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        sl, dh, muz, wmuHalf, bcUp, bcLo, Iout, psi, ieffb, J, psiBar,
-        isBar, NL, Nmu, Nk, upKind, loKind, rowsPerBlock);
-    return static_cast<int>(cudaGetLastError());
+    return launch<double>(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, dh, muz,
+                          wmuHalf, bcUp, bcLo, Iout, psi, ieffb, J, psiBar,
+                          nullptr, isBar, C, NL, Nmu, Nk, upKind, loKind,
+                          rowsPerBlock, stream);
+}
+
+extern "C" int lw_fused_f32(const float* phiP, const float* chiCo,
+                            const float* etaCo, const float* bgChi,
+                            const float* bgEta, const float* scaJ,
+                            const float* dh, const float* muz,
+                            const float* wmuHalf, const float* bcUp,
+                            const float* bcLo, float* Iout, float* psi,
+                            float* ieffb, double* J, float* psiBar,
+                            float* iBar, float* isBar, int C, int NL,
+                            int Nmu, int Nk, int upKind, int loKind,
+                            int rowsPerBlock, void* stream) {
+    return launch<float>(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, dh, muz,
+                         wmuHalf, bcUp, bcLo, Iout, psi, ieffb, J, psiBar,
+                         iBar, isBar, C, NL, Nmu, Nk, upKind, loKind,
+                         rowsPerBlock, stream);
 }

@@ -2,7 +2,9 @@
 // group of K lines on their union window.
 //
 // Replaces the TPU kernel lightweaver_tpu/ops/pallas_gamma.py:
-// group_gamma_rates (inner `kernel`).  Computes the same function as the
+// group_gamma_rates (inner `kernel`), in two instances: float64
+// (lw_group_gamma_f64) and float32 (lw_group_gamma_f32), the precision the
+// TPU runs it in.  Computes the same function as the
 // plain PyTorch version lightweaver_tpu_torch/ops/gamma.py:
 // group_gamma_rates_plain.  For every row r of the union window (global
 // wavelength row l = row0 + r), depth k and ray (d, mu), with w = wmu/2:
@@ -24,7 +26,10 @@
 // and one block of BW rows: it loops over the rows, the 2 Nmu rays and
 // the members, keeps the 4K Gamma/rate partials in registers and writes
 // one partial per (member, quantity, block, k); the caller sums the
-// blocks in f64 (as the JAX caller does outside its kernel).  PPB and
+// blocks in f64 (as the JAX caller does outside its kernel).  In float32
+// that is the TPU kernel's contract: products and partials in float over
+// at most BW rows x 2 Nmu rays, G4 written as float, the lambda sum
+// finished in f64 by the caller.  PPB and
 // PairPPB are written once per row.  Every load has k fastest, so a warp
 // reads 32 neighbouring depths: coalesced in the direction-major
 // [2, Nlam, Nmu, Nk] layout.  No atomics: the result is deterministic.
@@ -34,9 +39,9 @@
 // Bound on an H100: bytes.  Per group it reads Psi, IeffBase, I and
 // srcNum on the window rows (4 x 2 Nmu Nk doubles per row) plus phi of
 // each member; at FALC-500 all groups together read ~185 MB per
-// iteration, ~55 us at 3.35 TB/s.  One thread per (k, block) gives only
-// Nk x ceil(Wu/BW) threads per launch (a few thousand), so each launch is
-// latency-bound well above that.
+// iteration, ~55 us at 3.35 TB/s (half in float32).  One thread per
+// (k, block) gives only Nk x ceil(Wu/BW) threads per launch (a few
+// thousand), so each launch is latency-bound well above that.
 
 #include <cuda_runtime.h>
 
@@ -184,20 +189,43 @@ __global__ void group_gamma_kernel(
                 acc[m][c];
 }
 
-template <int K>
-cudaError_t launch(const double* phi, const double* rho, const double* psi,
-                   const double* ieffb, const double* I, const double* src,
-                   const double* chiCL, const double* UCL, const double* etaC,
-                   const double* n, const double* coef, const double* wphi,
-                   const double* wmuHalf, double* G4, double* PPB,
-                   double* pair, const GroupStatics& st, int Nlam, int Nmu,
-                   int Nk, int Wu, int row0, int BW, cudaStream_t stream) {
+template <typename T, int K>
+cudaError_t launch(const T* phi, const T* rho, const T* psi, const T* ieffb,
+                   const T* I, const T* src, const T* chiCL, const T* UCL,
+                   const T* etaC, const T* n, const T* coef, const T* wphi,
+                   const T* wmuHalf, T* G4, T* PPB, T* pair,
+                   const GroupStatics& st, int Nlam, int Nmu, int Nk, int Wu,
+                   int row0, int BW, cudaStream_t stream) {
     const int threads = 128;
     const dim3 grid((Nk + threads - 1) / threads, (Wu + BW - 1) / BW);
-    group_gamma_kernel<double, K><<<grid, threads, 0, stream>>>(
+    group_gamma_kernel<T, K><<<grid, threads, 0, stream>>>(
         phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n, coef, wphi,
         wmuHalf, G4, PPB, pair, st, Nlam, Nmu, Nk, Wu, row0, BW);
     return cudaGetLastError();
+}
+
+template <typename T>
+int launch_k(const T* phi, const T* rho, const T* psi, const T* ieffb,
+             const T* I, const T* src, const T* chiCL, const T* UCL,
+             const T* etaC, const T* n, const T* coef, const T* wphi,
+             const T* wmuHalf, T* G4, T* PPB, T* pair, GroupStatics st,
+             int K, int Nlam, int Nmu, int Nk, int Wu, int row0, int BW,
+             void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LW_GROUP_LAUNCH(KK)                                                  \
+    case KK:                                                                 \
+        return static_cast<int>(launch<T, KK>(                               \
+            phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n, coef, wphi,   \
+            wmuHalf, G4, PPB, pair, st, Nlam, Nmu, Nk, Wu, row0, BW, s));
+    switch (K) {
+        LW_GROUP_LAUNCH(1)
+        LW_GROUP_LAUNCH(2)
+        LW_GROUP_LAUNCH(3)
+        LW_GROUP_LAUNCH(4)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LW_GROUP_LAUNCH
 }
 
 }  // namespace
@@ -210,19 +238,19 @@ extern "C" int lw_group_gamma_f64(
     const double* wmuHalf, double* G4, double* PPB, double* pair,
     GroupStatics st, int K, int Nlam, int Nmu, int Nk, int Wu, int row0,
     int BW, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LW_GROUP_LAUNCH(KK)                                                  \
-    case KK:                                                                 \
-        return static_cast<int>(launch<KK>(                                  \
-            phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n, coef, wphi,   \
-            wmuHalf, G4, PPB, pair, st, Nlam, Nmu, Nk, Wu, row0, BW, s));
-    switch (K) {
-        LW_GROUP_LAUNCH(1)
-        LW_GROUP_LAUNCH(2)
-        LW_GROUP_LAUNCH(3)
-        LW_GROUP_LAUNCH(4)
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef LW_GROUP_LAUNCH
+    return launch_k<double>(phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC,
+                            n, coef, wphi, wmuHalf, G4, PPB, pair, st, K,
+                            Nlam, Nmu, Nk, Wu, row0, BW, stream);
+}
+
+extern "C" int lw_group_gamma_f32(
+    const float* phi, const float* rho, const float* psi, const float* ieffb,
+    const float* I, const float* src, const float* chiCL, const float* UCL,
+    const float* etaC, const float* n, const float* coef, const float* wphi,
+    const float* wmuHalf, float* G4, float* PPB, float* pair,
+    GroupStatics st, int K, int Nlam, int Nmu, int Nk, int Wu, int row0,
+    int BW, void* stream) {
+    return launch_k<float>(phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n,
+                           coef, wphi, wmuHalf, G4, PPB, pair, st, K, Nlam,
+                           Nmu, Nk, Wu, row0, BW, stream);
 }

@@ -82,6 +82,11 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
+def library_path(name: str) -> str:
+    """The path of the loaded library ``name``."""
+    return _LOADED[name][0]._name
+
+
 def build_log(name: str) -> str:
     """nvcc's output for the loaded library ``name`` ('' if not loaded)."""
     if name not in _LOADED:

@@ -50,11 +50,48 @@ def cent_deriv(dsuw, dsdw, yuw, y0, ydw):
                             torch.minimum(torch.abs(S0), 0.5 * P0)))
 
 
+# The power series in dt of the Bezier-3 weights (alpha, beta, gamma,
+# delta), coefficients of dt^1 .. dt^12, from their closed forms below:
+# e.g. alpha dt^3 = 6 - e^-dt (6 + 6 dt + 3 dt^2 + dt^3)
+# = 6 e^-dt sum_{n>=4} dt^n / n!.  Their first three terms are the Taylor
+# branch's.  Twelve terms reach float32 precision for dt < 1.
+B3_SERIES = (
+    (1 / 4, -1 / 5, 1 / 12, -1 / 42, 1 / 192, -1 / 1080, 1 / 7200,
+     -1 / 55440, 1 / 483840, -1 / 4717440, 1 / 50803200, -1 / 598752000),
+    (1 / 4, -1 / 20, 1 / 120, -1 / 840, 1 / 6720, -1 / 60480, 1 / 604800,
+     -1 / 6652800, 1 / 79833600, -1 / 1037836800, 1 / 14529715200,
+     -1 / 217945728000),
+    (1 / 4, -3 / 20, 1 / 20, -1 / 84, 1 / 448, -1 / 2880, 1 / 21600,
+     -1 / 184800, 1 / 1774080, -1 / 18869760, 1 / 220147200,
+     -1 / 2794176000),
+    (1 / 4, -1 / 10, 1 / 40, -1 / 210, 1 / 1344, -1 / 10080, 1 / 86400,
+     -1 / 831600, 1 / 8870400, -1 / 103783680, 1 / 1320883200,
+     -1 / 18162144000),
+)
+# below it, float32 takes the weights from B3_SERIES instead of the
+# closed forms
+B3_SERIES_MAX = 1.0
+
+
+def _b3_series(coef, dt):
+    """sum_i coef[i] dt^(i+1) by Horner's rule, in dt's dtype."""
+    acc = torch.full_like(dt, coef[-1])
+    for c in reversed(coef[:-1]):
+        acc = acc * dt + c
+    return acc * dt
+
+
 def bezier3_coeffs(dt):
     """Cubic Bezier integration coefficients (alpha, beta, gamma, delta, edt).
 
     alpha:S_uw, beta:S_0, gamma:C_uw, delta:C_0, edt:exp(-dtau).
-    Taylor branch for dt < 5e-2, asymptotic branch for dt > 30.
+    Taylor branch for dt < 5e-2, asymptotic branch for dt > 30.  In
+    float32 the closed forms of the middle branch cancel near its lower
+    end (alpha dt^3 = 6 - e^-dt (...) ~ dt^4 / 4 against terms of 6, up
+    to ~20% of alpha lost at dt = 5e-2), a noise that keeps the f32 state
+    from converging; so for 5e-2 <= dt < B3_SERIES_MAX float32 sums the
+    same functions' power series (B3_SERIES), which do not cancel.  Float64
+    keeps the closed forms, as the reference.
     ref: Source/Bezier.hpp:81-127
     """
     dt2 = dt * dt
@@ -88,6 +125,12 @@ def bezier3_coeffs(dt):
     b_mid = (6.0 * edt_m - 6.0 + 6.0 * dt_m - 3.0 * dt2_m + dt3_m) / dt3_m
     g_mid = 3.0 * (2.0 * dt_m - 6.0 + edt_m * (6.0 + 4.0 * dt_m + dt2_m)) / dt3_m
     d_mid = 3.0 * (6.0 - 4.0 * dt_m + dt2_m - 2.0 * edt_m * (3.0 + dt_m)) / dt3_m
+
+    if dt.dtype != torch.float64:
+        series = (dt >= 5e-2) & (dt < B3_SERIES_MAX)
+        a_mid, b_mid, g_mid, d_mid = (
+            torch.where(series, _b3_series(c, dt_m), m)
+            for c, m in zip(B3_SERIES, (a_mid, b_mid, g_mid, d_mid)))
 
     def sel(s, b, m):
         return torch.where(small, s, torch.where(big, b, m))

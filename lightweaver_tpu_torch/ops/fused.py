@@ -22,9 +22,11 @@ continua.  Each boundary is ('zero', None), ('data', I_incident
 next depth), the thermalised value using the dtau of the assembled chi
 between those two depths, as context.formal_solve forms it.
 
-In float64 J is accumulated directly; the JAX kernel's TwoSum (Jhi, Jlo)
-pair belongs to a later float32 instance.  A CUDA tensor launches the
-kernel (float64) or raises.
+Two instances, float64 and float32 (the f32 state).  J comes out in
+float64 in both, the working-type products w I summed in a double
+accumulator (ops/sweep.py: the contract of the JAX kernel's TwoSum pair);
+the other moments are in the working type.  A CUDA tensor launches the
+instance of its dtype or raises.
 """
 import torch
 
@@ -56,13 +58,14 @@ def assign_line_slots(allAtoms):
 
 
 def fused_scheme_supported(cfg) -> bool:
-    """Whether the fused kernel covers this configuration: float64, the
-    one instance built, and no hybrid PRD (a slot's coefficient rows hold
-    one rho per row, not the comoving-frame rho of each ray).  The port's
+    """Whether the fused kernel covers this configuration: float64 or
+    float32, the two instances built, and no hybrid PRD (a slot's
+    coefficient rows hold one rho per row, not the comoving-frame rho of
+    each ray).  The port's
     Context refuses 2D, dense Gamma and solvers other than Bezier-3 at
     construction, which are fused_scheme_supported's other checks in the
     JAX package."""
-    return cfg.dtype == torch.float64 and not cfg.hprd
+    return cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
 
 
 def assemble(phiP, chiCo, etaCo, bgChi, bgEta, scaJ):
@@ -136,9 +139,10 @@ def fused_lambda_step(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz,
                       wmu, upper, lower):
     """(I, Psi, IeffBase) [2, Nlam, Nmu, Nk] and the moments
     {'J', 'PsiBar', 'IBar', 'IeffSrcBar'} [Nlam, Nk] (weights wmu/2) of
-    the assembled problem (module docstring).  On the CPU this is the
-    plain PyTorch version; on a CUDA device it launches the kernel
-    csrc/fused.cu (float64 only) or raises."""
+    the assembled problem (module docstring), J in float64.  On the CPU
+    this is the plain PyTorch version; on a CUDA device it launches the
+    instance of csrc/fused.cu for the dtype (float64 or float32) or
+    raises."""
     args = (phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu, upper,
             lower)
     _check_inputs(*args)
@@ -152,18 +156,21 @@ def fused_lambda_step(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz,
 def load_library():
     """Build csrc/fused.cu with nvcc (once per source hash) and load it."""
     return _build.load('fused', {
-        'lw_fused_f64': [_build.PTR] * 17 + [_build.INT] * 7 + [_build.PTR]})
+        'lw_fused_f64': [_build.PTR] * 17 + [_build.INT] * 7 + [_build.PTR],
+        'lw_fused_f32': [_build.PTR] * 18 + [_build.INT] * 7 + [_build.PTR]})
 
 
 def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
                upper, lower):
-    """Launch the fused kernel; ``fused_cuda.launches`` counts the
-    launches."""
+    """Launch the fused kernel's instance for phiP's dtype;
+    ``fused_cuda.launches`` counts the float64 launches,
+    ``fused_cuda.launches_f32`` the float32 ones."""
     if not phiP.is_cuda:
         raise ValueError(f'fused_cuda takes CUDA tensors, got {phiP.device}')
-    if phiP.dtype != torch.float64:
-        raise TypeError(f'the fused kernel is instantiated for float64 '
-                        f'only, got {phiP.dtype}')
+    if phiP.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f'the fused kernel is instantiated for float64 and '
+                        f'float32, got {phiP.dtype}')
+    f32 = phiP.dtype == torch.float32
     ins = [phiP, chiCo, etaCo, bgChi, bgEta, scaJ]
     bcs = [rows for _, rows in (upper, lower) if rows is not None]
     if not all(x.is_contiguous() for x in ins + bcs):
@@ -174,21 +181,29 @@ def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
     wmuHalf = (0.5 * wmu).contiguous()
     shape = (2, NL, Nmu, Nk)
     I, Psi, IeffBase = (phiP.new_empty(shape) for _ in range(3))
-    J, PsiBar, IeffSrcBar = (phiP.new_empty((NL, Nk)) for _ in range(3))
+    J = phiP.new_empty((NL, Nk), dtype=torch.float64)
+    PsiBar, IeffSrcBar = (phiP.new_empty((NL, Nk)) for _ in range(2))
+    IBar = phiP.new_empty((NL, Nk)) if f32 else J
     rowsPerBlock = max(1, 32 // (2 * Nmu))
-    err = load_library().lw_fused_f64(
+    lib = load_library()
+    rowPtrs = [J.data_ptr(), PsiBar.data_ptr()] + (
+        [IBar.data_ptr()] if f32 else []) + [IeffSrcBar.data_ptr()]
+    err = (lib.lw_fused_f32 if f32 else lib.lw_fused_f64)(
         *(x.data_ptr() for x in ins), dh.data_ptr(), muz.data_ptr(),
         wmuHalf.data_ptr(),
         *(None if rows is None else rows.data_ptr()
           for _, rows in (upper, lower)),
-        I.data_ptr(), Psi.data_ptr(), IeffBase.data_ptr(), J.data_ptr(),
-        PsiBar.data_ptr(), IeffSrcBar.data_ptr(), C, NL, Nmu, Nk,
-        BC_KINDS[upper[0]], BC_KINDS[lower[0]], rowsPerBlock,
+        I.data_ptr(), Psi.data_ptr(), IeffBase.data_ptr(), *rowPtrs, C, NL,
+        Nmu, Nk, BC_KINDS[upper[0]], BC_KINDS[lower[0]], rowsPerBlock,
         _build.cuda_stream(phiP))
     _build.check_launch(err, 'fused')
-    fused_cuda.launches += 1
-    return I, Psi, IeffBase, {'J': J, 'PsiBar': PsiBar, 'IBar': J,
+    if f32:
+        fused_cuda.launches_f32 += 1
+    else:
+        fused_cuda.launches += 1
+    return I, Psi, IeffBase, {'J': J, 'PsiBar': PsiBar, 'IBar': IBar,
                               'IeffSrcBar': IeffSrcBar}
 
 
 fused_cuda.launches = 0
+fused_cuda.launches_f32 = 0

@@ -21,7 +21,11 @@ Layouts are the port's: ray tensors direction-major [2, Nlam, Nmu, Nk],
 the group's profiles packed as [K, 2, Wu, Nmu, Nk] with zeros outside
 each member's own window.  Where the JAX kernel takes S and chiTot, this
 one takes srcNum (= S chiTot to one rounding), which the gather emits.
-A CUDA tensor launches the kernel (float64) or raises.
+
+Two instances, float64 and float32 (the f32 state).  In float32 G4 holds
+float partials of at most BW rows x 2 Nmu rays, as the TPU kernel's; the
+caller finishes the lambda sum in float64.  A CUDA tensor launches the
+instance of its dtype or raises.
 """
 import ctypes
 from typing import List, NamedTuple, Tuple
@@ -60,11 +64,11 @@ def line_groups(atom) -> List[List[int]]:
 
 def gamma_scheme_supported(cfg) -> bool:
     """Whether the line Gamma kernel covers this configuration: float64
-    (the one instance built), no hybrid PRD (its comoving-frame rho
+    or float32 (the two instances built), no hybrid PRD (its comoving-frame rho
     varies per ray, the kernel's per row) and no line group above KMAX
     members.  The port's Context refuses 2D and dense Gamma at
     construction, which are pallas_scheme_supported's other checks."""
-    return (cfg.dtype == torch.float64 and not cfg.hprd
+    return (cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
             and all(len(g) <= KMAX for a in cfg.activeAtoms
                     for g in line_groups(a)))
 
@@ -195,7 +199,8 @@ def group_gamma_rates(phi, rho, Psi, IeffBase, I, srcNum, chiCL, UCL, etaC,
                       n, coef, wphi, wmuHalf, st: GroupStatics, row0: int):
     """G4, PPB, PairPPB of one line group (module docstring).  On the CPU
     this is the plain PyTorch version; on a CUDA device it launches the
-    kernel csrc/gamma.cu (float64 only) or raises."""
+    instance of csrc/gamma.cu for the dtype (float64 or float32) or
+    raises."""
     args = (phi, rho, Psi, IeffBase, I, srcNum, chiCL, UCL, etaC, n, coef,
             wphi, wmuHalf, st, row0)
     _check_inputs(*args)
@@ -225,22 +230,24 @@ def _c_statics(st: GroupStatics) -> _GroupStatics:
 
 def load_library():
     """Build csrc/gamma.cu with nvcc (once per source hash) and load it."""
-    return _build.load('gamma', {
-        'lw_group_gamma_f64': [_build.PTR] * 16 + [_GroupStatics]
-        + [_build.INT] * 7 + [_build.PTR]})
+    sig = [_build.PTR] * 16 + [_GroupStatics] + [_build.INT] * 7 + [_build.PTR]
+    return _build.load('gamma', {'lw_group_gamma_f64': sig,
+                                 'lw_group_gamma_f32': sig})
 
 
 def group_gamma_rates_cuda(phi, rho, Psi, IeffBase, I, srcNum, chiCL, UCL,
                            etaC, n, coef, wphi, wmuHalf, st: GroupStatics,
                            row0: int):
-    """Launch the group kernel; ``group_gamma_rates_cuda.launches`` counts
-    the launches."""
+    """Launch the group kernel's instance for phi's dtype;
+    ``group_gamma_rates_cuda.launches`` counts the float64 launches,
+    ``.launches_f32`` the float32 ones."""
     if not phi.is_cuda:
         raise ValueError(f'group_gamma_rates_cuda takes CUDA tensors, got '
                          f'{phi.device}')
-    if phi.dtype != torch.float64:
+    if phi.dtype not in (torch.float64, torch.float32):
         raise TypeError(f'the line Gamma kernel is instantiated for float64 '
-                        f'only, got {phi.dtype}')
+                        f'and float32, got {phi.dtype}')
+    f32 = phi.dtype == torch.float32
     ins = (phi, rho, Psi, IeffBase, I, srcNum, chiCL, UCL, etaC, n, coef,
            wphi, wmuHalf)
     if not all(x.is_contiguous() for x in ins):
@@ -252,13 +259,18 @@ def group_gamma_rates_cuda(phi, rho, Psi, IeffBase, I, srcNum, chiCL, UCL,
     G4 = phi.new_empty((K, 4, nBlk, Nk))
     PPB = phi.new_empty((K, Wu, Nk))
     PairPPB = (phi.new_zeros if K == 1 else phi.new_empty)((P, Wu, Nk))
-    err = load_library().lw_group_gamma_f64(
+    lib = load_library()
+    err = (lib.lw_group_gamma_f32 if f32 else lib.lw_group_gamma_f64)(
         *(x.data_ptr() for x in ins), G4.data_ptr(), PPB.data_ptr(),
         PairPPB.data_ptr(), _c_statics(st), K, Nlam, Nmu, Nk, Wu, row0, BW,
         _build.cuda_stream(phi))
     _build.check_launch(err, 'line Gamma')
-    group_gamma_rates_cuda.launches += 1
+    if f32:
+        group_gamma_rates_cuda.launches_f32 += 1
+    else:
+        group_gamma_rates_cuda.launches += 1
     return G4, PPB, PairPPB
 
 
 group_gamma_rates_cuda.launches = 0
+group_gamma_rates_cuda.launches_f32 = 0

@@ -10,10 +10,17 @@ Layout: chi and srcNum are direction-major [2, NL, Nmu, Nk] (d = 0 is the
 down sweep from the upper boundary, d = 1 the up sweep from the lower
 one), unpadded and contiguous.  S = srcNum / chi is formed inside.
 
+Two instances, float64 and float32 (the f32 state; the TPU runs the
+kernel only in f32).  Both return J in float64: the sum of the
+working-type products w I in a double accumulator, which in float32 is
+J = sum fl32(w I) to double rounding, the contract the TPU kernel's
+TwoSum pair met.  PsiBar, IBar and IeffSrcBar are summed in the working
+type.
+
 The kernel is built from the source at first use on a CUDA tensor with
 nvcc (sm_90a, ops/_build.py) and bound through ctypes.  A CUDA tensor
-either launches the kernel or raises; nothing falls back to the plain
-version.
+either launches the instance of its dtype or raises; nothing falls back to
+the plain version or to another instance.
 """
 import torch
 
@@ -24,22 +31,27 @@ from .formal_solver import formal_sol_1d
 def angular_moments(I, Psi, IeffBase, srcNum, wmu):
     """Moments over the rays of each (lambda, k) with weights wmu/2, summed
     mu ascending within a direction, then down + up (the kernel's order).
-    Returns {'J', 'PsiBar', 'IBar', 'IeffSrcBar'}, each [NL, Nk]; in f64
-    IBar is J itself."""
+    Returns {'J', 'PsiBar', 'IBar', 'IeffSrcBar'}, each [NL, Nk].  J is
+    float64: the working-type products w I summed in float64.  The others
+    are in the working type; in float64 IBar is J itself."""
     wmuHalf = 0.5 * wmu
-    J, PsiBar, IeffSrcBar = [], [], []
+    J, PsiBar, IBar, IeffSrcBar = [], [], [], []
     for d in range(2):
-        Jd = PsiD = IsD = 0.0
+        Jd = PsiD = IBd = IsD = 0.0
         for m in range(wmu.shape[0]):
             w = wmuHalf[m]
-            Jd = Jd + w * I[d, :, m]
+            wI = w * I[d, :, m]
+            Jd = Jd + wI.double()
+            IBd = IBd + wI
             PsiD = PsiD + w * Psi[d, :, m]
             IsD = IsD + w * (IeffBase[d, :, m] + Psi[d, :, m] * srcNum[d, :, m])
         J.append(Jd)
         PsiBar.append(PsiD)
+        IBar.append(IBd)
         IeffSrcBar.append(IsD)
     J = J[0] + J[1]
-    return {'J': J, 'PsiBar': PsiBar[0] + PsiBar[1], 'IBar': J,
+    return {'J': J, 'PsiBar': PsiBar[0] + PsiBar[1],
+            'IBar': J if I.dtype == torch.float64 else IBar[0] + IBar[1],
             'IeffSrcBar': IeffSrcBar[0] + IeffSrcBar[1]}
 
 
@@ -88,7 +100,8 @@ def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     {'J', 'PsiBar', 'IBar', 'IeffSrcBar'} of [NL, Nk] (weights wmu/2).
 
     On the CPU this is the plain PyTorch version; on a CUDA device it
-    launches the kernel csrc/sweep.cu (f64 only) or raises.
+    launches the instance of csrc/sweep.cu for the dtype (float64 or
+    float32) or raises.  J is float64 in both (module docstring).
     """
     _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu)
     if chi.device.type == 'cpu':
@@ -100,13 +113,15 @@ def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu):
 
 
 def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
-    """Launch the CUDA sweep kernel; ``sweep_cuda.launches`` counts the
-    launches."""
+    """Launch the CUDA sweep kernel's instance for chi's dtype;
+    ``sweep_cuda.launches`` counts the float64 launches,
+    ``sweep_cuda.launches_f32`` the float32 ones."""
     if not chi.is_cuda:
         raise ValueError(f'sweep_cuda takes CUDA tensors, got {chi.device}')
-    if chi.dtype != torch.float64:
-        raise TypeError(f'the sweep kernel is instantiated for float64 '
-                        f'only, got {chi.dtype}')
+    if chi.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f'the sweep kernel is instantiated for float64 and '
+                        f'float32, got {chi.dtype}')
+    f32 = chi.dtype == torch.float32
     chi = _contiguous('chi', chi)
     srcNum = _contiguous('srcNum', srcNum)
     _, NL, Nmu, Nk = chi.shape
@@ -115,24 +130,30 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     wmuHalf = (0.5 * wmu).contiguous()
     muz = muz.contiguous()
     I, Psi, IeffBase = (torch.empty_like(chi) for _ in range(3))
-    J, PsiBar, IeffSrcBar = (torch.empty((NL, Nk), dtype=chi.dtype,
-                                         device=chi.device)
-                             for _ in range(3))
+    J = chi.new_empty((NL, Nk), dtype=torch.float64)
+    PsiBar, IeffSrcBar = (chi.new_empty((NL, Nk)) for _ in range(2))
+    IBar = chi.new_empty((NL, Nk)) if f32 else J
     # one thread per ray, whole lambda rows per block, about a warp each
     rowsPerBlock = max(1, 32 // (2 * Nmu))
-    err = load_library().lw_sweep_f64(
+    lib = load_library()
+    rows = [J.data_ptr(), PsiBar.data_ptr()] + (
+        [IBar.data_ptr()] if f32 else []) + [IeffSrcBar.data_ptr()]
+    err = (lib.lw_sweep_f32 if f32 else lib.lw_sweep_f64)(
         chi.data_ptr(), srcNum.data_ptr(), dh.data_ptr(), muz.data_ptr(),
         wmuHalf.data_ptr(), iupw.data_ptr(), I.data_ptr(), Psi.data_ptr(),
-        IeffBase.data_ptr(), J.data_ptr(), PsiBar.data_ptr(),
-        IeffSrcBar.data_ptr(), NL, Nmu, Nk, rowsPerBlock,
+        IeffBase.data_ptr(), *rows, NL, Nmu, Nk, rowsPerBlock,
         _build.cuda_stream(chi))
     _build.check_launch(err, 'sweep')
-    sweep_cuda.launches += 1
-    return I, Psi, IeffBase, {'J': J, 'PsiBar': PsiBar, 'IBar': J,
+    if f32:
+        sweep_cuda.launches_f32 += 1
+    else:
+        sweep_cuda.launches += 1
+    return I, Psi, IeffBase, {'J': J, 'PsiBar': PsiBar, 'IBar': IBar,
                               'IeffSrcBar': IeffSrcBar}
 
 
 sweep_cuda.launches = 0
+sweep_cuda.launches_f32 = 0
 
 
 def _contiguous(name, x):
@@ -144,4 +165,5 @@ def _contiguous(name, x):
 def load_library():
     """Build csrc/sweep.cu with nvcc (once per source hash) and load it."""
     return _build.load('sweep', {
-        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 4 + [_build.PTR]})
+        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 4 + [_build.PTR],
+        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 4 + [_build.PTR]})

@@ -4,6 +4,9 @@
   (the golden problem, tests/golden/falc_h6ca_*.npz).
 - FALC-500: the same setup interpolated to 500 depths in log column mass,
   the problem the compiled reference and bench.py time.
+- the mixed-precision problem: FAL-C decimated to 40 depths, 3 rays, H
+  6-level + Ca II with Ca II active (tests/test_mixed_precision.py's
+  problem, on which the JAX package's float32 state converges).
 - falc_h6mg: FAL-C with H 6-level and Mg II active, 5 rays, Ly-alpha,
   Ly-beta and Mg II h & k in PRD (BASELINE config 3, the golden problem
   tests/golden/falc_h6mg_prd_*.npz), and its hybrid-PRD variant with a
@@ -38,6 +41,17 @@ def falc_interpolated(Nspace: int) -> Atmosphere:
                       vturb=interp(full.vturb),
                       ne=interp(full.ne, logY=True),
                       nHTot=interp(full.nHTot, logY=True))
+
+
+def falc_decimated(Nspace: int) -> Atmosphere:
+    """FAL-C at the depths np.unique(np.linspace(0, 81, Nspace)
+    .astype(int)) of its 82, as tests/test_mixed_precision.py builds it."""
+    full = Falc82()
+    idx = np.unique(np.linspace(0, 81, Nspace).astype(int))
+    return Atmosphere(height=full.height[idx],
+                      temperature=full.temperature[idx],
+                      vlos=full.vlos[idx], vturb=full.vturb[idx],
+                      ne=full.ne[idx], nHTot=full.nHTot[idx])
 
 
 def random_rays(NL: int, Nmu: int, Nk: int, seed: int = 0) -> dict:
@@ -132,15 +146,32 @@ def random_boundaries(NL: int, Nmu: int, seed: int = 0) -> dict:
             'therm': rng.uniform(1.0, 2.0, (NL, 2))}
 
 
-def h6ca_context(atmos: Atmosphere, Nrays: int = 5, device='cpu') -> Context:
+def h6ca_context(atmos: Atmosphere, Nrays: int = 5, device='cuda',
+                 dtype=None) -> Context:
     """H 6-level + Ca II, both active, on ``atmos`` with an ``Nrays``
-    Gauss-Legendre quadrature."""
+    Gauss-Legendre quadrature, on ``device`` (the card unless the caller
+    passes 'cpu') in the working ``dtype`` (Context's default: float64, or
+    float32 under lightweaverrc ``Precision: mixed``)."""
     atmos.quadrature(Nrays)
     rs = RadiativeSet([H_6_atom(), CaII_atom()])
     rs.set_active('H', 'Ca')
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops, device=device)
+    return Context(atmos, spect, eqPops, device=device, dtype=dtype)
+
+
+def mixed_precision_context(device='cuda', dtype=None,
+                            Nspace: int = 40) -> Context:
+    """The mixed-precision problem: falc_decimated(Nspace), 3 rays, H
+    6-level + Ca II with Ca II active (tests/test_mixed_precision.py,
+    which runs it with a float32 state)."""
+    atmos = falc_decimated(Nspace)
+    atmos.quadrature(3)
+    rs = RadiativeSet([H_6_atom(), CaII_atom()])
+    rs.set_active('Ca')
+    spect = rs.compute_wavelength_grid()
+    eqPops = rs.compute_eq_pops(atmos)
+    return Context(atmos, spect, eqPops, device=device, dtype=dtype)
 
 
 def vlos_ramp(atmos: Atmosphere, vMax: float = 5e3) -> Atmosphere:
@@ -153,11 +184,12 @@ def vlos_ramp(atmos: Atmosphere, vMax: float = 5e3) -> Atmosphere:
 
 
 def h6mg_context(atmos: Atmosphere = None, Nrays: int = 5,
-                 hprd: bool = False, device='cpu') -> Context:
+                 hprd: bool = False, device='cuda', dtype=None) -> Context:
     """H 6-level + Mg II, both active, PRD lines in PRD, on ``atmos``
     (default FAL-C, 82 depths) with an ``Nrays`` quadrature.  With
     ``hprd`` the atmosphere gets the 0-5 km/s outflow ramp (vlos_ramp) and
-    the Context runs hybrid PRD.  The defaults build BASELINE config 3 as
+    the Context runs hybrid PRD.  ``device`` and ``dtype`` as for
+    h6ca_context.  The defaults build BASELINE config 3 as
     tests/test_vs_reference_golden.py:540-546 does, and with hprd=True its
     hybrid variant as lines 411-420 there do."""
     if atmos is None:
@@ -169,4 +201,5 @@ def h6mg_context(atmos: Atmosphere = None, Nrays: int = 5,
     rs.set_active('H', 'Mg')
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops, hprd=hprd, device=device)
+    return Context(atmos, spect, eqPops, hprd=hprd, device=device,
+                   dtype=dtype)

@@ -98,7 +98,7 @@ def test_plain_fused_step_matches_jax(bcs):
 @pytest.fixture(scope='module')
 def ctx():
     """The slice test's 30-depth, 3-ray problem after two MALI steps."""
-    c = h6ca_context(falc_interpolated(NSPACE), NRAYS)
+    c = h6ca_context(falc_interpolated(NSPACE), NRAYS, device='cpu')
     for _ in range(2):
         c.formal_sol_gamma_matrices()
         c.stat_equil()
@@ -163,12 +163,12 @@ def test_fused_iteration_matches_jax_fused_scheme():
     spect = rs.compute_wavelength_grid()
     jctx = JContext(atmos, spect, rs.compute_eq_pops(atmos),
                     fsIterScheme=FUSED)
-    tctx = h6ca_context(falc_interpolated(NSPACE), NRAYS)
+    tctx = h6ca_context(falc_interpolated(NSPACE), NRAYS, device='cpu')
     tctx.set_fs_iter_scheme(FUSED)
     for _ in range(2):
         jctx.formal_sol_gamma_matrices()
         jctx.stat_equil()
-    out = tctx._iter_fn(params_from_numpy(jctx.build_params()))
+    out = tctx._iter_fn(params_from_numpy(jctx.build_params(), tctx.cfg))
     ju = jctx.formal_sol_gamma_matrices()
     ref = {'Gamma': jctx._Gamma, 'Rij': jctx._Rij, 'Rji': jctx._Rji,
            'dJ': ju.dJMax, 'J': jctx.J, 'I': jctx.I}

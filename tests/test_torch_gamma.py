@@ -87,7 +87,7 @@ def test_plain_group_kernel_matches_jax(K):
 @pytest.fixture(scope='module')
 def ctx():
     """The slice test's 30-depth, 3-ray problem after two MALI steps."""
-    c = h6ca_context(falc_interpolated(NSPACE), NRAYS)
+    c = h6ca_context(falc_interpolated(NSPACE), NRAYS, device='cpu')
     for _ in range(2):
         c.formal_sol_gamma_matrices()
         c.stat_equil()
@@ -147,12 +147,12 @@ def test_pallas_iteration_matches_jax_pallas_scheme():
     spect = rs.compute_wavelength_grid()
     jctx = JContext(atmos, spect, rs.compute_eq_pops(atmos),
                     fsIterScheme=PALLAS)
-    tctx = h6ca_context(falc_interpolated(NSPACE), NRAYS)
+    tctx = h6ca_context(falc_interpolated(NSPACE), NRAYS, device='cpu')
     tctx.set_fs_iter_scheme(PALLAS)
     for _ in range(2):
         jctx.formal_sol_gamma_matrices()
         jctx.stat_equil()
-    out = tctx._iter_fn(params_from_numpy(jctx.build_params()))
+    out = tctx._iter_fn(params_from_numpy(jctx.build_params(), tctx.cfg))
     ju = jctx.formal_sol_gamma_matrices()
     ref = {'Gamma': jctx._Gamma, 'Rij': jctx._Rij, 'Rji': jctx._Rji,
            'dJ': ju.dJMax}

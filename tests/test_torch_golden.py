@@ -33,7 +33,8 @@ def _ctx():
     rs.set_active('H', 'Ca')
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops, formalSolver='piecewise_bezier3_1d')
+    return Context(atmos, spect, eqPops, formalSolver='piecewise_bezier3_1d',
+                   device='cpu')
 
 
 def relerr(ours, ref, floorRel=0.0):

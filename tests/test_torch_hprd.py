@@ -35,7 +35,7 @@ def test_hprd_coefficients_are_direction_major(hprd):
     JAX package's mu-sign index 0; vlosMu as the JAX one."""
     jctx, tctx, rec = hprd
     ours = tctx.build_params()
-    carried = params_from_numpy(rec['paramsPre'])
+    carried = params_from_numpy(rec['paramsPre'], device='cpu')
     np.testing.assert_array_equal(ours['vlosMu'], carried['vlosMu'])
     for ai, ti, a, t in tctx._prd_lines():
         i0, frac = jctx.cfg.hprdCoeffs[(ai, ti)]
@@ -61,7 +61,8 @@ def test_hprd_iteration_matches_jax(hprd):
     """One MALI iteration of the default scheme with the comoving-frame
     rho, and its rest-frame JRest, against the JAX iteration."""
     _, tctx, rec = hprd
-    out = build_iteration_fn(tctx.cfg)(params_from_numpy(rec['paramsPost']))
+    out = build_iteration_fn(tctx.cfg)(params_from_numpy(rec['paramsPost'],
+                                                         tctx.cfg))
     compare_iteration(out, rec['iteration'])
     assert out['JRest'].shape == (len(tctx.cfg.prdIdxs), tctx.cfg.Nk)
     assert per_wavelength(out['JRest'], rec['iteration']['JRest']) < 1e-9
@@ -79,4 +80,4 @@ def test_kernel_schemes_refuse_hprd(scheme):
     assert tctx.cfg.fsIterScheme == SCHEMES[0]
     with pytest.raises(ValueError, match='hybrid PRD'):
         type(tctx)(tctx.atmos, tctx.spect, tctx.eqPops, hprd=True,
-                   fsIterScheme=scheme)
+                   fsIterScheme=scheme, device='cpu')

@@ -118,7 +118,7 @@ def test_context_on_cuda_goes_through_the_kernel():
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
-    cpu = h6ca_context(falc_interpolated(20), 3)
+    cpu = h6ca_context(falc_interpolated(20), 3, device='cpu')
     gpu = h6ca_context(falc_interpolated(20), 3, device='cuda')
     cpu.formal_sol_gamma_matrices()
     before = tsweep.sweep_cuda.launches
@@ -339,7 +339,7 @@ def test_scheme_on_cuda_goes_through_its_kernel(scheme):
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
-    cpu = h6ca_context(falc_interpolated(20), 3)
+    cpu = h6ca_context(falc_interpolated(20), 3, device='cpu')
     gpu = h6ca_context(falc_interpolated(20), 3, device='cuda')
     for ctx in (cpu, gpu):
         ctx.set_fs_iter_scheme(scheme)
@@ -469,3 +469,120 @@ def test_prd_on_cuda_goes_through_its_kernels(scheme):
     assert err.max() < 1e-9
     for ai, ti, _, _ in cpu._prd_lines():
         assert _max_rel(gpu.rhoPrd[ai][ti].cpu(), cpu.rhoPrd[ai][ti]) < 1e-9
+
+
+def _f32_rule(kern, plain, ref):
+    """Each float32 kernel output is as close to the float64 plain version
+    on the same inputs as the float32 plain version is, within 2x + 1e-6
+    (two float32 orderings of the same sums; chip_smoke.py's rule)."""
+    for k, p, r in zip(kern, plain, ref):
+        if not r.any():
+            assert not k.any()
+            continue
+        assert _max_rel(k.double(), r) <= 2 * _max_rel(p.double(), r) + 1e-6
+
+
+def _f32_args(args):
+    """float32 copies of a case's floating tensors, and float64 copies of
+    those (the same float32-representable values)."""
+    def conv(a, dt):
+        if torch.is_tensor(a):
+            return a.to(dt) if a.is_floating_point() else a
+        if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], str):
+            return (a[0], conv(a[1], dt))
+        return a
+    a32 = {k: conv(v, torch.float32) for k, v in args.items()}
+    return a32, {k: conv(v, torch.float64) for k, v in a32.items()}
+
+
+def _ray_list(out):
+    return list(out[:3]) + [out[3][k] for k in ('J', 'PsiBar', 'IBar',
+                                                  'IeffSrcBar')]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Nk', [82, 500])
+def test_f32_sweep_kernel_matches_plain(Nk):
+    """The float32 sweep instance on the card: every output by the rule of
+    _f32_rule, J float64 and equal to the float64 sum of the kernel's own
+    float32 products w I to 1e-13; the float64 count does not move."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c32, c64 = _f32_args(_sweep_case(1046, 5, Nk, seed=5, device='cuda'))
+    before = (tsweep.sweep_cuda.launches, tsweep.sweep_cuda.launches_f32)
+    kern = tsweep.formal_solve_sweep(**c32)
+    torch.cuda.synchronize()
+    assert (tsweep.sweep_cuda.launches,
+            tsweep.sweep_cuda.launches_f32) == (before[0], before[1] + 1)
+    _f32_rule(_ray_list(kern), _ray_list(tsweep.formal_solve_sweep_plain(
+        **c32)), _ray_list(tsweep.formal_solve_sweep_plain(**c64)))
+    w = 0.5 * c32['wmu']
+    own = [sum((w[m] * kern[0][d, :, m]).double() for m in range(5))
+           for d in range(2)]
+    assert kern[3]['J'].dtype == torch.float64
+    assert _max_rel(kern[3]['J'], own[0] + own[1]) <= 1e-13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [1, 2, 4])
+def test_f32_group_gamma_kernel_matches_plain(K):
+    """The float32 line Gamma instance on the card by the rule of
+    _f32_rule: float partials, G4 float32."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c32, c64 = _f32_args(_group_case(K, device='cuda', Nlam=300, Nmu=5,
+                                     Nk=82, seed=K))
+    before = tgamma.group_gamma_rates_cuda.launches_f32
+    kern = tgamma.group_gamma_rates(**c32)
+    torch.cuda.synchronize()
+    assert tgamma.group_gamma_rates_cuda.launches_f32 == before + 1
+    assert kern[0].dtype == torch.float32
+    _f32_rule(kern, tgamma.group_gamma_rates_plain(**c32),
+              tgamma.group_gamma_rates_plain(**c64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bcs', [('zero', 'therm'), ('therm', 'data')])
+def test_f32_fused_kernel_matches_plain(bcs):
+    """The float32 fused instance on the card by the rule of _f32_rule, J
+    in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c32, c64 = _f32_args(_slots_case(2, *bcs, device='cuda', NL=200, Nmu=5,
+                                     Nk=82, seed=3))
+    before = tfused.fused_cuda.launches_f32
+    kern = tfused.fused_lambda_step(**c32)
+    torch.cuda.synchronize()
+    assert tfused.fused_cuda.launches_f32 == before + 1
+    assert kern[3]['J'].dtype == torch.float64
+    _f32_rule(_ray_list(kern), _ray_list(tfused.fused_lambda_step_plain(
+        **c32)), _ray_list(tfused.fused_lambda_step_plain(**c64)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES)
+def test_f32_scheme_on_cuda_goes_through_its_f32_kernel(scheme):
+    """One MALI iteration of a small float32 problem on the card under each
+    scheme launches the scheme's float32 instances and no float64 one; J,
+    Gamma and the rates come out float64."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+    ctx = h6ca_context(falc_interpolated(20), 3, device='cuda',
+                       dtype=torch.float32)
+    ctx.set_fs_iter_scheme(scheme)
+    counts = [(fn, attr) for fn in (tsweep.sweep_cuda,
+                                    tgamma.group_gamma_rates_cuda,
+                                    tfused.fused_cuda)
+              for attr in ('launches_f32', 'launches')]
+    before = [getattr(fn, attr) for fn, attr in counts]
+    ctx.formal_sol_gamma_matrices()
+    torch.cuda.synchronize()
+    got = [getattr(fn, attr) - b for (fn, attr), b in zip(counts, before)]
+    nGroups = sum(len(tgamma.line_groups(a)) for a in ctx.activeAtoms)
+    expected = {'mali_full_precond': [1, 0, 0, 0, 0, 0],
+                'mali_full_precond_pallas': [1, 0, nGroups, 0, 0, 0],
+                'mali_full_precond_fused': [0, 0, 0, 0, 1, 0]}[scheme]
+    assert got == expected
+    assert ctx.J.dtype == ctx._Gamma[0].dtype == torch.float64
+    assert ctx._Rij[0][0].dtype == torch.float64

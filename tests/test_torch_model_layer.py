@@ -71,20 +71,21 @@ def test_ng_classes_match_original(name):
             == inspect.getsource(getattr(jng, name)))
 
 
-def _h6ca(Falc82, RadiativeSet, Context, atoms):
+def _h6ca(Falc82, RadiativeSet, Context, atoms, **kwargs):
     atmos = Falc82()
     atmos.quadrature(5)
     rs = RadiativeSet([atoms.H_6_atom(), atoms.CaII_atom()])
     rs.set_active('H', 'Ca')
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops)
+    return Context(atmos, spect, eqPops, **kwargs)
 
 
 @pytest.fixture(scope='module')
 def contexts():
     return (_h6ca(JFalc82, JRadiativeSet, JContext, jatoms),
-            _h6ca(tlw.Falc82, tlw.RadiativeSet, tlw.Context, tlw))
+            _h6ca(tlw.Falc82, tlw.RadiativeSet, tlw.Context, tlw,
+                  device='cpu'))
 
 
 def _close(ours, ref, rtol=1e-12):
@@ -132,21 +133,22 @@ def test_falc_h6ca_profiles_match_jax(contexts):
     assert nLines == 15
 
 
-def _h6mg(Falc82, RadiativeSet, Context, atoms):
+def _h6mg(Falc82, RadiativeSet, Context, atoms, **kwargs):
     atmos = Falc82()
     atmos.quadrature(5)
     rs = RadiativeSet([atoms.H_6_atom(), atoms.MgII_atom()])
     rs.set_active('H', 'Mg')
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops)
+    return Context(atmos, spect, eqPops, **kwargs)
 
 
 def test_falc_h6mg_inputs_match_jax():
     """BASELINE config 3's PRD inputs: the wavelength grid, and per line
     the damping aDamp and elastic rate Qelast (PjQj's), the PRD flags."""
     jctx = _h6mg(JFalc82, JRadiativeSet, JContext, jatoms)
-    tctx = _h6mg(tlw.Falc82, tlw.RadiativeSet, tlw.Context, tlw)
+    tctx = _h6mg(tlw.Falc82, tlw.RadiativeSet, tlw.Context, tlw,
+                 device='cpu')
     _close(tctx.spect.wavelength, jctx.spect.wavelength)
     nPrd = 0
     for ia, a in enumerate(tctx.activeAtoms):

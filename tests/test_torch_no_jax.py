@@ -17,7 +17,7 @@ import sys
 from lightweaver_tpu_torch.fal import Falc82
 from lightweaver_tpu_torch.problems import h6ca_context
 import lightweaver_tpu_torch.convert
-ctx = h6ca_context(Falc82(), 5)
+ctx = h6ca_context(Falc82(), 5, device='cpu')
 ctx.formal_sol_gamma_matrices()
 ctx.stat_equil()
 bad = sorted(m for m in sys.modules

@@ -80,7 +80,8 @@ def port_context(hprd):
     rs = RadiativeSet([H_6_atom()])
     rs.set_active('H')
     spect = rs.compute_wavelength_grid()
-    return Context(atmos, spect, rs.compute_eq_pops(atmos), hprd=hprd)
+    return Context(atmos, spect, rs.compute_eq_pops(atmos), hprd=hprd,
+                   device='cpu')
 
 
 def _np(x):
@@ -178,7 +179,7 @@ def compare_subset_stage(jctx, tctx, params):
     lines = [(ai, ti) for ai, ti, a, t in jctx._prd_lines()]
     ref = j_build_prd_subset_fn(jctx.cfg, sub, lines)(params)
     out = build_prd_subset_fn(tctx.cfg, sub, lines)(
-        params_from_numpy(params))
+        params_from_numpy(params, tctx.cfg))
     assert out['J'].shape == (len(sub), NSPACE)
     assert out['I'].shape == (len(sub), NRAYS)
     for key in ('J', 'I') + (('JRest',) if jctx.cfg.hprd else ()):
@@ -245,7 +246,7 @@ def test_prd_subset_rows_equal_the_full_grid(prd):
     the PRD lines' Rij agree to rounding (the JAX package's
     test_prd_subset_fs_matches_full_grid holds 1e-9 and 1e-6)."""
     _, tctx, rec = prd
-    params = params_from_numpy(rec['paramsPre'])
+    params = params_from_numpy(rec['paramsPre'], device='cpu')
     full = tctx._iter_fn({**params, 'pack': None})
     sub = tctx._prd_subset_idxs()
     lines = [(ai, ti) for ai, ti, a, t in tctx._prd_lines()]
@@ -312,7 +313,7 @@ def test_iteration_with_rho_matches_jax(prd, scheme):
     against the JAX default scheme on the same params."""
     _, tctx, rec = prd
     cfg = dataclasses.replace(tctx.cfg, fsIterScheme=scheme)
-    out = build_iteration_fn(cfg)(params_from_numpy(rec['paramsPost']))
+    out = build_iteration_fn(cfg)(params_from_numpy(rec['paramsPost'], cfg))
     compare_iteration(out, rec['iteration'])
 
 
@@ -330,7 +331,7 @@ def test_kernel_schemes_take_the_live_rho(scheme):
     below it, 1e-9 of H's maximum, are differences of far larger terms
     that the schemes form in another order (test_torch_gamma's
     comparison has the same floor)."""
-    ctx = h6mg_context(falc_interpolated(12), 2)
+    ctx = h6mg_context(falc_interpolated(12), 2, device='cpu')
     ctx.set_fs_iter_scheme(scheme)
     mg = ctx.activeAtoms[1]
     assert max(len(g) for g in tgamma.line_groups(mg)) == 4

@@ -34,7 +34,7 @@ def test_one_iteration_vs_reference():
     """J, I and preconditioned Gamma after the first formal solution
     (rho = 1 still), at the golden test's 1e-8."""
     ref, inputs = _golden('prd')
-    ctx = h6mg_context()
+    ctx = h6mg_context(device='cpu')
     np.testing.assert_allclose(ctx.spect.wavelength, inputs['wavelength'],
                                rtol=1e-12)
     ctx.formal_sol_gamma_matrices()
@@ -52,7 +52,7 @@ def test_prd_converged_vs_reference():
     of the reference's 297; populations, J, emergent I and every PRD
     line's rho within 1e-7."""
     ref, inputs = _golden('prd')
-    ctx = h6mg_context()
+    ctx = h6mg_context(device='cpu')
     for ia, a in enumerate(ctx.activeAtoms):
         for it, t in enumerate(a.trans):
             if t.isLine and t.isPrd:
@@ -76,7 +76,7 @@ def test_hprd_converged_vs_reference():
     2 of 297; populations and rho within 1e-7; J and I within 1e-7
     amplitude-normalised per wavelength."""
     ref, inputs = _golden('hprd')
-    ctx = h6mg_context(hprd=True)
+    ctx = h6mg_context(hprd=True, device='cpu')
     np.testing.assert_allclose(ctx.spect.wavelength, inputs['wavelength'],
                                rtol=1e-12)
     np.testing.assert_allclose(ctx.atmos.vlos, inputs['vz'], rtol=1e-12)

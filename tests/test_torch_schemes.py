@@ -2,6 +2,7 @@
 set_fs_iter_scheme, get_fs_iter_scheme_properties) and one JAX params
 dict driving all three schemes through convert.params_from_numpy."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from lightweaver_tpu_torch.context import Context, build_iteration_fn
 from lightweaver_tpu_torch.convert import params_from_numpy
+from lightweaver_tpu_torch.ops import fused as tfused
 from lightweaver_tpu_torch.ops import gamma as tgamma
 from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
 
@@ -23,7 +25,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope='module')
 def small():
-    return h6ca_context(falc_interpolated(12), 2)
+    return h6ca_context(falc_interpolated(12), 2, device='cpu')
 
 
 def _name(ctx):
@@ -54,7 +56,7 @@ def test_scheme_names_and_aliases(small):
 def test_scheme_selects_the_iteration(small):
     """The Context argument and the setter select the same iteration: its
     packed kernel input is the scheme's."""
-    ctx = Context(small.atmos, small.spect, small.eqPops,
+    ctx = Context(small.atmos, small.spect, small.eqPops, device='cpu',
                   fsIterScheme='mali_full_precond_fused')
     assert _name(ctx) == SCHEMES[2]
     ctx.formal_sol_gamma_matrices()
@@ -71,7 +73,7 @@ def test_unknown_scheme_raises(small):
     with pytest.raises(ValueError, match='Unknown iteration scheme'):
         small.set_fs_iter_scheme('nonsense')
     with pytest.raises(ValueError, match='Unknown iteration scheme'):
-        Context(small.atmos, small.spect, small.eqPops,
+        Context(small.atmos, small.spect, small.eqPops, device='cpu',
                 fsIterScheme='mali_full_precond_cuda')
     assert _name(small) == 'mali_full_precond'
 
@@ -80,17 +82,22 @@ def test_unsupported_configuration_raises(small, monkeypatch):
     """No silent fallback: a configuration outside a scheme's kernel
     raises and leaves the scheme as it was.  A line group above the
     kernel's bound (Ca II's two-line groups against a bound of 1), and a
-    float32 state (only the float64 instances are built)."""
+    float16 working dtype (float64 and float32 instances are built).  The
+    float32 state is in both kernel schemes."""
     with monkeypatch.context() as m:
         m.setattr(tgamma, 'KMAX', 1)
         with pytest.raises(ValueError, match='does not support'):
             small.set_fs_iter_scheme('mali_full_precond_pallas')
     with monkeypatch.context() as m:
-        m.setattr(small.cfg, 'dtype', torch.float32)
+        m.setattr(small.cfg, 'dtype', torch.float16)
         for scheme in SCHEMES[1:]:
             with pytest.raises(ValueError, match='does not support'):
                 small.set_fs_iter_scheme(scheme)
     assert _name(small) == 'mali_full_precond'
+    f32 = types.SimpleNamespace(dtype=torch.float32, hprd=False,
+                                activeAtoms=small.cfg.activeAtoms)
+    assert tgamma.gamma_scheme_supported(f32)
+    assert tfused.fused_scheme_supported(f32)
 
 
 def test_one_jax_params_dict_drives_every_scheme(pair):  # noqa: F811
@@ -98,7 +105,7 @@ def test_one_jax_params_dict_drives_every_scheme(pair):  # noqa: F811
     scheme's iteration; each matches the JAX iteration at the slice
     test's tolerances."""
     jctx, tctx = pair
-    tparams = params_from_numpy(jctx.build_params())
+    tparams = params_from_numpy(jctx.build_params(), tctx.cfg)
     outs = {s: build_iteration_fn(dataclasses.replace(
         tctx.cfg, fsIterScheme=s))(tparams) for s in SCHEMES}
     assert 'pack' not in tparams

@@ -76,7 +76,7 @@ def pair():
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     jctx = JContext(atmos, spect, eqPops, recurrenceMode='pallas')
-    tctx = h6ca_context(falc_interpolated(NSPACE), NRAYS)
+    tctx = h6ca_context(falc_interpolated(NSPACE), NRAYS, device='cpu')
     return jctx, tctx
 
 
@@ -100,7 +100,7 @@ def test_gather_stage_matches_jax(pair):
     scaJ = np.asarray(jp['bgSca']) * np.asarray(jp['J'])
     jchi, jsrc = jax.jit(jit.gather)(jp, scaJ)
     Nlam, Nk = jctx.cfg.Nlam, jctx.cfg.Nk
-    tparams = params_from_numpy(jparams)
+    tparams = params_from_numpy(jparams, tctx.cfg)
     chi, src = tctx._iter_fn.gather(tparams, torch.as_tensor(scaJ))
     assert chi.shape == (2, Nlam, NRAYS, Nk)
     for ours, ref in ((chi, jchi), (src, jsrc)):
@@ -128,7 +128,7 @@ def test_iterations_match_jax_pallas_path(pair):
     jctx, tctx = pair
     for it in range(3):
         jparams = jctx.build_params()
-        tparams = params_from_numpy(jparams)
+        tparams = params_from_numpy(jparams, tctx.cfg)
         out = tctx._iter_fn(tparams)
         ju = jctx.formal_sol_gamma_matrices()
         _compare_iteration(out, jctx, ju)
@@ -164,7 +164,7 @@ def test_stages_compose_to_the_iteration(pair):
 
 def test_singular_gamma_raises_exploding_matrix():
     """As tests/test_error_surfacing.py pins for the JAX package."""
-    ctx = h6ca_context(falc_interpolated(12), 2)
+    ctx = h6ca_context(falc_interpolated(12), 2, device='cpu')
     ctx.formal_sol_gamma_matrices()
     ctx._Gamma[0] = torch.zeros_like(ctx._Gamma[0])
     with pytest.raises(ExplodingMatrixError):
@@ -173,7 +173,7 @@ def test_singular_gamma_raises_exploding_matrix():
 
 @pytest.fixture(scope='module')
 def small_inputs():
-    ctx = h6ca_context(falc_interpolated(12), 2)
+    ctx = h6ca_context(falc_interpolated(12), 2, device='cpu')
     return ctx.atmos, ctx.spect, ctx.eqPops
 
 
@@ -182,9 +182,14 @@ def small_inputs():
     {'conserveCharge': True},
     {'formalSolver': 'piecewise_linear_1d'},
     {'gammaMode': 'dense'},
-    {'dtype': torch.float32},
+    pytest.param({'dtype': torch.float32, 'hprd': True}, id='dtype'),
+    pytest.param({'dtype': torch.float16}, id='float16'),
+    {'accumDtype': torch.float32},
+    {'gammaAccum': 'pairwise'},
     {'initSol': InitialSolution.EscapeProbability},
 ], ids=lambda o: next(iter(o)))
 def test_options_outside_the_slice_raise(small_inputs, option):
+    """Each option outside the port raises ValueError at construction;
+    the float32 state is in the slice, hybrid PRD with it is not yet."""
     with pytest.raises(ValueError, match='does not support'):
-        Context(*small_inputs, **option)
+        Context(*small_inputs, device='cpu', **option)
