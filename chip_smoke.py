@@ -7,17 +7,19 @@ result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit;
    then the four kernel libraries are built from csrc/ at once, one nvcc
-   each, with ptxas's registers and spills, and the float64 instructions
-   of each float32 instance in its SASS (cuobjdump): J's double
-   accumulator only.
+   each, with ptxas's registers and spills per instance (the float64 line
+   Gamma kernel, whose K = 4 path is the widest, must not spill), and the
+   float64 instructions of each float32 instance in its SASS (cuobjdump):
+   J's double accumulator only.
 2. Probes: the two toolchain probes (csrc/probe.cu) against their plain
    versions (2x + 1 exactly, the recurrence within 1e-6 in f32).
 3. Sweep kernel: csrc/sweep.cu against its plain PyTorch version on the
    card, in f64, at the main path's shapes (Nlam=1046, Nmu=5, Nk=82 and
    500), inputs from a numpy seed; times of both.
-4. Scheme kernels: the line Gamma kernel (csrc/gamma.cu, every line group)
-   and the fused lambda step (csrc/fused.cu) against their plain versions
-   on the inputs of one iteration of falc_h6ca and of FALC-500; times.
+4. Scheme kernels: the line Gamma kernel (csrc/gamma.cu, one launch for
+   every line group) and the fused lambda step (csrc/fused.cu) against
+   their plain versions on the inputs of one iteration of falc_h6ca and of
+   FALC-500; times, and the whole line_kernel_stage's host time.
 5. Main path: falc_h6ca (FAL-C, H 6-level + Ca II active, 5 rays) on the
    card through Context and iterate_ctx_se, against the compiled
    reference's golden run (tests/golden/falc_h6ca_ref.npz); the sweep
@@ -42,13 +44,14 @@ result):
    1e-6 with plain f64 on the same inputs, and J to the float64 sum of
    the kernel's own float32 products (1e-13): the sweep on random rays at
    Nk = 82 and 500 and on one falc_h6ca float32 iteration, line Gamma on
-   falc_h6ca's 13 groups and falc_h6mg's (K = 4, rho != 1), fused with
-   C = 2 (falc_h6ca) and C = 3 (falc_h6mg); float32 and float64 instance
-   times side by side.  (b) The mixed-precision problem (FAL-C decimated
+   falc_h6ca's 13 groups, falc_h6mg's (K = 4, rho != 1) and FALC-500's,
+   fused with C = 2 (falc_h6ca, FALC-500) and C = 3 (falc_h6mg); float32
+   and float64 instance times side by side.  (b) The mixed-precision problem (FAL-C decimated
    to 40 depths, 3 rays, Ca II active) converged under each scheme in
    fewer than 600 iterations.  (c) falc_h6ca at full width under each
-   scheme, 500 iterations (the float32 state does not converge there, in
-   the JAX package either): the last dJ and dPops, the emergent spectrum
+   scheme, 300 iterations (the float32 state does not converge there, in
+   the JAX package either; the f64 state converges in 211): the last dJ
+   and dPops, the emergent spectrum
    against the golden file (rows brighter than 1e-3 of the peak within
    6.5e-2, median within 5e-3), the populations' largest error, and the
    float32 instances' launches.
@@ -57,12 +60,14 @@ result):
    blocks of formal_sol_gamma_matrices iterations (50 for the default
    scheme, 20 for the others) and a per-stage breakdown.
 
-The kernels' JSON record holds phase 7's errors and times and phase 8's
-launch counts for the float64 instances (the PRD path), phase 9 (a)'s
-falc_h6ca errors and times and (c)'s launch counts for the float32 ones,
-and the probes'; each with the least time the card could take for its
-inputs (bound_ms) and, where one PyTorch call computes the same function,
-that call's time.  The last three lines are the card's name and power
+Kernel times are device times from torch.profiler (the mean CUDA
+duration of the kernel's launches, one per call, kernel_device_ms); the
+plain versions' are CUDA events around their calls.  The kernels' JSON record holds phase
+7's errors and times and phase 8's launch counts for the float64
+instances (the PRD path), phase 9 (a)'s falc_h6ca errors and times and
+(c)'s launch counts for the float32 ones, and the probes'; each with the
+least time the card could take for its inputs (bound_ms) and, where one
+PyTorch call computes the same function, that call's time.  The last three lines are the card's name and power
 limit as nvidia-smi prints them, the kernels' JSON record and the ok
 line.
 """
@@ -105,7 +110,8 @@ def relerr(ours, ref):
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean time of ``fn`` over ``reps`` calls between two CUDA events
+    (the plain versions' many kernels and the host gaps between them)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -116,6 +122,45 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, pattern, reps=20, rounds=2):
+    """Device time per launch of ``fn``'s kernel whose symbol holds
+    ``pattern`` (one launch per call of ``fn``): torch.profiler's CUDA
+    durations of that kernel over ``rounds`` x ``reps`` calls in one
+    session after a warm-up call, averaged over each of ``rounds``
+    consecutive runs of the launches it recorded.  The profiler can drop
+    the last device records of a short window, so the mean is over the
+    launches recorded, and a session that records fewer than ``rounds``
+    runs again with twice the calls, up to four times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    calls = rounds * reps
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ks = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and pattern in e.name),
+                    key=lambda e: e.time_range.start)
+        if len(ks) >= rounds:
+            n = len(ks) // rounds
+            return [sum(e.time_range.elapsed_us() for e in ks[i * n:(i + 1) * n])
+                    / n / 1e3 for i in range(rounds)]
+        print(f'  (the profiler recorded {len(ks)} of {calls} {pattern} '
+              'launches; again with twice the calls)')
+        calls *= 2
+    raise AssertionError(f'the profiler recorded no {pattern} kernel')
+
+
+# kernel symbols, as the profiler names them
+SYMBOLS = {'sweep': 'sweep_kernel', 'gamma': 'line_gamma_kernel',
+           'fused': 'fused_kernel'}
 
 
 def environment():
@@ -139,10 +184,10 @@ def counters():
     and float32 instances of a wrapper keep separate counts."""
     from lightweaver_tpu_torch.ops import fused, gamma, probe, sweep
     return {'sweep': (sweep.sweep_cuda, 'launches'),
-            'gamma': (gamma.group_gamma_rates_cuda, 'launches'),
+            'gamma': (gamma.line_gamma_rates_cuda, 'launches'),
             'fused': (fused.fused_cuda, 'launches'),
             'sweep_f32': (sweep.sweep_cuda, 'launches_f32'),
-            'gamma_f32': (gamma.group_gamma_rates_cuda, 'launches_f32'),
+            'gamma_f32': (gamma.line_gamma_rates_cuda, 'launches_f32'),
             'fused_f32': (fused.fused_cuda, 'launches_f32'),
             'probe_elementwise': (probe.elementwise_cuda, 'launches'),
             'probe_recurrence': (probe.recurrence_cuda, 'launches')}
@@ -175,7 +220,32 @@ def build_kernels():
             if any(w in line for w in ('Compiling entry', 'registers',
                                        'spill', 'error')):
                 print(f'  {name} ptxas: {line.strip()}')
+    spills = ptxas_spills(_build.build_log('gamma'))
+    f64 = {fn: v for fn, v in spills.items() if 'IdE' in fn}
+    print(f'  line Gamma float64 instance: spill stores / loads (bytes) '
+          f'{list(f64.values())}')
+    if len(f64) != 1 or any(v != (0, 0) for v in f64.values()):
+        raise AssertionError(f'the float64 line Gamma kernel spills: {f64}')
     sass_double_ops({n: mods[n] for n in ('sweep', 'gamma', 'fused')})
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r'(\d+) bytes spill stores, (\d+) bytes spill loads')
+
+
+def ptxas_spills(log):
+    """{kernel symbol: (spill store bytes, spill load bytes)} from
+    ptxas -v's output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
 
 
 # float64 instructions a float32 instance may hold: J's double accumulator
@@ -213,7 +283,7 @@ def sass_double_ops(mods):
                 ops[fn][op] = ops[fn].get(op, 0) + 1
         # mangled template arguments: IfE / IfLi<K> float, IdE / IdLi double
         f32 = {fn: c for fn, c in ops.items() if re.search(r'IfE|IfLi', fn)}
-        if len(f32) != {'gamma': 4}.get(name, 1):
+        if len(f32) != 1:
             raise AssertionError(f'{name}: float32 instances not found in the '
                                  f'SASS ({sorted(ops)})')
         for fn, c in sorted(f32.items()):
@@ -312,22 +382,24 @@ def kernel_check():
         timed_pair(f'Nk={Nk} sweep, per call (1046 x 5 x 2 rays)',
                    lambda: sweep.formal_solve_sweep(**c),
                    lambda: sweep.formal_solve_sweep_plain(**c),
-                   bnd=sweep_bound(list(c.values()), kern))
+                   SYMBOLS['sweep'], bnd=sweep_bound(list(c.values()), kern))
 
 
-def one_iteration_inputs(Nk):
+def one_iteration_inputs(Nk, dtype=None):
     """The Context of falc_h6ca (Nk=82) or FALC-500 on the card after one
-    MALI step, its params and this iteration's rays (default scheme)."""
+    MALI step, its params, scaJ, srcNum and this iteration's rays (default
+    scheme)."""
     from lightweaver_tpu_torch.fal import Falc82
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
     atmos = Falc82() if Nk == 82 else falc_interpolated(Nk)
-    ctx = h6ca_context(atmos, 5, device='cuda')
+    ctx = h6ca_context(atmos, 5, device='cuda', dtype=dtype)
     ctx.formal_sol_gamma_matrices()
     ctx.stat_equil()
     params = ctx.build_params()
-    scaJ = params['bgSca'] * params['J']
-    chi, src = ctx._iter_fn.gather(params, scaJ)
-    rays = ctx._iter_fn.formal_solve(params, chi, src)
+    it = ctx._iter_fn
+    scaJ = it.scaJ(params)
+    chi, src = it.gather(params, scaJ)
+    rays = it.formal_solve(params, chi, src)
     return ctx, params, scaJ, src, rays
 
 
@@ -363,51 +435,74 @@ def bound_text(bnd):
             f'{bnd["bound_by"]}')
 
 
-def timed_pair(label, kern, plain, reps=20, bnd=None):
-    """Kernel and plain version in turns (plain, kernel, kernel, plain);
-    the min of each pair."""
-    p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
-        (plain, 3), (kern, reps), (kern, reps), (plain, 3)))
+def timed_pair(label, kern, plain, symbol, reps=20, bnd=None):
+    """Kernel and plain version in turns (plain, kernel, plain): the
+    kernel's device time (kernel_device_ms of ``symbol``, two rounds), the
+    plain version's events; the min of each pair."""
+    p1 = cuda_ms(plain, 3)
+    k1, k2 = kernel_device_ms(kern, symbol, reps)
+    p2 = cuda_ms(plain, 3)
     print(f'  {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / '
           f'{p2:.4f} ms{bound_text(bnd)}')
     return min(k1, k2), min(p1, p2)
 
 
-def check_line_kernel(label, ctx, params, src, rays):
-    """The line Gamma kernel on every line group of one iteration against
-    its plain version; the time of all groups."""
+def line_call(ctx, params, src, rays):
+    """The scheme's iteration function and the arguments of
+    ops/gamma.py:line_gamma_rates for one iteration of ``ctx``."""
     from lightweaver_tpu_torch.context import build_iteration_fn
-    from lightweaver_tpu_torch.ops import gamma
     itP = build_iteration_fn(dataclasses.replace(ctx.cfg,
                                                  fsIterScheme=PALLAS))
-    groups = list(itP.line_group_inputs(params, *rays[:3], src,
-                                        itP.pack(params)))
+    return itP, itP.line_inputs(params, *rays[:3], src, itP.pack(params))
+
+
+def stage_host_ms(itP, params, src, rays, table, reps=10):
+    """The whole line_kernel_stage (host clock, synchronised, mean)."""
+    def stage():
+        return itP.line_kernel_stage(params, *rays[:3], src, table)
+    stage()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        stage()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_line_kernel(label, ctx, params, src, rays):
+    """The line Gamma kernel, one launch for every line group of one
+    iteration, against its plain version group by group; the launch's
+    device time and the whole line_kernel_stage's host time."""
+    from lightweaver_tpu_torch.ops import gamma
+    itP, args = line_call(ctx, params, src, rays)
+    table = args[0]
+    kern = table.views(*gamma.line_gamma_rates(*args))
+    plain = table.views(*gamma.line_gamma_rates_plain(*args))
+    torch.cuda.synchronize()
     worst = [0.0, 0.0]
-    for ai, g, args in groups:
-        plain = gamma.group_gamma_rates_plain(*args)
-        kern = gamma.group_gamma_rates(*args)
-        torch.cuda.synchronize()
+    for gi, (g, k3, p3) in enumerate(zip(table.groups, kern, plain)):
         rel, absErr = compare_outputs(
-            f'{label} atom {ai} group {g["members"]}',
-            ('G4', 'PPB', 'PairPPB'), kern, plain, GAMMA_TOL)
+            f'{label} atom {g.ai} group {list(g.members)}',
+            ('G4', 'PPB', 'PairPPB'), k3, p3, GAMMA_TOL)
         worst = [max(worst[0], rel), max(worst[1], absErr)]
-        rhoDev = (args[1] - 1.0).abs().max().item()
-        if rhoDev > 0.0 or len(g['members']) > 3:
-            print(f'  {label} atom {ai} group {g["members"]} (K = '
-                  f'{len(g["members"])}, max|rho-1| = {rhoDev:.3e}): '
+        rhoDev = (table.inputs(gi, args[1])[1] - 1.0).abs().max().item()
+        if rhoDev > 0.0 or g.K > 3:
+            print(f'  {label} atom {g.ai} group {list(g.members)} (K = '
+                  f'{g.K}, max|rho-1| = {rhoDev:.3e}): '
                   f'max|kernel-plain|/max|plain| = {rel:.3e}')
-    print(f'  {label} line Gamma, {len(groups)} groups: '
-          f'max|kernel-plain|/max|plain| = {worst[0]:.3e} (bar '
-          f'{GAMMA_TOL}), max abs {worst[1]:.3e}')
-    bnd = gamma_bound([a for _, _, a in groups])
+    print(f'  {label} line Gamma, {len(table.groups)} groups in one launch '
+          f'({table.nItems} blocks): max|kernel-plain|/max|plain| = '
+          f'{worst[0]:.3e} (bar {GAMMA_TOL}), max abs {worst[1]:.3e}')
+    bnd = gamma_bound(args)
     ms, plainMs = timed_pair(
         f'{label} line Gamma, all groups of one iteration',
-        lambda: [gamma.group_gamma_rates(*a) for _, _, a in groups],
-        lambda: [gamma.group_gamma_rates_plain(*a) for _, _, a in groups],
+        lambda: gamma.line_gamma_rates(*args),
+        lambda: gamma.line_gamma_rates_plain(*args), SYMBOLS['gamma'],
         bnd=bnd)
+    print(f'  {label} line_kernel_stage (the launch and its glue): '
+          f'{stage_host_ms(itP, params, src, rays, table):.3f} ms host')
     return dict(max_abs_err=worst[1], max_rel_err=worst[0], ms=ms,
-                plain_ms=plainMs,
-                K=max(len(g['members']) for _, g, _ in groups), **bnd)
+                plain_ms=plainMs, K=table.maxK, **bnd)
 
 
 def check_fused_kernel(label, ctx, params, scaJ):
@@ -430,7 +525,7 @@ def check_fused_kernel(label, ctx, params, scaJ):
     ms, plainMs = timed_pair(f'{label} fused, per call',
                              lambda: fused.fused_lambda_step(*args),
                              lambda: fused.fused_lambda_step_plain(*args),
-                             bnd=bnd)
+                             SYMBOLS['fused'], bnd=bnd)
     return dict(max_abs_err=absErr, max_rel_err=rel, ms=ms, plain_ms=plainMs,
                 C=C, **bnd)
 
@@ -483,7 +578,7 @@ def prd_kernel_check():
     ms, plainMs = timed_pair('PRD subset sweep, per call',
                              lambda: sweep.formal_solve_sweep(*args),
                              lambda: sweep.formal_solve_sweep_plain(*args),
-                             bnd=bnd)
+                             SYMBOLS['sweep'], bnd=bnd)
     result['sweep'] = dict(max_abs_err=absErr, max_rel_err=rel, ms=ms,
                            plain_ms=plainMs, **bnd)
     del ctx, params, rays, args, plain, kern
@@ -545,19 +640,17 @@ def main_path():
 
 def scheme_paths():
     """falc_h6ca under each kernel scheme; the launch counts show that the
-    scheme's kernel ran: the line kernel once per group per iteration, the
-    fused kernel once per iteration and the sweep never."""
-    from lightweaver_tpu_torch.ops import gamma
+    scheme's kernel ran: the line kernel once per iteration for all its
+    groups, the fused kernel once per iteration and the sweep never."""
     for scheme in (PALLAS, FUSED):
         phase(f'scheme {scheme}: falc_h6ca on the card vs the golden '
               'reference')
         ctx, nIter, counts = converge_falc_h6ca(scheme)
         if scheme == PALLAS:
-            nGroups = sum(len(gamma.line_groups(a)) for a in ctx.activeAtoms)
-            if counts['gamma'] < nGroups * nIter:
+            if counts['gamma'] != nIter:
                 raise AssertionError(
-                    f'line kernel launched {counts["gamma"]} times, fewer '
-                    f'than {nGroups} groups x {nIter} iterations')
+                    f'line kernel launched {counts["gamma"]} times in '
+                    f'{nIter} iterations, not once per iteration')
         elif counts['fused'] < nIter or counts['sweep'] != 0:
             raise AssertionError(
                 f'fused scheme launched fused {counts["fused"]} and '
@@ -570,7 +663,7 @@ def converge_h6mg(scheme, hprd=False):
     its golden run; the launch counts show the path's kernels ran: the
     sweep once per MALI step (default, _pallas) and once per PRD
     sub-iteration (the subset solve, every scheme), the line kernel once
-    per group per MALI step, the fused kernel once per MALI step.
+    per MALI step for all groups, the fused kernel once per MALI step.
     Returns (Context, launch counts)."""
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.ops import gamma
@@ -635,12 +728,12 @@ def converge_h6mg(scheme, hprd=False):
     if bad:
         raise AssertionError(f'golden mismatch above {GOLDEN_RTOL}: {bad}')
     sizes = [len(g) for a in ctx.activeAtoms for g in gamma.line_groups(a)]
-    nGroups = len(sizes)
     if scheme == PALLAS:
-        print(f'line kernel: {nGroups} groups per MALI step, K = {sizes}')
+        print(f'line kernel: one launch per MALI step for {len(sizes)} '
+              f'groups, K = {sizes}')
     expected = {
         'mali_full_precond': dict(sweep=nIter + nSub, gamma=0, fused=0),
-        PALLAS: dict(sweep=nIter + nSub, gamma=nGroups * nIter, fused=0),
+        PALLAS: dict(sweep=nIter + nSub, gamma=nIter, fused=0),
         FUSED: dict(sweep=nSub, gamma=0, fused=nIter)}[scheme]
     got = {k: counts[k] for k in expected}
     if got != expected or nSub < 1:
@@ -783,9 +876,13 @@ J_OWN_TOL = 1e-13
 def upcast(args):
     """float64 copies of the floating tensors of a kernel's arguments
     (boundary pairs (kind, rows) included)."""
+    from lightweaver_tpu_torch.ops.gamma import LineTable
+
     def up(a):
         if torch.is_tensor(a):
             return a.double() if a.is_floating_point() else a
+        if isinstance(a, LineTable):
+            return a.to(torch.float64)
         if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], str):
             return (a[0], up(a[1]))
         return a
@@ -831,12 +928,15 @@ def j_own_products(label, out, wmu):
                              f'products ({label}): {err:.3e}')
 
 
-def timed_instances(label, kern, plain, kern64, bnd, reps=20):
+def timed_instances(label, kern, plain, kern64, bnd, symbol, reps=20):
     """The float32 instance, its plain version and the float64 instance
-    on the upcast inputs, in turns (plain, f32, f64, f64, f32, plain)."""
-    runs = [(plain, 3), (kern, reps), (kern64, reps), (kern64, reps),
-            (kern, reps), (plain, 3)]
-    p1, k1, d1, d2, k2, p2 = (cuda_ms(f, r) for f, r in runs)
+    on the upcast inputs, in turns (plain, f32, f64, plain): the kernels'
+    device times (kernel_device_ms, two rounds each), the plain version's
+    events."""
+    p1 = cuda_ms(plain, 3)
+    k1, k2 = kernel_device_ms(kern, symbol, reps)
+    d1, d2 = kernel_device_ms(kern64, symbol, reps)
+    p2 = cuda_ms(plain, 3)
     print(f'  {label}: float32 kernel {k1:.4f} / {k2:.4f} ms, float64 '
           f'kernel {d1:.4f} / {d2:.4f} ms, float32 plain {p1:.4f} / '
           f'{p2:.4f} ms{bound_text(bnd)} (float32)')
@@ -857,39 +957,37 @@ def check_sweep_f32(label, args):
     ms, plainMs, ms64 = timed_instances(
         f'{label} sweep, per call', lambda: sweep.formal_solve_sweep(*args),
         lambda: sweep.formal_solve_sweep_plain(*args),
-        lambda: sweep.formal_solve_sweep(*args64), bnd)
+        lambda: sweep.formal_solve_sweep(*args64), bnd, SYMBOLS['sweep'])
     return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, f64_ms=ms64,
                 **bnd)
 
 
 def check_line_f32(label, ctx, params, src, rays):
-    from lightweaver_tpu_torch.context import build_iteration_fn
     from lightweaver_tpu_torch.ops import gamma
-    itP = build_iteration_fn(dataclasses.replace(ctx.cfg,
-                                                 fsIterScheme=PALLAS))
-    groups = [a for _, _, a in itP.line_group_inputs(params, *rays[:3], src,
-                                                     itP.pack(params))]
-    worst, Ks = 0.0, []
-    for args in groups:
-        K = args[0].shape[0]
-        Ks.append(K)
-        kern = gamma.group_gamma_rates(*args)
-        plain = gamma.group_gamma_rates_plain(*args)
-        ref = gamma.group_gamma_rates_plain(*upcast(args))
-        torch.cuda.synchronize()
-        rhoDev = (args[1] - 1.0).abs().max().item()
+    itP, args = line_call(ctx, params, src, rays)
+    table = args[0]
+    args64 = upcast(args)
+    kern = table.views(*gamma.line_gamma_rates(*args))
+    plain = table.views(*gamma.line_gamma_rates_plain(*args))
+    ref = table.views(*gamma.line_gamma_rates_plain(*args64))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for gi, (g, k3, p3, r3) in enumerate(zip(table.groups, kern, plain,
+                                             ref)):
+        rhoDev = (table.inputs(gi, args[1])[1] - 1.0).abs().max().item()
         worst = max(worst, f32_rule(
-            f'{label} group of K = {K} at row {args[-1]} (max|rho-1| = '
-            f'{rhoDev:.2e})', ('G4', 'PPB', 'PairPPB'), kern, plain, ref))
-    groups64 = [upcast(a) for a in groups]
-    bnd = gamma_bound(groups)
+            f'{label} group of K = {g.K} at row {g.row0} (max|rho-1| = '
+            f'{rhoDev:.2e})', ('G4', 'PPB', 'PairPPB'), k3, p3, r3))
+    bnd = gamma_bound(args)
     ms, plainMs, ms64 = timed_instances(
-        f'{label} line Gamma, all {len(groups)} groups of one iteration',
-        lambda: [gamma.group_gamma_rates(*a) for a in groups],
-        lambda: [gamma.group_gamma_rates_plain(*a) for a in groups],
-        lambda: [gamma.group_gamma_rates(*a) for a in groups64], bnd)
+        f'{label} line Gamma, all {len(table.groups)} groups of one '
+        'iteration in one launch', lambda: gamma.line_gamma_rates(*args),
+        lambda: gamma.line_gamma_rates_plain(*args),
+        lambda: gamma.line_gamma_rates(*args64), bnd, SYMBOLS['gamma'])
+    print(f'  {label} line_kernel_stage (float32): '
+          f'{stage_host_ms(itP, params, src, rays, table):.3f} ms host')
     return dict(max_abs_err=worst, ms=ms, plain_ms=plainMs, f64_ms=ms64,
-                K=max(Ks), **bnd)
+                K=table.maxK, **bnd)
 
 
 def check_fused_f32(label, ctx, params, scaJ):
@@ -911,7 +1009,7 @@ def check_fused_f32(label, ctx, params, scaJ):
     ms, plainMs, ms64 = timed_instances(
         f'{label} fused, per call', lambda: fused.fused_lambda_step(*args),
         lambda: fused.fused_lambda_step_plain(*args),
-        lambda: fused.fused_lambda_step(*args64), bnd)
+        lambda: fused.fused_lambda_step(*args64), bnd, SYMBOLS['fused'])
     return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, f64_ms=ms64,
                 C=C, **bnd)
 
@@ -943,9 +1041,10 @@ def f32_kernel_check():
     """(a) The float32 instances against their plain versions, each output
     by the rule of f32_rule: the sweep on random rays at Nk = 82 and 500
     and on one falc_h6ca float32 iteration's inputs, line Gamma on its 13
-    groups and on falc_h6mg's (the K = 4 Mg II group, rho != 1), fused
-    with C = 2 on falc_h6ca and C = 3 on falc_h6mg; float32 and float64
-    instance times side by side.  Returns falc_h6ca's records."""
+    groups, on falc_h6mg's (the K = 4 Mg II group, rho != 1) and on
+    FALC-500's, fused with C = 2 on falc_h6ca and FALC-500 and C = 3 on
+    falc_h6mg; float32 and float64 instance times side by side.  Returns
+    falc_h6ca's records."""
     from lightweaver_tpu_torch.fal import Falc82
     from lightweaver_tpu_torch.problems import h6ca_context, random_rays
     phase('float32 instances vs their plain versions (bar: err(kernel '
@@ -972,6 +1071,11 @@ def f32_kernel_check():
     ctx, params, scaJ, src, rays = prd_state(F32)
     K = check_line_f32('falc_h6mg PRD', ctx, params, src, rays)['K']
     C = check_fused_f32('falc_h6mg PRD', ctx, params, scaJ)['C']
+    del ctx, params, rays
+    torch.cuda.empty_cache()
+    ctx, params, scaJ, src, rays = one_iteration_inputs(500, F32)
+    check_line_f32('FALC-500', ctx, params, src, rays)
+    check_fused_f32('FALC-500', ctx, params, scaJ)
     if K != 4 or C != 3 or records['fused_f32']['C'] != 2:
         raise AssertionError(f'expected K = 4 and C = 3 on falc_h6mg, C = 2 '
                              f'on falc_h6ca; got {K}, {C}, '
@@ -1030,12 +1134,15 @@ def run_counted(ctx, NmaxIter):
 # than 1e-3 of the peak, median 2.46e-3: scripts/precision_floors.py's
 # measure)
 F32_BRIGHT_BAR, F32_MEDIAN_BAR = 6.5e-2, 5e-3
+# (c)'s iterations: past the 211 in which the float64 state converges, so
+# the float32 state sits at its noise floor
+F32_FULL_ITERS = 300
 
 
 def falc_h6ca_f32(scheme):
     """(c) falc_h6ca at full width with a float32 state under ``scheme``,
-    iterate_ctx_se with NmaxIter = 500; the float32 state does not
-    converge there (nor does the JAX package's), so the checks are its
+    iterate_ctx_se with NmaxIter = F32_FULL_ITERS; the float32 state does
+    not converge there (nor does the JAX package's), so the checks are its
     envelope: finite, and the emergent spectrum within the bars above.
     Returns the launch counts of the run."""
     from lightweaver_tpu_torch.fal import Falc82
@@ -1043,7 +1150,7 @@ def falc_h6ca_f32(scheme):
     ref = np.load(ROOT / 'tests' / 'golden' / 'falc_h6ca_ref.npz')
     ctx = h6ca_context(Falc82(), 5, device='cuda', dtype=F32)
     ctx.set_fs_iter_scheme(scheme)
-    nIter, updates, wall, counts = run_counted(ctx, 500)
+    nIter, updates, wall, counts = run_counted(ctx, F32_FULL_ITERS)
     I = ctx.I.double().cpu().numpy()[:, -1]
     Iref = ref['out_I'][:, -1]
     rel = np.abs(I - Iref) / np.maximum(np.abs(Iref), 1e-300)
@@ -1051,7 +1158,7 @@ def falc_h6ca_f32(scheme):
     popsErr = max(relerr(ctx.popsState[ia]['n'].cpu(),
                          ref[f'out_pops_a{ia}']) for ia in range(2))
     dJ, dPops = float(updates[0].dJMax), updates[1].dPopsMax
-    converged = dJ < 5e-3 and dPops < 1e-3 and nIter < 500
+    converged = dJ < 5e-3 and dPops < 1e-3 and nIter < F32_FULL_ITERS
     print(f'  falc_h6ca float32 under {scheme}: {nIter} iterations, '
           f'converged {converged}, last dJ {dJ:.3e}, dPops {dPops:.3e}; '
           f'{wall:.2f} s, {wall / nIter * 1e3:.3f} ms/iter')
@@ -1121,24 +1228,33 @@ def sweep_bound(args, out):
                  SWEEP_FLOPS * chi.numel(), chi.dtype)
 
 
-def gamma_bound(groups):
-    """Per group: phi, rho, the four ray tensors on the window rows, the
-    members' level rows of chiCL and UCL and etaC on the window, n, coef,
-    wphi; G4, PPB and PairPPB out."""
-    total = flops = 0
-    for (phi, rho, Psi, IeffB, I, src, chiCL, UCL, etaC, n, coef, wphi,
-         wmuHalf, st, row0) in groups:
-        K, _, Wu, Nmu, Nk = phi.shape
-        item = phi.element_size()
-        nLev = len({lv for ij in st.levels for lv in ij})
-        nBlk = -(-Wu // 8)
-        P = K * (K - 1) // 2
-        total += nbytes([phi, rho, n, coef, wphi, wmuHalf]) + item * (
-            4 * 2 * Wu * Nmu * Nk + 2 * nLev * Wu * Nk + Wu * Nk
-            + K * 4 * nBlk * Nk + (K + max(P, 1)) * Wu * Nk)
-        flops += (GAMMA_FLOPS + 4 * K) * K * Wu * 2 * Nmu * Nk \
-            + 4 * P * Wu * 2 * Nmu * Nk
-    return bound(total, flops, groups[0][0].dtype)
+def gamma_bound(args):
+    """One call of line_gamma_rates: the ray tensors on the rows some group
+    covers, each active atom's continuum chi/U rows of its groups'
+    levels on those groups' rows and etaC there, the populations, each
+    group's phi, rho, coef and wphi; G4, PPB and PairPPB out."""
+    table, rho, Psi = args[:3]
+    Nlam, Nmu, Nk = Psi.shape[1], table.Nmu, table.Nk
+    item = Psi.element_size()
+    rows = torch.zeros(Nlam, dtype=torch.bool)
+    levRows = torch.zeros((table.nLev, Nlam), dtype=torch.bool)
+    etaRows = torch.zeros((table.nAtoms, Nlam), dtype=torch.bool)
+    flops = 0
+    for g in table.groups:
+        win = slice(g.row0, g.row0 + g.Wu)
+        rows[win] = True
+        etaRows[g.ai, win] = True
+        for ij in g.statics.levels:
+            for lv in ij:
+                levRows[g.levOff + lv, win] = True
+        P = g.K * (g.K - 1) // 2
+        flops += ((GAMMA_FLOPS + 4 * g.K) * g.K + 4 * P) \
+            * g.Wu * 2 * Nmu * Nk
+    total = item * (4 * 2 * int(rows.sum()) * Nmu * Nk
+                    + 2 * int(levRows.sum()) * Nk + int(etaRows.sum()) * Nk
+                    + sum(table.sizes)) + nbytes(
+        [table.phi, rho, args[9], table.coef, table.wphi, args[10]])
+    return bound(total, flops, Psi.dtype)
 
 
 def fused_bound(args, out):
@@ -1192,7 +1308,7 @@ def main():
     for scheme in SCHEMES:
         converge_mixed(scheme)
     phase('falc_h6ca at full width in float32 under each scheme, '
-          'NmaxIter = 500')
+          f'NmaxIter = {F32_FULL_ITERS}')
     f32Launches = dict.fromkeys(F32_NAMES, 0)
     for scheme in SCHEMES:
         counts = falc_h6ca_f32(scheme)

@@ -531,16 +531,16 @@ def fused_stage(cfg: IterConfig, params, scaJ, pack):
 
 # ---- scheme 'mali_full_precond_pallas': the line part of stage 3 --------
 def line_pack(cfg: IterConfig, params):
-    """The iteration-constant input of the line Gamma kernel: per active
-    atom, per line group (ops/gamma.py:line_groups), the members' profiles
-    on the union window [K, 2, Wu, Nmu, Nk], the coefficient rows
-    coef [K, Wu, 4] = (a1, Bji/Bij, Aji/Bji, wlambda 4pi/hc), zero outside
-    each member's window, wphi [K, Nk] and the level statics.  rho
-    changes between calls (prd_redistribute), so line_group_inputs builds
-    it from each call's params."""
-    packs = []
+    """The iteration-constant input of the line Gamma kernel: the
+    ops/gamma.py:LineTable of every line group (ops/gamma.py:line_groups)
+    of every active atom, with the members' profiles on the group's union
+    window [K, 2, Wu, Nmu, Nk], the coefficient rows coef [K, Wu, 4] =
+    (a1, Bji/Bij, Aji/Bji, wlambda 4pi/hc), zero outside each member's
+    window, wphi [K, Nk], the level statics and a packed rho of ones.
+    rho changes between calls (prd_redistribute), so line_inputs writes
+    the PRD members' windows of it from each call's params."""
+    groups = []
     for ai, a in enumerate(cfg.activeAtoms):
-        groups = []
         for members in gammaOps.line_groups(a):
             ts = [a.trans[ti] for ti in members]
             K = len(ts)
@@ -559,77 +559,78 @@ def line_pack(cfg: IterConfig, params):
                 coef[m, lo:lo + t.W, 2] = t.Aji / t.Bji
                 coef[m, lo:lo + t.W, 3] = t.wlambda * Const.FOURPI_HC
             groups.append({
-                'members': members, 'row0': row0, 'phi': phi,
+                'ai': ai, 'members': members, 'row0': row0, 'phi': phi,
                 'coef': cfg.tensor(coef),
                 'wphi': torch.stack([params['wphi'][ai][ti]
-                                     for ti in members]),
+                                     for ti in members]).to(cfg.dtype),
                 'statics': gammaOps.group_statics(ts)})
-        packs.append(groups)
-    return packs
+    return gammaOps.LineTable(groups, [a.Nlevel for a in cfg.activeAtoms],
+                              cfg.Nmu, cfg.Nk)
 
 
-def line_group_inputs(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
-                      pack):
-    """For every line group of every active atom, (ai, the group's pack,
-    the arguments of ops/gamma.py:group_gamma_rates): the group's constant
-    input, the members' rho [K, Wu, Nk] from this call's params (ones
-    outside a PRD member's window and for the other lines), the ray
-    tensors, and the atom's per-level continuum chi/U rows and continuum
-    eta of this iteration."""
+def line_inputs(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, table):
+    """The arguments of ops/gamma.py:line_gamma_rates for this call: the
+    table, its packed rho with each PRD member's window written from this
+    call's params (ones elsewhere), the ray tensors, and the active
+    atoms' per-level continuum chi/U rows, continuum eta and populations
+    of this iteration, stacked over the atoms."""
     Nlam, Nk = cfg.Nlam, cfg.Nk
-    wmuHalf = 0.5 * cfg.wmuT
+    chiCL = torch.zeros((table.nLev, Nlam, Nk), dtype=cfg.dtype,
+                        device=cfg.device)
+    UCL = torch.zeros_like(chiCL)
+    etaC = torch.zeros((table.nAtoms, Nlam, Nk), dtype=cfg.dtype,
+                       device=cfg.device)
     for ai, a in enumerate(cfg.activeAtoms):
-        chiCL = torch.zeros((a.Nlevel, Nlam, Nk), dtype=cfg.dtype,
-                            device=cfg.device)
-        UCL = torch.zeros_like(chiCL)
-        etaC = torch.zeros_like(chiCL[0])
+        off = table.levOffs[ai]
         for ti, t in enumerate(a.trans):
             if t.isLine:
                 continue
             sl = slice(t.Nblue, t.Nred)
             c, e = chi_eta_w(cfg, params, ai, ti, t.Nblue, t.Nred)
-            etaC[sl] += e[0, :, 0, :]
-            chiCL[t.i, sl] += c[0, :, 0, :]
-            chiCL[t.j, sl] -= c[0, :, 0, :]
-            UCL[t.j, sl] += UjiW(cfg, params, ai, ti, t.Nblue,
-                                 t.Nred)[0, :, 0, :]
-        n = params['allPops'][ai].contiguous()
-        for g in pack[ai]:
-            rho = torch.ones_like(g['phi'][:, 0, :, 0, :])
-            for m, ti in enumerate(g['members']):
-                t = a.trans[ti]
-                r = line_rho(params, ai, ti, t)
-                if r is not None:
-                    lo = t.Nblue - g['row0']
-                    rho[m, lo:lo + t.W] = r
-            yield ai, g, (g['phi'], rho, Psi, IeffBase, I, srcNum,
-                          chiCL, UCL, etaC, n, g['coef'], g['wphi'], wmuHalf,
-                          g['statics'], g['row0'])
+            etaC[ai, sl] += e[0, :, 0, :]
+            chiCL[off + t.i, sl] += c[0, :, 0, :]
+            chiCL[off + t.j, sl] -= c[0, :, 0, :]
+            UCL[off + t.j, sl] += UjiW(cfg, params, ai, ti, t.Nblue,
+                                       t.Nred)[0, :, 0, :]
+    n = torch.cat([params['allPops'][ai]
+                   for ai in range(len(cfg.activeAtoms))])
+    for gi, g in enumerate(table.groups):
+        a = cfg.activeAtoms[g.ai]
+        for m, ti in enumerate(g.members):
+            t = a.trans[ti]
+            r = line_rho(params, g.ai, ti, t)
+            if r is not None:
+                lo = t.Nblue - g.row0
+                table.inputs(gi)[1][m, lo:lo + t.W] = r
+    return (table, table.rho, Psi, IeffBase, I, srcNum, chiCL, UCL, etaC, n,
+            (0.5 * cfg.wmuT).contiguous())
 
 
 def line_kernel_stage(cfg: IterConfig, params, I, Psi, IeffBase, srcNum,
-                      pack):
-    """The line kernel of every group of every active atom (ops/gamma.py:
-    group_gamma_rates, the CUDA kernel on a CUDA device).
+                      table):
+    """The line kernel of every group of every active atom, in one call of
+    ops/gamma.py:line_gamma_rates (one launch of the CUDA kernel on a
+    CUDA device).
 
     Returns per active atom {'line': {ti: {'G4', 'row0', 'chiPsiBar',
     'UPsiBar', 'etaPsiBar'}}, 'pair': {(ti, ti2): {'row0', 'chiU',
     'UChi'}}}: the Gamma/rate block partials and the mu-reduced chi/U/eta
     x Psi rows of each line (and line pair, ti < ti2) on its group's
     window, which gamma_rates uses in place of the line windows."""
+    args = line_inputs(cfg, params, I, Psi, IeffBase, srcNum, table)
+    outs = table.views(*gammaOps.line_gamma_rates(*args))
     out = [{'line': {}, 'pair': {}} for _ in cfg.activeAtoms]
-    for ai, g, args in line_group_inputs(cfg, params, I, Psi, IeffBase,
-                                         srcNum, pack):
-        a = cfg.activeAtoms[ai]
-        n = params['allPops'][ai]
-        line, pair = out[ai]['line'], out[ai]['pair']
-        members, row0 = g['members'], g['row0']
-        G4, PPB, PairPPB = gammaOps.group_gamma_rates(*args)
+    for gi, (g, (G4, PPB, PairPPB)) in enumerate(zip(table.groups, outs)):
+        a = cfg.activeAtoms[g.ai]
+        n = params['allPops'][g.ai]
+        line, pair = out[g.ai]['line'], out[g.ai]['pair']
+        members, row0 = g.members, g.row0
+        _, rhoG, coef, _ = table.inputs(gi)
         chiFac, UFac = [], []
         for m, ti in enumerate(members):
             t = a.trans[ti]
-            a1 = g['coef'][m, :, 0][:, None]
-            rho = args[1][m]
+            a1 = coef[m, :, 0][:, None]
+            rho = rhoG[m]
             gS, uS = t.Bji / t.Bij, t.Aji / t.Bji
             chiFac.append((n[t.i][None, :] - gS * rho * n[t.j][None, :])
                           * a1)
@@ -991,8 +992,8 @@ def build_iteration_fn(cfg: IterConfig):
         cfg, _working_params(cfg, params), scaJ, packed)
     iteration.line_kernel_stage = lambda params, *rays: line_kernel_stage(
         cfg, _working_params(cfg, params), *rays)
-    iteration.line_group_inputs = lambda params, *rays: list(
-        line_group_inputs(cfg, _working_params(cfg, params), *rays))
+    iteration.line_inputs = lambda params, *rays: line_inputs(
+        cfg, _working_params(cfg, params), *rays)
     iteration.fused_inputs = lambda params, scaJ, packed: fused_inputs(
         cfg, _working_params(cfg, params), scaJ, packed)[0]
     iteration.gamma_rates = lambda params, *rays: gamma_rates(

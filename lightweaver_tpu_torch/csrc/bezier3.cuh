@@ -1,7 +1,11 @@
 // The Bezier-3 short-characteristics step shared by the depth-sweep
 // kernel (sweep.cu) and the fused lambda-step kernel (fused.cu): Steffen
-// derivatives, the Bezier-3 and linear-w2 weights, and the sweep of one
-// ray in the summation order of ops/formal_solver.py:formal_sol_1d.
+// derivatives, the Bezier-3 and linear-w2 weights, the sweep of one ray
+// by one thread in the summation order of
+// ops/formal_solver.py:formal_sol_1d (bezier3_ray, fused.cu), and the
+// sweep of one ray by one warp, parallel along depth, in the order of
+// ops/formal_solver.py:affine_solve(mode='chunked') (bezier3_warp_ray,
+// sweep.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -212,6 +216,162 @@ __device__ __forceinline__ void bezier3_ray(const Load& load,
         IR[k] = A * Iprev + b;
         psiR[k] = psiN / cm;
         ieffbR[k] = A * Iprev + bNL;
+    }
+}
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// v of the lane `delta` below, or `edge` on the lanes that have none
+template <typename T>
+__device__ __forceinline__ T lane_before(T v, int delta, T edge, int lane) {
+    const T u = __shfl_up_sync(kFullWarp, v, delta);
+    return lane < delta ? edge : u;
+}
+
+// v of the next lane, or `edge` on lane 31
+template <typename T>
+__device__ __forceinline__ T lane_after(T v, T edge, int lane) {
+    const T u = __shfl_down_sync(kFullWarp, v, 1);
+    return lane == 31 ? edge : u;
+}
+
+// Sweep one ray of N >= 3 depths with the 32 lanes of a warp, in chunks
+// of 32 consecutive sweep indices m from the upwind end (k = m for the
+// down sweep, k = N-1-m for the up sweep, up == true).  Per chunk each
+// lane takes one depth:
+//   1. it has chi and srcNum of its depth and, prefetched, of the next
+//      chunk's (coalesced loads through load(k, chi, srcNum)); the
+//      neighbours the Steffen derivatives and dtau need come by shuffles:
+//      two points ahead for chi and one for S from the next lanes or the
+//      prefetched chunk, the point behind from the previous lane or the
+//      previous chunk's last lane;
+//   2. it forms its affine map I_m = A_m I_{m-1} + b_m and bNL_m, psiN_m
+//      as ops/formal_solver.py:_sweep_coeffs_bezier3 does (the sweep start
+//      A = 0, b = I0; Bezier-3 at the interior points; the linear w2 step
+//      at m = N-1);
+//   3. a 5-step Kogge-Stone scan composes the maps over the chunk, and
+//      the last lane's I carries into the next chunk;
+//   4. it forms I, Psi = psiN / chi and IeffBase = A I_{m-1} + bNL and
+//      hands them to emit(k, valid, I, Psi, IeffBase, srcNum), which every
+//      lane of every chunk calls (valid is false past the ray's end), so
+//      emit may hold a block barrier when all warps sweep N depths.
+// dh[k] = |h[k] - h[k+1]|, mu the ray's direction cosine.
+template <typename T, typename Load, typename Emit>
+__device__ __forceinline__ void bezier3_warp_ray(const Load& load,
+                                                 const T* __restrict__ dh,
+                                                 T mu, int N, bool up, T I0,
+                                                 const Emit& emit) {
+    const int lane = threadIdx.x & 31;
+    const T three = T(3.0);
+    auto kOf = [&](int m) { return up ? N - 1 - m : m; };
+    // chi, srcNum, S at sweep index m and the path length of interval
+    // (m, m+1); harmless dummies past the ray's end
+    auto fetch = [&](int m, T& c, T& src, T& S, T& ds) {
+        if (m < N) {
+            load(kOf(m), c, src);
+        } else {
+            c = T(1.0);
+            src = T(0.0);
+        }
+        S = src / c;
+        ds = m < N - 1 ? dh[up ? N - 2 - m : m] / mu : T(1.0);
+    };
+    // Steffen derivative at sweep index q, one-sided at the two ends
+    auto deriv = [&](int q, T dsL, T dsR, T yL, T y0, T yR) {
+        return q == 0 ? (yR - y0) / dsR
+             : q == N - 1 ? (y0 - yL) / dsL
+             : cent_deriv(dsL, dsR, yL, y0, yR);
+    };
+
+    T c, src, S, ds;
+    fetch(lane, c, src, S, ds);
+    // the previous chunk's last point (unused in the first chunk)
+    T cPrev = T(1.0), sPrev = T(0.0), dsPrev = T(1.0), dtauPrev = T(1.0),
+      dSPrev = T(0.0), Icarry = T(0.0);
+    for (int base = 0; base < N; base += 32) {
+        const int m = base + lane;
+        T cN, srcN, SN, dsN;
+        fetch(m + 32, cN, srcN, SN, dsN);
+
+        const T cM1 = lane_before(c, 1, cPrev, lane);
+        const T sM1 = lane_before(S, 1, sPrev, lane);
+        const T dsM1 = lane_before(ds, 1, dsPrev, lane);
+        const T cP1 = lane_after(c, __shfl_sync(kFullWarp, cN, 0), lane);
+        const T sP1 = lane_after(S, __shfl_sync(kFullWarp, SN, 0), lane);
+        const T dsP1 = lane_after(ds, __shfl_sync(kFullWarp, dsN, 0), lane);
+        // two ahead: lanes 30 and 31 from the next chunk (every lane
+        // takes part in both shuffles)
+        const T cNext2 = __shfl_sync(kFullWarp, cN, (lane + 2) & 31);
+        const T cHere2 = __shfl_down_sync(kFullWarp, c, 2);
+        const T cP2 = lane >= 30 ? cNext2 : cHere2;
+
+        // chi derivatives at m and m+1, dtau of interval (m, m+1)
+        const T dchi = deriv(m, dsM1, ds, cM1, c, cP1);
+        const T dchiP = deriv(m + 1, ds, dsP1, c, cP1, cP2);
+        const T Cuw = c + (ds / three) * dchi;
+        const T C0 = cP1 - (ds / three) * dchiP;
+        const T dtau = ds * (c + cP1 + Cuw + C0) * T(0.25);
+        const T dtauM1 = lane_before(dtau, 1, dtauPrev, lane);
+        // S derivative at m
+        const T dS = m == 0 ? (sP1 - S) / dtau
+                            : cent_deriv(dtauM1, dtau, sM1, S, sP1);
+        const T dSM1 = lane_before(dS, 1, dSPrev, lane);
+
+        T A, b, psiN, bNL;
+        if (m == 0) {
+            A = T(0.0);
+            b = I0;
+            psiN = T(0.0);
+            bNL = I0;
+        } else if (m <= N - 2) {
+            T alphaC, betaC, gammaC, deltaC, edt;
+            bezier3_coeffs(dtauM1, alphaC, betaC, gammaC, deltaC, edt);
+            const T CuwS = sM1 + (dtauM1 / three) * dSM1;
+            const T C0S = S - (dtauM1 / three) * dS;
+            A = edt;
+            b = alphaC * sM1 + betaC * S + gammaC * CuwS + deltaC * C0S;
+            psiN = betaC + deltaC;
+            bNL = alphaC * sM1 + gammaC * CuwS - deltaC * (dtauM1 / three) * dS;
+        } else if (m == N - 1) {
+            const T dtauE = T(0.5) * (c + cM1) * dsM1;
+            const T dSE = (S - sM1) / dtauE;
+            T w0e, w1e;
+            w2(dtauE, w0e, w1e);
+            A = T(1.0) - w0e;
+            b = w0e * S - w1e * dSE;
+            psiN = w0e - w1e / dtauE;
+            bNL = (w1e / dtauE) * sM1;
+        } else {
+            A = T(1.0);
+            b = psiN = bNL = T(0.0);
+        }
+
+        // Kogge-Stone: lane L ends with the composite map of m = base..L
+        T Ac = A, bc = b;
+#pragma unroll
+        for (int off = 1; off < 32; off *= 2) {
+            const T Au = __shfl_up_sync(kFullWarp, Ac, off);
+            const T bu = __shfl_up_sync(kFullWarp, bc, off);
+            if (lane >= off) {
+                bc = Ac * bu + bc;
+                Ac = Ac * Au;
+            }
+        }
+        const T I = Ac * Icarry + bc;
+        const T Iupw = lane_before(I, 1, Icarry, lane);
+        emit(kOf(m), m < N, I, m == 0 ? T(0.0) : psiN / c,
+             A * Iupw + bNL, src);
+
+        cPrev = __shfl_sync(kFullWarp, c, 31);
+        sPrev = __shfl_sync(kFullWarp, S, 31);
+        dsPrev = __shfl_sync(kFullWarp, ds, 31);
+        dtauPrev = __shfl_sync(kFullWarp, dtau, 31);
+        dSPrev = __shfl_sync(kFullWarp, dS, 31);
+        Icarry = __shfl_sync(kFullWarp, I, 31);
+        c = cN;
+        src = srcN;
+        S = SN;
+        ds = dsN;
     }
 }
 

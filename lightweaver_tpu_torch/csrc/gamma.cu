@@ -1,13 +1,14 @@
-// Line part of the MALI Gamma/rate accumulation for one same-atom overlap
-// group of K lines on their union window.
+// Line part of the MALI Gamma/rate accumulation for every same-atom
+// overlap group of lines of every active atom, in one launch.
 //
 // Replaces the TPU kernel lightweaver_tpu/ops/pallas_gamma.py:
-// group_gamma_rates (inner `kernel`), in two instances: float64
-// (lw_group_gamma_f64) and float32 (lw_group_gamma_f32), the precision the
-// TPU runs it in.  Computes the same function as the
+// group_gamma_rates (inner `kernel`, the pallas_call at line 249), in two
+// instances: float64 (lw_line_gamma_f64) and float32 (lw_line_gamma_f32),
+// the precision the TPU runs it in.  Computes the same function as the
 // plain PyTorch version lightweaver_tpu_torch/ops/gamma.py:
-// group_gamma_rates_plain.  For every row r of the union window (global
-// wavelength row l = row0 + r), depth k and ray (d, mu), with w = wmu/2:
+// line_gamma_rates_plain (group_gamma_rates_plain per group).  For a group
+// of K lines, every row r of its union window (global wavelength row
+// l = row0 + r), depth k and ray (d, mu), with w = wmu/2:
 //
 //   Vij = a1 phi;  Vji = g rho Vij;  Uji = u Vji          (per member m)
 //   chi_m = n_i Vij - n_j Vji;  etaAtom = etaC + sum_m n_j Uji
@@ -21,102 +22,142 @@
 // this one takes srcNum, which the port's gather emits and which equals
 // S chiTot to one rounding.
 //
-// Design.  The TPU kernel ran the union window as a sequential grid of
-// BW-row blocks with depth on the lanes.  Here one thread owns one depth k
-// and one block of BW rows: it loops over the rows, the 2 Nmu rays and
-// the members, keeps the 4K Gamma/rate partials in registers and writes
-// one partial per (member, quantity, block, k); the caller sums the
-// blocks in f64 (as the JAX caller does outside its kernel).  In float32
+// Design.  The TPU kernel ran each group's union window as a sequential
+// grid of row blocks with depth on the lanes, one pallas_call per group.
+// Here a group table (ops/gamma.py:line_table, built once per Context)
+// holds every group's statics and its offsets into packed inputs and
+// outputs, and one launch covers a flat list of work items (group, BW-row
+// block, 32-depth tile), one item per thread block.  K is uniform within
+// a block: the kernel switches to a device function templated on K =
+// 1..4.  A block is 32 depths x BW = 8 rows, one thread per (depth, row):
+// each warp reads one row at 32 neighbouring depths, coalesced in the
+// direction-major [2, Nlam, Nmu, Nk] layout.  A thread loops over the
+// 2 Nmu rays and the K members of its row; the block then sums the 8
+// rows' G4 partials in shared memory in row order (deterministic, no
+// atomics) and writes one partial per (member, quantity, block, depth);
+// the caller sums the blocks in f64 as the JAX caller does.  In float32
 // that is the TPU kernel's contract: products and partials in float over
-// at most BW rows x 2 Nmu rays, G4 written as float, the lambda sum
-// finished in f64 by the caller.  PPB and
-// PairPPB are written once per row.  Every load has k fastest, so a warp
-// reads 32 neighbouring depths: coalesced in the direction-major
-// [2, Nlam, Nmu, Nk] layout.  No atomics: the result is deterministic.
-// K is a template parameter (1..4, the largest group among the repo's
-// model atoms is Mg II's 4), so the per-member arrays live in registers.
+// at most BW rows x 2 Nmu rays.  PPB and PairPPB are written per row.
+// The per-member continuum rows (chi_i, chi_j, U_i, U_j of the thread's
+// own row and depth) and the members' coefficient rows live in shared
+// memory, not in per-thread arrays, which keeps the float64 K = 4 path
+// under 255 registers without spills; the shared continuum slab is
+// reused for the row reduction.
 //
-// Bound on an H100: bytes.  Per group it reads Psi, IeffBase, I and
-// srcNum on the window rows (4 x 2 Nmu Nk doubles per row) plus phi of
-// each member; at FALC-500 all groups together read ~185 MB per
-// iteration, ~55 us at 3.35 TB/s (half in float32).  One thread per
-// (k, block) gives only Nk x ceil(Wu/BW) threads per launch (a few
-// thousand), so each launch is latency-bound well above that.
+// Bound on an H100: bytes.  Every group reads Psi, IeffBase, I and srcNum
+// on its window rows (4 x 2 Nmu Nk values per row) plus phi and rho of
+// each member and its levels' continuum rows; at falc_h6mg (Nk = 82) all
+// groups read ~36 MB in f64, ~11 us at 3.35 TB/s, half in float32.  The
+// old per-group launches left the card idle between 13 small grids; one
+// launch of a few hundred to a few thousand 256-thread blocks fills the
+// 132 SMs.
 
 #include <cuda_runtime.h>
 
-constexpr int KMAX = 4;
-
-// per-group statics, passed by value (ops/gamma.py:_GroupStatics)
-struct GroupStatics {
-    int levels[KMAX][2];       // (i, j) of each member
-    int signs[KMAX][KMAX][2];  // sign of member m2's chi in m's chi_i/chi_j
-    int uIn[KMAX][KMAX][2];    // member m2's Uji in m's U_i / U_j
-};
-
 namespace {
 
-template <typename T, int K>
-__global__ void group_gamma_kernel(
-    const T* __restrict__ phi,      // [K, 2, Wu, Nmu, Nk]
-    const T* __restrict__ rho,      // [K, Wu, Nk]
-    const T* __restrict__ psi,      // [2, Nlam, Nmu, Nk]
-    const T* __restrict__ ieffb,    // [2, Nlam, Nmu, Nk]
-    const T* __restrict__ Iray,     // [2, Nlam, Nmu, Nk]
-    const T* __restrict__ src,      // [2, Nlam, Nmu, Nk]
-    const T* __restrict__ chiCL,    // [Nlev, Nlam, Nk]
-    const T* __restrict__ UCL,      // [Nlev, Nlam, Nk]
-    const T* __restrict__ etaC,     // [Nlam, Nk]
-    const T* __restrict__ n,        // [Nlev, Nk]
-    const T* __restrict__ coef,     // [K, Wu, 4]: a1, g, u, wlambda 4pi/hc
-    const T* __restrict__ wphi,     // [K, Nk]
-    const T* __restrict__ wmuHalf,  // [Nmu]
-    T* __restrict__ G4,             // [K, 4, nBlk, Nk]
-    T* __restrict__ PPB,            // [K, Wu, Nk]
-    T* __restrict__ pair,           // [P, Wu, Nk]
-    GroupStatics st, int Nlam, int Nmu, int Nk, int Wu, int row0, int BW) {
-    constexpr int P = K * (K - 1) / 2;
-    const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    const int blk = blockIdx.y;
-    const int nBlk = gridDim.y;
-    if (k >= Nk) return;
+constexpr int KMAX = 4;   // largest group (Mg II's h, k and subordinates)
+constexpr int BW = 8;     // rows per block of G4
+constexpr int TK = 32;    // depths per thread block
 
-    T nI[K], nJ[K], wph[K];
-#pragma unroll
-    for (int m = 0; m < K; ++m) {
-        nI[m] = n[st.levels[m][0] * Nk + k];
-        nJ[m] = n[st.levels[m][1] * Nk + k];
-        wph[m] = wphi[m * Nk + k];
+// one group of the table; mirrors ops/gamma.py:_META (int32 fields)
+struct LineGroup {
+    int K, row0, Wu, nBlk, atom;
+    int phiOff, coefOff, wphiOff, rhoOff, g4Off, ppbOff, pairOff;
+    int levels[KMAX][2];   // global (i, j) rows of n / chiCL / UCL
+    // per member m, bits over m2: [0,4) +chi_m2 in chi_i, [4,8) -chi_m2
+    // in chi_i, [8,12) +chi_m2 in chi_j, [12,16) -chi_m2 in chi_j,
+    // [16,20) U_m2 in U_i, [20,24) U_m2 in U_j
+    int masks[KMAX];
+};
+constexpr int NMETA = sizeof(LineGroup) / sizeof(int);
+static_assert(NMETA == 24, "ops/gamma.py:_META has 24 fields");
+
+template <typename T>
+struct Args {
+    const T* phi;      // packed [K, 2, Wu, Nmu, Nk] per group
+    const T* rho;      // packed [K, Wu, Nk] per group
+    const T* psi;      // [2, Nlam, Nmu, Nk]
+    const T* ieffb;    // [2, Nlam, Nmu, Nk]
+    const T* I;        // [2, Nlam, Nmu, Nk]
+    const T* src;      // [2, Nlam, Nmu, Nk]
+    const T* chiCL;    // [nLev, Nlam, Nk], the active atoms' levels stacked
+    const T* UCL;      // [nLev, Nlam, Nk]
+    const T* etaC;     // [nAtoms, Nlam, Nk]
+    const T* n;        // [nLev, Nk]
+    const T* coef;     // packed [K, Wu, 4]: a1, g, u, wlambda 4pi/hc
+    const T* wphi;     // packed [K, Nk]
+    const T* wmuHalf;  // [Nmu]
+    T* G4;             // packed [K, 4, nBlk, Nk]
+    T* PPB;            // packed [K, Wu, Nk]
+    T* pair;           // packed [max(P, 1), Wu, Nk]
+    int Nlam, Nmu, Nk;
+};
+
+__device__ __forceinline__ bool bit(int mask, int b) {
+    return (mask >> b) & 1;
+}
+
+// One work item: rows [blk BW, blk BW + BW) of group G at depths
+// [tile TK, tile TK + TK).  sm: 4 K BW TK + 3 K BW values of T.
+template <typename T, int K>
+__device__ __forceinline__ void line_block(const Args<T>& a,
+                                           const LineGroup& G, int blk,
+                                           int tile, T* sm) {
+    constexpr int P = K * (K - 1) / 2;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int t = ty * TK + tx;
+    const int Nk = a.Nk, Nlam = a.Nlam, Nmu = a.Nmu, Wu = G.Wu;
+    const int k = tile * TK + tx;
+    const int r = blk * BW + ty;
+    const bool live = k < Nk && r < Wu;
+    // [4][K][BW][TK]: chi_i, chi_j, U_i, U_j continuum rows per member of
+    // this thread's (row, depth); afterwards the [4K][BW][TK] reduction
+    T* sCont = sm;
+    T* sCoef = sm + 4 * K * BW * TK;     // [K][BW][3]: a1, g, u
+    auto cont = [&](int q, int m) -> T& {
+        return sCont[((q * K + m) * BW + ty) * TK + tx];
+    };
+
+    for (int q = t; q < K * BW; q += BW * TK) {
+        const int m = q / BW, rr = blk * BW + q % BW;
+        for (int c = 0; c < 3; ++c)
+            sCoef[q * 3 + c] =
+                rr < Wu ? a.coef[G.coefOff + (m * Wu + rr) * 4 + c] : T(0.0);
     }
+
     T acc[K][4];
 #pragma unroll
     for (int m = 0; m < K; ++m)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[m][c] = T(0.0);
-
-    const int r1 = min(Wu, (blk + 1) * BW);
-    for (int r = blk * BW; r < r1; ++r) {
-        const int l = row0 + r;
-        T a1[K], gR[K], uR[K], wl[K], rh[K];
-        T chiCi[K], chiCj[K], UCi[K], UCj[K];
+    T nI[K], nJ[K], rh[K], wl[K];
+    int mask[K];
+    T etaCb = T(0.0);
+    const int l = G.row0 + r;
+    if (live) {
 #pragma unroll
         for (int m = 0; m < K; ++m) {
-            const T* cf = coef + (static_cast<size_t>(m) * Wu + r) * 4;
-            a1[m] = cf[0];
-            gR[m] = cf[1];
-            uR[m] = cf[2];
-            wl[m] = cf[3] * wph[m];
-            rh[m] = rho[(static_cast<size_t>(m) * Wu + r) * Nk + k];
-            const size_t li = (static_cast<size_t>(st.levels[m][0]) * Nlam + l)
-                              * Nk + k;
-            const size_t lj = (static_cast<size_t>(st.levels[m][1]) * Nlam + l)
-                              * Nk + k;
-            chiCi[m] = chiCL[li];
-            chiCj[m] = chiCL[lj];
-            UCi[m] = UCL[li];
-            UCj[m] = UCL[lj];
+            const int li = G.levels[m][0], lj = G.levels[m][1];
+            nI[m] = a.n[li * Nk + k];
+            nJ[m] = a.n[lj * Nk + k];
+            rh[m] = a.rho[G.rhoOff + (m * Wu + r) * Nk + k];
+            wl[m] = a.coef[G.coefOff + (m * Wu + r) * 4 + 3]
+                    * a.wphi[G.wphiOff + m * Nk + k];
+            mask[m] = G.masks[m];
+            const size_t oi = (static_cast<size_t>(li) * Nlam + l) * Nk + k;
+            const size_t oj = (static_cast<size_t>(lj) * Nlam + l) * Nk + k;
+            cont(0, m) = a.chiCL[oi];
+            cont(1, m) = a.chiCL[oj];
+            cont(2, m) = a.UCL[oi];
+            cont(3, m) = a.UCL[oj];
         }
-        const T etaCb = etaC[static_cast<size_t>(l) * Nk + k];
+        etaCb = a.etaC[(static_cast<size_t>(G.atom) * Nlam + l) * Nk + k];
+    }
+    __syncthreads();   // sCoef
+
+    if (live) {
+        const T* cf = sCoef + ty * 3;   // member m at cf[m BW 3 + c]
         T ppb[K], pp[P > 0 ? P : 1];
 #pragma unroll
         for (int m = 0; m < K; ++m) ppb[m] = T(0.0);
@@ -125,21 +166,21 @@ __global__ void group_gamma_kernel(
 
         for (int d = 0; d < 2; ++d) {
             for (int mu = 0; mu < Nmu; ++mu) {
-                const T w = wmuHalf[mu];
+                const T w = a.wmuHalf[mu];
                 const size_t off =
                     ((static_cast<size_t>(d) * Nlam + l) * Nmu + mu) * Nk + k;
-                const T ps = psi[off];
-                T ph[K], v1[K], v2[K], u2[K], chiM[K];
+                const T ps = a.psi[off];
+                T ph[K], v1[K], v2[K], chiM[K];
                 T etaA = etaCb;
 #pragma unroll
                 for (int m = 0; m < K; ++m) {
-                    ph[m] = phi[(((static_cast<size_t>(m) * 2 + d) * Wu + r)
-                                 * Nmu + mu) * Nk + k];
-                    v1[m] = a1[m] * ph[m];
-                    v2[m] = gR[m] * v1[m] * rh[m];
-                    u2[m] = uR[m] * v2[m];
+                    ph[m] = a.phi[G.phiOff
+                                  + (((m * 2 + d) * Wu + r) * Nmu + mu) * Nk
+                                  + k];
+                    v1[m] = cf[m * BW * 3] * ph[m];
+                    v2[m] = cf[m * BW * 3 + 1] * v1[m] * rh[m];
                     chiM[m] = nI[m] * v1[m] - nJ[m] * v2[m];
-                    etaA = etaA + nJ[m] * u2[m];
+                    etaA = etaA + nJ[m] * (cf[m * BW * 3 + 2] * v2[m]);
                     ppb[m] += w * ph[m] * ps;
                 }
                 {
@@ -150,107 +191,131 @@ __global__ void group_gamma_kernel(
                         for (int m2 = m + 1; m2 < K; ++m2)
                             pp[p++] += w * ph[m] * ph[m2] * ps;
                 }
-                const T Ieff = ieffb[off] + ps * (src[off] - etaA);
-                const T Iw = Iray[off];
+                const T Ieff = a.ieffb[off] + ps * (a.src[off] - etaA);
+                const T Iw = a.I[off];
 #pragma unroll
                 for (int m = 0; m < K; ++m) {
-                    T chi_i = chiCi[m], chi_j = chiCj[m];
-                    T U_i = UCi[m], U_j = UCj[m];
+                    T chi_i = cont(0, m), chi_j = cont(1, m);
+                    T U_i = cont(2, m), U_j = cont(3, m);
 #pragma unroll
                     for (int m2 = 0; m2 < K; ++m2) {
-                        if (st.signs[m][m2][0])
-                            chi_i += T(st.signs[m][m2][0]) * chiM[m2];
-                        if (st.signs[m][m2][1])
-                            chi_j += T(st.signs[m][m2][1]) * chiM[m2];
-                        if (st.uIn[m][m2][0]) U_i += u2[m2];
-                        if (st.uIn[m][m2][1]) U_j += u2[m2];
+                        if (bit(mask[m], m2)) chi_i += chiM[m2];
+                        if (bit(mask[m], 4 + m2)) chi_i -= chiM[m2];
+                        if (bit(mask[m], 8 + m2)) chi_j += chiM[m2];
+                        if (bit(mask[m], 12 + m2)) chi_j -= chiM[m2];
+                        const T u2 = cf[m2 * BW * 3 + 2] * v2[m2];
+                        if (bit(mask[m], 16 + m2)) U_i += u2;
+                        if (bit(mask[m], 20 + m2)) U_j += u2;
                     }
+                    const T u2m = cf[m * BW * 3 + 2] * v2[m];
                     const T wlw = w * wl[m];
-                    acc[m][0] += ((u2[m] + v2[m] * Ieff) - ps * chi_i * U_j)
+                    acc[m][0] += ((u2m + v2[m] * Ieff) - ps * chi_i * U_j)
                                  * wlw;
                     acc[m][1] += (v1[m] * Ieff - ps * chi_j * U_i) * wlw;
                     acc[m][2] += Iw * v1[m] * wlw;
-                    acc[m][3] += (u2[m] + Iw * v2[m]) * wlw;
+                    acc[m][3] += (u2m + Iw * v2[m]) * wlw;
                 }
             }
         }
 #pragma unroll
         for (int m = 0; m < K; ++m)
-            PPB[(static_cast<size_t>(m) * Wu + r) * Nk + k] = ppb[m];
+            a.PPB[G.ppbOff + (m * Wu + r) * Nk + k] = ppb[m];
+        if (P == 0)
+            a.pair[G.pairOff + r * Nk + k] = T(0.0);
 #pragma unroll
         for (int p = 0; p < P; ++p)
-            pair[(static_cast<size_t>(p) * Wu + r) * Nk + k] = pp[p];
+            a.pair[G.pairOff + (p * Wu + r) * Nk + k] = pp[p];
     }
+
+    // G4: the block's 8 rows summed in row order
+    __syncthreads();   // every thread is done with its continuum rows
 #pragma unroll
     for (int m = 0; m < K; ++m)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-            G4[((static_cast<size_t>(m) * 4 + c) * nBlk + blk) * Nk + k] =
-                acc[m][c];
-}
-
-template <typename T, int K>
-cudaError_t launch(const T* phi, const T* rho, const T* psi, const T* ieffb,
-                   const T* I, const T* src, const T* chiCL, const T* UCL,
-                   const T* etaC, const T* n, const T* coef, const T* wphi,
-                   const T* wmuHalf, T* G4, T* PPB, T* pair,
-                   const GroupStatics& st, int Nlam, int Nmu, int Nk, int Wu,
-                   int row0, int BW, cudaStream_t stream) {
-    const int threads = 128;
-    const dim3 grid((Nk + threads - 1) / threads, (Wu + BW - 1) / BW);
-    group_gamma_kernel<T, K><<<grid, threads, 0, stream>>>(
-        phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n, coef, wphi,
-        wmuHalf, G4, PPB, pair, st, Nlam, Nmu, Nk, Wu, row0, BW);
-    return cudaGetLastError();
+            sCont[((m * 4 + c) * BW + ty) * TK + tx] = acc[m][c];
+    __syncthreads();
+    // 4 K TK sums: more than the block's threads for K >= 3
+    for (int qk = t; qk < 4 * K * TK; qk += BW * TK) {
+        const int q = qk / TK, kk = qk % TK, kq = tile * TK + kk;
+        if (kq < Nk) {
+            T s = T(0.0);
+#pragma unroll
+            for (int rr = 0; rr < BW; ++rr) s += sCont[(q * BW + rr) * TK + kk];
+            a.G4[G.g4Off + (q * G.nBlk + blk) * Nk + kq] = s;
+        }
+    }
 }
 
 template <typename T>
-int launch_k(const T* phi, const T* rho, const T* psi, const T* ieffb,
-             const T* I, const T* src, const T* chiCL, const T* UCL,
-             const T* etaC, const T* n, const T* coef, const T* wphi,
-             const T* wmuHalf, T* G4, T* PPB, T* pair, GroupStatics st,
-             int K, int Nlam, int Nmu, int Nk, int Wu, int row0, int BW,
-             void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LW_GROUP_LAUNCH(KK)                                                  \
-    case KK:                                                                 \
-        return static_cast<int>(launch<T, KK>(                               \
-            phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n, coef, wphi,   \
-            wmuHalf, G4, PPB, pair, st, Nlam, Nmu, Nk, Wu, row0, BW, s));
-    switch (K) {
-        LW_GROUP_LAUNCH(1)
-        LW_GROUP_LAUNCH(2)
-        LW_GROUP_LAUNCH(3)
-        LW_GROUP_LAUNCH(4)
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(BW * TK)
+    line_gamma_kernel(Args<T> a, const int* __restrict__ groups,
+                      const int* __restrict__ items) {
+    extern __shared__ __align__(16) unsigned char smRaw[];
+    __shared__ LineGroup sG;
+    const int* item = items + 3 * blockIdx.x;
+    const int t = threadIdx.y * TK + threadIdx.x;
+    if (t < NMETA)
+        reinterpret_cast<int*>(&sG)[t] = groups[item[0] * NMETA + t];
+    __syncthreads();
+    T* sm = reinterpret_cast<T*>(smRaw);
+    switch (sG.K) {
+        case 1: line_block<T, 1>(a, sG, item[1], item[2], sm); break;
+        case 2: line_block<T, 2>(a, sG, item[1], item[2], sm); break;
+        case 3: line_block<T, 3>(a, sG, item[1], item[2], sm); break;
+        case 4: line_block<T, 4>(a, sG, item[1], item[2], sm); break;
+        default: break;
     }
-#undef LW_GROUP_LAUNCH
+}
+
+template <typename T>
+int launch(const Args<T>& a, const int* groups, const int* items,
+           int nItems, int maxK, void* stream) {
+    if (maxK < 1 || maxK > KMAX || nItems < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = sizeof(T) * (4 * maxK * BW * TK + 3 * maxK * BW);
+    line_gamma_kernel<T><<<nItems, dim3(TK, BW), smem,
+                           static_cast<cudaStream_t>(stream)>>>(a, groups,
+                                                                items);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+Args<T> make_args(const T* phi, const T* rho, const T* psi, const T* ieffb,
+                  const T* I, const T* src, const T* chiCL, const T* UCL,
+                  const T* etaC, const T* n, const T* coef, const T* wphi,
+                  const T* wmuHalf, T* G4, T* PPB, T* pair, int Nlam, int Nmu,
+                  int Nk) {
+    return Args<T>{phi,  rho,  psi,     ieffb, I,   src,  chiCL, UCL, etaC,
+                   n,    coef, wphi,    wmuHalf, G4, PPB, pair,  Nlam, Nmu,
+                   Nk};
 }
 
 }  // namespace
 
-extern "C" int lw_group_gamma_f64(
+extern "C" int lw_line_gamma_f64(
     const double* phi, const double* rho, const double* psi,
     const double* ieffb, const double* I, const double* src,
     const double* chiCL, const double* UCL, const double* etaC,
     const double* n, const double* coef, const double* wphi,
     const double* wmuHalf, double* G4, double* PPB, double* pair,
-    GroupStatics st, int K, int Nlam, int Nmu, int Nk, int Wu, int row0,
-    int BW, void* stream) {
-    return launch_k<double>(phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC,
-                            n, coef, wphi, wmuHalf, G4, PPB, pair, st, K,
-                            Nlam, Nmu, Nk, Wu, row0, BW, stream);
+    const int* groups, const int* items, int nItems, int maxK, int Nlam,
+    int Nmu, int Nk, void* stream) {
+    return launch<double>(
+        make_args<double>(phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n,
+                          coef, wphi, wmuHalf, G4, PPB, pair, Nlam, Nmu, Nk),
+        groups, items, nItems, maxK, stream);
 }
 
-extern "C" int lw_group_gamma_f32(
+extern "C" int lw_line_gamma_f32(
     const float* phi, const float* rho, const float* psi, const float* ieffb,
     const float* I, const float* src, const float* chiCL, const float* UCL,
     const float* etaC, const float* n, const float* coef, const float* wphi,
     const float* wmuHalf, float* G4, float* PPB, float* pair,
-    GroupStatics st, int K, int Nlam, int Nmu, int Nk, int Wu, int row0,
-    int BW, void* stream) {
-    return launch_k<float>(phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n,
-                           coef, wphi, wmuHalf, G4, PPB, pair, st, K, Nlam,
-                           Nmu, Nk, Wu, row0, BW, stream);
+    const int* groups, const int* items, int nItems, int maxK, int Nlam,
+    int Nmu, int Nk, void* stream) {
+    return launch<float>(
+        make_args<float>(phi, rho, psi, ieffb, I, src, chiCL, UCL, etaC, n,
+                         coef, wphi, wmuHalf, G4, PPB, pair, Nlam, Nmu, Nk),
+        groups, items, nItems, maxK, stream);
 }

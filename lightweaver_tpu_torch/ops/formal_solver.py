@@ -7,8 +7,10 @@ recurrence.  The per-point coefficients of the affine recurrence
     I_m = A_m * I_{m-1} + b_m          (m in sweep order, m = 0 upwind)
 
 are computed as dense tensors over [batch, Ndep]; the recurrence is then
-a loop over depth.  This is the plain PyTorch reference that the CUDA
-depth-sweep kernel (csrc/sweep.cu) is checked against.
+a loop over depth (affine_solve, mode 'sequential').  This is the plain
+PyTorch reference that the CUDA depth-sweep kernel (csrc/sweep.cu) is
+checked against; affine_solve's mode 'chunked' sums the recurrence in that
+kernel's order.
 ref: Source/LwInternal.hpp:90-110 (w2),
      Source/Bezier.hpp (cent_deriv, Bezier3_coeffs),
      Source/FormalScalar.cpp:209-325
@@ -202,6 +204,43 @@ def _sweep_coeffs_bezier3(chi, S, ds):
     return A, b, Psi, bNL
 
 
+CHUNK = 32     # the sweep kernel's chunk: the 32 lanes of a warp
+
+
+def affine_solve(A, b, mode='sequential'):
+    """Solve I_m = A_m I_{m-1} + b_m along the last axis (sweep order),
+    with I_{-1} = 0 (so I_0 = b_0 when A_0 = 0).  A, b: [..., N].
+
+    'sequential' is the loop over m.  'chunked' is the order of the CUDA
+    sweep kernel (csrc/bezier3.cuh:bezier3_warp_ray): chunks of CHUNK
+    consecutive m, in each an inclusive Kogge-Stone scan of the affine
+    maps (step s composes lane L with lane L - s: A_L A_{L-s},
+    A_L b_{L-s} + b_L), then I = A_cum I_carry + b_cum with the previous
+    chunk's last I carried in."""
+    N = A.shape[-1]
+    I = torch.empty_like(b)
+    if mode == 'sequential':
+        Iprev = torch.zeros_like(b[..., 0])
+        for m in range(N):
+            Iprev = A[..., m] * Iprev + b[..., m]
+            I[..., m] = Iprev
+        return I
+    if mode != 'chunked':
+        raise ValueError(f'unknown recurrence mode {mode!r}')
+    carry = torch.zeros_like(b[..., 0])
+    for c0 in range(0, N, CHUNK):
+        a, bb = A[..., c0:c0 + CHUNK], b[..., c0:c0 + CHUNK]
+        s = 1
+        while s < CHUNK:
+            a, bb = (torch.cat([a[..., :s], a[..., s:] * a[..., :-s]], -1),
+                     torch.cat([bb[..., :s], a[..., s:] * bb[..., :-s]
+                                + bb[..., s:]], -1))
+            s *= 2
+        I[..., c0:c0 + CHUNK] = a * carry[..., None] + bb
+        carry = I[..., min(c0 + CHUNK, N) - 1]
+    return I
+
+
 def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True):
     """Batched 1D formal solution along depth for many rays at once.
 
@@ -225,13 +264,7 @@ def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True):
     A, b, Psi, bNL = _sweep_coeffs_bezier3(chi_s, S_s, ds)
     b[..., 0] = I_upw
 
-    # the sequential recurrence, I_{-1} = 0 and A_0 = 0
-    N = chi.shape[-1]
-    I_s = torch.empty_like(b)
-    Iprev = torch.zeros_like(I_upw)
-    for m in range(N):
-        Iprev = A[:, m] * Iprev + b[:, m]
-        I_s[:, m] = Iprev
+    I_s = affine_solve(A, b, 'sequential')
 
     # IeffBase = A * I_upwind + bNL; at the sweep start Psi = 0 and
     # IeffBase = I = I_upw

@@ -10,6 +10,11 @@ Layout: chi and srcNum are direction-major [2, NL, Nmu, Nk] (d = 0 is the
 down sweep from the upper boundary, d = 1 the up sweep from the lower
 one), unpadded and contiguous.  S = srcNum / chi is formed inside.
 
+The kernel runs one block per lambda row and a warp per ray, parallel
+along depth: it sums the recurrence in the order of
+ops/formal_solver.py:affine_solve(mode='chunked'), the plain version in
+the sequential order.
+
 Two instances, float64 and float32 (the f32 state; the TPU runs the
 kernel only in f32).  Both return J in float64: the sum of the
 working-type products w I in a double accumulator, which in float32 is
@@ -112,6 +117,18 @@ def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     return sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu)
 
 
+MAX_SMEM = 232448      # bytes of shared memory an H100 block may have
+
+
+def smem_bytes(dtype, Nmu, Nk):
+    """The kernel's dynamic shared memory per block (csrc/sweep.cu:
+    smem_bytes): J's [2][Nk] doubles, the [2][2 or 3][Nk] moment
+    accumulators and two [3][2 Nmu][32] tiles of the working type."""
+    item = 4 if dtype == torch.float32 else 8
+    nAcc = 3 if dtype == torch.float32 else 2
+    return 16 * Nk + item * 2 * nAcc * Nk + item * 2 * 3 * 2 * Nmu * 32
+
+
 def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     """Launch the CUDA sweep kernel's instance for chi's dtype;
     ``sweep_cuda.launches`` counts the float64 launches,
@@ -129,20 +146,24 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     iupw = torch.stack([IupwD, IupwU]).contiguous()
     wmuHalf = (0.5 * wmu).contiguous()
     muz = muz.contiguous()
+    if 64 * Nmu > 1024:
+        raise ValueError(f'the sweep kernel takes up to 16 rays per '
+                         f'direction (one warp each), got Nmu={Nmu}')
+    if smem_bytes(chi.dtype, Nmu, Nk) > MAX_SMEM:
+        raise ValueError(f'Nk={Nk} needs {smem_bytes(chi.dtype, Nmu, Nk)} '
+                         f'bytes of shared memory per block, more than the '
+                         f'{MAX_SMEM} an H100 block may have')
     I, Psi, IeffBase = (torch.empty_like(chi) for _ in range(3))
     J = chi.new_empty((NL, Nk), dtype=torch.float64)
     PsiBar, IeffSrcBar = (chi.new_empty((NL, Nk)) for _ in range(2))
     IBar = chi.new_empty((NL, Nk)) if f32 else J
-    # one thread per ray, whole lambda rows per block, about a warp each
-    rowsPerBlock = max(1, 32 // (2 * Nmu))
     lib = load_library()
     rows = [J.data_ptr(), PsiBar.data_ptr()] + (
         [IBar.data_ptr()] if f32 else []) + [IeffSrcBar.data_ptr()]
     err = (lib.lw_sweep_f32 if f32 else lib.lw_sweep_f64)(
         chi.data_ptr(), srcNum.data_ptr(), dh.data_ptr(), muz.data_ptr(),
         wmuHalf.data_ptr(), iupw.data_ptr(), I.data_ptr(), Psi.data_ptr(),
-        IeffBase.data_ptr(), *rows, NL, Nmu, Nk, rowsPerBlock,
-        _build.cuda_stream(chi))
+        IeffBase.data_ptr(), *rows, NL, Nmu, Nk, _build.cuda_stream(chi))
     _build.check_launch(err, 'sweep')
     if f32:
         sweep_cuda.launches_f32 += 1
@@ -165,5 +186,5 @@ def _contiguous(name, x):
 def load_library():
     """Build csrc/sweep.cu with nvcc (once per source hash) and load it."""
     return _build.load('sweep', {
-        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 4 + [_build.PTR],
-        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 4 + [_build.PTR]})
+        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 3 + [_build.PTR],
+        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 3 + [_build.PTR]})

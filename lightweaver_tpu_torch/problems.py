@@ -71,9 +71,13 @@ def random_rays(NL: int, Nmu: int, Nk: int, seed: int = 0) -> dict:
 
 
 def _smooth(x, w=9):
+    """w-point running mean along the last axis, of the axis' own length
+    (numpy's mode 'same' for rows of at least w points; shorter rows keep
+    their length)."""
     k = np.ones(w) / w
-    return np.apply_along_axis(lambda r: np.convolve(r, k, mode='same'),
-                               -1, x)
+    lo = (w - 1) // 2
+    return np.apply_along_axis(
+        lambda r: np.convolve(r, k, mode='full')[lo:lo + r.size], -1, x)
 
 
 # (i, j) of the members of random_line_group, sharing levels so that every

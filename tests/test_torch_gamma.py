@@ -7,6 +7,9 @@ it.  It takes S and chiTot where the port takes srcNum; the test forms
 srcNum = S * chiTot in numpy, the same product the JAX kernel forms, so
 both see one value.  Its lambda blocks are 16 rows aligned to the global
 grid, the port's 8 rows of the window: G4 is compared summed over blocks.
+The port packs every group of every active atom into one table and one
+call (ops/gamma.py:LineTable, line_gamma_rates); the packed plain version
+is held to the per-group one and to the JAX kernel group by group.
 """
 import dataclasses
 
@@ -18,14 +21,16 @@ import jax
 import lightweaver_tpu.rh_atoms as jatoms
 from lightweaver_tpu.atomic_set import RadiativeSet as JRadiativeSet
 from lightweaver_tpu.context import Context as JContext
+from lightweaver_tpu.ops.pallas_gamma import BW as J_BW
+from lightweaver_tpu.ops.pallas_gamma import aligned_window as j_aligned_window
 from lightweaver_tpu.ops.pallas_gamma import \
     group_gamma_rates as j_group_gamma_rates
 from lightweaver_tpu.ops.pallas_gamma import line_groups as j_line_groups
-from lightweaver_tpu_torch.context import build_iteration_fn
+from lightweaver_tpu_torch.context import build_iteration_fn, line_pack
 from lightweaver_tpu_torch.convert import params_from_numpy
 from lightweaver_tpu_torch.ops import gamma as tgamma
 from lightweaver_tpu_torch.problems import (falc_interpolated, h6ca_context,
-                                            random_line_group)
+                                            h6mg_context, random_line_group)
 
 from tests.test_torch_slice import (NRAYS, NSPACE, _jax_falc_interpolated,
                                     relerr)
@@ -162,3 +167,152 @@ def test_pallas_iteration_matches_jax_pallas_scheme():
         e = (np.abs(ours - r).max(axis=1) / np.abs(r).max(axis=1)).max()
         assert e < 1e-9, (key, e)
     assert jax.default_backend() == 'cpu'
+
+
+@pytest.fixture(scope='module')
+def prd_ctx():
+    """falc_h6mg at 20 depths and 3 rays after one MALI step and one
+    prd_redistribute: rho != 1 on its PRD lines, Mg II's K = 4 group."""
+    c = h6mg_context(falc_interpolated(20), 3, device='cpu')
+    c.formal_sol_gamma_matrices()
+    c.stat_equil()
+    c.prd_redistribute(maxIter=1)
+    return c
+
+
+def _line_call(c):
+    """The scheme's table and the arguments of line_gamma_rates for one
+    iteration of ``c``, with srcNum = S chiTot formed in numpy (module
+    docstring), and S and chiTot for the JAX kernel."""
+    itP = build_iteration_fn(dataclasses.replace(c.cfg, fsIterScheme=PALLAS))
+    params = c.build_params()
+    chi, src = itP.gather(params, itP.scaJ(params))
+    I, Psi, IeffB, _ = itP.formal_solve(params, chi, src)
+    S = src.numpy() / chi.numpy()
+    src = torch.as_tensor(S * chi.numpy())
+    table = itP.pack(params)
+    args = itP.line_inputs(params, I, Psi, IeffB, src, table)
+    return table, args, S, chi.numpy()
+
+
+def _jax_group(gargs, S, chiTot):
+    """group_gamma_rates of the JAX package on one group's port arguments:
+    the window padded to its 16-row alignment (zero coefficient rows, rho
+    one), the ray rows to a multiple of 16.  Returns G4 summed over its
+    blocks [K, 4, Nk] and PPB, PairPPB on the port's window."""
+    (phi, rho, Psi, IeffB, I, _, chiCL, UCL, etaC, n, coef, wphi, wmuHalf,
+     st, row0) = [x.numpy() if torch.is_tensor(x) else x for x in gargs]
+    K, _, Wu, Nmu, Nk = phi.shape
+    aNb, WuA, padLo, padHi = j_aligned_window(row0, row0 + Wu)
+    Nlam = Psi.shape[1]
+    NlamPad = -(-Nlam // J_BW) * J_BW
+
+    def rows(x, axis, value=0.0):
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (padLo, padHi)
+        return np.pad(x, pad, constant_values=value)
+
+    def lam(x, axis):
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (0, NlamPad - Nlam)
+        return np.pad(x, pad)
+    phiJ = np.moveaxis(rows(phi, 2), 1, 3).reshape(K, WuA, 2 * Nmu, Nk)
+    G4, PPB, PairPPB = (np.asarray(x) for x in j_group_gamma_rates(
+        phiJ, rows(rho, 1, 1.0), *(lam(_jax_layout(x), 0) for x in (
+            Psi, IeffB, I, S, chiTot)), lam(chiCL, 1), lam(UCL, 1),
+        lam(etaC, 0), n, rows(coef, 1), wphi,
+        wmuHalf=tuple(wmuHalf), levels=tuple(st.levels),
+        signs=tuple(tuple((float(a), float(b)) for a, b in r)
+                    for r in st.signs),
+        uIn=tuple(tuple((float(a), float(b)) for a, b in r) for r in st.uIn),
+        alignedNblue=aNb))
+    win = slice(padLo, padLo + Wu)
+    return (G4.sum(axis=2), PPB[:, win],
+            PairPPB[:, win])
+
+
+def test_line_table_matches_groups(ctx, prd_ctx):
+    """The table holds each active atom's line_groups in order, with
+    group_statics of the members, the atom's level offset in the stacked
+    rows, end-to-end offsets, the kernel's int32 group records and one
+    work item per (group, row block, depth tile)."""
+    for c in (ctx, prd_ctx):
+        table = line_pack(c.cfg, c.build_params())
+        want = [(ai, tuple(g)) for ai, a in enumerate(c.activeAtoms)
+                for g in tgamma.line_groups(a)]
+        assert [(g.ai, g.members) for g in table.groups] == want
+        meta = table.meta.numpy().reshape(len(want), -1)
+        ends = dict.fromkeys(('phi', 'coef', 'wphi', 'rho', 'g4', 'ppb',
+                              'pair'), 0)
+        items = set()
+        for gi, g in enumerate(table.groups):
+            a = c.activeAtoms[g.ai]
+            ts = [a.trans[ti] for ti in g.members]
+            assert g.statics == tgamma.group_statics(ts)
+            assert g.levOff == sum(x.Nlevel for x in c.activeAtoms[:g.ai])
+            assert g.nLev == a.Nlevel
+            assert (g.K, g.row0, g.Wu) == (len(ts), min(t.Nblue for t in ts),
+                                           max(t.Nred for t in ts)
+                                           - min(t.Nblue for t in ts))
+            assert g.nBlk == -(-g.Wu // tgamma.BW)
+            P = max(1, g.K * (g.K - 1) // 2)
+            sizes = {'phi': g.K * 2 * g.Wu * c.cfg.Nmu * c.cfg.Nk,
+                     'coef': g.K * g.Wu * 4, 'wphi': g.K * c.cfg.Nk,
+                     'rho': g.K * g.Wu * c.cfg.Nk,
+                     'g4': g.K * 4 * g.nBlk * c.cfg.Nk,
+                     'ppb': g.K * g.Wu * c.cfg.Nk,
+                     'pair': P * g.Wu * c.cfg.Nk}
+            for key, size in sizes.items():
+                assert getattr(g, key[:-1] + key[-1] + 'Off'
+                               if key not in ('g4', 'ppb', 'pair')
+                               else key + 'Off') == ends[key]
+                ends[key] += size
+            levels = [g.levOff + lv for ij in g.statics.levels for lv in ij]
+            assert list(meta[gi, :20]) == [
+                g.K, g.row0, g.Wu, g.nBlk, g.ai, g.phiOff, g.coefOff,
+                g.wphiOff, g.rhoOff, g.g4Off, g.ppbOff, g.pairOff] + \
+                levels + [0] * (8 - len(levels))
+            for m in range(g.K):
+                mask = int(meta[gi, 20 + m])
+                for m2 in range(g.K):
+                    sI, sJ = g.statics.signs[m][m2]
+                    inI, inJ = g.statics.uIn[m][m2]
+                    bits = [(mask >> (b + m2)) & 1 for b in range(0, 24, 4)]
+                    assert bits == [sI > 0, sI < 0, sJ > 0, sJ < 0, inI, inJ]
+            items |= {(gi, b, t) for b in range(g.nBlk)
+                      for t in range(-(-c.cfg.Nk // tgamma.TK))}
+        assert tuple(table.sizes) == (ends['g4'], ends['ppb'], ends['pair'])
+        assert table.phi.numel() == ends['phi']
+        assert torch.equal(table.rho, torch.ones(ends['rho'],
+                                                 dtype=table.rho.dtype))
+        got = [tuple(x) for x in table.items.numpy().tolist()]
+        assert len(got) == len(items) == table.nItems and set(got) == items
+
+
+@pytest.mark.parametrize('problem', ['falc_h6ca', 'falc_h6mg_prd'])
+def test_packed_line_plain_matches_groups_and_jax(problem, ctx, prd_ctx):
+    """The packed plain version on every group of one iteration (falc_h6ca's
+    13 groups; falc_h6mg's with rho != 1 and its K = 4 group) equals the
+    per-group plain version exactly, and the JAX kernel in interpret mode
+    to 1e-12 of each output's maximum (the same terms summed in another
+    order; G4 summed over the blocks)."""
+    c = ctx if problem == 'falc_h6ca' else prd_ctx
+    table, args, S, chiTot = _line_call(c)
+    packed = tgamma.line_gamma_rates(*args)
+    Ks, rhoDev = [], 0.0
+    for gi, got in enumerate(table.views(*packed)):
+        gargs = table.group_args(gi, *args[1:])
+        Ks.append(table.groups[gi].K)
+        rhoDev = max(rhoDev, (gargs[1] - 1.0).abs().max().item())
+        for a, b in zip(got, tgamma.group_gamma_rates_plain(*gargs)):
+            assert torch.equal(a, b)
+        ref = _jax_group(gargs, S, chiTot)
+        for name, a, b in zip(('G4', 'PPB', 'PairPPB'),
+                              (got[0].sum(dim=2), got[1], got[2]), ref):
+            scale = max(np.abs(b).max(), 1e-300)
+            err = np.abs(a.numpy() - b).max() / scale
+            assert err < 1e-12, (gi, name, err)
+    if problem == 'falc_h6ca':
+        assert len(Ks) == 13
+    else:
+        assert max(Ks) == 4 and rhoDev > 0.0

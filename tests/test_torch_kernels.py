@@ -85,13 +85,17 @@ def test_context_on_cuda_without_a_gpu_raises():
         h6ca_context(falc_interpolated(12), 2, device='cuda')
 
 
+SWEEP_NK = [3, 31, 32, 33, 82, 500]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('Nk', [82, 500])
+@pytest.mark.parametrize('Nk', SWEEP_NK)
 def test_sweep_kernel_matches_plain(Nk):
     """The CUDA kernel against the plain version on the card, at the main
-    path's shapes.  nvcc contracts multiply-adds into FMAs and torch's
-    separate ops do not; the difference compounds along the depth chain,
-    hence 1e-9 of each quantity's maximum."""
+    path's shapes and at the edges of its 32-depth chunks.  nvcc contracts
+    multiply-adds into FMAs and torch's separate ops do not, and the
+    kernel sums the recurrence as a chunked scan; the difference compounds
+    along the depth chain, hence 1e-9 of each quantity's maximum."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     c = _sweep_case(1046, 5, Nk, seed=5, device='cuda')
@@ -254,7 +258,7 @@ def test_kernel_dispatch_never_falls_back():
         tfused.fused_lambda_step(**meta(f))
     with pytest.raises(RuntimeError, match='no probe kernel'):
         tprobe.elementwise(x.to('meta'))
-    counters = (tgamma.group_gamma_rates_cuda, tfused.fused_cuda,
+    counters = (tgamma.line_gamma_rates_cuda, tfused.fused_cuda,
                 tprobe.elementwise_cuda, tprobe.recurrence_cuda)
     before = [fn.launches for fn in counters]
     for call in (lambda: tgamma.group_gamma_rates_cuda(**g),
@@ -296,10 +300,10 @@ def test_group_gamma_kernel_matches_plain(K):
         pytest.skip('needs an NVIDIA GPU')
     c = _group_case(K, device='cuda', Nlam=300, Nmu=5, Nk=82, seed=K)
     plain = tgamma.group_gamma_rates_plain(**c)
-    before = tgamma.group_gamma_rates_cuda.launches
+    before = tgamma.line_gamma_rates_cuda.launches
     kern = tgamma.group_gamma_rates(**c)
     torch.cuda.synchronize()
-    assert tgamma.group_gamma_rates_cuda.launches == before + 1
+    assert tgamma.line_gamma_rates_cuda.launches == before + 1
     for name, a, b in zip(('G4', 'PPB', 'PairPPB'), kern, plain):
         if name == 'PairPPB' and K == 1:
             assert not a.any()
@@ -332,10 +336,10 @@ def test_fused_kernel_matches_plain(bcs):
 @pytest.mark.parametrize('scheme', SCHEMES[1:])
 def test_scheme_on_cuda_goes_through_its_kernel(scheme):
     """One MALI iteration of a small problem on the card under each
-    kernel scheme: the scheme's kernel runs (the line kernel once per line
-    group, the fused kernel once and the sweep not at all), and J and
-    Gamma agree with the same scheme on the CPU to 1e-9 (FMA contraction
-    and the card's exp along the depth chain)."""
+    kernel scheme: the scheme's kernel runs (the line kernel once for all
+    line groups, the fused kernel once and the sweep not at all), and J
+    and Gamma agree with the same scheme on the CPU to 1e-9 (FMA
+    contraction and the card's exp along the depth chain)."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
@@ -344,18 +348,17 @@ def test_scheme_on_cuda_goes_through_its_kernel(scheme):
     for ctx in (cpu, gpu):
         ctx.set_fs_iter_scheme(scheme)
     cpu.formal_sol_gamma_matrices()
-    counts = (tsweep.sweep_cuda, tgamma.group_gamma_rates_cuda,
+    counts = (tsweep.sweep_cuda, tgamma.line_gamma_rates_cuda,
               tfused.fused_cuda)
     before = [fn.launches for fn in counts]
     gpu.formal_sol_gamma_matrices()
     torch.cuda.synchronize()
-    sweeps, groups, fused = (fn.launches - b for fn, b in zip(counts,
-                                                               before))
-    nGroups = sum(len(tgamma.line_groups(a)) for a in gpu.activeAtoms)
+    sweeps, lines, fused = (fn.launches - b for fn, b in zip(counts,
+                                                              before))
     if scheme == 'mali_full_precond_pallas':
-        assert (sweeps, groups, fused) == (1, nGroups, 0)
+        assert (sweeps, lines, fused) == (1, 1, 0)
     else:
-        assert (sweeps, groups, fused) == (0, 0, 1)
+        assert (sweeps, lines, fused) == (0, 0, 1)
     J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
     err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
     assert err.max() < 1e-9
@@ -389,11 +392,12 @@ def test_fused_kernel_matches_plain_on_rho_scaled_slots():
         assert _max_rel(kern[3][name], plain[3][name]) < 1e-9, name
 
 
-def _h6mg_after_redistribution(device, scheme='mali_full_precond'):
+def _h6mg_after_redistribution(device, scheme='mali_full_precond',
+                               dtype=None):
     """A small falc_h6mg (20 depths, 3 rays) after one MALI step and one
     prd_redistribute, so that rho != 1 on every PRD line."""
     from lightweaver_tpu_torch.problems import falc_interpolated, h6mg_context
-    ctx = h6mg_context(falc_interpolated(20), 3, device=device)
+    ctx = h6mg_context(falc_interpolated(20), 3, device=device, dtype=dtype)
     ctx.set_fs_iter_scheme(scheme)
     ctx.formal_sol_gamma_matrices()
     ctx.stat_equil()
@@ -403,10 +407,10 @@ def _h6mg_after_redistribution(device, scheme='mali_full_precond'):
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_prd_inputs():
-    """The line kernel on every group of falc_h6mg (Mg II's four-line
-    group among them) and the fused kernel (C = 3 slots) with the live
-    rho != 1, each against its plain version at its bar: 1e-11 and 1e-9
-    of each output's maximum."""
+    """The line kernel on every group of falc_h6mg in one launch (Mg II's
+    four-line group among them) and the fused kernel (C = 3 slots) with
+    the live rho != 1, each against its plain version at its bar: 1e-11
+    and 1e-9 of each output's maximum."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     import dataclasses
@@ -420,16 +424,14 @@ def test_kernels_match_plain_on_prd_inputs():
     cfg = ctx.cfg
     itP = build_iteration_fn(dataclasses.replace(
         cfg, fsIterScheme='mali_full_precond_pallas'))
-    Ks = []
-    for _, g, args in itP.line_group_inputs(params, *rays[:3], src,
-                                            itP.pack(params)):
-        Ks.append(len(g['members']))
-        kern = tgamma.group_gamma_rates(*args)
-        plain = tgamma.group_gamma_rates_plain(*args)
-        for name, a, b in zip(('G4', 'PPB', 'PairPPB'), kern, plain):
+    args = itP.line_inputs(params, *rays[:3], src, itP.pack(params))
+    assert max(g.K for g in args[0].groups) == 4
+    kern = args[0].views(*tgamma.line_gamma_rates(*args))
+    plain = args[0].views(*tgamma.line_gamma_rates_plain(*args))
+    for g, k3, p3 in zip(args[0].groups, kern, plain):
+        for name, a, b in zip(('G4', 'PPB', 'PairPPB'), k3, p3):
             if b.any():
-                assert _max_rel(a, b) < 1e-11, (g['members'], name)
-    assert max(Ks) == 4
+                assert _max_rel(a, b) < 1e-11, (g.members, name)
     itF = build_iteration_fn(dataclasses.replace(
         cfg, fsIterScheme='mali_full_precond_fused'))
     args = itF.fused_inputs(params, scaJ, itF.pack(params))
@@ -446,23 +448,23 @@ def test_kernels_match_plain_on_prd_inputs():
 @pytest.mark.parametrize('scheme', SCHEMES)
 def test_prd_on_cuda_goes_through_its_kernels(scheme):
     """falc_h6mg (20 depths, 3 rays) under each scheme on the card: the
-    MALI step launches the scheme's kernels, each PRD sub-iteration's
+    MALI step launches the scheme's kernels (the line kernel once for all
+    groups), each PRD sub-iteration's
     subset solve launches the sweep once, and J and rho after a MALI step
     and a prd_redistribute agree with the CPU's to 1e-9."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
-    counts = (tsweep.sweep_cuda, tgamma.group_gamma_rates_cuda,
+    counts = (tsweep.sweep_cuda, tgamma.line_gamma_rates_cuda,
               tfused.fused_cuda)
     before = [fn.launches for fn in counts]
     gpu = _h6mg_after_redistribution('cuda', scheme)
     torch.cuda.synchronize()
-    sweeps, groups, fused = (fn.launches - b for fn, b in zip(counts,
-                                                               before))
-    nGroups = sum(len(tgamma.line_groups(a)) for a in gpu.activeAtoms)
+    sweeps, lines, fused = (fn.launches - b for fn, b in zip(counts,
+                                                              before))
     expected = {'mali_full_precond': (2, 0, 0),
-                'mali_full_precond_pallas': (2, nGroups, 0),
+                'mali_full_precond_pallas': (2, 1, 0),
                 'mali_full_precond_fused': (1, 0, 1)}[scheme]
-    assert (sweeps, groups, fused) == expected
+    assert (sweeps, lines, fused) == expected
     cpu = _h6mg_after_redistribution('cpu', scheme)
     J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
     err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
@@ -501,7 +503,7 @@ def _ray_list(out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('Nk', [82, 500])
+@pytest.mark.parametrize('Nk', SWEEP_NK)
 def test_f32_sweep_kernel_matches_plain(Nk):
     """The float32 sweep instance on the card: every output by the rule of
     _f32_rule, J float64 and equal to the float64 sum of the kernel's own
@@ -532,10 +534,10 @@ def test_f32_group_gamma_kernel_matches_plain(K):
         pytest.skip('needs an NVIDIA GPU')
     c32, c64 = _f32_args(_group_case(K, device='cuda', Nlam=300, Nmu=5,
                                      Nk=82, seed=K))
-    before = tgamma.group_gamma_rates_cuda.launches_f32
+    before = tgamma.line_gamma_rates_cuda.launches_f32
     kern = tgamma.group_gamma_rates(**c32)
     torch.cuda.synchronize()
-    assert tgamma.group_gamma_rates_cuda.launches_f32 == before + 1
+    assert tgamma.line_gamma_rates_cuda.launches_f32 == before + 1
     assert kern[0].dtype == torch.float32
     _f32_rule(kern, tgamma.group_gamma_rates_plain(**c32),
               tgamma.group_gamma_rates_plain(**c64))
@@ -572,17 +574,58 @@ def test_f32_scheme_on_cuda_goes_through_its_f32_kernel(scheme):
                        dtype=torch.float32)
     ctx.set_fs_iter_scheme(scheme)
     counts = [(fn, attr) for fn in (tsweep.sweep_cuda,
-                                    tgamma.group_gamma_rates_cuda,
+                                    tgamma.line_gamma_rates_cuda,
                                     tfused.fused_cuda)
               for attr in ('launches_f32', 'launches')]
     before = [getattr(fn, attr) for fn, attr in counts]
     ctx.formal_sol_gamma_matrices()
     torch.cuda.synchronize()
     got = [getattr(fn, attr) - b for (fn, attr), b in zip(counts, before)]
-    nGroups = sum(len(tgamma.line_groups(a)) for a in ctx.activeAtoms)
     expected = {'mali_full_precond': [1, 0, 0, 0, 0, 0],
-                'mali_full_precond_pallas': [1, 0, nGroups, 0, 0, 0],
+                'mali_full_precond_pallas': [1, 0, 1, 0, 0, 0],
                 'mali_full_precond_fused': [0, 0, 0, 0, 1, 0]}[scheme]
     assert got == expected
     assert ctx.J.dtype == ctx._Gamma[0].dtype == torch.float64
     assert ctx._Rij[0][0].dtype == torch.float64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_packed_line_kernel_matches_plain(dtype):
+    """One launch of the line kernel for every group of falc_h6mg (20
+    depths, 3 rays, rho != 1, Mg II's K = 4 group) against
+    line_gamma_rates_plain: 1e-11 of each output's maximum in float64;
+    in float32 by the rule of _f32_rule with the float64 plain version on
+    the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    import dataclasses
+
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    ctx = _h6mg_after_redistribution('cuda', dtype=dtype)
+    itP = build_iteration_fn(dataclasses.replace(
+        ctx.cfg, fsIterScheme='mali_full_precond_pallas'))
+    params = ctx.build_params()
+    chi, src = itP.gather(params, itP.scaJ(params))
+    rays = itP.formal_solve(params, chi, src)
+    args = itP.line_inputs(params, *rays[:3], src, itP.pack(params))
+    table = args[0]
+    assert max(g.K for g in table.groups) == 4
+    assert (args[1] != 1.0).any()
+    before = tgamma.line_gamma_rates_cuda.launches_f32 \
+        if dtype == torch.float32 else tgamma.line_gamma_rates_cuda.launches
+    kern = tgamma.line_gamma_rates(*args)
+    torch.cuda.synchronize()
+    after = tgamma.line_gamma_rates_cuda.launches_f32 \
+        if dtype == torch.float32 else tgamma.line_gamma_rates_cuda.launches
+    assert after == before + 1
+    plain = tgamma.line_gamma_rates_plain(*args)
+    if dtype == torch.float64:
+        for name, a, b in zip(('G4', 'PPB', 'PairPPB'), kern, plain):
+            assert _max_rel(a, b) < 1e-11, name
+        return
+    assert kern[0].dtype == torch.float32
+    up = [x.double() if torch.is_tensor(x) else x for x in args[1:]]
+    ref = tgamma.line_gamma_rates_plain(table.to(torch.float64), *up)
+    for k3, p3, r3 in zip(*(table.views(*x) for x in (kern, plain, ref))):
+        _f32_rule(k3, p3, r3)

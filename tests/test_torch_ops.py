@@ -2,7 +2,10 @@
 package, on the same numpy inputs made from a seed.
 
 On the CPU the sweep runs its plain PyTorch version; the CUDA kernel is
-compared with it on the card in tests/test_torch_kernels.py.
+compared with it on the card in tests/test_torch_kernels.py.  The kernel
+sums the depth recurrence as a chunked warp scan; affine_solve's
+'chunked' mode is its plain twin, held here to the sequential loop and to
+the JAX package's parallel and blocked scans.
 """
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from lightweaver_tpu.ops import faddeeva as jfaddeeva
+from lightweaver_tpu.ops.formal_solver import _affine_solve as j_affine_solve
 from lightweaver_tpu.ops.formal_solver import formal_sol_1d as j_formal_sol_1d
 from lightweaver_tpu.ops.linalg import solve_KxK_over_depth as j_solve
 from lightweaver_tpu.ops.pallas_sweep import \
@@ -18,7 +22,9 @@ from lightweaver_tpu.ops.pallas_sweep import \
 from lightweaver_tpu.ops.planck import planck_nu as j_planck_nu
 from lightweaver_tpu_torch.ops import sweep as tsweep
 from lightweaver_tpu_torch.ops.faddeeva import voigt_H
-from lightweaver_tpu_torch.ops.formal_solver import formal_sol_1d
+from lightweaver_tpu_torch.ops.formal_solver import (_sweep_coeffs_bezier3,
+                                                     affine_solve,
+                                                     formal_sol_1d)
 from lightweaver_tpu_torch.ops.linalg import solve_KxK_over_depth
 from lightweaver_tpu_torch.ops.planck import planck_nu
 from lightweaver_tpu_torch.problems import random_rays
@@ -166,3 +172,41 @@ def test_sweep_plain_matches_jax_pallas_sweep():
         a = ours[3][name].numpy()
         err = np.abs(a - b).max() / np.abs(b).max()
         assert err < 1e-10, (name, err)
+
+
+@pytest.mark.parametrize('toObs', [False, True])
+@pytest.mark.parametrize('Nk', [3, 31, 32, 33, 82, 500])
+def test_affine_solve_chunked_matches_sequential_and_jax(Nk, toObs):
+    """The sweep kernel's recurrence order (32-wide Kogge-Stone chunks with
+    a carry) against the sequential loop and the JAX package's
+    _affine_solve in modes 'parallel' (associative_scan) and 'blocked'
+    (two-level scan), on the Bezier-3 maps of random rays in either
+    sweep direction: 1e-12 of the largest I, in float64."""
+    c = random_rays(6, 2, Nk, seed=Nk)
+    d = int(toObs)
+    chi = _t(c['chi'][d].reshape(-1, Nk))
+    S = _t((c['srcNum'][d] / c['chi'][d]).reshape(-1, Nk))
+    h = _t(c['height'])
+    muz = _t(np.broadcast_to(c['muz'][None, :], (6, 2)).reshape(-1))
+    Iupw = _t((c['IupwU'] if toObs else c['IupwD']).reshape(-1))
+    if toObs:
+        chi, S, h = chi.flip(-1), S.flip(-1), h.flip(-1)
+    ds = torch.abs(h[1:] - h[:-1])[None, :] / muz[:, None]
+    A, b, _, _ = _sweep_coeffs_bezier3(chi, S, ds)
+    b[..., 0] = Iupw
+    seq = affine_solve(A, b, 'sequential').numpy()
+    scale = np.abs(seq).max()
+    refs = {'chunked': affine_solve(A, b, 'chunked').numpy()}
+    for mode in ('parallel', 'blocked'):
+        refs[mode] = np.asarray(j_affine_solve(jnp.asarray(A.numpy()),
+                                               jnp.asarray(b.numpy()), mode))
+    for mode, x in refs.items():
+        err = np.abs(x - seq).max() / scale
+        assert err < 1e-12, (mode, err)
+    # the sweep start is the boundary value exactly
+    assert np.array_equal(refs['chunked'][:, 0], Iupw.numpy())
+
+
+def test_affine_solve_rejects_unknown_mode():
+    with pytest.raises(ValueError, match='unknown recurrence mode'):
+        affine_solve(torch.ones(1, 3), torch.ones(1, 3), 'tree')

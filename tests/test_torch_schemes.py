@@ -63,7 +63,9 @@ def test_scheme_selects_the_iteration(small):
     assert ctx._params['pack']['phiP'].shape[0] == 2
     ctx.set_fs_iter_scheme('mali_full_precond_pallas')
     ctx.formal_sol_gamma_matrices()
-    assert [len(g) for g in ctx._params['pack']] == [10, 3]
+    table = ctx._params['pack']
+    assert [sum(g.ai == ai for g in table.groups) for ai in range(2)] == \
+        [10, 3]
     ctx.set_fs_iter_scheme('mali_full_precond')
     ctx.formal_sol_gamma_matrices()
     assert ctx._params['pack'] is None
