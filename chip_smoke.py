@@ -8,24 +8,32 @@ result):
 1. Environment: torch and CUDA versions, the card's name and power limit;
    then the four kernel libraries are built from csrc/ at once, one nvcc
    each, with ptxas's registers and spills per instance (the float64 line
-   Gamma kernel, whose K = 4 path is the widest, must not spill), and the
+   Gamma kernel, whose K = 4 path is the widest, must not spill; the
+   sweep and fused instances' registers and spills printed), and the
    float64 instructions of each float32 instance in its SASS (cuobjdump):
    J's double accumulator only.
 2. Probes: the two toolchain probes (csrc/probe.cu) against their plain
    versions (2x + 1 exactly, the recurrence within 1e-6 in f32).
 3. Sweep kernel: csrc/sweep.cu against its plain PyTorch version on the
    card, in f64, at the main path's shapes (Nlam=1046, Nmu=5, Nk=82 and
-   500), inputs from a numpy seed; times of both.
+   500) and at 17 and 32 rays per direction (Nk=500), inputs from a numpy
+   seed; times of both.
 4. Scheme kernels: the line Gamma kernel (csrc/gamma.cu, one launch for
    every line group) and the fused lambda step (csrc/fused.cu) against
    their plain versions on the inputs of one iteration of falc_h6ca and of
-   FALC-500; times, and the whole line_kernel_stage's host time.
+   FALC-500; times, and the whole line_kernel_stage's host time.  Then the
+   fused kernel on random slots at 17 rays per direction with each
+   boundary kind at each end, and the line Gamma kernel on a random group
+   of K = 6 lines.
 5. Main path: falc_h6ca (FAL-C, H 6-level + Ca II active, 5 rays) on the
    card through Context and iterate_ctx_se, against the compiled
    reference's golden run (tests/golden/falc_h6ca_ref.npz); the sweep
    kernel's launch count over that run.
 6. The same under each iteration scheme, 'mali_full_precond_pallas' and
    'mali_full_precond_fused', with the launch counts of their kernels.
+   Then a callable upper boundary whose data grow 100x between two MALI
+   steps of the mixed-precision problem (f64), under the default and
+   fused schemes, on the card against the CPU.
 7. PRD kernel inputs: falc_h6mg (FAL-C, H 6-level + Mg II active, 5
    rays, Ly-alpha, Ly-beta and Mg II h & k in PRD) after three MALI
    steps and one prd_redistribute, so rho != 1: the line Gamma kernel on
@@ -43,10 +51,11 @@ result):
    held to err(kernel f32, plain f64) <= 2 err(plain f32, plain f64) +
    1e-6 with plain f64 on the same inputs, and J to the float64 sum of
    the kernel's own float32 products (1e-13): the sweep on random rays at
-   Nk = 82 and 500 and on one falc_h6ca float32 iteration, line Gamma on
-   falc_h6ca's 13 groups, falc_h6mg's (K = 4, rho != 1) and FALC-500's,
-   fused with C = 2 (falc_h6ca, FALC-500) and C = 3 (falc_h6mg); float32
-   and float64 instance times side by side.  (b) The mixed-precision problem (FAL-C decimated
+   phase 3's shapes and on one falc_h6ca float32 iteration, fused on
+   phase 4's random slots, line Gamma on the K = 6 group, falc_h6ca's 13
+   groups, falc_h6mg's (K = 4, rho != 1) and FALC-500's, fused with C = 2
+   (falc_h6ca, FALC-500) and C = 3 (falc_h6mg); float32 and float64
+   instance times side by side.  (b) The mixed-precision problem (FAL-C decimated
    to 40 depths, 3 rays, Ca II active) converged under each scheme in
    fewer than 600 iterations.  (c) falc_h6ca at full width under each
    scheme, 300 iterations (the float32 state does not converge there, in
@@ -226,11 +235,33 @@ def build_kernels():
           f'{list(f64.values())}')
     if len(f64) != 1 or any(v != (0, 0) for v in f64.values()):
         raise AssertionError(f'the float64 line Gamma kernel spills: {f64}')
+    for name in ('sweep', 'fused'):
+        log = _build.build_log(name)
+        regs, spills = ptxas_registers(log), ptxas_spills(log)
+        for fn in sorted(regs):
+            kind = 'float64' if 'IdE' in fn else 'float32'
+            print(f'  {name} {kind} instance: {regs[fn]} registers, spill '
+                  f'stores / loads {spills.get(fn, (0, 0))} bytes')
     sass_double_ops({n: mods[n] for n in ('sweep', 'gamma', 'fused')})
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _PTXAS_SPILL = re.compile(r'(\d+) bytes spill stores, (\d+) bytes spill loads')
+_PTXAS_REGS = re.compile(r'Used (\d+) registers')
+
+
+def ptxas_registers(log):
+    """{kernel symbol: registers per thread} from ptxas -v's output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = _PTXAS_REGS.search(line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+    return out
 
 
 def ptxas_spills(log):
@@ -368,21 +399,29 @@ def kernel_check():
     from lightweaver_tpu_torch.ops import sweep
     from lightweaver_tpu_torch.problems import random_rays
     phase('sweep kernel: compare with the plain version (f64)')
-    for Nk in (82, 500):
+    for Nmu, Nk in SWEEP_SHAPES:
         c = {k: torch.tensor(v, dtype=torch.float64, device='cuda')
-             for k, v in random_rays(1046, 5, Nk, seed=Nk).items()}
+             for k, v in random_rays(1046, Nmu, Nk, seed=Nk).items()}
         plain = sweep.formal_solve_sweep_plain(**c)
         kern = sweep.formal_solve_sweep(**c)
         torch.cuda.synchronize()
-        rel, absErr = compare_outputs(f'sweep Nk={Nk}', RAY_NAMES,
-                                      ray_outputs(kern), ray_outputs(plain),
-                                      KERNEL_TOL)
-        print(f'  Nk={Nk} sweep: max|kernel-plain|/max|plain| = {rel:.3e} '
+        label = f'Nmu={Nmu} Nk={Nk} sweep'
+        rel, absErr = compare_outputs(label, RAY_NAMES, ray_outputs(kern),
+                                      ray_outputs(plain), KERNEL_TOL)
+        print(f'  {label}: max|kernel-plain|/max|plain| = {rel:.3e} '
               f'(bar {KERNEL_TOL}), max abs {absErr:.3e}')
-        timed_pair(f'Nk={Nk} sweep, per call (1046 x 5 x 2 rays)',
+        timed_pair(f'{label}, per call (1046 x {Nmu} x 2 rays, '
+                   f'{sweep.rays_per_pass(Nmu)} warps a block)',
                    lambda: sweep.formal_solve_sweep(**c),
                    lambda: sweep.formal_solve_sweep_plain(**c),
                    SYMBOLS['sweep'], bnd=sweep_bound(list(c.values()), kern))
+        del c, plain, kern
+
+
+# (Nmu, Nk) of the random rays of the sweep checks: the main path's 5 rays
+# at Nk = 82 and 500, and 17 and 32 rays per direction (two passes of 17
+# warps, one of 32) at Nk = 500
+SWEEP_SHAPES = ((5, 82), (5, 500), (17, 500), (32, 500))
 
 
 def one_iteration_inputs(Nk, dtype=None):
@@ -505,13 +544,44 @@ def check_line_kernel(label, ctx, params, src, rays):
                 plain_ms=plainMs, K=table.maxK, **bnd)
 
 
-def check_fused_kernel(label, ctx, params, scaJ):
-    """The fused kernel on the fused scheme's inputs for the same state
-    against its plain version; its time."""
+def fused_args(ctx, params, scaJ):
+    """The arguments of ops/fused.py:fused_lambda_step for one iteration
+    of ``ctx`` under the fused scheme."""
     from lightweaver_tpu_torch.context import build_iteration_fn
-    from lightweaver_tpu_torch.ops import fused
     itF = build_iteration_fn(dataclasses.replace(ctx.cfg, fsIterScheme=FUSED))
-    args = itF.fused_inputs(params, scaJ, itF.pack(params))
+    return itF.fused_inputs(params, scaJ, itF.pack(params))
+
+
+def random_fused_args(dtype, bcs, C=2, NL=1046, Nmu=17, Nk=82, seed=17):
+    """Random slot-packed lines (problems.random_slots) with the boundary
+    kinds ``bcs`` (upper, lower), as fused_lambda_step's arguments."""
+    from lightweaver_tpu_torch.problems import random_boundaries, random_slots
+    s = random_slots(C, NL, Nmu, Nk, seed)
+    rows = random_boundaries(NL, Nmu, seed)
+
+    def t_(x):
+        return torch.tensor(x, dtype=dtype, device='cuda')
+    return [t_(s[k]) for k in ('phiP', 'chiCo', 'etaCo', 'bgChi', 'bgEta',
+                               'scaJ', 'height', 'muz', 'wmu')] + [
+        (kind, None if kind == 'zero' else t_(rows[kind])) for kind in bcs]
+
+
+# boundary kinds (upper, lower) of the random fused checks: each kind at
+# each end
+FUSED_BCS = (('zero', 'therm'), ('therm', 'data'), ('data', 'zero'))
+
+
+def random_fused_check():
+    """The fused kernel at 17 rays per direction (two passes of 17 warps),
+    C = 2 random slots, each boundary kind at each end (f64)."""
+    for bcs in FUSED_BCS:
+        check_fused_args(f'random slots Nmu=17, BCs {bcs[0]}/{bcs[1]}',
+                         random_fused_args(torch.float64, bcs))
+
+
+def check_fused_args(label, args):
+    """The fused kernel on ``args`` against its plain version; its time."""
+    from lightweaver_tpu_torch.ops import fused
     plain = fused.fused_lambda_step_plain(*args)
     kern = fused.fused_lambda_step(*args)
     torch.cuda.synchronize()
@@ -539,9 +609,65 @@ def scheme_kernel_check():
     for Nk in (82, 500):
         ctx, params, scaJ, src, rays = one_iteration_inputs(Nk)
         check_line_kernel(f'Nk={Nk}', ctx, params, src, rays)
-        check_fused_kernel(f'Nk={Nk}', ctx, params, scaJ)
+        check_fused_args(f'Nk={Nk}', fused_args(ctx, params, scaJ))
         del ctx, params, rays
         torch.cuda.empty_cache()
+    random_fused_check()
+    check_group_of_six(torch.float64)
+
+
+def group_of_six_args(dtype):
+    """A random group of K = 6 overlapping lines (past the kernel's
+    templated sizes) on 300 of 1046 rows, 5 rays, Nk = 82, rho != 1, as
+    ops/gamma.py:group_gamma_rates' arguments."""
+    from lightweaver_tpu_torch.ops import gamma
+    from lightweaver_tpu_torch.problems import random_line_group
+    g = random_line_group(6, 1046, 5, 82, row0=100, Wu=300, seed=6)
+    st = gamma.group_statics([type('T', (), {'i': i, 'j': j})
+                              for i, j in g.pop('levels')])
+    row0 = g.pop('row0')
+    return [torch.tensor(g[k], dtype=dtype, device='cuda') for k in (
+        'phi', 'rho', 'Psi', 'IeffBase', 'I', 'srcNum', 'chiCL', 'UCL',
+        'etaC', 'n', 'coef', 'wphi', 'wmuHalf')] + [st, row0]
+
+
+def check_group_of_six(dtype):
+    """The line Gamma kernel on a random K = 6 group against its plain
+    version: GAMMA_TOL in float64, the float32 rule in float32; times
+    beside the bound of the one-group table the wrapper launches."""
+    from lightweaver_tpu_torch.ops import gamma
+    args = group_of_six_args(dtype)
+    kern = gamma.group_gamma_rates(*args)
+    plain = gamma.group_gamma_rates_plain(*args)
+    torch.cuda.synchronize()
+    (phi, rho, Psi, IeffB, I, src, chiCL, UCL, etaC, n, coef, wphi, wmuHalf,
+     st, row0) = args
+    table = gamma.LineTable([{'ai': 0, 'members': tuple(range(6)),
+                              'row0': row0, 'phi': phi, 'coef': coef,
+                              'wphi': wphi, 'statics': st}],
+                            [n.shape[0]], phi.shape[3], phi.shape[4])
+    bnd = gamma_bound([table, rho.reshape(-1), Psi, IeffB, I, src, chiCL,
+                       UCL, etaC[None], n, wmuHalf])
+    names = ('G4', 'PPB', 'PairPPB')
+    if dtype == torch.float64:
+        rel, absErr = compare_outputs('K = 6 group', names, kern, plain,
+                                      GAMMA_TOL)
+        print(f'  random K = 6 group (15 pairs) line Gamma: '
+              f'max|kernel-plain|/max|plain| = {rel:.3e} (bar {GAMMA_TOL}), '
+              f'max abs {absErr:.3e}')
+        timed_pair('random K = 6 group line Gamma, per call',
+                   lambda: gamma.group_gamma_rates(*args),
+                   lambda: gamma.group_gamma_rates_plain(*args),
+                   SYMBOLS['gamma'], bnd=bnd)
+        return
+    args64 = upcast(args)
+    f32_rule('random K = 6 group line Gamma', names, kern, plain,
+             gamma.group_gamma_rates_plain(*args64))
+    timed_instances('random K = 6 group line Gamma, per call',
+                    lambda: gamma.group_gamma_rates(*args),
+                    lambda: gamma.group_gamma_rates_plain(*args),
+                    lambda: gamma.group_gamma_rates(*args64), bnd,
+                    SYMBOLS['gamma'])
 
 
 def prd_kernel_check():
@@ -556,7 +682,7 @@ def prd_kernel_check():
           'prd_redistribute (f64, rho != 1)')
     ctx, params, scaJ, src, rays = prd_state(torch.float64)
     result = {'gamma': check_line_kernel('PRD', ctx, params, src, rays),
-              'fused': check_fused_kernel('PRD', ctx, params, scaJ)}
+              'fused': check_fused_args('PRD', fused_args(ctx, params, scaJ))}
     if result['gamma']['K'] != 4 or result['fused']['C'] != 3:
         raise AssertionError(f'expected a K = 4 line group and C = 3 slots, '
                              f'got {result["gamma"]["K"]} and '
@@ -655,6 +781,67 @@ def scheme_paths():
             raise AssertionError(
                 f'fused scheme launched fused {counts["fused"]} and '
                 f'sweep {counts["sweep"]} times in {nIter} iterations')
+
+
+# a callable BC's J and I on the card against the CPU: the slice tests'
+# 1e-9 of each wavelength's maximum over depth (J) or angle (I)
+BC_TOL = 1e-9
+
+
+def callable_bc_check():
+    """Two MALI steps of the mixed-precision problem (40 depths, 3 rays,
+    Ca II active) in float64 with a callable upper boundary whose data
+    (scale x B_nu(5000 K) per wavelength and ray) grow 100x between the
+    steps, under the default and fused schemes ('data' boundary kind), on
+    the card and on the CPU; J and I after each step within BC_TOL, and
+    the second step's J moved by the brighter boundary."""
+    from lightweaver_tpu_torch.atmosphere import BoundaryCondition
+    from lightweaver_tpu_torch.problems import mixed_precision_context
+
+    class ScaledPlanck(BoundaryCondition):
+        scale = 1.0
+
+        def compute_bc(self, atmos, spect):
+            h, c, kB = 6.62607015e-34, 2.99792458e8, 1.380649e-23
+            nu = c / (np.asarray(spect.wavelength) * 1e-9)
+            B = 2 * h * nu ** 3 / c ** 2 / np.expm1(h * nu / (kB * 5000.0))
+            return self.scale * np.repeat(B[:, None], atmos.Nrays, axis=1)
+    phase('callable upper BC changing 100x between two MALI steps: the '
+          'mixed-precision problem (f64) on the card vs the CPU')
+    for scheme in ('mali_full_precond', FUSED):
+        bc = ScaledPlanck()
+        ctxs = [mixed_precision_context(device=d, dtype=torch.float64)
+                for d in ('cpu', 'cuda')]
+        for ctx in ctxs:
+            ctx.atmos.upperBc = bc
+            ctx.set_fs_iter_scheme(scheme)
+        Js, errs = [], []
+        reset_counts()
+        for scale in (1.0, 100.0):
+            bc.scale = scale
+            for ctx in ctxs:
+                ctx.formal_sol_gamma_matrices()
+            torch.cuda.synchronize()
+            for key in ('J', 'I'):
+                ours = getattr(ctxs[1], key).cpu().numpy()
+                ref = getattr(ctxs[0], key).numpy()
+                errs.append(float((np.abs(ours - ref).max(axis=1)
+                                   / np.abs(ref).max(axis=1)).max()))
+            Js.append(ctxs[1].J.cpu().numpy())
+        counts = read_counts()
+        moved = float((np.abs(Js[1] - Js[0]).max(axis=1)
+                       / np.abs(Js[0]).max(axis=1)).max())
+        print(f'  {scheme}: J, I card vs CPU after step 1 {errs[0]:.3e}, '
+              f'{errs[1]:.3e}, after step 2 {errs[2]:.3e}, {errs[3]:.3e} '
+              f'(bar {BC_TOL}); J moved {moved:.3e} between the steps; '
+              f'launches sweep {counts["sweep"]}, fused {counts["fused"]}')
+        expected = ({'sweep': 2, 'fused': 0} if scheme != FUSED
+                    else {'sweep': 0, 'fused': 2})
+        if {k: counts[k] for k in expected} != expected:
+            raise AssertionError(f'launches {counts}, expected {expected}')
+        if not max(errs) < BC_TOL or not moved > 1e-2:
+            raise AssertionError(f'callable BC under {scheme}: card vs CPU '
+                                 f'{max(errs):.3e}, J moved {moved:.3e}')
 
 
 def converge_h6mg(scheme, hprd=False):
@@ -990,11 +1177,8 @@ def check_line_f32(label, ctx, params, src, rays):
                 K=table.maxK, **bnd)
 
 
-def check_fused_f32(label, ctx, params, scaJ):
-    from lightweaver_tpu_torch.context import build_iteration_fn
+def check_fused_f32_args(label, args):
     from lightweaver_tpu_torch.ops import fused
-    itF = build_iteration_fn(dataclasses.replace(ctx.cfg, fsIterScheme=FUSED))
-    args = itF.fused_inputs(params, scaJ, itF.pack(params))
     args64 = upcast(args)
     kern = fused.fused_lambda_step(*args)
     plain = fused.fused_lambda_step_plain(*args)
@@ -1050,11 +1234,15 @@ def f32_kernel_check():
     phase('float32 instances vs their plain versions (bar: err(kernel '
           f'f32, plain f64) <= {F32_SLACK} err(plain f32, plain f64) + '
           f'{F32_FLOOR})')
-    for Nk in (82, 500):
-        rays = random_rays(1046, 5, Nk, seed=Nk)
-        check_sweep_f32(f'Nk={Nk} random rays', [
+    for Nmu, Nk in SWEEP_SHAPES:
+        rays = random_rays(1046, Nmu, Nk, seed=Nk)
+        check_sweep_f32(f'Nmu={Nmu} Nk={Nk} random rays', [
             torch.tensor(rays[k], dtype=F32, device='cuda') for k in
             ('chi', 'srcNum', 'height', 'muz', 'IupwD', 'IupwU', 'wmu')])
+    for bcs in FUSED_BCS:
+        check_fused_f32_args(f'random slots Nmu=17, BCs {bcs[0]}/{bcs[1]}',
+                             random_fused_args(F32, bcs))
+    check_group_of_six(F32)
     ctx = h6ca_context(Falc82(), 5, device='cuda', dtype=F32)
     ctx.formal_sol_gamma_matrices()
     ctx.stat_equil()
@@ -1067,15 +1255,17 @@ def f32_kernel_check():
     rays = it.formal_solve(params, chi, src)
     records['gamma_f32'] = check_line_f32('falc_h6ca', ctx, params, src,
                                           rays)
-    records['fused_f32'] = check_fused_f32('falc_h6ca', ctx, params, scaJ)
+    records['fused_f32'] = check_fused_f32_args(
+        'falc_h6ca', fused_args(ctx, params, scaJ))
     ctx, params, scaJ, src, rays = prd_state(F32)
     K = check_line_f32('falc_h6mg PRD', ctx, params, src, rays)['K']
-    C = check_fused_f32('falc_h6mg PRD', ctx, params, scaJ)['C']
+    C = check_fused_f32_args('falc_h6mg PRD',
+                             fused_args(ctx, params, scaJ))['C']
     del ctx, params, rays
     torch.cuda.empty_cache()
     ctx, params, scaJ, src, rays = one_iteration_inputs(500, F32)
     check_line_f32('FALC-500', ctx, params, src, rays)
-    check_fused_f32('FALC-500', ctx, params, scaJ)
+    check_fused_f32_args('FALC-500', fused_args(ctx, params, scaJ))
     if K != 4 or C != 3 or records['fused_f32']['C'] != 2:
         raise AssertionError(f'expected K = 4 and C = 3 on falc_h6mg, C = 2 '
                              f'on falc_h6ca; got {K}, {C}, '
@@ -1260,13 +1450,13 @@ def gamma_bound(args):
 def fused_bound(args, out):
     """phiP, the coefficient and background rows and the boundaries in;
     the rays and moments out; the sweep's operations plus the assembly of
-    chi and srcNum from C slots, twice (the ray pass and the moment
-    pass)."""
+    chi and srcNum from C slots (two multiply-adds each per slot), once
+    per (ray, depth)."""
     phiP = args[0]
     C = phiP.shape[0]
     ins = list(args[:9]) + [rows for _, rows in args[9:]]
     return bound(nbytes(ins + list(out[:3]) + list(out[3].values())),
-                 (SWEEP_FLOPS + 8 * C) * phiP[0].numel(), phiP.dtype)
+                 (SWEEP_FLOPS + 4 * C) * phiP[0].numel(), phiP.dtype)
 
 
 # name -> (source, the pallas_call of the TPU kernel it replaces)
@@ -1300,6 +1490,7 @@ def main():
     scheme_kernel_check()
     main_path()
     scheme_paths()
+    callable_bc_check()
     prdKern = prd_kernel_check()
     launches = prd_paths()
     f32Kern = f32_kernel_check()

@@ -1533,6 +1533,10 @@ class Context:
         p['C'] = self._deviceC()
         p['crsw'] = float(crswVal)
         p['rhoPrd'] = self.rhoPrd
+        # a callable BC may change between steps (the PRD subset solve
+        # reads these rows from self._params too)
+        p['upperBcData'] = self._bc_data(self.atmos.upperBc)
+        p['lowerBcData'] = self._bc_data(self.atmos.lowerBc)
         out = self._iter_fn(p)
         self._crswVal = crswVal
         self._Gamma = out['Gamma']

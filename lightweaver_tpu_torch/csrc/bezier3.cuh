@@ -1,11 +1,9 @@
 // The Bezier-3 short-characteristics step shared by the depth-sweep
 // kernel (sweep.cu) and the fused lambda-step kernel (fused.cu): Steffen
-// derivatives, the Bezier-3 and linear-w2 weights, the sweep of one ray
-// by one thread in the summation order of
-// ops/formal_solver.py:formal_sol_1d (bezier3_ray, fused.cu), and the
-// sweep of one ray by one warp, parallel along depth, in the order of
+// derivatives, the Bezier-3 and linear-w2 weights, and the sweep of one
+// ray by one warp, parallel along depth, in the order of
 // ops/formal_solver.py:affine_solve(mode='chunked') (bezier3_warp_ray,
-// sweep.cu).
+// driven by sweep_row.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,103 +120,6 @@ __device__ __forceinline__ void w2(T dtau, T& w0, T& w1) {
     }
 }
 
-// Sweep one ray of N >= 3 depths from its upwind boundary value I0:
-// d = 0 (up == false) runs k = 0 .. N-1, d = 1 runs k = N-1 .. 0.
-// load(k, chi, S) gives the opacity and source function at depth k;
-// dh[k] = |h[k] - h[k+1]|, mu the ray's direction cosine.  Writes I,
-// Psi = psiN / chi and IeffBase = A I_upwind + bNL at every depth.
-//
-// The thread carries chi, S, the path lengths, dchi, dtau and dS in
-// registers: the coefficients at m reach two points downwind for chi and
-// one for S, so each step loads one new depth.
-template <typename T, typename Load>
-__device__ __forceinline__ void bezier3_ray(const Load& load,
-                                            const T* __restrict__ dh, T mu,
-                                            int N, bool up, T I0,
-                                            T* __restrict__ IR,
-                                            T* __restrict__ psiR,
-                                            T* __restrict__ ieffbR) {
-    // depth index and path length of interval (m, m+1), sweep order m
-    auto kOf = [&](int m) { return up ? N - 1 - m : m; };
-    auto dsOf = [&](int m) { return dh[up ? N - 2 - m : m] / mu; };
-    const T three = T(3.0);
-
-    // sweep start: I = Iupw, Psi = 0, IeffBase = Iupw
-    IR[kOf(0)] = I0;
-    psiR[kOf(0)] = T(0.0);
-    ieffbR[kOf(0)] = I0;
-
-    // window at m = 1: chi/S at m-1, m, m+1; ds at m-1, m
-    T cm1, cm, cp, sm1, sm, sp;
-    load(kOf(0), cm1, sm1);
-    load(kOf(1), cm, sm);
-    load(kOf(2), cp, sp);
-    T dsm1 = dsOf(0), dsm = dsOf(1);
-    T dchim1 = (cm - cm1) / dsm1;
-    T dchim = cent_deriv(dsm1, dsm, cm1, cm, cp);
-    T dtaum1;
-    {
-        const T Cuw = cm1 + (dsm1 / three) * dchim1;
-        const T C0 = cm - (dsm1 / three) * dchim;
-        dtaum1 = dsm1 * (cm1 + cm + Cuw + C0) * T(0.25);
-    }
-    T dSm1 = (sm - sm1) / dtaum1;
-    T Iprev = I0;
-
-    // interior points m = 1..N-2: Bezier-3 over the upwind interval
-    for (int m = 1; m <= N - 2; ++m) {
-        T cpp = cp, spp = sp, dsp = dsm;
-        const bool hasNext = m + 2 <= N - 1;
-        if (hasNext) {
-            load(kOf(m + 2), cpp, spp);
-            dsp = dsOf(m + 1);
-        }
-        const T dchip = hasNext ? cent_deriv(dsm, dsp, cm, cp, cpp)
-                                : (cp - cm) / dsm;
-        const T Cuw = cm + (dsm / three) * dchim;
-        const T C0 = cp - (dsm / three) * dchip;
-        const T dtaum = dsm * (cm + cp + Cuw + C0) * T(0.25);
-        const T dSm = cent_deriv(dtaum1, dtaum, sm1, sm, sp);
-
-        T alphaC, betaC, gammaC, deltaC, edt;
-        bezier3_coeffs(dtaum1, alphaC, betaC, gammaC, deltaC, edt);
-        const T CuwS = sm1 + (dtaum1 / three) * dSm1;
-        const T C0S = sm - (dtaum1 / three) * dSm;
-        const T b = alphaC * sm1 + betaC * sm + gammaC * CuwS + deltaC * C0S;
-        const T psiN = betaC + deltaC;
-        const T bNL = alphaC * sm1 + gammaC * CuwS
-                      - deltaC * (dtaum1 / three) * dSm;
-        const T Inew = edt * Iprev + b;
-        const int k = kOf(m);
-        IR[k] = Inew;
-        psiR[k] = psiN / cm;
-        ieffbR[k] = edt * Iprev + bNL;
-
-        cm1 = cm; cm = cp; cp = cpp;
-        sm1 = sm; sm = sp; sp = spp;
-        dsm1 = dsm; dsm = dsp;
-        dchim1 = dchim; dchim = dchip;
-        dtaum1 = dtaum; dSm1 = dSm;
-        Iprev = Inew;
-    }
-
-    // final point: linear step with plain-average dtau
-    {
-        const T dtauE = T(0.5) * (cm + cm1) * dsm1;
-        const T dSE = (sm - sm1) / dtauE;
-        T w0e, w1e;
-        w2(dtauE, w0e, w1e);
-        const T A = T(1.0) - w0e;
-        const T b = w0e * sm - w1e * dSE;
-        const T psiN = w0e - w1e / dtauE;
-        const T bNL = (w1e / dtauE) * sm1;
-        const int k = kOf(N - 1);
-        IR[k] = A * Iprev + b;
-        psiR[k] = psiN / cm;
-        ieffbR[k] = A * Iprev + bNL;
-    }
-}
-
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // v of the lane `delta` below, or `edge` on the lanes that have none
@@ -248,7 +149,9 @@ __device__ __forceinline__ T lane_after(T v, T edge, int lane) {
 //   2. it forms its affine map I_m = A_m I_{m-1} + b_m and bNL_m, psiN_m
 //      as ops/formal_solver.py:_sweep_coeffs_bezier3 does (the sweep start
 //      A = 0, b = I0; Bezier-3 at the interior points; the linear w2 step
-//      at m = N-1);
+//      at m = N-1), where I0 = upwind(chi_0, chi_1) takes chi at the two
+//      outermost sweep indices (lanes 0 and 1 of the first chunk, by
+//      shuffle; a thermalised boundary needs their dtau);
 //   3. a 5-step Kogge-Stone scan composes the maps over the chunk, and
 //      the last lane's I carries into the next chunk;
 //   4. it forms I, Psi = psiN / chi and IeffBase = A I_{m-1} + bNL and
@@ -256,10 +159,11 @@ __device__ __forceinline__ T lane_after(T v, T edge, int lane) {
 //      lane of every chunk calls (valid is false past the ray's end), so
 //      emit may hold a block barrier when all warps sweep N depths.
 // dh[k] = |h[k] - h[k+1]|, mu the ray's direction cosine.
-template <typename T, typename Load, typename Emit>
+template <typename T, typename Load, typename Upwind, typename Emit>
 __device__ __forceinline__ void bezier3_warp_ray(const Load& load,
                                                  const T* __restrict__ dh,
-                                                 T mu, int N, bool up, T I0,
+                                                 T mu, int N, bool up,
+                                                 const Upwind& upwind,
                                                  const Emit& emit) {
     const int lane = threadIdx.x & 31;
     const T three = T(3.0);
@@ -285,6 +189,8 @@ __device__ __forceinline__ void bezier3_warp_ray(const Load& load,
 
     T c, src, S, ds;
     fetch(lane, c, src, S, ds);
+    const T I0 = upwind(__shfl_sync(kFullWarp, c, 0),
+                        __shfl_sync(kFullWarp, c, 1));
     // the previous chunk's last point (unused in the first chunk)
     T cPrev = T(1.0), sPrev = T(0.0), dsPrev = T(1.0), dtauPrev = T(1.0),
       dSPrev = T(0.0), Icarry = T(0.0);

@@ -29,9 +29,11 @@
 // outputs, and one launch covers a flat list of work items (group, BW-row
 // block, 32-depth tile), one item per thread block.  K is uniform within
 // a block: the kernel switches to a device function templated on K =
-// 1..4.  A block is 32 depths x BW = 8 rows, one thread per (depth, row):
-// each warp reads one row at 32 neighbouring depths, coalesced in the
-// direction-major [2, Nlam, Nmu, Nk] layout.  A thread loops over the
+// 1..4 (line_block) and, for larger groups, to one where K is a runtime
+// value up to KMAX = 16 (line_block_any).  A block is 32 depths x BW =
+// 8 rows, one thread per (depth, row): each warp reads one row at 32
+// neighbouring depths, coalesced in the direction-major [2, Nlam, Nmu,
+// Nk] layout.  A thread loops over the
 // 2 Nmu rays and the K members of its row; the block then sums the 8
 // rows' G4 partials in shared memory in row order (deterministic, no
 // atomics) and writes one partial per (member, quantity, block, depth);
@@ -56,7 +58,8 @@
 
 namespace {
 
-constexpr int KMAX = 4;   // largest group (Mg II's h, k and subordinates)
+constexpr int KMAX = 16;  // largest group the table holds
+constexpr int KTPL = 4;   // largest group with a path templated on K
 constexpr int BW = 8;     // rows per block of G4
 constexpr int TK = 32;    // depths per thread block
 
@@ -65,13 +68,12 @@ struct LineGroup {
     int K, row0, Wu, nBlk, atom;
     int phiOff, coefOff, wphiOff, rhoOff, g4Off, ppbOff, pairOff;
     int levels[KMAX][2];   // global (i, j) rows of n / chiCL / UCL
-    // per member m, bits over m2: [0,4) +chi_m2 in chi_i, [4,8) -chi_m2
-    // in chi_i, [8,12) +chi_m2 in chi_j, [12,16) -chi_m2 in chi_j,
-    // [16,20) U_m2 in U_i, [20,24) U_m2 in U_j
-    int masks[KMAX];
+    // per member m, bit m2 of the low / high 16 bits: [0] +chi_m2 / -chi_m2
+    // in chi_i, [1] the same in chi_j, [2] U_m2 in U_i / U_j
+    int masks[KMAX][3];
 };
 constexpr int NMETA = sizeof(LineGroup) / sizeof(int);
-static_assert(NMETA == 24, "ops/gamma.py:_META has 24 fields");
+static_assert(NMETA == 12 + 5 * KMAX, "ops/gamma.py:_META");
 
 template <typename T>
 struct Args {
@@ -96,6 +98,16 @@ struct Args {
 
 __device__ __forceinline__ bool bit(int mask, int b) {
     return (mask >> b) & 1;
+}
+
+// the K <= 4 paths' one-word mask of member m: bits over m2, [0,4) +chi_m2
+// in chi_i, [4,8) -chi_m2 in chi_i, [8,12) and [12,16) the same in chi_j,
+// [16,20) U_m2 in U_i, [20,24) U_m2 in U_j
+__device__ __forceinline__ int compact_mask(const int* mk) {
+    auto half = [](int w, int h) { return (w >> (16 * h)) & 0xF; };
+    return half(mk[0], 0) | half(mk[0], 1) << 4 | half(mk[1], 0) << 8
+           | half(mk[1], 1) << 12 | half(mk[2], 0) << 16
+           | half(mk[2], 1) << 20;
 }
 
 // One work item: rows [blk BW, blk BW + BW) of group G at depths
@@ -144,7 +156,7 @@ __device__ __forceinline__ void line_block(const Args<T>& a,
             rh[m] = a.rho[G.rhoOff + (m * Wu + r) * Nk + k];
             wl[m] = a.coef[G.coefOff + (m * Wu + r) * 4 + 3]
                     * a.wphi[G.wphiOff + m * Nk + k];
-            mask[m] = G.masks[m];
+            mask[m] = compact_mask(G.masks[m]);
             const size_t oi = (static_cast<size_t>(li) * Nlam + l) * Nk + k;
             const size_t oj = (static_cast<size_t>(lj) * Nlam + l) * Nk + k;
             cont(0, m) = a.chiCL[oi];
@@ -247,6 +259,132 @@ __device__ __forceinline__ void line_block(const Args<T>& a,
     }
 }
 
+// A group of K > KTPL members, K a runtime value: the same function and
+// order of terms as line_block, with no per-member arrays.  The members'
+// coefficient rows are in shared memory; PPB and each pair's moment take
+// their own pass over the rays; G4 goes member by member, each pass over
+// the rays forming etaAtom and member m's level sums from all K members
+// again (K^2 member terms per ray instead of K, no registers per member),
+// and the block's 8 rows are summed per member in a [4][BW][TK] shared
+// tile.  sm: 3 K BW + 4 BW TK values of T.
+template <typename T>
+__device__ __forceinline__ void line_block_any(const Args<T>& a,
+                                               const LineGroup& G, int blk,
+                                               int tile, T* sm) {
+    const int K = G.K;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int t = ty * TK + tx;
+    const int Nk = a.Nk, Nlam = a.Nlam, Nmu = a.Nmu, Wu = G.Wu;
+    const int k = tile * TK + tx;
+    const int r = blk * BW + ty;
+    const bool live = k < Nk && r < Wu;
+    const int l = G.row0 + r;
+    T* sCoef = sm;                 // [K][BW][3]: a1, g, u
+    T* sRed = sm + 3 * K * BW;     // [4][BW][TK]
+    for (int q = t; q < K * BW; q += BW * TK) {
+        const int m = q / BW, rr = blk * BW + q % BW;
+        for (int c = 0; c < 3; ++c)
+            sCoef[q * 3 + c] =
+                rr < Wu ? a.coef[G.coefOff + (m * Wu + rr) * 4 + c] : T(0.0);
+    }
+    __syncthreads();
+    const T* cf = sCoef + ty * 3;   // member m at cf[m BW 3 + c]
+    auto rayOff = [&](int d, int mu) {
+        return ((static_cast<size_t>(d) * Nlam + l) * Nmu + mu) * Nk + k;
+    };
+    auto phiAt = [&](int m, int d, int mu) {
+        return a.phi[G.phiOff + (((m * 2 + d) * Wu + r) * Nmu + mu) * Nk + k];
+    };
+
+    if (live) {
+        for (int m = 0; m < K; ++m) {
+            T s = T(0.0);
+            for (int d = 0; d < 2; ++d)
+                for (int mu = 0; mu < Nmu; ++mu)
+                    s += a.wmuHalf[mu] * phiAt(m, d, mu)
+                         * a.psi[rayOff(d, mu)];
+            a.PPB[G.ppbOff + (m * Wu + r) * Nk + k] = s;
+        }
+        int p = 0;
+        for (int m = 0; m < K; ++m) {
+            for (int m2 = m + 1; m2 < K; ++m2, ++p) {
+                T s = T(0.0);
+                for (int d = 0; d < 2; ++d)
+                    for (int mu = 0; mu < Nmu; ++mu)
+                        s += a.wmuHalf[mu] * phiAt(m, d, mu)
+                             * phiAt(m2, d, mu) * a.psi[rayOff(d, mu)];
+                a.pair[G.pairOff + (p * Wu + r) * Nk + k] = s;
+            }
+        }
+    }
+
+    for (int m = 0; m < K; ++m) {
+        T acc[4] = {T(0.0), T(0.0), T(0.0), T(0.0)};
+        if (live) {
+            const int li = G.levels[m][0], lj = G.levels[m][1];
+            const size_t oi = (static_cast<size_t>(li) * Nlam + l) * Nk + k;
+            const size_t oj = (static_cast<size_t>(lj) * Nlam + l) * Nk + k;
+            const int mkI = G.masks[m][0], mkJ = G.masks[m][1],
+                      mkU = G.masks[m][2];
+            const T wl = a.coef[G.coefOff + (m * Wu + r) * 4 + 3]
+                         * a.wphi[G.wphiOff + m * Nk + k];
+            const T etaCb =
+                a.etaC[(static_cast<size_t>(G.atom) * Nlam + l) * Nk + k];
+            for (int d = 0; d < 2; ++d) {
+                for (int mu = 0; mu < Nmu; ++mu) {
+                    const T w = a.wmuHalf[mu];
+                    const size_t off = rayOff(d, mu);
+                    const T ps = a.psi[off];
+                    T etaA = etaCb;
+                    T chi_i = a.chiCL[oi], chi_j = a.chiCL[oj];
+                    T U_i = a.UCL[oi], U_j = a.UCL[oj];
+                    T v1m = T(0.0), v2m = T(0.0);
+                    for (int m2 = 0; m2 < K; ++m2) {
+                        const T v1 = cf[m2 * BW * 3] * phiAt(m2, d, mu);
+                        const T v2 = cf[m2 * BW * 3 + 1] * v1
+                            * a.rho[G.rhoOff + (m2 * Wu + r) * Nk + k];
+                        const T nI = a.n[G.levels[m2][0] * Nk + k];
+                        const T nJ = a.n[G.levels[m2][1] * Nk + k];
+                        const T chiM = nI * v1 - nJ * v2;
+                        const T u2 = cf[m2 * BW * 3 + 2] * v2;
+                        etaA = etaA + nJ * u2;
+                        if (bit(mkI, m2)) chi_i += chiM;
+                        if (bit(mkI, 16 + m2)) chi_i -= chiM;
+                        if (bit(mkJ, m2)) chi_j += chiM;
+                        if (bit(mkJ, 16 + m2)) chi_j -= chiM;
+                        if (bit(mkU, m2)) U_i += u2;
+                        if (bit(mkU, 16 + m2)) U_j += u2;
+                        if (m2 == m) {
+                            v1m = v1;
+                            v2m = v2;
+                        }
+                    }
+                    const T Ieff = a.ieffb[off] + ps * (a.src[off] - etaA);
+                    const T Iw = a.I[off];
+                    const T u2m = cf[m * BW * 3 + 2] * v2m;
+                    const T wlw = w * wl;
+                    acc[0] += ((u2m + v2m * Ieff) - ps * chi_i * U_j) * wlw;
+                    acc[1] += (v1m * Ieff - ps * chi_j * U_i) * wlw;
+                    acc[2] += Iw * v1m * wlw;
+                    acc[3] += (u2m + Iw * v2m) * wlw;
+                }
+            }
+        }
+        for (int c = 0; c < 4; ++c) sRed[(c * BW + ty) * TK + tx] = acc[c];
+        __syncthreads();
+        if (t < 4 * TK) {
+            const int c = t / TK, kk = t % TK, kq = tile * TK + kk;
+            if (kq < Nk) {
+                T s = T(0.0);
+                for (int rr = 0; rr < BW; ++rr)
+                    s += sRed[(c * BW + rr) * TK + kk];
+                a.G4[G.g4Off + ((m * 4 + c) * G.nBlk + blk) * Nk + kq] = s;
+            }
+        }
+        __syncthreads();   // sRed is the next member's
+    }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(BW * TK)
     line_gamma_kernel(Args<T> a, const int* __restrict__ groups,
@@ -264,7 +402,7 @@ __global__ void __launch_bounds__(BW * TK)
         case 2: line_block<T, 2>(a, sG, item[1], item[2], sm); break;
         case 3: line_block<T, 3>(a, sG, item[1], item[2], sm); break;
         case 4: line_block<T, 4>(a, sG, item[1], item[2], sm); break;
-        default: break;
+        default: line_block_any<T>(a, sG, item[1], item[2], sm); break;
     }
 }
 
@@ -273,7 +411,15 @@ int launch(const Args<T>& a, const int* groups, const int* items,
            int nItems, int maxK, void* stream) {
     if (maxK < 1 || maxK > KMAX || nItems < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(T) * (4 * maxK * BW * TK + 3 * maxK * BW);
+    // the templated paths' slab for the groups of K <= KTPL, the runtime
+    // path's for larger ones: at most 33.5 KB (float64, K = KTPL), under
+    // the 48 KB a launch may take without opting in
+    const int kT = maxK < KTPL ? maxK : KTPL;
+    size_t smem = sizeof(T) * (4 * kT * BW * TK + 3 * kT * BW);
+    if (maxK > KTPL) {
+        const size_t any = sizeof(T) * (3 * maxK * BW + 4 * BW * TK);
+        smem = any > smem ? any : smem;
+    }
     line_gamma_kernel<T><<<nItems, dim3(TK, BW), smem,
                            static_cast<cudaStream_t>(stream)>>>(a, groups,
                                                                 items);

@@ -27,11 +27,17 @@ float64 in both, the working-type products w I summed in a double
 accumulator (ops/sweep.py: the contract of the JAX kernel's TwoSum pair);
 the other moments are in the working type.  A CUDA tensor launches the
 instance of its dtype or raises.
+
+The kernel is the sweep kernel's body (csrc/sweep_row.cuh: one block per
+lambda row, a warp per ray along depth, moments in the same pass) with
+each lane assembling chi and srcNum of its depth from the slots; it takes
+the shapes the sweep kernel takes (any Nmu, Nk up to the shared memory of
+ops/sweep.py:smem_bytes).
 """
 import torch
 
 from . import _build
-from .sweep import formal_solve_sweep_plain
+from .sweep import check_smem, formal_solve_sweep_plain
 
 BC_KINDS = {'zero': 0, 'therm': 1, 'data': 2}
 
@@ -156,8 +162,8 @@ def fused_lambda_step(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz,
 def load_library():
     """Build csrc/fused.cu with nvcc (once per source hash) and load it."""
     return _build.load('fused', {
-        'lw_fused_f64': [_build.PTR] * 17 + [_build.INT] * 7 + [_build.PTR],
-        'lw_fused_f32': [_build.PTR] * 18 + [_build.INT] * 7 + [_build.PTR]})
+        'lw_fused_f64': [_build.PTR] * 17 + [_build.INT] * 6 + [_build.PTR],
+        'lw_fused_f32': [_build.PTR] * 18 + [_build.INT] * 6 + [_build.PTR]})
 
 
 def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
@@ -176,6 +182,7 @@ def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
     if not all(x.is_contiguous() for x in ins + bcs):
         raise ValueError('the fused kernel takes contiguous tensors')
     C, _, NL, Nmu, Nk = phiP.shape
+    check_smem(phiP.dtype, Nmu, Nk)
     dh = torch.abs(height[:-1] - height[1:]).contiguous()
     muz = muz.contiguous()
     wmuHalf = (0.5 * wmu).contiguous()
@@ -184,7 +191,6 @@ def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
     J = phiP.new_empty((NL, Nk), dtype=torch.float64)
     PsiBar, IeffSrcBar = (phiP.new_empty((NL, Nk)) for _ in range(2))
     IBar = phiP.new_empty((NL, Nk)) if f32 else J
-    rowsPerBlock = max(1, 32 // (2 * Nmu))
     lib = load_library()
     rowPtrs = [J.data_ptr(), PsiBar.data_ptr()] + (
         [IBar.data_ptr()] if f32 else []) + [IeffSrcBar.data_ptr()]
@@ -194,7 +200,7 @@ def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
         *(None if rows is None else rows.data_ptr()
           for _, rows in (upper, lower)),
         I.data_ptr(), Psi.data_ptr(), IeffBase.data_ptr(), *rowPtrs, C, NL,
-        Nmu, Nk, BC_KINDS[upper[0]], BC_KINDS[lower[0]], rowsPerBlock,
+        Nmu, Nk, BC_KINDS[upper[0]], BC_KINDS[lower[0]],
         _build.cuda_stream(phiP))
     _build.check_launch(err, 'fused')
     if f32:

@@ -31,6 +31,9 @@ a group's profiles [K, 2, Wu, Nmu, Nk] with zeros outside each member's
 own window.  Where the JAX kernel takes S and chiTot, this one takes
 srcNum (= S chiTot to one rounding), which the gather emits.
 
+Groups of up to KMAX = 16 lines: the kernel has paths templated on K =
+1..4 and one where K is a runtime value; a larger group raises.
+
 Two instances, float64 and float32 (the f32 state).  In float32 G4 holds
 float partials of at most BW rows x 2 Nmu rays, as the TPU kernel's; the
 caller finishes the lambda sum in float64.  A CUDA tensor launches the
@@ -45,10 +48,10 @@ from . import _build
 
 BW = 8         # rows per lambda block of G4
 TK = 32        # depths per thread block of the kernel
-KMAX = 4       # largest group the kernel is instantiated for (Mg II's)
+KMAX = 16      # largest group the kernel's table holds (csrc/gamma.cu)
 # int32 fields per group of the kernel's table (csrc/gamma.cu:LineGroup):
-# K, row0, Wu, nBlk, atom, seven offsets, levels[4][2], masks[4]
-_META = 24
+# K, row0, Wu, nBlk, atom, seven offsets, levels[KMAX][2], masks[KMAX][3]
+_META = 12 + 5 * KMAX
 
 
 def line_groups(atom) -> List[List[int]]:
@@ -200,18 +203,20 @@ class LineGroup(NamedTuple):
 
 
 def _masks(st: GroupStatics):
-    """csrc/gamma.cu:LineGroup.masks: per member m, the signs and U
-    memberships of the other members m2 as bits."""
+    """csrc/gamma.cu:LineGroup.masks: per member m, three int32 words whose
+    bit m2 of the low / high 16 bits says: word 0, member m2's chi enters
+    member m's chi_i with + / -; word 1, the same for chi_j; word 2, member
+    m2's Uji is in U_i / U_j."""
+    def word(lo, hi):
+        w = sum(int(b) << m2 for m2, b in enumerate(lo)) \
+            | sum(int(b) << (16 + m2) for m2, b in enumerate(hi))
+        return w - (1 << 32) if w >= 1 << 31 else w
     out = []
-    for m in range(len(st.levels)):
-        b = 0
-        for m2, ((sI, sJ), (inI, inJ)) in enumerate(zip(st.signs[m],
-                                                        st.uIn[m])):
-            b |= ((sI > 0) << m2 | (sI < 0) << (4 + m2)
-                  | (sJ > 0) << (8 + m2) | (sJ < 0) << (12 + m2)
-                  | bool(inI) << (16 + m2) | bool(inJ) << (20 + m2))
-        out.append(b)
-    return out + [0] * (KMAX - len(out))
+    for signs, uIn in zip(st.signs, st.uIn):
+        out += [word([sI > 0 for sI, _ in signs], [sI < 0 for sI, _ in signs]),
+                word([sJ > 0 for _, sJ in signs], [sJ < 0 for _, sJ in signs]),
+                word([i for i, _ in uIn], [j for _, j in uIn])]
+    return out + [0] * (3 * KMAX - len(out))
 
 
 def _flat(xs):

@@ -11,7 +11,8 @@ down sweep from the upper boundary, d = 1 the up sweep from the lower
 one), unpadded and contiguous.  S = srcNum / chi is formed inside.
 
 The kernel runs one block per lambda row and a warp per ray, parallel
-along depth: it sums the recurrence in the order of
+along depth (past 16 rays per direction the warps take the rays in
+passes, so any Nmu is taken): it sums the recurrence in the order of
 ops/formal_solver.py:affine_solve(mode='chunked'), the plain version in
 the sequential order.
 
@@ -118,15 +119,36 @@ def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu):
 
 
 MAX_SMEM = 232448      # bytes of shared memory an H100 block may have
+MAX_RAYS_PER_PASS = 32   # warps of a 1024-thread block
+
+
+def rays_per_pass(Nmu):
+    """Warps of a block of the sweep and fused kernels
+    (csrc/sweep_row.cuh:rays_per_pass): the 2 Nmu rays of a row in the
+    fewest passes of at most MAX_RAYS_PER_PASS warps, split evenly."""
+    passes = -(-2 * Nmu // MAX_RAYS_PER_PASS)
+    return -(-2 * Nmu // passes)
 
 
 def smem_bytes(dtype, Nmu, Nk):
-    """The kernel's dynamic shared memory per block (csrc/sweep.cu:
-    smem_bytes): J's [2][Nk] doubles, the [2][2 or 3][Nk] moment
-    accumulators and two [3][2 Nmu][32] tiles of the working type."""
+    """The dynamic shared memory per block of the sweep and fused kernels
+    (csrc/sweep_row.cuh:smem_bytes): J's [2][Nk] doubles, the [2][2 or
+    3][Nk] moment accumulators and two [3][R][32] tiles of the working
+    type, R = rays_per_pass(Nmu)."""
     item = 4 if dtype == torch.float32 else 8
     nAcc = 3 if dtype == torch.float32 else 2
-    return 16 * Nk + item * 2 * nAcc * Nk + item * 2 * 3 * 2 * Nmu * 32
+    return (16 * Nk + item * 2 * nAcc * Nk
+            + item * 2 * 3 * 32 * rays_per_pass(Nmu))
+
+
+def check_smem(dtype, Nmu, Nk):
+    """Raise ValueError, naming the limit, where one lambda row's block
+    needs more shared memory than an H100 block may have."""
+    need = smem_bytes(dtype, Nmu, Nk)
+    if need > MAX_SMEM:
+        raise ValueError(f'Nk={Nk}, Nmu={Nmu} needs {need} bytes of shared '
+                         f'memory per block, more than the {MAX_SMEM} an '
+                         f'H100 block may have')
 
 
 def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
@@ -146,13 +168,7 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     iupw = torch.stack([IupwD, IupwU]).contiguous()
     wmuHalf = (0.5 * wmu).contiguous()
     muz = muz.contiguous()
-    if 64 * Nmu > 1024:
-        raise ValueError(f'the sweep kernel takes up to 16 rays per '
-                         f'direction (one warp each), got Nmu={Nmu}')
-    if smem_bytes(chi.dtype, Nmu, Nk) > MAX_SMEM:
-        raise ValueError(f'Nk={Nk} needs {smem_bytes(chi.dtype, Nmu, Nk)} '
-                         f'bytes of shared memory per block, more than the '
-                         f'{MAX_SMEM} an H100 block may have')
+    check_smem(chi.dtype, Nmu, Nk)
     I, Psi, IeffBase = (torch.empty_like(chi) for _ in range(3))
     J = chi.new_empty((NL, Nk), dtype=torch.float64)
     PsiBar, IeffSrcBar = (chi.new_empty((NL, Nk)) for _ in range(2))

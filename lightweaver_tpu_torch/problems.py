@@ -81,13 +81,14 @@ def _smooth(x, w=9):
 
 
 # (i, j) of the members of random_line_group, sharing levels so that every
-# level sum has several terms
-_GROUP_LEVELS = ((0, 1), (0, 2), (1, 2), (2, 3))
+# level sum has several terms (the first K of them; levels 0-4)
+_GROUP_LEVELS = ((0, 1), (0, 2), (1, 2), (2, 3), (0, 3), (1, 3), (3, 4),
+                 (2, 4))
 
 
 def random_line_group(K: int, Nlam: int, Nmu: int, Nk: int, row0: int,
                       Wu: int, seed: int = 0, Nlev: int = 5) -> dict:
-    """A random same-atom group of K <= 4 overlapping lines on the window
+    """A random same-atom group of K <= 8 overlapping lines on the window
     [row0, row0 + Wu) as numpy arrays keyed as the arguments of
     ops.gamma.group_gamma_rates (plus 'levels'): member m's profile and
     coefficient rows are zero outside its own sub-window, rho != 1."""

@@ -1,5 +1,5 @@
-"""Device time per call of the line Gamma and depth-sweep kernels, read
-from torch.profiler (the sum of the kernels' CUDA durations, not events
+"""Device time per call of the line Gamma, depth-sweep and fused kernels,
+read from torch.profiler (the sum of the kernels' CUDA durations, not events
 around Python loops), on the shapes of lightweaver_tpu_torch's main path.
 
     python3 scripts/torch_kernel_times.py [--root TREE] [--reps N]
@@ -16,6 +16,9 @@ Rows, each in float64 and float32:
   prd_redistribute (rho != 1, Mg II's K = 4 group) and FALC-500; the
   kernel's device time and launches per call, and the stage's host time
   (synchronised, mean over ``--reps`` calls);
+- fused: fused_lambda_step on the fused scheme's inputs of the same MALI
+  steps (C = 2 slots on falc_h6ca and FALC-500, C = 3 with rho != 1 on
+  falc_h6mg), device time and launches per call and the call's host time;
 - sweep: formal_solve_sweep on 1046 x 5 x 2 random rays at Nk = 82 and
   500 (problems.random_rays) and on falc_h6mg's 416-row PRD subset.
 
@@ -34,9 +37,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 PALLAS = 'mali_full_precond_pallas'
+FUSED = 'mali_full_precond_fused'
 # substrings of the kernels' symbol names
 GAMMA_KERNEL = 'gamma_kernel'
 SWEEP_KERNEL = 'sweep_kernel'
+FUSED_KERNEL = 'fused_kernel'
 
 
 def device_ms(cs, name, fn, pattern, reps):
@@ -81,23 +86,35 @@ def device_ms(cs, name, fn, pattern, reps):
 
 
 def line_rows(cs, dtype, reps):
-    """The line kernel stage of one MALI step on the three problems."""
+    """The line kernel stage and the fused kernel of one MALI step on the
+    three problems."""
     from lightweaver_tpu_torch.context import build_iteration_fn
     from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.ops import fused
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
     rows = []
+    f32 = '_f32' if dtype == torch.float32 else ''
 
-    def stage(label, ctx, params, src, rays):
+    def stage(label, ctx, params, src, rays, scaJ):
         it = build_iteration_fn(dataclasses.replace(ctx.cfg,
                                                     fsIterScheme=PALLAS))
         pack = it.pack(params)
         ms, n, host = device_ms(
-            cs, 'gamma_f32' if dtype == torch.float32 else 'gamma',
+            cs, 'gamma' + f32,
             lambda: it.line_kernel_stage(params, *rays[:3], src, pack),
             GAMMA_KERNEL, reps)
         rows.append(dict(kernel='line_gamma', problem=label,
                          dtype=str(dtype), device_ms=ms, launches=n,
                          stage_host_ms=host))
+        itF = build_iteration_fn(dataclasses.replace(ctx.cfg,
+                                                     fsIterScheme=FUSED))
+        args = itF.fused_inputs(params, scaJ, itF.pack(params))
+        ms, n, host = device_ms(cs, 'fused' + f32,
+                                lambda: fused.fused_lambda_step(*args),
+                                FUSED_KERNEL, reps)
+        rows.append(dict(kernel='fused', problem=f'{label}, C = '
+                         f'{args[0].shape[0]}', dtype=str(dtype),
+                         device_ms=ms, launches=n, call_host_ms=host))
     for label, atmos in (('falc_h6ca', Falc82), ('FALC-500',
                                                   lambda: falc_interpolated(
                                                       500))):
@@ -108,10 +125,11 @@ def line_rows(cs, dtype, reps):
         it = ctx._iter_fn
         scaJ = it.scaJ(params)
         chi, src = it.gather(params, scaJ)
-        stage(label, ctx, params, src, it.formal_solve(params, chi, src))
+        stage(label, ctx, params, src, it.formal_solve(params, chi, src),
+              scaJ)
         del ctx, params, chi, src
     ctx, params, scaJ, src, rays = cs.prd_state(dtype)
-    stage('falc_h6mg PRD', ctx, params, src, rays)
+    stage('falc_h6mg PRD', ctx, params, src, rays, scaJ)
     return rows, (ctx, params)
 
 

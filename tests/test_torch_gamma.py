@@ -48,11 +48,12 @@ def _jax_layout(x):
     return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
-@pytest.mark.parametrize('K', [1, 3])
+@pytest.mark.parametrize('K', [1, 3, 5, 6])
 def test_plain_group_kernel_matches_jax(K):
-    """K = 1, and K = 3 with three pair moments and rho != 1: block-summed
-    G4, PPB and PairPPB to 1e-12 of each output's maximum (the two sum
-    the same terms in another order)."""
+    """K = 1, K = 3 with three pair moments, and K = 5, 6 (past the
+    kernel's templated sizes) with 10 and 15, rho != 1: block-summed G4,
+    PPB and PairPPB to 1e-12 of each output's maximum (the two sum the
+    same terms in another order)."""
     Nlam, Nmu, Nk, row0, Wu = 64, 2, 12, 16, 32
     g = random_line_group(K, Nlam, Nmu, Nk, row0=row0, Wu=Wu, seed=K)
     levels = g.pop('levels')
@@ -231,21 +232,61 @@ def _jax_group(gargs, S, chiTot):
             PairPPB[:, win])
 
 
+def _check_table_records(table, Nmu, Nk):
+    """The table's groups sit end to end in the packed inputs and outputs;
+    its int32 records hold each group's sizes, offsets, stacked levels and
+    the sign and U bit masks of its statics (csrc/gamma.cu:LineGroup); one
+    work item per (group, row block, depth tile)."""
+    meta = table.meta.numpy()
+    assert meta.shape == (len(table.groups), 12 + 5 * tgamma.KMAX)
+    ends = dict.fromkeys(('phi', 'coef', 'wphi', 'rho', 'g4', 'ppb',
+                          'pair'), 0)
+    items = set()
+    for gi, g in enumerate(table.groups):
+        assert g.nBlk == -(-g.Wu // tgamma.BW)
+        P = max(1, g.K * (g.K - 1) // 2)
+        sizes = {'phi': g.K * 2 * g.Wu * Nmu * Nk, 'coef': g.K * g.Wu * 4,
+                 'wphi': g.K * Nk, 'rho': g.K * g.Wu * Nk,
+                 'g4': g.K * 4 * g.nBlk * Nk, 'ppb': g.K * g.Wu * Nk,
+                 'pair': P * g.Wu * Nk}
+        for key, size in sizes.items():
+            assert getattr(g, key + 'Off') == ends[key]
+            ends[key] += size
+        levels = [g.levOff + lv for ij in g.statics.levels for lv in ij]
+        nLev = 12 + 2 * tgamma.KMAX
+        assert list(meta[gi, :nLev]) == [
+            g.K, g.row0, g.Wu, g.nBlk, g.ai, g.phiOff, g.coefOff,
+            g.wphiOff, g.rhoOff, g.g4Off, g.ppbOff, g.pairOff] + \
+            levels + [0] * (2 * tgamma.KMAX - len(levels))
+        masks = meta[gi, nLev:].reshape(tgamma.KMAX, 3).astype(int)
+        assert not masks[g.K:].any()
+        for m in range(g.K):
+            for m2 in range(g.K):
+                sI, sJ = g.statics.signs[m][m2]
+                inI, inJ = g.statics.uIn[m][m2]
+                bits = [(masks[m, w] >> (h + m2)) & 1 for w in range(3)
+                        for h in (0, 16)]
+                assert bits == [sI > 0, sI < 0, sJ > 0, sJ < 0, inI, inJ]
+        items |= {(gi, b, t) for b in range(g.nBlk)
+                  for t in range(-(-Nk // tgamma.TK))}
+    assert tuple(table.sizes) == (ends['g4'], ends['ppb'], ends['pair'])
+    assert table.phi.numel() == ends['phi']
+    assert torch.equal(table.rho, torch.ones(ends['rho'],
+                                             dtype=table.rho.dtype))
+    got = [tuple(x) for x in table.items.numpy().tolist()]
+    assert len(got) == len(items) == table.nItems and set(got) == items
+
+
 def test_line_table_matches_groups(ctx, prd_ctx):
     """The table holds each active atom's line_groups in order, with
-    group_statics of the members, the atom's level offset in the stacked
-    rows, end-to-end offsets, the kernel's int32 group records and one
-    work item per (group, row block, depth tile)."""
+    group_statics of the members and the atom's level offset in the
+    stacked rows, and its records as _check_table_records says."""
     for c in (ctx, prd_ctx):
         table = line_pack(c.cfg, c.build_params())
         want = [(ai, tuple(g)) for ai, a in enumerate(c.activeAtoms)
                 for g in tgamma.line_groups(a)]
         assert [(g.ai, g.members) for g in table.groups] == want
-        meta = table.meta.numpy().reshape(len(want), -1)
-        ends = dict.fromkeys(('phi', 'coef', 'wphi', 'rho', 'g4', 'ppb',
-                              'pair'), 0)
-        items = set()
-        for gi, g in enumerate(table.groups):
+        for g in table.groups:
             a = c.activeAtoms[g.ai]
             ts = [a.trans[ti] for ti in g.members]
             assert g.statics == tgamma.group_statics(ts)
@@ -254,39 +295,55 @@ def test_line_table_matches_groups(ctx, prd_ctx):
             assert (g.K, g.row0, g.Wu) == (len(ts), min(t.Nblue for t in ts),
                                            max(t.Nred for t in ts)
                                            - min(t.Nblue for t in ts))
-            assert g.nBlk == -(-g.Wu // tgamma.BW)
-            P = max(1, g.K * (g.K - 1) // 2)
-            sizes = {'phi': g.K * 2 * g.Wu * c.cfg.Nmu * c.cfg.Nk,
-                     'coef': g.K * g.Wu * 4, 'wphi': g.K * c.cfg.Nk,
-                     'rho': g.K * g.Wu * c.cfg.Nk,
-                     'g4': g.K * 4 * g.nBlk * c.cfg.Nk,
-                     'ppb': g.K * g.Wu * c.cfg.Nk,
-                     'pair': P * g.Wu * c.cfg.Nk}
-            for key, size in sizes.items():
-                assert getattr(g, key[:-1] + key[-1] + 'Off'
-                               if key not in ('g4', 'ppb', 'pair')
-                               else key + 'Off') == ends[key]
-                ends[key] += size
-            levels = [g.levOff + lv for ij in g.statics.levels for lv in ij]
-            assert list(meta[gi, :20]) == [
-                g.K, g.row0, g.Wu, g.nBlk, g.ai, g.phiOff, g.coefOff,
-                g.wphiOff, g.rhoOff, g.g4Off, g.ppbOff, g.pairOff] + \
-                levels + [0] * (8 - len(levels))
-            for m in range(g.K):
-                mask = int(meta[gi, 20 + m])
-                for m2 in range(g.K):
-                    sI, sJ = g.statics.signs[m][m2]
-                    inI, inJ = g.statics.uIn[m][m2]
-                    bits = [(mask >> (b + m2)) & 1 for b in range(0, 24, 4)]
-                    assert bits == [sI > 0, sI < 0, sJ > 0, sJ < 0, inI, inJ]
-            items |= {(gi, b, t) for b in range(g.nBlk)
-                      for t in range(-(-c.cfg.Nk // tgamma.TK))}
-        assert tuple(table.sizes) == (ends['g4'], ends['ppb'], ends['pair'])
-        assert table.phi.numel() == ends['phi']
-        assert torch.equal(table.rho, torch.ones(ends['rho'],
-                                                 dtype=table.rho.dtype))
-        got = [tuple(x) for x in table.items.numpy().tolist()]
-        assert len(got) == len(items) == table.nItems and set(got) == items
+        _check_table_records(table, c.cfg.Nmu, c.cfg.Nk)
+
+
+def test_line_table_takes_a_group_of_six():
+    """A table of random groups of K = 2, 6 and 1 (the K = 6 one past the
+    kernel's templated sizes, 15 pair rows, members sharing five levels):
+    the statics of its members, its records, and the plain packed version
+    equal to the per-group one.  A group past KMAX raises."""
+    Nlam, Nmu, Nk = 48, 2, 40
+    groups, cases = [], []
+    for K, row0, Wu, seed in ((2, 3, 10, 1), (6, 10, 30, 2), (1, 40, 5, 3)):
+        g = random_line_group(K, Nlam, Nmu, Nk, row0=row0, Wu=Wu, seed=seed)
+        st = tgamma.group_statics([type('T', (), {'i': i, 'j': j})
+                                   for i, j in g['levels']])
+        t_ = torch.as_tensor
+        groups.append({'ai': 0, 'members': tuple(range(K)), 'row0': row0,
+                       'phi': t_(g['phi']), 'coef': t_(g['coef']),
+                       'wphi': t_(g['wphi']), 'statics': st})
+        cases.append(g)
+    table = tgamma.LineTable(groups, [5], Nmu, Nk)
+    assert [g.K for g in table.groups] == [2, 6, 1]
+    six = table.groups[1]
+    assert six.statics.levels == ((0, 1), (0, 2), (1, 2), (2, 3), (0, 3),
+                                  (1, 3))
+    # member (1, 2): chi_i (level 1) gains (1, 2) and (1, 3), loses (0, 1);
+    # chi_j (level 2) loses (0, 2), (1, 2), gains (2, 3)
+    assert six.statics.signs[2] == ((-1, 0), (0, -1), (1, -1), (0, 1),
+                                    (0, 0), (1, 0))
+    assert table.maxK == 6
+    assert [tuple(x) for x in table.items[:3].tolist()] == [
+        (1, 0, 0), (1, 0, 1), (1, 1, 0)]
+    _check_table_records(table, Nmu, Nk)
+
+    rays = {k: torch.as_tensor(cases[1][k]) for k in
+            ('Psi', 'IeffBase', 'I', 'srcNum', 'chiCL', 'UCL', 'n',
+             'wmuHalf')}
+    rho = torch.cat([torch.as_tensor(g['rho']).reshape(-1) for g in cases])
+    args = (table, rho, rays['Psi'], rays['IeffBase'], rays['I'],
+            rays['srcNum'], rays['chiCL'], rays['UCL'],
+            torch.as_tensor(cases[1]['etaC'])[None], rays['n'],
+            rays['wmuHalf'])
+    packed = table.views(*tgamma.line_gamma_rates(*args))
+    for gi, out in enumerate(packed):
+        ref = tgamma.group_gamma_rates(*table.group_args(gi, *args[1:]))
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        tgamma.LineTable([{**groups[1], 'phi': groups[1]['phi'].repeat(
+            3, 1, 1, 1, 1)}], [5], Nmu, Nk)
 
 
 @pytest.mark.parametrize('problem', ['falc_h6ca', 'falc_h6mg_prd'])

@@ -49,6 +49,37 @@ def test_sweep_moments_are_the_ray_sums():
         np.testing.assert_allclose(mom[name].numpy(), ref, rtol=1e-13)
 
 
+def test_sweep_and_fused_take_any_number_of_rays():
+    """Past 16 rays per direction the sweep and fused kernels take a
+    row's rays in passes of at most 32 warps (csrc/sweep_row.cuh): the
+    wrappers' block width and shared memory for Nmu = 17 and more, the
+    refusal past an H100 block's shared memory, and plain calls at
+    Nmu = 17 whose moments are the ray sums (1e-13)."""
+    assert [tsweep.rays_per_pass(n) for n in (1, 5, 16, 17, 32, 40)] == \
+        [2, 10, 32, 17, 32, 27]
+    assert tsweep.smem_bytes(torch.float64, 17, 500) == (
+        16 * 500 + 8 * 2 * 2 * 500 + 8 * 2 * 3 * 32 * 17)
+    assert tsweep.smem_bytes(torch.float32, 32, 82) == (
+        16 * 82 + 4 * 2 * 3 * 82 + 4 * 2 * 3 * 32 * 32)
+    tsweep.check_smem(torch.float64, 32, 3000)
+    with pytest.raises(ValueError, match='232448'):
+        tsweep.check_smem(torch.float64, 5, 5000)
+    c = _sweep_case(3, 17, 40, seed=17)
+    I, Psi, IeffB, mom = tsweep.formal_solve_sweep(**c)
+    assert I.shape == (2, 3, 17, 40)
+    w = 0.5 * c['wmu'].numpy()[None, None, :, None]
+    for name, x in (('J', I), ('PsiBar', Psi),
+                    ('IeffSrcBar', IeffB + Psi * c['srcNum'])):
+        ref = (x.numpy() * w).sum(axis=(0, 2))
+        np.testing.assert_allclose(mom[name].numpy(), ref, rtol=1e-13)
+    f = _slots_case(2, 'therm', 'data', NL=6, Nmu=17, Nk=40, seed=17)
+    I, Psi, IeffB, mom = tfused.fused_lambda_step(**f)
+    assert I.shape == (2, 6, 17, 40) and torch.isfinite(I).all()
+    ref = (I.numpy() * 0.5 * f['wmu'].numpy()[None, None, :, None]).sum(
+        axis=(0, 2))
+    np.testing.assert_allclose(mom['J'].numpy(), ref, rtol=1e-13)
+
+
 def test_sweep_checks_inputs():
     c = _sweep_case(4, 2, 10)
     with pytest.raises(ValueError, match='srcNum'):
@@ -207,9 +238,10 @@ def test_group_gamma_checks_inputs():
         tgamma.group_gamma_rates(**{**c, 'srcNum': c['srcNum'][:, :5]})
     with pytest.raises(ValueError, match='window'):
         tgamma.group_gamma_rates(**{**c, 'row0': 30})
+    # K = 2 (KMAX/2 + 1) members, past the kernel's bound
     with pytest.raises(ValueError, match='outside the kernel'):
-        tgamma.group_gamma_rates(**{**c, 'phi': c['phi'].repeat(3, 1, 1, 1,
-                                                                  1)})
+        tgamma.group_gamma_rates(**{**c, 'phi': c['phi'].repeat(
+            tgamma.KMAX // 2 + 1, 1, 1, 1, 1)})
 
 
 def test_fused_plain_is_assembly_then_sweep():
@@ -291,7 +323,7 @@ def test_probe_kernels_match_plain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('K', [1, 2, 4])
+@pytest.mark.parametrize('K', [1, 2, 4, 5, 6, 8])
 def test_group_gamma_kernel_matches_plain(K):
     """The line kernel against its plain version on the card: the same
     terms summed rows-then-rays instead of rays-then-rows, and FMA
@@ -526,7 +558,7 @@ def test_f32_sweep_kernel_matches_plain(Nk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('K', [1, 2, 4])
+@pytest.mark.parametrize('K', [1, 2, 4, 5, 6, 8])
 def test_f32_group_gamma_kernel_matches_plain(K):
     """The float32 line Gamma instance on the card by the rule of
     _f32_rule: float partials, G4 float32."""
@@ -629,3 +661,112 @@ def test_packed_line_kernel_matches_plain(dtype):
     ref = tgamma.line_gamma_rates_plain(table.to(torch.float64), *up)
     for k3, p3, r3 in zip(*(table.views(*x) for x in (kern, plain, ref))):
         _f32_rule(k3, p3, r3)
+
+
+RAY_COUNTS = [1, 5, 17, 32]
+RAY_NK = [3, 33, 500]
+DTYPES = [torch.float64, torch.float32]
+
+
+def _check_instance(kern, plain, ref, dtype, wmu):
+    """float64: every output within 1e-9 of the plain version's maximum
+    (the sweep's bar); float32: the rule of _f32_rule, J float64 and
+    equal to the float64 sum of the kernel's own float32 products w I to
+    1e-13 (mu ascending within a direction, then down + up)."""
+    if dtype == torch.float64:
+        for a, b in zip(_ray_list(kern), _ray_list(plain)):
+            assert _max_rel(a, b) < 1e-9
+        return
+    _f32_rule(_ray_list(kern), _ray_list(plain), _ray_list(ref))
+    w = 0.5 * wmu
+    own = [sum((w[m] * kern[0][d, :, m]).double()
+               for m in range(kern[0].shape[2])) for d in range(2)]
+    assert kern[3]['J'].dtype == torch.float64
+    assert _max_rel(kern[3]['J'], own[0] + own[1]) <= 1e-13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('Nk', RAY_NK)
+@pytest.mark.parametrize('Nmu', RAY_COUNTS)
+def test_sweep_kernel_takes_any_number_of_rays(Nmu, Nk, dtype):
+    """The sweep kernel against its plain version at 1 to 32 rays per
+    direction (17 and 32 in two passes of 17 and 32 warps) and at the
+    edges of its chunks, in each instance (_check_instance)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c = _sweep_case(64, Nmu, Nk, seed=Nmu + Nk, device='cuda')
+    ref = None
+    if dtype == torch.float32:
+        c, c64 = _f32_args(c)
+        ref = tsweep.formal_solve_sweep_plain(**c64)
+    attr = 'launches_f32' if dtype == torch.float32 else 'launches'
+    before = getattr(tsweep.sweep_cuda, attr)
+    kern = tsweep.formal_solve_sweep(**c)
+    torch.cuda.synchronize()
+    assert getattr(tsweep.sweep_cuda, attr) == before + 1
+    _check_instance(kern, tsweep.formal_solve_sweep_plain(**c), ref, dtype,
+                    c['wmu'])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('Nk', RAY_NK)
+@pytest.mark.parametrize('Nmu', RAY_COUNTS)
+def test_fused_kernel_takes_any_number_of_rays(Nmu, Nk, dtype):
+    """The fused kernel against its plain version at 1 to 32 rays per
+    direction, C = 1, 2 and 3 slots and each boundary kind at each end,
+    in each instance (_check_instance)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    attr = 'launches_f32' if dtype == torch.float32 else 'launches'
+    for C in (1, 2, 3):
+        for bcs in (('zero', 'therm'), ('therm', 'data'), ('data', 'zero')):
+            c = _slots_case(C, *bcs, device='cuda', NL=48, Nmu=Nmu, Nk=Nk,
+                            seed=C + Nmu + Nk)
+            ref = None
+            if dtype == torch.float32:
+                c, c64 = _f32_args(c)
+                ref = tfused.fused_lambda_step_plain(**c64)
+            before = getattr(tfused.fused_cuda, attr)
+            kern = tfused.fused_lambda_step(**c)
+            torch.cuda.synchronize()
+            assert getattr(tfused.fused_cuda, attr) == before + 1
+            _check_instance(kern, tfused.fused_lambda_step_plain(**c), ref,
+                            dtype, c['wmu'])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES)
+def test_twenty_rays_on_cuda_under_each_scheme(scheme):
+    """falc_h6mg (20 depths) with 20 rays, past one pass of the sweep and
+    fused kernels: a MALI step, stat_equil and one prd_redistribute on
+    the card go through the scheme's kernels (the PRD subset solve
+    through the sweep), and J and rho agree with the CPU's to 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6mg_context
+
+    def run(device):
+        ctx = h6mg_context(falc_interpolated(20), 20, device=device)
+        ctx.set_fs_iter_scheme(scheme)
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+        ctx.prd_redistribute(maxIter=1)
+        return ctx
+    counts = (tsweep.sweep_cuda, tgamma.line_gamma_rates_cuda,
+              tfused.fused_cuda)
+    before = [fn.launches for fn in counts]
+    gpu = run('cuda')
+    torch.cuda.synchronize()
+    assert gpu.cfg.Nmu == 20
+    got = tuple(fn.launches - b for fn, b in zip(counts, before))
+    assert got == {'mali_full_precond': (2, 0, 0),
+                   'mali_full_precond_pallas': (2, 1, 0),
+                   'mali_full_precond_fused': (1, 0, 1)}[scheme]
+    cpu = run('cpu')
+    J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
+    err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
+    assert err.max() < 1e-9
+    for ai, ti, _, _ in cpu._prd_lines():
+        assert _max_rel(gpu.rhoPrd[ai][ti].cpu(), cpu.rhoPrd[ai][ti]) < 1e-9
