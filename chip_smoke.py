@@ -46,7 +46,29 @@ result):
    (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
    sub-iterations, wall time and launch counts; the kernel schemes must
    refuse hybrid PRD.  Then a stage breakdown of one PRD iteration.
-9. The float32 state (dtype=torch.float32, J/Gamma/rates in float64):
+9. The population-update options, in float64.  (a) falc_multi_ng
+   (BASELINE config 2: FAL-C, H 6-level + Ca II + Na I active, Mg II
+   passive, 5 rays, Ng(2, 5, 50) on the populations): its inputs against
+   the golden file; the sweep, line Gamma (three atoms' groups, Na I
+   D1/D2 one K = 2 group) and fused kernels against their plain versions
+   on one iteration's inputs after 3 MALI steps, with times and bounds;
+   converged under each scheme against its golden run
+   (tests/golden/falc_multi_ng_ref.npz: 221 iterations, populations
+   within 1e-6, J and I within 3e-6), the dJ and dPops histories beside
+   the golden file's with the iterations Ng extrapolated, and launch
+   counts; Ng(2, 5, 10) must raise ExplodingMatrixError.  (b) On phase 5's
+   converged falc_h6ca: the finite-difference dC/dne against
+   falc_h6ca_nr_inputs.npz (1e-10) and one raw Newton-Raphson charge-
+   conservation step against the compiled reference's
+   (falc_h6ca_nr_ref.npz: populations within 1e-7, ne within 1e-9); then
+   falc_h6ca with conserveCharge=True for 3 MALI steps whose stat_equil
+   runs the NR step, card against CPU.  (c) falc_ca_timedep (Ca II active, 546
+   wavelengths): 6 backward-Euler steps of 0.2 s under each scheme
+   against the golden run (populations per step within 1e-6, J within
+   1e-7).  (d) The escape-probability start of the 30-depth Ca II problem
+   on the card against the CPU (1e-10), and the iterations to converge
+   from it and from LTE.
+10. The float32 state (dtype=torch.float32, J/Gamma/rates in float64):
    (a) the float32 instances against their plain versions, every output
    held to err(kernel f32, plain f64) <= 2 err(plain f32, plain f64) +
    1e-6 with plain f64 on the same inputs, and J to the float64 sum of
@@ -64,7 +86,7 @@ result):
    against the golden file (rows brighter than 1e-3 of the peak within
    6.5e-2, median within 5e-3), the populations' largest error, and the
    float32 instances' launches.
-10. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
+11. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
    bench.py's problem) under each scheme, float64 then float32: best of 3
    blocks of formal_sol_gamma_matrices iterations (50 for the default
    scheme, 20 for the others) and a per-stage breakdown.
@@ -73,12 +95,12 @@ Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
 plain versions' are CUDA events around their calls.  The kernels' JSON record holds phase
 7's errors and times and phase 8's launch counts for the float64
-instances (the PRD path), phase 9 (a)'s falc_h6ca errors and times and
+instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, and the probes'; each with the
 least time the card could take for its inputs (bound_ms) and, where one
-PyTorch call computes the same function, that call's time.  The last three lines are the card's name and power
-limit as nvidia-smi prints them, the kernels' JSON record and the ok
-line.
+PyTorch call computes the same function, that call's time.  The last four
+lines are the total wall time, the card's name and power limit as
+nvidia-smi prints them, the kernels' JSON record and the ok line.
 """
 import dataclasses
 import json
@@ -116,6 +138,11 @@ def relerr(ours, ref):
     ours = np.asarray(ours)
     ref = np.asarray(ref)
     return float((np.abs(ours - ref) / np.abs(ref).clip(1e-300)).max())
+
+
+def golden(name):
+    """The golden file tests/golden/<name>.npz."""
+    return np.load(ROOT / 'tests' / 'golden' / f'{name}.npz')
 
 
 def cuda_ms(fn, reps):
@@ -718,7 +745,7 @@ def converge_falc_h6ca(scheme):
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.fal import Falc82
     from lightweaver_tpu_torch.problems import h6ca_context
-    ref = np.load(ROOT / 'tests' / 'golden' / 'falc_h6ca_ref.npz')
+    ref = golden('falc_h6ca_ref')
     t0 = time.perf_counter()
     ctx = h6ca_context(Falc82(), 5, device='cuda')
     if scheme is not None:
@@ -757,11 +784,14 @@ def converge_falc_h6ca(scheme):
 
 
 def main_path():
+    """falc_h6ca under the default scheme; returns the converged Context
+    (the charge-conservation phase steps it on)."""
     phase('main path: falc_h6ca on the card vs the golden reference')
-    _, nIter, counts = converge_falc_h6ca(None)
+    ctx, nIter, counts = converge_falc_h6ca(None)
     if counts['sweep'] < nIter:
         raise AssertionError(f'sweep kernel launched {counts["sweep"]} '
                              f'times in {nIter} iterations')
+    return ctx
 
 
 def scheme_paths():
@@ -858,7 +888,7 @@ def converge_h6mg(scheme, hprd=False):
     name = 'hprd' if hprd else 'prd'
     phase(f'falc_h6mg {name.upper()} under {scheme}: converged on the card '
           'vs the golden reference')
-    ref = np.load(ROOT / 'tests' / 'golden' / f'falc_h6mg_{name}_ref.npz')
+    ref = golden(f'falc_h6mg_{name}_ref')
     t0 = time.perf_counter()
     ctx = h6mg_context(hprd=hprd, device='cuda')
     ctx.set_fs_iter_scheme(scheme)
@@ -1046,6 +1076,358 @@ def falc500(scheme, dtype, nIter):
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
     del ctx, it, params
     torch.cuda.empty_cache()
+
+
+# ---- the population-update options (float64) ---------------------------
+# falc_multi_ng's bars against its golden run, the JAX package's (Ng's
+# extrapolations compound rounding differences: pops ~1e-7, J/I ~3e-7)
+NG_POPS_RTOL, NG_JI_RTOL = 1e-6, 3e-6
+# BASELINE config 2's Ng, and the delay at which it explodes
+NG_OPTIONS, NG_EARLY = (2, 5, 50), (2, 5, 10)
+# the golden falc_h6ca_nr step: dC/dne, populations, ne; NR in
+# stat_equil on the card against the CPU (the stat-eq and NR solves
+# amplify the kernels' ~1e-12 differences of Gamma)
+NR_DC_RTOL, NR_POPS_RTOL, NR_NE_RTOL = 1e-10, 1e-7, 1e-9
+NR_CARD_TOL = 1e-8
+# the golden falc_ca_timedep protocol: dt, steps, sub-iterations per step;
+# populations per step and the final J
+TD_PROTOCOL, TD_POPS_RTOL, TD_J_RTOL = (0.2, 6, 2), 1e-6, 1e-7
+# the escape-probability start on the card against the CPU (the same host
+# code: bit for bit expected)
+ESCAPE_TOL = 1e-10
+
+
+def multi_ng(ngOptions, scheme=None):
+    """falc_multi_ng on the card with Ng(*ngOptions) under ``scheme``."""
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.problems import multi_ng_context
+    ctx = multi_ng_context(NgOptions(*ngOptions), device='cuda')
+    if scheme is not None:
+        ctx.set_fs_iter_scheme(scheme)
+    return ctx
+
+
+def multi_ng_kernel_check():
+    """(a) falc_multi_ng's inputs against the golden file; then the three
+    kernels on the inputs of one iteration after 3 MALI steps with
+    stat_equil (line Gamma over the three atoms' groups, Na I D1/D2 a
+    K = 2 group; fused with the three atoms' slots; the sweep on the full
+    grid), each against its plain version; times and bounds."""
+    from lightweaver_tpu_torch.ops import sweep
+    from lightweaver_tpu_torch.ops.gamma import line_groups
+    phase('falc_multi_ng (BASELINE config 2: H 6 + Ca II + Na I active, '
+          'Mg II passive, Ng(2, 5, 50)): inputs and kernels vs their plain '
+          'versions after 3 MALI steps (f64)')
+    inputs = golden('falc_multi_ng_inputs')
+    ctx = multi_ng(NG_OPTIONS)
+    errs = {'wavelength': relerr(ctx.spect.wavelength, inputs['wavelength']),
+            'bg_chi': relerr(ctx.bgChi.cpu(), inputs['bg_chi'])}
+    for ia in range(3):
+        errs[f'atom{ia}_C'] = relerr(ctx.C[ia], inputs[f'atom{ia}_C'])
+        errs[f'atom{ia}_n0'] = relerr(ctx.popsState[ia]['n'].cpu(),
+                                      inputs[f'atom{ia}_n0'])
+    print('  inputs vs golden (max relative): '
+          + ', '.join(f'{k} {v:.1e}' for k, v in errs.items()))
+    if not max(errs.values()) < 1e-10:
+        raise AssertionError(f'falc_multi_ng inputs differ: {errs}')
+    for _ in range(3):
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+    params = ctx.build_params()
+    it = ctx._iter_fn
+    scaJ = it.scaJ(params)
+    chi, src = it.gather(params, scaJ)
+    args = it.sweep_inputs(params, chi, src)
+    plain = sweep.formal_solve_sweep_plain(*args)
+    rays = sweep.formal_solve_sweep(*args)
+    torch.cuda.synchronize()
+    rel, absErr = compare_outputs('falc_multi_ng sweep', RAY_NAMES,
+                                  ray_outputs(rays), ray_outputs(plain),
+                                  KERNEL_TOL)
+    print(f'  falc_multi_ng sweep (Nlam={ctx.cfg.Nlam}): max|kernel-plain|/'
+          f'max|plain| = {rel:.3e} (bar {KERNEL_TOL}), max abs {absErr:.3e}')
+    timed_pair('falc_multi_ng sweep, per call',
+               lambda: sweep.formal_solve_sweep(*args),
+               lambda: sweep.formal_solve_sweep_plain(*args),
+               SYMBOLS['sweep'], bnd=sweep_bound(args, rays))
+    check_line_kernel('falc_multi_ng', ctx, params, src, rays)
+    C = check_fused_args('falc_multi_ng', fused_args(ctx, params, scaJ))['C']
+    sizes = [[len(g) for g in line_groups(a)] for a in ctx.activeAtoms]
+    naD = (0, 1) in [tuple(g) for g in line_groups(ctx.activeAtoms[2])]
+    print(f'  line group sizes per atom {sizes}, Na I D1/D2 one K = 2 '
+          f'group: {naD}; fused slots C = {C}')
+    if not naD:
+        raise AssertionError('Na I D1/D2 are not one line group')
+    del ctx, params, rays, chi, src, args, plain
+    torch.cuda.empty_cache()
+
+
+def converge_multi_ng(scheme):
+    """(a) falc_multi_ng converged on the card under ``scheme`` through
+    iterate_ctx_se, against its golden run: iterations within
+    NITER_REF_SLACK of 221, populations within NG_POPS_RTOL, J and I
+    within NG_JI_RTOL; the dJ and dPops histories beside the golden
+    file's, with the iterations Ng extrapolated; launch counts.  Returns
+    the counts."""
+    phase(f'falc_multi_ng under {scheme}: converged on the card vs the '
+          'golden reference')
+    from lightweaver_tpu_torch import iterate_ctx_se
+    ref = golden('falc_multi_ng_ref')
+    ctx = multi_ng(NG_OPTIONS, scheme)
+    fsgm, se = ctx.formal_sol_gamma_matrices, ctx.stat_equil
+    dJ, dPops, accel = [], [], []
+
+    def fs():
+        upd = fsgm()
+        dJ.append(upd.dJMax)
+        return upd
+
+    def stat():
+        upd = se()
+        dPops.append(upd.dPopsMax)
+        if upd.ngAccelerated:
+            accel.append(len(dJ))
+        return upd
+    ctx.formal_sol_gamma_matrices, ctx.stat_equil = fs, stat
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del ctx.formal_sol_gamma_matrices, ctx.stat_equil
+    dJ = [float(x) for x in dJ]
+
+    errs = {f'pops_a{ia}': relerr(ctx.popsState[ia]['n'].cpu(),
+                                  ref[f'out_pops_a{ia}']) for ia in range(3)}
+    errs['J'] = relerr(ctx.J.cpu(), ref['out_J'])
+    errs['I'] = relerr(ctx.I.cpu(), ref['out_I'])
+    nIterRef = int(ref['out_niter'][0])
+    print(f'converged in {nIter} iterations (reference {nIterRef}); '
+          f'{wall:.2f} s, {wall / nIter * 1e3:.3f} ms/iter '
+          '(formal_sol_gamma_matrices + stat_equil with Ng, host clock)')
+    print('max relative error vs golden: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+    print(f'Ng extrapolated at iterations {accel}')
+    refDJ, refDPops = ref['out_dJ_hist'], ref['out_dPops_hist']
+    n = min(nIter, len(refDJ))
+    dJRel = np.abs(np.array(dJ[:n]) / refDJ[:n] - 1.0)
+    print(f'dJ history vs golden out_dJ_hist: max relative difference '
+          f'{dJRel[:50].max():.2e} over iterations 1-50 (before Ng), '
+          f'{dJRel.max():.2e} over 1-{n}')
+    print('  iteration: dJ (golden), dPops (golden)')
+    for i in list(range(0, n, 20)) + [n - 1]:
+        dp = dPops[i - 3] if i >= 3 else float('nan')
+        print(f'  {i + 1}: {dJ[i]:.4e} ({refDJ[i]:.4e}), {dp:.4e} '
+              f'({refDPops[i]:.4e})')
+    print('kernel launches over the run: '
+          + ', '.join(f'{k} {v}' for k, v in counts.items())
+          + f' ({nIter} formal_sol_gamma_matrices calls)')
+    if abs(nIter - nIterRef) > NITER_REF_SLACK:
+        raise AssertionError(f'{nIter} iterations vs reference {nIterRef}')
+    bars = {k: NG_POPS_RTOL if k.startswith('pops') else NG_JI_RTOL
+            for k in errs}
+    bad = {k: v for k, v in errs.items() if not v < bars[k]}
+    if bad or not accel:
+        raise AssertionError(f'golden mismatch: {bad}; Ng extrapolations '
+                             f'{accel}')
+    expected = {'mali_full_precond': dict(sweep=nIter, gamma=0, fused=0),
+                PALLAS: dict(sweep=nIter, gamma=nIter, fused=0),
+                FUSED: dict(sweep=0, gamma=0, fused=nIter)}[scheme]
+    got = {k: counts[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f'launches {got}, expected {expected}')
+    return counts
+
+
+def multi_ng_early_ng_raises():
+    """(a) Ng at Ndelay = 10 extrapolates falc_multi_ng's pre-asymptotic
+    iterates to negative populations and the solve goes singular, in the
+    compiled reference and the JAX package: ExplodingMatrixError."""
+    from lightweaver_tpu_torch import ExplodingMatrixError, iterate_ctx_se
+    phase('falc_multi_ng with Ng(2, 5, 10) under the default scheme: '
+          'ExplodingMatrixError expected')
+    ctx = multi_ng(NG_EARLY)
+    calls = []
+    fsgm = ctx.formal_sol_gamma_matrices
+
+    def counted():
+        calls.append(1)
+        return fsgm()
+    ctx.formal_sol_gamma_matrices = counted
+    try:
+        iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    except ExplodingMatrixError as e:
+        print(f'  ExplodingMatrixError at MALI step {len(calls)}: {e}')
+        return
+    raise AssertionError('Ng(2, 5, 10) on falc_multi_ng did not raise')
+
+
+def nr_check(ctx):
+    """(b) On the main path's converged falc_h6ca: the finite-difference
+    dC/dne against falc_h6ca_nr_inputs.npz, then one raw Newton-Raphson
+    step (nr_post_update(stepLimit=False)) against the compiled
+    reference's (falc_h6ca_nr_ref.npz).  Then charge conservation as a
+    user runs it: falc_h6ca with conserveCharge=True on the card and on
+    the CPU, 3 Lambda iterations and 3 MALI steps whose stat_equil runs
+    the (step-limited) NR step; populations, ne and nStar card against
+    CPU (NR_CARD_TOL), one sweep launch per MALI step."""
+    from lightweaver_tpu_torch import Context, Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    phase('charge conservation: one raw Newton-Raphson step on the '
+          'converged falc_h6ca (f64) vs the golden step, then NR in '
+          'stat_equil card vs CPU')
+    inputs, ref = golden('falc_h6ca_nr_inputs'), golden('falc_h6ca_nr_ref')
+    dCs = ctx._fd_dC(ctx.cfg.activeAtoms, [0, 1], 1.0)
+    errs = {f'dC_a{ia}': relerr(dCs[ia].cpu(), inputs[f'atom{ia}_dC'])
+            for ia in range(2)}
+    ne0 = ctx.atmos.ne.copy()
+    t0 = time.perf_counter()
+    dNe = ctx.nr_post_update(fdCollisionRates=True, stepLimit=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for ia in range(2):
+        errs[f'pops_a{ia}'] = relerr(ctx.popsState[ia]['n'].cpu(),
+                                     ref[f'out_nr_pops_a{ia}'])
+    errs['ne'] = relerr(ctx.atmos.ne, ref['out_nr_ne'])
+    print(f'  raw NR step in {wall * 1e3:.1f} ms (host clock, the dC/dne '
+          f'included): dNeMax {dNe:.4e}, ne moved up to '
+          f'{np.abs(ctx.atmos.ne / ne0 - 1.0).max():.3e}')
+    print('  max relative error vs golden: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+    bars = {k: NR_DC_RTOL if k.startswith('dC') else
+            NR_POPS_RTOL if k.startswith('pops') else NR_NE_RTOL
+            for k in errs}
+    bad = {k: v for k, v in errs.items() if not v < bars[k]}
+    if bad:
+        raise AssertionError(f'NR step vs golden: {bad}')
+
+    ctxs = []
+    for d in ('cpu', 'cuda'):
+        base = h6ca_context(Falc82(), 5, device='cpu')
+        ctxs.append(Context(base.atmos, base.spect, base.eqPops,
+                            conserveCharge=True, device=d))
+    reset_counts()
+    t0 = time.perf_counter()
+    dNes = []
+    for it in range(6):
+        for c in ctxs:
+            c.formal_sol_gamma_matrices()
+        if it >= 3:
+            dNes.append([c.stat_equil().dNeMax for c in ctxs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    cpu, gpu = ctxs
+    errs = {'ne': relerr(gpu.atmos.ne, cpu.atmos.ne)}
+    for ia in range(2):
+        errs[f'pops_a{ia}'] = relerr(gpu.popsState[ia]['n'].cpu(),
+                                     cpu.popsState[ia]['n'])
+        errs[f'nStar_a{ia}'] = relerr(gpu.popsState[ia]['nStar'].cpu(),
+                                      cpu.popsState[ia]['nStar'])
+    print('  conserveCharge=True, 3 MALI steps with NR: dNeMax card / CPU '
+          + ', '.join(f'{g:.4e} / {c:.4e}' for c, g in dNes)
+          + '; card vs CPU ' + ', '.join(f'{k} {v:.2e}'
+                                          for k, v in errs.items())
+          + f' (bar {NR_CARD_TOL}); {wall:.2f} s for both; launches sweep '
+          f'{counts["sweep"]}')
+    if not max(errs.values()) < NR_CARD_TOL or counts['sweep'] != 6:
+        raise AssertionError(f'NR in stat_equil: card vs CPU {errs}, '
+                             f'launches {counts}')
+
+
+def timedep_check(scheme):
+    """(c) The golden backward-Euler protocol (falc_ca_timedep: Ca II
+    active, 546 wavelengths) on the card under ``scheme``: 3 Lambda
+    iterations, then 6 steps of dt = 0.2 s with 2 sub-iterations each;
+    populations at the end of each step and the final J against the
+    compiled reference's; one kernel launch per MALI step."""
+    from lightweaver_tpu_torch.problems import timedep_context
+    ref = golden('falc_ca_timedep_ref')
+    dt, nStep, nSub = TD_PROTOCOL
+    ctx = timedep_context(device='cuda')
+    ctx.set_fs_iter_scheme(scheme)
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ctx.formal_sol_gamma_matrices()
+    errs = []
+    for step in range(nStep):
+        prev = [st['n'] for st in ctx.popsState]
+        for _ in range(nSub):
+            ctx.formal_sol_gamma_matrices()
+            ctx.time_dep_update(dt, prev)
+        errs.append(relerr(ctx.popsState[0]['n'].cpu(),
+                           ref[f'out_td_step{step}_a0']))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    jErr = relerr(ctx.J.cpu(), ref['out_J'])
+    nFs = 3 + nStep * nSub
+    print(f'  {scheme}: populations per step vs golden '
+          + ', '.join(f'{e:.2e}' for e in errs)
+          + f' (bar {TD_POPS_RTOL}); J {jErr:.2e} (bar {TD_J_RTOL}); '
+          f'{wall:.2f} s for {nFs} MALI steps; launches '
+          + ', '.join(f'{k} {counts[k]}' for k in ('sweep', 'gamma',
+                                                   'fused')))
+    if not (max(errs) < TD_POPS_RTOL and jErr < TD_J_RTOL):
+        raise AssertionError(f'falc_ca_timedep under {scheme} vs golden')
+    expected = {'mali_full_precond': dict(sweep=nFs, gamma=0, fused=0),
+                PALLAS: dict(sweep=nFs, gamma=nFs, fused=0),
+                FUSED: dict(sweep=0, gamma=0, fused=nFs)}[scheme]
+    got = {k: counts[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f'launches {got}, expected {expected}')
+
+
+def escape_inputs():
+    """tests/test_escape_probability.py's problem: FAL-C decimated to 30
+    depths, 3 rays, H 6-level + Ca II with Ca II active."""
+    from lightweaver_tpu_torch import CaII_atom, H_6_atom, RadiativeSet
+    from lightweaver_tpu_torch.problems import falc_decimated
+    atmos = falc_decimated(30)
+    atmos.quadrature(3)
+    rs = RadiativeSet([H_6_atom(), CaII_atom()])
+    rs.set_active('Ca')
+    spect = rs.compute_wavelength_grid()
+    return atmos, spect, rs.compute_eq_pops(atmos)
+
+
+def escape_check():
+    """(d) The escape-probability start on the card against the CPU's
+    (ESCAPE_TOL), then iterate_ctx_se on the card from it and from the
+    LTE start: the iteration counts, and the sweep launched once per MALI
+    step."""
+    from lightweaver_tpu_torch import Context, InitialSolution
+    phase('escape-probability start (30 depths, Ca II active, f64): card '
+          'vs CPU, then converged from it and from LTE')
+    t0 = time.perf_counter()
+    starts = [Context(*escape_inputs(), device=d,
+                      initSol=InitialSolution.EscapeProbability)
+              for d in ('cpu', 'cuda')]
+    build = time.perf_counter() - t0
+    err = relerr(starts[1].popsState[0]['n'].cpu(),
+                 starts[0].popsState[0]['n'])
+    lte = Context(*escape_inputs(), device='cuda')
+    depart = (starts[1].popsState[0]['n'] / lte.popsState[0]['n']
+              - 1.0).abs().max().item()
+    print(f'  start populations card vs CPU: {err:.3e} (bar {ESCAPE_TOL}); '
+          f'max |n/nLTE - 1| {depart:.3e}; both starts built in '
+          f'{build:.2f} s')
+    if not err < ESCAPE_TOL or not depart > 0.05:
+        raise AssertionError(f'escape start: card vs CPU {err:.3e}, '
+                             f'departure from LTE {depart:.3e}')
+    iters = {}
+    for name, ctx in (('escape', starts[1]), ('LTE', lte)):
+        nIter, updates, wall, counts = run_counted(ctx, 400)
+        iters[name] = nIter
+        print(f'  from the {name} start: {nIter} iterations, last dJ '
+              f'{float(updates[0].dJMax):.3e}, dPops '
+              f'{updates[1].dPopsMax:.3e}, {wall:.2f} s; launches sweep '
+              f'{counts["sweep"]}')
+        if nIter >= 400 or counts['sweep'] != nIter:
+            raise AssertionError(f'from the {name} start: {nIter} '
+                                 f'iterations, launches {counts}')
 
 
 # ---- float32 instances -----------------------------------------------
@@ -1337,7 +1719,7 @@ def falc_h6ca_f32(scheme):
     Returns the launch counts of the run."""
     from lightweaver_tpu_torch.fal import Falc82
     from lightweaver_tpu_torch.problems import h6ca_context
-    ref = np.load(ROOT / 'tests' / 'golden' / 'falc_h6ca_ref.npz')
+    ref = golden('falc_h6ca_ref')
     ctx = h6ca_context(Falc82(), 5, device='cuda', dtype=F32)
     ctx.set_fs_iter_scheme(scheme)
     nIter, updates, wall, counts = run_counted(ctx, F32_FULL_ITERS)
@@ -1488,11 +1870,22 @@ def main():
     probes = probe_check()
     kernel_check()
     scheme_kernel_check()
-    main_path()
+    nrCtx = main_path()
     scheme_paths()
     callable_bc_check()
     prdKern = prd_kernel_check()
     launches = prd_paths()
+    multi_ng_kernel_check()
+    for scheme in SCHEMES:
+        converge_multi_ng(scheme)
+    multi_ng_early_ng_raises()
+    nr_check(nrCtx)
+    del nrCtx
+    phase('falc_ca_timedep (Ca II active, f64): the golden backward-Euler '
+          'protocol under each scheme')
+    for scheme in SCHEMES:
+        timedep_check(scheme)
+    escape_check()
     f32Kern = f32_kernel_check()
     phase('mixed-precision problem (40 depths, 3 rays, Ca II active) in '
           'float32 under each scheme')

@@ -1,10 +1,14 @@
 """The Context: device state + the MALI iteration, in PyTorch.
 
 Port of the 1D path of lightweaver_tpu/context.py: the
-'piecewise_bezier3_1d' formal solver, factored Gamma, no Ng on the
-populations and no charge conservation; complete redistribution,
-angle-averaged PRD and hybrid PRD (prd_redistribute).  Everything outside
-that slice raises ValueError rather than running something else.
+'piecewise_bezier3_1d' formal solver, factored Gamma; complete
+redistribution, angle-averaged PRD and hybrid PRD (prd_redistribute); and
+the population-update options around stat_equil: Ng acceleration of the
+populations (ngOptions), Newton-Raphson charge conservation
+(conserveCharge, nr_post_update), backward-Euler time-dependent updates
+(time_dep_update, with update_deps after the atmosphere changes) and the
+escape-probability start (initSol).  Everything outside that slice raises
+ValueError rather than running something else.
 
 Precision, as in the JAX package: a float64 state, or a float32 working
 dtype (the f32 state, lightweaverrc ``Precision: mixed``) with the
@@ -55,13 +59,17 @@ from . import constants as Const
 from .atmosphere import Atmosphere, ThermalisedRadiation
 from .atomic_model import (AtomicLine, AtomicModel, LineProfileState,
                            LineType)
+from .atomic_set import lte_pops
+from .atomic_table import PeriodicTable
 from .background import basic_background
+from .escape import set_pops_escape_probability
 from .iteration_update import IterationUpdate
+from .nr_update import build_nr_fn
 from .ops import fused as fusedOps
 from .ops import gamma as gammaOps
 from .ops.faddeeva import voigt_H
 from .ops.linalg import solve_KxK_over_depth
-from .ops.ng import Ng
+from .ops.ng import Ng, NgOptions
 from .ops.planck import planck_nu
 from .ops.prd import interp, prd_scatter_rho
 from .ops.sweep import formal_solve_sweep
@@ -183,14 +191,16 @@ class IterConfig:
                 t.alphaT = None if t.alpha is None else t_(t.alpha)
 
     def tensor(self, x):
-        """x in the working dtype on the device."""
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
-                               device=self.device)
+        """A copy of x in the working dtype on the device."""
+        return torch.tensor(np.asarray(x), dtype=self.dtype,
+                            device=self.device)
 
     def state(self, x):
-        """x in the state dtype (float64) on the device."""
-        return torch.as_tensor(np.asarray(x), dtype=STATE_DTYPE,
-                               device=self.device)
+        """A copy of x in the state dtype (float64) on the device: never a
+        view of the host array, on the CPU either (the populations, nStar
+        and ne arrays of eqPops and the atmosphere change in place)."""
+        return torch.tensor(np.asarray(x), dtype=STATE_DTYPE,
+                            device=self.device)
 
     @property
     def allAtoms(self):
@@ -1126,6 +1136,16 @@ def _stat_eq_solve(Gamma, n, nTotal):
     return solve_KxK_over_depth(G, rhs)
 
 
+def _time_dep_solve(Gamma, nOld, dt, theta=1.0):
+    """Fully-implicit (backward-Euler) time-dependent population update:
+    solve (I - theta dt Gamma) n_new = n_old.
+    ref: Source/UpdatePopulations.cpp:120-151"""
+    Nl = Gamma.shape[0]
+    eye = torch.eye(Nl, dtype=Gamma.dtype, device=Gamma.device)[:, :, None]
+    M = eye - theta * dt * Gamma
+    return solve_KxK_over_depth(M, nOld)
+
+
 def phi_direction_major(phi):
     """[W, Nmu, 2, Nk] profile (the JAX package's layout) -> contiguous
     [2, W, Nmu, Nk], the iteration's layout."""
@@ -1144,6 +1164,15 @@ class Context:
     stage with a kernel launches it.  ``hprd=True`` selects hybrid PRD
     (comoving-frame rho, default scheme only).
 
+    ``ngOptions`` (an NgOptions) runs Ng acceleration on the populations
+    in stat_equil; ``conserveCharge`` follows each statistical-equilibrium
+    solve with a Newton-Raphson step on (populations, ne), over hydrogen
+    alone with ``nrHOnly``; ``initSol=InitialSolution.EscapeProbability``
+    starts from the escape-probability populations (LTE where that
+    iteration fails).  time_dep_update takes backward-Euler steps in place
+    of stat_equil, and update_deps refreshes what depends on an atmosphere
+    changed in place.
+
     ``dtype`` is the working dtype: float64, or float32 for the f32 state
     (the default under lightweaverrc ``Precision: mixed``), whose J, Gamma
     and rates are in ``accumDtype`` = float64.  ``gammaAccum`` ('exact' or
@@ -1154,7 +1183,7 @@ class Context:
 
     def __init__(self, atmos: Atmosphere, spect, eqPops,
                  ngOptions=None, initSol=None, conserveCharge: bool = False,
-                 hprd: bool = False,
+                 nrHOnly: bool = False, hprd: bool = False,
                  formalSolver: str = 'piecewise_bezier3_1d',
                  crswCallback=None,
                  dtype: Optional[torch.dtype] = None,
@@ -1172,8 +1201,6 @@ class Context:
             gammaAccum = cfgParams.get('GammaAccum', 'exact')
         unsupported = {
             'a 2D/3D atmosphere': atmos.Ndim != 1,
-            'Ng acceleration (ngOptions)': ngOptions is not None,
-            'charge conservation': conserveCharge,
             f'formalSolver={formalSolver!r}':
                 formalSolver != 'piecewise_bezier3_1d',
             f'gammaMode={gammaMode!r}': gammaMode != 'factored',
@@ -1183,7 +1210,8 @@ class Context:
             'hybrid PRD with a float32 state':
                 hprd and dtype == torch.float32,
             f'initSol={initSol}':
-                initSol not in (None, InitialSolution.Lte),
+                initSol not in (None, InitialSolution.Lte,
+                                InitialSolution.EscapeProbability),
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -1200,6 +1228,8 @@ class Context:
         self.atmos = atmos
         self.spect = spect
         self.eqPops = eqPops
+        self.conserveCharge = conserveCharge
+        self.nrHOnly = nrHOnly
         self.crswCallback = crswCallback
         self.crswDone = crswCallback is None
         self.dtype = dtype
@@ -1262,6 +1292,17 @@ class Context:
         self.JRest = None
         if hprd and self._prd_lines():
             self._configure_hprd_coeffs()
+
+        if initSol == InitialSolution.EscapeProbability:
+            set_pops_escape_probability(self)
+
+        # Ng on the populations, one accelerator per active atom over its
+        # flattened [Nlevel, Nk] populations (after the start solution)
+        if ngOptions is None:
+            ngOptions = NgOptions(0, 0, 0)
+        self.ngs = [Ng(ngOptions.Norder, ngOptions.Nperiod,
+                       ngOptions.Ndelay, n.ravel())
+                    for n in self._pops_on_host()]
         # persistent per-line Ng accelerators on rho.  The reference
         # tracks rho with Ng(0,0,0) (ref: PrdTemplates.hpp:205,263);
         # prdNgOptions opts in to actual extrapolation.
@@ -1278,6 +1319,8 @@ class Context:
 
         self._iter_fn = build_iteration_fn(self.cfg)
         self._params = None
+        self._nrFn = None
+        self._nrFnKey = None
         self._Gamma = None
         self._Rij = None
         self._Rji = None
@@ -1530,6 +1573,10 @@ class Context:
         p = self._params
         p['J'] = self.J
         p['pops'] = [st['n'] for st in self.popsState]
+        # charge conservation and update_deps move nStar (the continua's
+        # gij read it)
+        p['nStar'] = [st['nStar'] for st in self.popsState]
+        p['detNStar'] = [st['nStar'] for st in self.detailedPops]
         p['C'] = self._deviceC()
         p['crsw'] = float(crswVal)
         p['rhoPrd'] = self.rhoPrd
@@ -1550,45 +1597,246 @@ class Context:
                                crsw=crswVal)
 
     # ------------------------------------------------------------------
-    def stat_equil(self) -> IterationUpdate:
-        """Statistical equilibrium solve for each active atom.
+    def _pops_on_host(self) -> List[np.ndarray]:
+        """The active atoms' populations [Nlevel, Nk] as numpy arrays, in
+        one device-to-host copy of their concatenation."""
+        if not self.popsState:
+            return []
+        flat = torch.cat([st['n'].reshape(-1) for st in self.popsState])
+        flat = flat.cpu().numpy()
+        out, off = [], 0
+        for st in self.popsState:
+            size = st['n'].numel()
+            out.append(flat[off:off + size].reshape(st['n'].shape))
+            off += size
+        return out
 
-        The max relative population change and the finite flags are
-        formed on the device and fetched in ONE device-to-host copy.
-        dPops follows Ng.max_change: 0.0 until two post-solve solutions
+    def stat_equil(self) -> IterationUpdate:
+        """Statistical equilibrium solve for each active atom; with
+        conserveCharge, followed by a Newton-Raphson charge-conservation
+        step coupling the populations and ne (nr_post_update).
+
+        With Ng (any Norder > 0) or charge conservation the populations
+        go to the host every iteration, all atoms in one device-to-host
+        copy: a non-finite value raises ExplodingMatrixError, Ng
+        extrapolates and dPops is Ng.max_change.  Otherwise the max
+        relative population change and the finite flags are formed on the
+        device and fetched in ONE device-to-host copy, with
+        Ng.max_change's semantics: 0.0 until two post-solve solutions
         exist, then max |(cur - old)/cur| over cur != 0.
         ref: Source/LwMiddleLayer.pyx:3461-3560"""
         if self._Gamma is None:
             raise ValueError('Call formal_sol_gamma_matrices first')
-        flags = []
         for ai, a in enumerate(self.cfg.activeAtoms):
             st = self.popsState[ai]
             nTotal = self.cfg.state(
                 self.eqPops.atomicPops[a.model.element].nTotal)
-            nNew = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
-            nOld = st.get('nLastSE')
-            if nOld is None:
-                dp = torch.zeros((), dtype=torch.float64, device=self.device)
-            else:
-                mask = nNew != 0.0
-                dp = torch.max(torch.where(
-                    mask, torch.abs((nNew - nOld)
-                                    / torch.where(mask, nNew, 1.0)), 0.0))
-            flags.append(dp.to(torch.float64))
-            flags.append(torch.all(torch.isfinite(nNew)).to(torch.float64))
-            st['n'] = nNew
-            st['nLastSE'] = nNew
-        vals = torch.stack(flags).cpu().numpy()
+            st['n'] = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
+
+        dNeMax = None
+        if self.conserveCharge:
+            dNeMax = self.nr_post_update(hOnly=self.nrHOnly)
+
         dPops = []
-        for ai in range(len(self.popsState)):
-            if vals[2 * ai + 1] == 0.0:
-                name = self.cfg.activeAtoms[ai].model.element.name
-                raise ExplodingMatrixError(
-                    f'Non-finite populations for atom {name} after '
-                    'the statistical-equilibrium solve (singular '
-                    'Gamma matrix)')
-            dPops.append(float(vals[2 * ai]))
-        return IterationUpdate(self, updatedPops=True, dPops=dPops)
+        accelerated = False
+        if any(ng.Norder > 0 for ng in self.ngs) or self.conserveCharge:
+            for ai, nHost in enumerate(self._pops_on_host()):
+                if not np.all(np.isfinite(nHost)):
+                    self._raise_non_finite(ai)
+                st = self.popsState[ai]
+                accel, sol = self.ngs[ai].accelerate(nHost)
+                if accel:
+                    st['n'] = self.cfg.state(sol.reshape(nHost.shape))
+                    accelerated = True
+                dPops.append(self.ngs[ai].max_change())
+        else:
+            flags = []
+            for st in self.popsState:
+                nNew = st['n']
+                nOld = st.get('nLastSE')
+                if nOld is None:
+                    dp = torch.zeros((), dtype=torch.float64,
+                                     device=self.device)
+                else:
+                    mask = nNew != 0.0
+                    dp = torch.max(torch.where(
+                        mask, torch.abs((nNew - nOld)
+                                        / torch.where(mask, nNew, 1.0)),
+                        0.0))
+                flags.append(dp.to(torch.float64))
+                flags.append(torch.all(torch.isfinite(nNew))
+                             .to(torch.float64))
+                st['nLastSE'] = nNew
+            vals = torch.stack(flags).cpu().numpy()
+            for ai in range(len(self.popsState)):
+                if vals[2 * ai + 1] == 0.0:
+                    self._raise_non_finite(ai)
+                dPops.append(float(vals[2 * ai]))
+        upd = IterationUpdate(self, updatedPops=True, dPops=dPops,
+                              ngAccelerated=accelerated)
+        if dNeMax is not None:
+            upd.updatedNe = True
+            upd.dNeMax = dNeMax
+        return upd
+
+    def _raise_non_finite(self, ai: int):
+        name = self.cfg.activeAtoms[ai].model.element.name
+        raise ExplodingMatrixError(
+            f'Non-finite populations for atom {name} after the '
+            'statistical-equilibrium solve (singular Gamma matrix)')
+
+    # ------------------------------------------------------------------
+    def _fd_dC(self, atoms, atomIdx, crswVal: float,
+               pertSize: float = 1e-4) -> List[torch.Tensor]:
+        """Finite-difference dC/dne per atom of ``atoms`` (active atoms
+        ``atomIdx``): perturb ne by ``pertSize`` relative, refresh the
+        atom's LTE populations and recompute its collisional rates (on the
+        host, as compute_collisions does); returned in float64 on the
+        device.
+        ref: lightweaver/nr_update.py:75-92"""
+        atmos = self.atmos
+        neStart = np.asarray(atmos.ne).copy()
+        pert = neStart * pertSize
+        dCs = []
+        for a, ai in zip(atoms, atomIdx):
+            state = self.eqPops.atomicPops[a.model.element]
+            Cprev = self.C[ai]
+            atmos.ne[:] = neStart + pert
+            nStarPrev = state.nStar.copy()
+            state.nStar[:] = lte_pops(a.model, atmos.temperature, atmos.ne,
+                                      state.nTotal, debye=True)
+            Cpert = np.zeros_like(Cprev)
+            for col in a.model.collisions:
+                col.compute_rates(atmos, self.eqPops, Cpert)
+            np.clip(Cpert, 0.0, None, out=Cpert)
+            atmos.ne[:] = neStart
+            state.nStar[:] = nStarPrev
+            dCs.append(self.cfg.state(crswVal * (Cpert - Cprev) / pert))
+        return dCs
+
+    def nr_post_update(self, fdCollisionRates: bool = True,
+                       hOnly: bool = False, timeDependentData=None,
+                       stepLimit: bool = True) -> float:
+        """Newton-Raphson charge-conservation update of (populations, ne)
+        from the last MALI step's Gamma (nr_update.build_nr_fn, in float64
+        on the device under either working dtype); then the LTE
+        populations, H-, nStar and the collisional rates are refreshed for
+        the new ne.  ``hOnly`` couples hydrogen alone (the other species
+        then count as background electrons); ``timeDependentData`` =
+        {'dt', 'nPrev'} couples the backward-Euler residual instead of
+        statistical equilibrium; stepLimit=False takes the reference's raw
+        Newton step.  Returns the max relative change in ne.
+        ref: lightweaver/nr_update.py:7-106"""
+        if self._Gamma is None:
+            raise ValueError('Call formal_sol_gamma_matrices first')
+        if (not self.cfg.activeAtoms or self.cfg.activeAtoms[0].model.element
+                != PeriodicTable.element(1)):
+            raise ValueError(
+                'Calling nr_post_update without Hydrogen active.')
+        atoms = (self.cfg.activeAtoms[:1] if hOnly
+                 else self.cfg.activeAtoms)
+        atomIdx = list(range(len(atoms)))
+        crswVal = self._crswVal
+        timeDep = timeDependentData is not None
+
+        # background electron contribution from the species outside NR
+        if hOnly:
+            bgModels = [m for m in self.spect.radSet
+                        if m.element != PeriodicTable.element(1)]
+        else:
+            bgModels = (self.spect.radSet.detailedAtoms
+                        + self.spect.radSet.passiveAtoms)
+        backgroundNe = np.zeros_like(np.asarray(self.atmos.ne))
+        for m in bgModels:
+            stages = np.array([l.stage for l in m.levels], dtype=np.float64)
+            n = self.eqPops.atomicPops[m.element].n
+            backgroundNe += np.sum(stages[:, None] * n, axis=0)
+
+        dCs = (self._fd_dC(atoms, atomIdx, crswVal)
+               if fdCollisionRates else None)
+
+        key = (len(atoms), timeDep, fdCollisionRates, stepLimit)
+        if self._nrFnKey != key:
+            Nlevels = [a.Nlevel for a in atoms]
+            stagesList = [np.array([l.stage for l in a.model.levels],
+                                   dtype=np.float64) for a in atoms]
+            contPairs = [[(t.i, t.j) for t in a.trans if not t.isLine]
+                         for a in atoms]
+            self._nrFn = build_nr_fn(Nlevels, stagesList, contPairs,
+                                     timeDep, STATE_DTYPE,
+                                     stepLimit=stepLimit)
+            self._nrFnKey = key
+
+        t_ = self.cfg.state
+        Gammas = [self._Gamma[ai] for ai in atomIdx]
+        ns = [self.popsState[ai]['n'] for ai in atomIdx]
+        nTotals = [t_(self.eqPops.atomicPops[a.model.element].nTotal)
+                   for a in atoms]
+        Cs = [self._deviceC()[ai] for ai in atomIdx]
+        ne = t_(self.atmos.ne)
+        bgNe = t_(backgroundNe)
+        if timeDep:
+            newNs, newNe = self._nrFn(
+                Gammas, ns, nTotals, Cs, dCs, ne, bgNe, crswVal,
+                float(timeDependentData['dt']),
+                [torch.as_tensor(p, dtype=STATE_DTYPE, device=self.device)
+                 for p in timeDependentData['nPrev'][:len(atoms)]])
+        else:
+            newNs, newNe = self._nrFn(Gammas, ns, nTotals, Cs, dCs, ne,
+                                      bgNe, crswVal)
+
+        for ai, nNew in zip(atomIdx, newNs):
+            self.popsState[ai]['n'] = nNew
+        neStart = np.asarray(self.atmos.ne).copy()
+        neNew = newNe.cpu().numpy()
+        self.atmos.ne[:] = neNew
+
+        # refresh the LTE populations and H- for the new ne, and nStar on
+        # the device (the continua's gij read it); C depends on ne
+        self.eqPops.update_lte_atoms_Hmin_pops(self.atmos,
+                                               conserveCharge=False)
+        self._refresh_nstar()
+        self.compute_collisions(force=True)
+        return float(np.max(np.abs(neNew - neStart) / neNew))
+
+    def _refresh_nstar(self):
+        """nStar of the active and detailed atoms from eqPops, on the
+        device (formal_sol_gamma_matrices hands them to each MALI step)."""
+        for a, st in zip(self.cfg.activeAtoms, self.popsState):
+            st['nStar'] = self.cfg.state(
+                self.eqPops.atomicPops[a.model.element].nStar)
+        for a, st in zip(self.cfg.detailedAtoms, self.detailedPops):
+            st['nStar'] = self.cfg.state(
+                self.eqPops.atomicPops[a.model.element].nStar)
+
+    # ------------------------------------------------------------------
+    def time_dep_update(self, dt: float, prevTimePops=None) \
+            -> Tuple[IterationUpdate, List]:
+        """Backward-Euler time-dependent population update from the last
+        MALI step's Gamma: (I - dt Gamma) n = prevTimePops per active atom
+        (default: the current populations).  Returns the update (dPops =
+        max |1 - n_old/n_new| per atom) and prevTimePops, for the next
+        sub-iteration of the same time step.
+        ref: Source/UpdatePopulations.cpp:120-151"""
+        if self._Gamma is None:
+            raise ValueError('Call formal_sol_gamma_matrices first')
+        if prevTimePops is None:
+            prevTimePops = [st['n'] for st in self.popsState]
+        changes = []
+        for ai, st in enumerate(self.popsState):
+            nNew = _time_dep_solve(self._Gamma[ai],
+                                   prevTimePops[ai], dt)
+            changes.append(torch.max(torch.abs(1.0 - st['n'] / nNew)))
+            st['n'] = nNew
+        dPops = ([float(x) for x in torch.stack(changes).cpu().numpy()]
+                 if changes else [])
+        upd = IterationUpdate(self, updatedPops=True, dPops=dPops)
+        return upd, prevTimePops
+
+    def time_dep_restore_prev_pops(self, prevTimePops):
+        """Put the populations of the start of a time step back."""
+        for ai, nOld in enumerate(prevTimePops):
+            self.popsState[ai]['n'] = nOld
 
     # ------------------------------------------------------------------
     def _configure_hprd_coeffs(self):
@@ -1821,3 +2069,40 @@ class Context:
                               NprdSubIter=nIter)
         upd.updatedJ = True
         return upd
+
+    # ------------------------------------------------------------------
+    def update_deps(self, temperature: bool = True, background: bool = True,
+                    profiles: bool = True, collisions: bool = True):
+        """Recompute what depends on the atmosphere after it was changed
+        in place (T, ne, vlos, vturb, ...): the LTE populations, H- and
+        nStar, T and height (``temperature``); the background opacities
+        (``background``); the line profiles (``profiles``); the
+        collisional rates (``collisions``); and under hybrid PRD the
+        comoving-frame coefficients.  The cached params, with the schemes'
+        packed profiles, are rebuilt on the next MALI step.
+        ref: Source/LwMiddleLayer.pyx:3244-3288"""
+        atmos = self.atmos
+        t_ = self.cfg.state
+        if temperature:
+            self.eqPops.update_lte_atoms_Hmin_pops(
+                atmos, conserveCharge=self.conserveCharge)
+            self._refresh_nstar()
+            self.temperature = t_(atmos.temperature)
+            self.height = t_(atmos.height)
+        if background:
+            bg = basic_background(self.spect, atmos, self.eqPops,
+                                  self.spect.radSet)
+            self.background = bg
+            self.bgChi = t_(bg.chi)
+            self.bgEta = t_(bg.eta)
+            self.bgSca = t_(bg.sca)
+        if profiles:
+            self.compute_profiles()
+        if collisions:
+            self.compute_collisions(force=True)
+        if self.cfg.hprd and self._prd_lines():
+            # velocity changes move the comoving-frame coefficients and
+            # the PRD subset
+            self._configure_hprd_coeffs()
+            self._prd_fs_fn = None
+        self._params = None

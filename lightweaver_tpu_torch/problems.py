@@ -11,6 +11,12 @@
   Ly-beta and Mg II h & k in PRD (BASELINE config 3, the golden problem
   tests/golden/falc_h6mg_prd_*.npz), and its hybrid-PRD variant with a
   0-5 km/s outflow ramp (tests/golden/falc_h6mg_hprd_*.npz).
+- falc_multi_ng: FAL-C with H 6-level, Ca II and Na I active, Mg II
+  passive, 5 rays, Ng on the populations (BASELINE config 2, the golden
+  problem tests/golden/falc_multi_ng_*.npz).
+- falc_ca_timedep: FAL-C with H 6-level + Ca II, Ca II active, 5 rays,
+  the problem of the golden backward-Euler run
+  (tests/golden/falc_ca_timedep_*.npz).
 
 and random inputs (rays, a line group, slot-packed lines) that check the
 kernels against their plain versions and against the JAX package.
@@ -21,7 +27,7 @@ from .atmosphere import Atmosphere
 from .atomic_set import RadiativeSet
 from .context import Context
 from .fal import Falc82
-from .rh_atoms import CaII_atom, H_6_atom, MgII_atom
+from .rh_atoms import CaII_atom, H_6_atom, MgII_atom, NaI_atom
 
 
 def falc_interpolated(Nspace: int) -> Atmosphere:
@@ -170,13 +176,7 @@ def mixed_precision_context(device='cuda', dtype=None,
     """The mixed-precision problem: falc_decimated(Nspace), 3 rays, H
     6-level + Ca II with Ca II active (tests/test_mixed_precision.py,
     which runs it with a float32 state)."""
-    atmos = falc_decimated(Nspace)
-    atmos.quadrature(3)
-    rs = RadiativeSet([H_6_atom(), CaII_atom()])
-    rs.set_active('Ca')
-    spect = rs.compute_wavelength_grid()
-    eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops, device=device, dtype=dtype)
+    return timedep_context(device, dtype, falc_decimated(Nspace), 3)
 
 
 def vlos_ramp(atmos: Atmosphere, vMax: float = 5e3) -> Atmosphere:
@@ -208,3 +208,39 @@ def h6mg_context(atmos: Atmosphere = None, Nrays: int = 5,
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, hprd=hprd, device=device,
                    dtype=dtype)
+
+
+def multi_ng_context(ngOptions=None, device='cuda', dtype=None,
+                     atmos: Atmosphere = None, Nrays: int = 5) -> Context:
+    """H 6-level + Ca II + Na I active, Mg II passive, on ``atmos``
+    (default FAL-C, 82 depths) with an ``Nrays`` quadrature and Ng on the
+    populations (``ngOptions``, e.g. NgOptions(2, 5, 50)); ``device`` and
+    ``dtype`` as for h6ca_context.  The defaults with NgOptions(2, 5, 50)
+    build BASELINE config 2 as tests/test_vs_reference_golden.py:259-302
+    does."""
+    if atmos is None:
+        atmos = Falc82()
+    atmos.quadrature(Nrays)
+    rs = RadiativeSet([H_6_atom(), CaII_atom(), NaI_atom(), MgII_atom()])
+    rs.set_active('H', 'Ca', 'Na')
+    spect = rs.compute_wavelength_grid()
+    eqPops = rs.compute_eq_pops(atmos)
+    return Context(atmos, spect, eqPops, ngOptions=ngOptions, device=device,
+                   dtype=dtype)
+
+
+def timedep_context(device='cuda', dtype=None, atmos: Atmosphere = None,
+                    Nrays: int = 5) -> Context:
+    """H 6-level + Ca II with Ca II active on ``atmos`` (default FAL-C, 82
+    depths) with an ``Nrays`` quadrature, from the LTE start; the defaults
+    build the problem of the golden backward-Euler run
+    (tests/test_vs_reference_golden.py:448-486).  ``device`` and ``dtype``
+    as for h6ca_context."""
+    if atmos is None:
+        atmos = Falc82()
+    atmos.quadrature(Nrays)
+    rs = RadiativeSet([H_6_atom(), CaII_atom()])
+    rs.set_active('Ca')
+    spect = rs.compute_wavelength_grid()
+    eqPops = rs.compute_eq_pops(atmos)
+    return Context(atmos, spect, eqPops, device=device, dtype=dtype)

@@ -770,3 +770,147 @@ def test_twenty_rays_on_cuda_under_each_scheme(scheme):
     assert err.max() < 1e-9
     for ai, ti, _, _ in cpu._prd_lines():
         assert _max_rel(gpu.rhoPrd[ai][ti].cpu(), cpu.rhoPrd[ai][ti]) < 1e-9
+
+
+def _copy_state(dst, src):
+    """J, the populations, ne and the Ng histories of port Context ``src``
+    into ``dst`` (on dst's device)."""
+    dst.J = src.J.to(dst.device)
+    for st, sst in zip(dst.popsState, src.popsState):
+        st['n'] = sst['n'].to(dst.device)
+    for ng, sng in zip(dst.ngs, src.ngs):
+        ng.previous = sng.previous.copy()
+        ng.count, ng.init, ng.len = sng.count, sng.init, sng.len
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES)
+def test_multi_ng_on_cuda_matches_cpu(scheme):
+    """falc_multi_ng (BASELINE config 2: H 6 + Ca II + Na I active, 1392
+    wavelengths) under each scheme with Ng(1, 1, 3), so that the second
+    and third of three MALI steps extrapolate: the card's Context takes
+    the CPU one's J, populations and Ng history before each step; Gamma
+    within 1e-10 (floor 1e-10 of its maximum) and the populations within
+    1e-8 of the CPU's after each stat_equil (the solve amplifies the
+    kernels' differences of Gamma, and Ng's fit those of the solve: Na I
+    1.2e-9 measured under _pallas on an H100), the same extrapolations,
+    and the scheme's kernels launched once per step."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.problems import multi_ng_context
+    ctxs = [multi_ng_context(NgOptions(1, 1, 3), device=d) for d in
+            ('cpu', 'cuda')]
+    for c in ctxs:
+        c.set_fs_iter_scheme(scheme)
+    counts = (tsweep.sweep_cuda, tgamma.line_gamma_rates_cuda,
+              tfused.fused_cuda)
+    before = [fn.launches for fn in counts]
+    flags = []
+    for _ in range(3):
+        _copy_state(ctxs[1], ctxs[0])
+        for c in ctxs:
+            c.formal_sol_gamma_matrices()
+        for ai in range(3):
+            assert _floor_rel(ctxs[1]._Gamma[ai].cpu(),
+                              ctxs[0]._Gamma[ai]) < 1e-10, ai
+        ups = [c.stat_equil() for c in ctxs]
+        flags.append([u.ngAccelerated for u in ups])
+        for ai in range(3):
+            assert _floor_rel(ctxs[1].popsState[ai]['n'].cpu(),
+                              ctxs[0].popsState[ai]['n']) < 1e-8, ai
+    torch.cuda.synchronize()
+    assert flags == [[False, False], [True, True], [True, True]]
+    got = tuple(fn.launches - b for fn, b in zip(counts, before))
+    assert got == {'mali_full_precond': (3, 0, 0),
+                   'mali_full_precond_pallas': (3, 3, 0),
+                   'mali_full_precond_fused': (0, 0, 3)}[scheme]
+
+
+def _floor_rel(a, b, floorRel=1e-10):
+    """max |a - b| / max(|b|, floorRel max |b|) (the slice tests' rule)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    floor = np.abs(b).max() * floorRel
+    return (np.abs(a - b) / np.maximum(np.abs(b), floor)).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_kernels_match_plain_on_multi_ng_inputs(dtype):
+    """The line Gamma kernel on every group of the three active atoms of
+    falc_multi_ng in one launch (Na I D1/D2 a K = 2 group) and the fused
+    kernel with the three atoms' slots, on one iteration's inputs, against
+    their plain versions: 1e-11 (line Gamma) and 1e-9 (fused) of each
+    output's maximum in float64, the rule of _f32_rule in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    import dataclasses
+
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.problems import multi_ng_context
+    ctx = multi_ng_context(device='cuda', dtype=dtype)
+    ctx.formal_sol_gamma_matrices()
+    ctx.stat_equil()
+    params = ctx.build_params()
+    itP = build_iteration_fn(dataclasses.replace(
+        ctx.cfg, fsIterScheme='mali_full_precond_pallas'))
+    scaJ = itP.scaJ(params)
+    chi, src = itP.gather(params, scaJ)
+    rays = itP.formal_solve(params, chi, src)
+    args = itP.line_inputs(params, *rays[:3], src, itP.pack(params))
+    table = args[0]
+    assert sorted({g.ai for g in table.groups}) == [0, 1, 2]
+    assert any(g.ai == 2 and tuple(g.members) == (0, 1)
+               for g in table.groups)
+    kern = tgamma.line_gamma_rates(*args)
+    plain = tgamma.line_gamma_rates_plain(*args)
+    itF = build_iteration_fn(dataclasses.replace(
+        ctx.cfg, fsIterScheme='mali_full_precond_fused'))
+    fargs = itF.fused_inputs(params, scaJ, itF.pack(params))
+    fkern = tfused.fused_lambda_step(*fargs)
+    fplain = tfused.fused_lambda_step_plain(*fargs)
+    if dtype == torch.float64:
+        for name, a, b in zip(('G4', 'PPB', 'PairPPB'), kern, plain):
+            assert _max_rel(a, b) < 1e-11, name
+        for a, b in zip(_ray_list(fkern), _ray_list(fplain)):
+            assert _max_rel(a, b) < 1e-9
+        return
+    up = [x.double() if torch.is_tensor(x) else x for x in args[1:]]
+    ref = tgamma.line_gamma_rates_plain(table.to(torch.float64), *up)
+    for k3, p3, r3 in zip(*(table.views(*x) for x in (kern, plain, ref))):
+        _f32_rule(k3, p3, r3)
+    fup = [a.double() if torch.is_tensor(a) else
+           (a[0], None if a[1] is None else a[1].double())
+           if isinstance(a, tuple) else a for a in fargs]
+    _f32_rule(_ray_list(fkern), _ray_list(fplain),
+              _ray_list(tfused.fused_lambda_step_plain(*fup)))
+
+
+@pytest.mark.gpu
+def test_nr_step_on_cuda_matches_cpu():
+    """One Newton-Raphson charge-conservation step (H 6 + Ca II, FAL-C at
+    20 depths, 3 rays, conserveCharge=True) on the card against the CPU:
+    populations, ne and nStar after the step within 1e-9, and Gamma of
+    the next MALI step within 1e-10 (floor 1e-10 of its maximum)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+
+    def run(device):
+        base = h6ca_context(falc_interpolated(20), 3, device='cpu')
+        ctx = Context(base.atmos, base.spect, base.eqPops,
+                      conserveCharge=True, device=device)
+        for _ in range(4):
+            ctx.formal_sol_gamma_matrices()
+        upd = ctx.stat_equil()
+        ctx.formal_sol_gamma_matrices()
+        return ctx, upd
+    (gpu, gu), (cpu, cu) = run('cuda'), run('cpu')
+    assert gu.updatedNe and _floor_rel(gu.dNeMax, cu.dNeMax) < 1e-9
+    assert _floor_rel(gpu.atmos.ne, cpu.atmos.ne) < 1e-9
+    for g, c in zip(gpu.popsState, cpu.popsState):
+        assert _floor_rel(g['n'].cpu(), c['n']) < 1e-9
+        assert _floor_rel(g['nStar'].cpu(), c['nStar']) < 1e-9
+    for ai in range(2):
+        assert _floor_rel(gpu._Gamma[ai].cpu(), cpu._Gamma[ai]) < 1e-10

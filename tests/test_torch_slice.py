@@ -31,7 +31,6 @@ from lightweaver_tpu.context import Context as JContext
 from lightweaver_tpu.context import _cast_params_to_working
 from lightweaver_tpu.context import build_iteration_fn as j_build_iteration_fn
 from lightweaver_tpu.fal import Falc82 as JFalc82
-from lightweaver_tpu.ops.ng import NgOptions
 from lightweaver_tpu_torch import ExplodingMatrixError, InitialSolution
 from lightweaver_tpu_torch.context import Context
 from lightweaver_tpu_torch.convert import params_from_numpy
@@ -178,18 +177,29 @@ def small_inputs():
 
 
 @pytest.mark.parametrize('option', [
-    {'ngOptions': NgOptions(2, 5, 10)},
-    {'conserveCharge': True},
     {'formalSolver': 'piecewise_linear_1d'},
     {'gammaMode': 'dense'},
     pytest.param({'dtype': torch.float32, 'hprd': True}, id='dtype'),
     pytest.param({'dtype': torch.float16}, id='float16'),
     {'accumDtype': torch.float32},
     {'gammaAccum': 'pairwise'},
-    {'initSol': InitialSolution.EscapeProbability},
+    {'initSol': InitialSolution.Zero},
 ], ids=lambda o: next(iter(o)))
 def test_options_outside_the_slice_raise(small_inputs, option):
     """Each option outside the port raises ValueError at construction;
     the float32 state is in the slice, hybrid PRD with it is not yet."""
     with pytest.raises(ValueError, match='does not support'):
         Context(*small_inputs, device='cpu', **option)
+
+
+def test_nr_h_only_without_hydrogen_active_raises():
+    """Charge conservation couples hydrogen: with H passive the NR step of
+    stat_equil raises ValueError, as in the JAX package."""
+    from lightweaver_tpu_torch.problems import timedep_context
+    ctx = timedep_context(device='cpu', atmos=falc_interpolated(12),
+                          Nrays=2)
+    ctx = Context(ctx.atmos, ctx.spect, ctx.eqPops, conserveCharge=True,
+                  nrHOnly=True, device='cpu')
+    ctx.formal_sol_gamma_matrices()
+    with pytest.raises(ValueError, match='without Hydrogen active'):
+        ctx.stat_equil()
