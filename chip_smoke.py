@@ -80,7 +80,7 @@ result):
    instance times side by side.  (b) The mixed-precision problem (FAL-C decimated
    to 40 depths, 3 rays, Ca II active) converged under each scheme in
    fewer than 600 iterations.  (c) falc_h6ca at full width under each
-   scheme, 300 iterations (the float32 state does not converge there, in
+   scheme, 230 iterations (the float32 state does not converge there, in
    the JAX package either; the f64 state converges in 211): the last dJ
    and dPops, the emergent spectrum
    against the golden file (rows brighter than 1e-3 of the peak within
@@ -90,13 +90,38 @@ result):
    bench.py's problem) under each scheme, float64 then float32: best of 3
    blocks of formal_sol_gamma_matrices iterations (50 for the default
    scheme, 20 for the others) and a per-stage breakdown.
+12. Spectrum synthesis, in float64 unless stated.  (a) Right after phase
+   5, the README program's last call on its converged falc_h6ca:
+   compute_rays(np.linspace(392.5, 394.5, 1001), mus=[1.0]) on the card
+   (one sweep launch), against the same state's compute_rays on the CPU
+   (1e-9 of the spectrum's maximum), with its ms.  After phase 9: (b) the
+   sweep kernel's instance of each 1D solver (linear, Bezier-3, BESSER)
+   in each precision against its plain version, on one falc_h6ca
+   iteration's inputs and (linear, BESSER) on FALC-500 random rays:
+   float64 within 1e-9, float32 by phase 10's rule, with times and
+   bounds.  (c) falc_h6ca converged on the card under the linear and
+   BESSER solvers, iterations within 2 of the JAX package's on the CPU
+   (349 and 214: scripts/jax_solver_iterations.py), and 40 MALI steps of
+   the mixed-precision problem in float32 under each (finite,
+   contracting); each run launches its solver's instance only.  (d)
+   BASELINE config 4 (falc_h6ca in a 0.1 T field, gamma = pi/3, chi =
+   pi/6) converged under the fused scheme (golden falc_h6ca_stokes: 211
+   iterations, populations
+   within 1e-7), its polarised profiles (1e-5) and single_stokes_fs(
+   updateJ=True) (I 1e-6, Q/U/V 1e-3, amplitude-normalised) against the
+   golden run, with the single_stokes_fs ms; compute_rays(stokes=True)
+   over Ca II 854.2 nm, card against CPU (1e-9).  (e) falc_h6ca pickled at
+   MALI step 12, loaded on the card and resumed, against an
+   uninterrupted 30-step run (5e-12).
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
 plain versions' are CUDA events around their calls.  The kernels' JSON record holds phase
 7's errors and times and phase 8's launch counts for the float64
 instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
-(c)'s launch counts for the float32 ones, and the probes'; each with the
+(c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
+and times and (c)'s launch counts for the sweep's linear and BESSER
+instances, and the probes'; each with the
 least time the card could take for its inputs (bound_ms) and, where one
 PyTorch call computes the same function, that call's time.  The last four
 lines are the total wall time, the card's name and power limit as
@@ -130,8 +155,13 @@ PALLAS = 'mali_full_precond_pallas'
 FUSED = 'mali_full_precond_fused'
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f'== {name}', flush=True)
+    """Print a phase's heading with the seconds since the script started."""
+    print(f'== {name} [t = {time.perf_counter() - T_START:.1f} s]',
+          flush=True)
 
 
 def relerr(ours, ref):
@@ -216,17 +246,24 @@ def environment():
 
 
 def counters():
-    """Kernel name -> (wrapper, its launch-count attribute): the float64
-    and float32 instances of a wrapper keep separate counts."""
+    """Kernel name -> (wrapper, its launch-count attribute): each instance
+    of a wrapper (float64 and float32; the sweep's three solvers) keeps
+    its own count."""
     from lightweaver_tpu_torch.ops import fused, gamma, probe, sweep
-    return {'sweep': (sweep.sweep_cuda, 'launches'),
-            'gamma': (gamma.line_gamma_rates_cuda, 'launches'),
-            'fused': (fused.fused_cuda, 'launches'),
-            'sweep_f32': (sweep.sweep_cuda, 'launches_f32'),
-            'gamma_f32': (gamma.line_gamma_rates_cuda, 'launches_f32'),
-            'fused_f32': (fused.fused_cuda, 'launches_f32'),
-            'probe_elementwise': (probe.elementwise_cuda, 'launches'),
-            'probe_recurrence': (probe.recurrence_cuda, 'launches')}
+    out = {'sweep': (sweep.sweep_cuda, 'launches'),
+           'gamma': (gamma.line_gamma_rates_cuda, 'launches'),
+           'fused': (fused.fused_cuda, 'launches'),
+           'sweep_f32': (sweep.sweep_cuda, 'launches_f32'),
+           'gamma_f32': (gamma.line_gamma_rates_cuda, 'launches_f32'),
+           'fused_f32': (fused.fused_cuda, 'launches_f32'),
+           'probe_elementwise': (probe.elementwise_cuda, 'launches'),
+           'probe_recurrence': (probe.recurrence_cuda, 'launches')}
+    # the sweep's linear and BESSER instances
+    for solver in ('piecewise_linear_1d', 'piecewise_besser_1d'):
+        for dtype in (torch.float64, torch.float32):
+            out[sweep_name(solver, dtype)] = (
+                sweep.sweep_cuda, sweep.launch_attr(solver, dtype))
+    return out
 
 
 def reset_counts():
@@ -266,10 +303,24 @@ def build_kernels():
         log = _build.build_log(name)
         regs, spills = ptxas_registers(log), ptxas_spills(log)
         for fn in sorted(regs):
-            kind = 'float64' if 'IdE' in fn else 'float32'
-            print(f'  {name} {kind} instance: {regs[fn]} registers, spill '
-                  f'stores / loads {spills.get(fn, (0, 0))} bytes')
+            print(f'  {name} {instance_of(fn)} instance: {regs[fn]} '
+                  f'registers, spill stores / loads '
+                  f'{spills.get(fn, (0, 0))} bytes')
     sass_double_ops({n: mods[n] for n in ('sweep', 'gamma', 'fused')})
+
+
+_MANGLED_ARGS = re.compile(r'I([df])(?:E|Li(\d+)E)')
+
+
+def instance_of(fn):
+    """'float64' or 'float32' from a kernel's mangled template arguments
+    (<double> IdE, <double, solver> IdLi<code>E), with the sweep's solver
+    (csrc/bezier3.cuh:Solver)."""
+    m = _MANGLED_ARGS.search(fn)
+    kind = {'d': 'float64', 'f': 'float32'}[m.group(1)]
+    if m.group(2) is None:
+        return kind
+    return f'{short(SOLVERS[int(m.group(2))])} {kind}'
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -311,6 +362,8 @@ def ptxas_spills(log):
 # sweep and fused kernels; none in the line Gamma kernel
 F32_DOUBLE_OPS = {'sweep': {'DADD', 'F2F.F64.F32'}, 'gamma': set(),
                   'fused': {'DADD', 'F2F.F64.F32'}}
+# float32 instances per library: the sweep's three solvers
+F32_INSTANCES = {'sweep': 3, 'gamma': 1, 'fused': 1}
 _SASS_FN = re.compile(r'Function : (\S+)')
 _SASS_OP = re.compile(r'\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)')
 
@@ -341,11 +394,11 @@ def sass_double_ops(mods):
                 ops[fn][op] = ops[fn].get(op, 0) + 1
         # mangled template arguments: IfE / IfLi<K> float, IdE / IdLi double
         f32 = {fn: c for fn, c in ops.items() if re.search(r'IfE|IfLi', fn)}
-        if len(f32) != 1:
+        if len(f32) != F32_INSTANCES[name]:
             raise AssertionError(f'{name}: float32 instances not found in the '
                                  f'SASS ({sorted(ops)})')
         for fn, c in sorted(f32.items()):
-            print(f'  {name} float32 instance {fn[-40:]}: float64 '
+            print(f'  {name} {instance_of(fn)} instance: float64 '
                   f'instructions {c or "none"}')
             bad = set(c) - F32_DOUBLE_OPS[name]
             if bad:
@@ -1512,21 +1565,23 @@ def timed_instances(label, kern, plain, kern64, bnd, symbol, reps=20):
     return min(k1, k2), min(p1, p2), min(d1, d2)
 
 
-def check_sweep_f32(label, args):
+def check_sweep_f32(label, args, solver='piecewise_bezier3_1d'):
     from lightweaver_tpu_torch.ops import sweep
     args64 = upcast(args)
-    kern = sweep.formal_solve_sweep(*args)
-    plain = sweep.formal_solve_sweep_plain(*args)
-    ref = sweep.formal_solve_sweep_plain(*args64)
+    kern = sweep.formal_solve_sweep(*args, solver=solver)
+    plain = sweep.formal_solve_sweep_plain(*args, solver=solver)
+    ref = sweep.formal_solve_sweep_plain(*args64, solver=solver)
     torch.cuda.synchronize()
     absErr = f32_rule(f'{label} sweep', RAY_NAMES, ray_outputs(kern),
                       ray_outputs(plain), ray_outputs(ref))
     j_own_products(f'{label} sweep', kern, args[6])
     bnd = sweep_bound(args, kern)
     ms, plainMs, ms64 = timed_instances(
-        f'{label} sweep, per call', lambda: sweep.formal_solve_sweep(*args),
-        lambda: sweep.formal_solve_sweep_plain(*args),
-        lambda: sweep.formal_solve_sweep(*args64), bnd, SYMBOLS['sweep'])
+        f'{label} sweep, per call',
+        lambda: sweep.formal_solve_sweep(*args, solver=solver),
+        lambda: sweep.formal_solve_sweep_plain(*args, solver=solver),
+        lambda: sweep.formal_solve_sweep(*args64, solver=solver), bnd,
+        SYMBOLS['sweep'])
     return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, f64_ms=ms64,
                 **bnd)
 
@@ -1708,7 +1763,7 @@ def run_counted(ctx, NmaxIter):
 F32_BRIGHT_BAR, F32_MEDIAN_BAR = 6.5e-2, 5e-3
 # (c)'s iterations: past the 211 in which the float64 state converges, so
 # the float32 state sits at its noise floor
-F32_FULL_ITERS = 300
+F32_FULL_ITERS = 230
 
 
 def falc_h6ca_f32(scheme):
@@ -1756,6 +1811,360 @@ def falc_h6ca_f32(scheme):
             or any(counts[k] for k in ('sweep', 'gamma', 'fused'))):
         raise AssertionError(f'launches under {scheme}: {counts}')
     return counts
+
+
+# ---- spectrum synthesis (phase 12) -------------------------------------
+SOLVERS = ('piecewise_linear_1d', 'piecewise_bezier3_1d',
+           'piecewise_besser_1d')
+BEZIER3 = 'piecewise_bezier3_1d'
+# falc_h6ca's iterations to converge under each 1D solver with the JAX
+# package on the CPU in float64 (scripts/jax_solver_iterations.py)
+JAX_SOLVER_ITERS = {'piecewise_linear_1d': 349, 'piecewise_bezier3_1d': 211,
+                    'piecewise_besser_1d': 214}
+# compute_rays on the card against the same state on the CPU: the sweep
+# kernel against its plain version along one ray per wavelength
+RAYS_TOL = 1e-9
+# BASELINE config 4 against its golden run, amplitude-normalised: the bars
+# of tests/test_vs_reference_golden.py:181-255 (profiles stored float32)
+STOKES_PROFILE_TOL, STOKES_I_TOL, STOKES_QUV_TOL = 1e-5, 1e-6, 1e-3
+# the Stokes solve (torch ops) on the card against the CPU
+STOKES_CARD_TOL = 1e-9
+# a pickled and resumed run against the uninterrupted one
+# (tests/test_pickle_context.py's bar)
+PICKLE_RTOL = 5e-12
+
+
+def sweep_name(solver, dtype):
+    """The kernels' record name of the sweep instance for ``solver`` and
+    ``dtype``: sweep, sweep_f32, sweep_linear, sweep_besser_f32, ..."""
+    from lightweaver_tpu_torch.ops.sweep import launch_attr
+    return 'sweep' + launch_attr(solver, dtype)[len('launches'):]
+
+
+def short(solver):
+    return solver.split('_')[1]
+
+
+def amperr(ours, ref):
+    """max |ours - ref| / max |ref| (signed Stokes profiles cross zero)."""
+    ours = np.asarray(ours, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    return float(np.abs(ours - ref).max() / np.abs(ref).max())
+
+
+def cpu_twin(ctx):
+    """A Context on the CPU from ``ctx``'s state dict."""
+    from lightweaver_tpu_torch.context import Context
+    state = ctx.state_dict()
+    state['kwargs'] = dict(state['kwargs'], device='cpu')
+    return Context.construct_from_state_dict_with(state)
+
+
+def readme_rays(ctx):
+    """(a) The README program's last call on phase 5's converged falc_h6ca:
+    compute_rays over 1001 wavelengths of Ca II K at mu = 1 on the card
+    (one launch of the sweep kernel: the ray Context's formal_sol),
+    against the same state's compute_rays on the CPU."""
+    phase('synthesis (a): the README program on the card: compute_rays('
+          'np.linspace(392.5, 394.5, 1001), mus=[1.0]) on the converged '
+          'falc_h6ca vs the same state on the CPU')
+    lam = np.linspace(392.5, 394.5, 1001)
+    reset_counts()
+    t0 = time.perf_counter()
+    I = ctx.compute_rays(wavelengths=lam, mus=[1.0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    t0 = time.perf_counter()
+    Iref = cpu_twin(ctx).compute_rays(wavelengths=lam, mus=[1.0])
+    cpuMs = (time.perf_counter() - t0) * 1e3
+    err = amperr(I, Iref)
+    pointwise = float((np.abs(I - Iref) / np.abs(Iref)).max())
+    print(f'  I {I.shape}: max |card - CPU| / max |CPU| {err:.3e} (bar '
+          f'{RAYS_TOL}), pointwise {pointwise:.3e}; compute_rays {ms:.1f} ms '
+          f'on the card (a new Context over the 1001 wavelengths and its '
+          f'formal_sol; host clock), {cpuMs:.1f} ms on the CPU twin (its '
+          f'build included); sweep launches {counts["sweep"]}, the core '
+          f'at {lam[np.argmin(I[:, 0])]:.4f} nm')
+    if I.shape != (1001, 1) or not np.isfinite(I).all():
+        raise AssertionError(f'compute_rays gave {I.shape}, finite '
+                             f'{np.isfinite(I).all()}')
+    if counts['sweep'] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f'compute_rays launched {counts}')
+    if not err <= RAYS_TOL:
+        raise AssertionError(f'compute_rays card vs CPU {err:.3e}')
+    return ms
+
+
+def check_solver_f64(label, solver, args):
+    """The float64 instance of ``solver`` against its plain version
+    (KERNEL_TOL), with times and the bound."""
+    from lightweaver_tpu_torch.ops import sweep
+    kern = sweep.formal_solve_sweep(*args, solver=solver)
+    plain = sweep.formal_solve_sweep_plain(*args, solver=solver)
+    torch.cuda.synchronize()
+    rel, absErr = compare_outputs(f'{label} {short(solver)}', RAY_NAMES,
+                                  ray_outputs(kern), ray_outputs(plain),
+                                  KERNEL_TOL)
+    print(f'  {label} {short(solver)} float64: max|kernel-plain|/max|plain| '
+          f'= {rel:.3e} (bar {KERNEL_TOL}), max abs {absErr:.3e}')
+    bnd = sweep_bound(args, kern)
+    ms, plainMs = timed_pair(
+        f'{label} {short(solver)} float64, per call',
+        lambda: sweep.formal_solve_sweep(*args, solver=solver),
+        lambda: sweep.formal_solve_sweep_plain(*args, solver=solver),
+        SYMBOLS['sweep'], bnd=bnd)
+    return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, **bnd)
+
+
+def solver_kernel_check():
+    """(b) Every sweep instance (three solvers, two precisions) against its
+    plain version: on falc_h6ca's inputs after one MALI step (the records
+    of the kernels' JSON line) and, for the linear and BESSER solvers, on
+    FALC-500 random rays (Bezier-3's: phases 3 and 10); float64 by
+    KERNEL_TOL, float32 by the rule of f32_rule and J against its own
+    products.  Returns falc_h6ca's records."""
+    from lightweaver_tpu_torch.problems import random_rays
+    phase('synthesis (b): the sweep kernel per solver and precision vs its '
+          f'plain version (float64 bar {KERNEL_TOL}; float32: err(kernel '
+          f'f32, plain f64) <= {F32_SLACK} err(plain f32, plain f64) + '
+          f'{F32_FLOOR})')
+    ctx, params, scaJ, src, _ = one_iteration_inputs(82)
+    chi, src = ctx._iter_fn.gather(params, scaJ)
+    args82 = list(ctx._iter_fn.sweep_inputs(params, chi, src))
+    rays = random_rays(1046, 5, 500, seed=500)
+    args500 = [torch.tensor(rays[k], dtype=torch.float64, device='cuda')
+               for k in ('chi', 'srcNum', 'height', 'muz', 'IupwD', 'IupwU',
+                         'wmu')]
+    records = {}
+    for solver in SOLVERS:
+        cases = [('falc_h6ca', args82)]
+        if solver != BEZIER3:
+            cases.append(('FALC-500 random rays', args500))
+        for label, args in cases:
+            r64 = check_solver_f64(label, solver, args)
+            r32 = check_sweep_f32(f'{label} {short(solver)}',
+                                  [a.float() for a in args], solver)
+            if label == 'falc_h6ca':
+                records[sweep_name(solver, torch.float64)] = r64
+                records[sweep_name(solver, F32)] = r32
+    del ctx, params, chi, src, args82, args500
+    torch.cuda.empty_cache()
+    return records
+
+
+def converge_solver(solver):
+    """(c) falc_h6ca converged on the card under ``solver`` (default
+    scheme, float64): its iterations within NITER_REF_SLACK of the JAX
+    package's (JAX_SOLVER_ITERS) and the emergent spectrum beside the
+    golden (Bezier-3) one; every launch the solver's float64 instance.
+    Returns the run's launches of it."""
+    from lightweaver_tpu_torch import iterate_ctx_se
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    phase(f'synthesis (c): falc_h6ca under {solver} (default scheme, f64): '
+          'converged on the card')
+    ctx = h6ca_context(Falc82(), 5, device='cuda')
+    ctx.set_formal_solver(solver)
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    name = sweep_name(solver, torch.float64)
+    ref = golden('falc_h6ca_ref')
+    dI = relerr(ctx.I.cpu(), ref['out_I'])
+    print(f'  {nIter} iterations (the JAX package on the CPU: '
+          f'{JAX_SOLVER_ITERS[solver]}; Bezier-3: 211); {wall:.2f} s, '
+          f'{wall / nIter * 1e3:.3f} ms/iter; emergent I vs the golden '
+          f'Bezier-3 spectrum: max relative {dI:.3e}; launches '
+          + ', '.join(f'{k} {v}' for k, v in counts.items() if v))
+    if abs(nIter - JAX_SOLVER_ITERS[solver]) > NITER_REF_SLACK:
+        raise AssertionError(f'{solver}: {nIter} iterations vs the JAX '
+                             f'package\'s {JAX_SOLVER_ITERS[solver]}')
+    others = {k: v for k, v in counts.items() if v and k != name}
+    if counts[name] < nIter or others:
+        raise AssertionError(f'{solver}: launches {counts}')
+    if not torch.isfinite(ctx.I).all():
+        raise AssertionError('non-finite emergent intensity')
+    return counts[name]
+
+
+# (c)'s float32 runs: MALI steps of the mixed-precision problem
+F32_SOLVER_STEPS = 40
+
+
+def solver_steps_f32(solver):
+    """(c) The mixed-precision problem in float32 under ``solver`` (default
+    scheme): F32_SOLVER_STEPS MALI steps with stat_equil from the fourth,
+    finite and contracting (the last dJ below the fifth step's), every
+    sweep launch the solver's float32 instance (its kernel against the
+    plain version: (b)).  Returns the run's launches of it."""
+    from lightweaver_tpu_torch.problems import mixed_precision_context
+    ctx = mixed_precision_context(device='cuda', dtype=F32)
+    ctx.set_formal_solver(solver)
+    reset_counts()
+    t0 = time.perf_counter()
+    dJ = []
+    for it in range(F32_SOLVER_STEPS):
+        dJ.append(float(ctx.formal_sol_gamma_matrices().dJMax))
+        if it >= 3:
+            ctx.stat_equil()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    name = sweep_name(solver, F32)
+    print(f'  mixed-precision problem in float32 under {solver}: '
+          f'{F32_SOLVER_STEPS} MALI steps, dJ {dJ[4]:.3e} at step 5, '
+          f'{dJ[-1]:.3e} at the last; {wall:.2f} s; launches '
+          + ', '.join(f'{k} {v}' for k, v in counts.items() if v))
+    if not (np.isfinite(dJ).all() and dJ[-1] < dJ[4]
+            and torch.isfinite(ctx.I).all()):
+        raise AssertionError(f'{solver} float32: dJ {dJ}')
+    others = {k: v for k, v in counts.items() if v and k != name}
+    if counts[name] != F32_SOLVER_STEPS or others:
+        raise AssertionError(f'{solver} float32: launches {counts}')
+    return counts[name]
+
+
+def stokes_golden():
+    """(d) BASELINE config 4 (falc_h6ca in a 0.1 T field at gamma = pi/3,
+    chi = pi/6) converged on the card under the fused scheme, the fastest
+    (iterations, populations: the field does not enter the MALI step), and
+    its
+    polarised profiles and full-Stokes solve (single_stokes_fs with
+    updateJ) against the golden run, tests/test_vs_reference_golden.py's
+    bars; the single_stokes_fs ms; then compute_rays(stokes=True) over Ca
+    II 854.2 nm, card against the same state on the CPU."""
+    from lightweaver_tpu_torch import iterate_ctx_se
+    from lightweaver_tpu_torch.problems import stokes_context
+    phase('synthesis (d): BASELINE config 4 (falc_h6ca, B = 0.1 T, gamma = '
+          f'pi/3, chi = pi/6) converged on the card under {FUSED} vs the '
+          'golden reference, single_stokes_fs, compute_rays(stokes=True)')
+    ref = golden('falc_h6ca_stokes_ref')
+    ctx = stokes_context(device='cuda')
+    ctx.set_fs_iter_scheme(FUSED)
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    nIterRef = int(ref['out_niter'][0])
+    pops = {ia: relerr(ctx.popsState[ia]['n'].cpu(), ref[f'out_pops_a{ia}'])
+            for ia in range(2)}
+    print(f'  converged in {nIter} iterations (reference {nIterRef}); '
+          f'{wall:.2f} s; pops vs golden '
+          + ', '.join(f'a{k} {v:.3e}' for k, v in pops.items())
+          + f' (bar {GOLDEN_RTOL}); {FUSED} launches {counts["fused"]}')
+    if abs(nIter - nIterRef) > NITER_REF_SLACK:
+        raise AssertionError(f'{nIter} iterations vs reference {nIterRef}')
+    if not all(v < GOLDEN_RTOL for v in pops.values()):
+        raise AssertionError(f'BASELINE config 4 pops vs golden: {pops}')
+    ctx.compute_polarised_profiles()
+    worst, nLines = 0.0, 0
+    for ai, a in enumerate(ctx.activeAtoms):
+        for ti in range(len(a.trans)):
+            p7 = ctx.phi7[ai][ti]
+            if p7 is None:
+                continue
+            nLines += 1
+            tag = f'a{ai}t{ti}'
+            for name, key in (('phi', f'out_phi_pol_{tag}'),
+                              ('phiQ', f'out_phiQ_{tag}'),
+                              ('phiV', f'out_phiV_{tag}'),
+                              ('psiQ', f'out_psiQ_{tag}')):
+                e = amperr(p7[name].cpu(), ref[key])
+                worst = max(worst, e)
+                if not e < STOKES_PROFILE_TOL:
+                    raise AssertionError(f'{name} {tag} vs golden {e:.3e}')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.single_stokes_fs(recompute=True, updateJ=True)
+    torch.cuda.synchronize()
+    firstMs = (time.perf_counter() - t0) * 1e3
+    errI = amperr(ctx.I.cpu(), ref['out_I_stokes'])
+    errQuv = [amperr(ctx.Quv[n].cpu(), ref['out_Quv'][n]) for n in range(3)]
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ctx.single_stokes_fs()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    print(f'  polarised profiles of {nLines} lines vs golden: worst '
+          f'{worst:.3e} (bar {STOKES_PROFILE_TOL}); single_stokes_fs('
+          f'recompute=True, updateJ=True): I {errI:.3e} (bar {STOKES_I_TOL}),'
+          f' Q/U/V ' + ' / '.join(f'{e:.3e}' for e in errQuv)
+          + f' (bar {STOKES_QUV_TOL}), amplitude-normalised; '
+          f'{firstMs:.1f} ms with the profiles, single_stokes_fs() '
+          f'{ms:.1f} ms (mean of {reps}; Nlam x Nmu = '
+          f'{ctx.cfg.Nlam} x {ctx.cfg.Nmu} rays, {ctx.cfg.Nk} depths; host '
+          'clock)')
+    if nLines != 5 or not (errI < STOKES_I_TOL
+                           and max(errQuv) < STOKES_QUV_TOL):
+        raise AssertionError(f'Stokes vs golden: {nLines} lines, I {errI}, '
+                             f'QUV {errQuv}')
+    lam = np.linspace(853.9, 855.0, 161)
+    t0 = time.perf_counter()
+    iquv = ctx.compute_rays(wavelengths=lam, mus=[1.0], stokes=True)
+    raysMs = (time.perf_counter() - t0) * 1e3
+    ref4 = cpu_twin(ctx).compute_rays(wavelengths=lam, mus=[1.0],
+                                      stokes=True)
+    errs = [amperr(iquv[s], ref4[s]) for s in range(4)]
+    print(f'  compute_rays(stokes=True) over 161 wavelengths at mu = 1: '
+          f'{raysMs:.1f} ms; card vs CPU I/Q/U/V '
+          + ' / '.join(f'{e:.3e}' for e in errs)
+          + f' (bar {STOKES_CARD_TOL}); |V| max / I max '
+          f'{np.abs(iquv[3]).max() / iquv[0].max():.3e}')
+    if iquv.shape != (4, 161, 1) or not max(errs) <= STOKES_CARD_TOL:
+        raise AssertionError(f'compute_rays(stokes=True): {iquv.shape}, '
+                             f'{errs}')
+    return ms
+
+
+def pickle_check():
+    """(e) falc_h6ca (f64, default scheme): 12 MALI steps, pickle, load on
+    the card, 18 more; the populations and J against an uninterrupted
+    30-step run (PICKLE_RTOL)."""
+    import pickle
+
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    phase('synthesis (e): falc_h6ca pickled at MALI step 12 and resumed on '
+          'the card vs an uninterrupted run of 30 steps')
+
+    def iterate(ctx, n, start=0):
+        for it in range(start, start + n):
+            ctx.formal_sol_gamma_matrices()
+            if it >= 3:
+                ctx.stat_equil()
+    ref = h6ca_context(Falc82(), 5, device='cuda')
+    iterate(ref, 30)
+    half = h6ca_context(Falc82(), 5, device='cuda')
+    iterate(half, 12)
+    t0 = time.perf_counter()
+    blob = pickle.dumps(half)
+    resumed = pickle.loads(blob)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = (torch.equal(resumed.J, half.J)
+            and all(torch.equal(a['n'], b['n']) for a, b in
+                    zip(resumed.popsState, half.popsState)))
+    iterate(resumed, 18, start=12)
+    torch.cuda.synchronize()
+    errs = [float(((a['n'] - b['n']).abs() / b['n'].abs()).max())
+            for a, b in zip(resumed.popsState, ref.popsState)]
+    errJ = float(((resumed.J - ref.J).abs() / ref.J.abs()
+                  .clamp(min=1e-300)).max())
+    print(f'  pickle {len(blob) / 1e6:.2f} MB, dumps + loads {ms:.1f} ms; '
+          f'resumed on {resumed.device}, state equal {same}; after 30 '
+          'steps pops ' + ', '.join(f'{e:.2e}' for e in errs)
+          + f', J {errJ:.2e} (bar {PICKLE_RTOL})')
+    if not (same and resumed.J.is_cuda and max(errs) <= PICKLE_RTOL
+            and errJ <= PICKLE_RTOL):
+        raise AssertionError('the pickled Context does not resume as the '
+                             'uninterrupted run')
 
 
 # ---- the least time the card could take for a kernel's work -----------
@@ -1855,6 +2264,14 @@ KERNELS = {
                   'lightweaver_tpu/ops/pallas_gamma.py:249'),
     'fused_f32': ('lightweaver_tpu_torch/csrc/fused.cu',
                   'lightweaver_tpu/ops/pallas_fused.py:240'),
+    'sweep_linear': ('lightweaver_tpu_torch/csrc/sweep.cu',
+                     'lightweaver_tpu/ops/pallas_sweep.py:297'),
+    'sweep_besser': ('lightweaver_tpu_torch/csrc/sweep.cu',
+                     'lightweaver_tpu/ops/pallas_sweep.py:297'),
+    'sweep_linear_f32': ('lightweaver_tpu_torch/csrc/sweep.cu',
+                         'lightweaver_tpu/ops/pallas_sweep.py:297'),
+    'sweep_besser_f32': ('lightweaver_tpu_torch/csrc/sweep.cu',
+                         'lightweaver_tpu/ops/pallas_sweep.py:297'),
     'probe_elementwise': ('lightweaver_tpu_torch/csrc/probe.cu',
                           'scripts/pallas_probe.py:28'),
     'probe_recurrence': ('lightweaver_tpu_torch/csrc/probe.cu',
@@ -1871,6 +2288,7 @@ def main():
     kernel_check()
     scheme_kernel_check()
     nrCtx = main_path()
+    raysMs = readme_rays(nrCtx)
     scheme_paths()
     callable_bc_check()
     prdKern = prd_kernel_check()
@@ -1886,6 +2304,17 @@ def main():
     for scheme in SCHEMES:
         timedep_check(scheme)
     escape_check()
+    solverKern = solver_kernel_check()
+    solverLaunches = {}
+    for solver in SOLVERS[::2]:
+        solverLaunches[sweep_name(solver, torch.float64)] = \
+            converge_solver(solver)
+    phase('synthesis (c): the mixed-precision problem (40 depths, 3 rays, '
+          'Ca II active) in float32 under the linear and BESSER solvers')
+    for solver in SOLVERS[::2]:
+        solverLaunches[sweep_name(solver, F32)] = solver_steps_f32(solver)
+    stokesMs = stokes_golden()
+    pickle_check()
     f32Kern = f32_kernel_check()
     phase('mixed-precision problem (40 depths, 3 rays, Ca II active) in '
           'float32 under each scheme')
@@ -1908,7 +2337,12 @@ def main():
                for name in ('sweep', 'gamma', 'fused')}
     records.update({name: dict(f32Kern[name], launches=f32Launches[name])
                     for name in F32_NAMES})
+    records.update({name: dict(solverKern[name], launches=n)
+                    for name, n in solverLaunches.items()})
     records.update(probes)
+    print(f'synthesis: compute_rays (the README program, 1001 wavelengths, '
+          f'mu = 1) {raysMs:.1f} ms, single_stokes_fs (BASELINE config 4) '
+          f'{stokesMs:.1f} ms')
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')
     print(smi)

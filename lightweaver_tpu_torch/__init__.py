@@ -5,9 +5,10 @@ atmospheres, as in lightweaver_tpu (the JAX package, kept as the
 reference), running on PyTorch with hand-written CUDA kernels for an
 NVIDIA Hopper GPU.  The port never imports jax.
 
-Ported so far: the 1D MALI main path (Bezier-3 formal solver, factored
-Gamma, no Ng on the populations, no charge conservation) with complete
-redistribution, angle-averaged PRD and hybrid PRD
+Ported so far: the 1D MALI main path (the linear, Bezier-3 and BESSER
+formal solvers, factored Gamma, Ng on the populations, charge
+conservation, time-dependent updates) with complete redistribution,
+angle-averaged PRD and hybrid PRD
 (Context.prd_redistribute, iterate_ctx_se(ctx, prd=True)), the depth
 sweep as the CUDA kernel csrc/sweep.cu, and the two iteration schemes of
 Context.set_fs_iter_scheme with their kernels: 'mali_full_precond_pallas'
@@ -20,7 +21,9 @@ PRD excepted).  Like the JAX package, the default working precision is
 float64.  The default device is the card ('cuda'); pass device='cpu' for
 the CPU, where every kernel wrapper runs its plain PyTorch version.  Every
 tensor is created with an explicit dtype and device rather than by
-changing torch's global defaults.
+changing torch's global defaults.  From a converged state the Context
+synthesises spectra: formal_sol, compute_rays and the full-Stokes
+single_stokes_fs, with state_dict and pickling to carry the state.
 
 ``ref:`` comments name files of the upstream Lightweaver source tree
 (``lightweaver/`` for its Python layer, ``Source/`` for its C++ core).

@@ -1,13 +1,17 @@
 """The Context: device state + the MALI iteration, in PyTorch.
 
-Port of the 1D path of lightweaver_tpu/context.py: the
-'piecewise_bezier3_1d' formal solver, factored Gamma; complete
-redistribution, angle-averaged PRD and hybrid PRD (prd_redistribute); and
-the population-update options around stat_equil: Ng acceleration of the
-populations (ngOptions), Newton-Raphson charge conservation
-(conserveCharge, nr_post_update), backward-Euler time-dependent updates
-(time_dep_update, with update_deps after the atmosphere changes) and the
-escape-probability start (initSol).  Everything outside that slice raises
+Port of the 1D path of lightweaver_tpu/context.py: the three 1D formal
+solvers (formalSolver, set_formal_solver: piecewise linear, cubic Bezier,
+BESSER), factored Gamma; complete redistribution, angle-averaged PRD and
+hybrid PRD (prd_redistribute); the population-update options around
+stat_equil: Ng acceleration of the populations (ngOptions),
+Newton-Raphson charge conservation (conserveCharge, nr_post_update),
+backward-Euler time-dependent updates (time_dep_update, with update_deps
+after the atmosphere changes) and the escape-probability start (initSol);
+and spectrum synthesis from a converged state: the Lambda step formal_sol,
+state_dict / pickling / construct_from_state_dict_with, compute_rays, and
+full-Stokes Zeeman synthesis (compute_polarised_profiles,
+single_stokes_fs, ops/stokes.py).  Everything outside that slice raises
 ValueError rather than running something else.
 
 Precision, as in the JAX package: a float64 state, or a float32 working
@@ -48,6 +52,7 @@ behind a stage:
 
 Both take rho from the params of each call; neither covers hybrid PRD.
 """
+import copy
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -67,12 +72,14 @@ from .iteration_update import IterationUpdate
 from .nr_update import build_nr_fn
 from .ops import fused as fusedOps
 from .ops import gamma as gammaOps
-from .ops.faddeeva import voigt_H
+from .ops.faddeeva import voigt_H, voigt_HF
+from .ops.formal_solver import SOLVER_NAMES_1D
 from .ops.linalg import solve_KxK_over_depth
 from .ops.ng import Ng, NgOptions
 from .ops.planck import planck_nu
 from .ops.prd import interp, prd_scatter_rho
-from .ops.sweep import formal_solve_sweep
+from .ops.stokes import delo_bezier_stokes
+from .ops.sweep import BEZIER3, formal_solve_sweep
 from .utils import ExplodingMatrixError, InitialSolution
 
 DEFAULT_DTYPE = torch.float64
@@ -84,6 +91,16 @@ GAMMA_ACCUM = ('exact', 'blocked')
 SCHEME_DEFAULT = 'mali_full_precond'
 SCHEME_PALLAS = 'mali_full_precond_pallas'
 SCHEME_FUSED = 'mali_full_precond_fused'
+# what each scheme's kernel needs of the configuration (_check_scheme)
+SCHEME_NEEDS = {
+    SCHEME_DEFAULT: '',
+    SCHEME_FUSED: ("needs 1D, factored Gamma, no hPRD, "
+                   "formalSolver='piecewise_bezier3_1d': the Bezier-3 "
+                   "kernel over float64 or float32 rays, without hybrid "
+                   "PRD"),
+    SCHEME_PALLAS: ('needs float64 or float32, no hybrid PRD and same-atom '
+                    'line groups of at most {KMAX} overlapping lines'),
+}
 
 
 @dataclass
@@ -102,6 +119,7 @@ class TransStatic:
     wavelength: np.ndarray = None       # [W] window grid
     wlambda: np.ndarray = None          # [W] integration weights
     alpha: np.ndarray = None            # [W] continuum cross-section
+    polarisable: bool = False           # a line with Zeeman components
     isPrd: bool = False                 # a PRD line of an active atom
     # device copies of the three arrays above (IterConfig fills them)
     wavelengthT: Optional[torch.Tensor] = None
@@ -167,6 +185,9 @@ class IterConfig:
     # rows (the line Gamma kernel's contract); ignored in float64
     gammaAccum: str = 'exact'
     fsIterScheme: str = SCHEME_DEFAULT
+    # the 1D formal solver of the sweep (ops/formal_solver.py:
+    # SOLVER_NAMES_1D)
+    formalSolver: str = BEZIER3
     # hybrid PRD (Context._configure_hprd_coeffs; ref: Source/Prd.cpp:
     # 697-945): the PRD-active wavelength rows, the map from the global
     # grid to them (-1 elsewhere), the comoving-frame interpolation
@@ -397,7 +418,8 @@ def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
     """Boundary intensities, then the depth sweep of every ray with its
     angular moments (ops/sweep.py: the CUDA kernel on a CUDA device).
     Returns (I, Psi, IeffBase, moments)."""
-    return formal_solve_sweep(*sweep_inputs(cfg, params, chiTot, srcNum))
+    return formal_solve_sweep(*sweep_inputs(cfg, params, chiTot, srcNum),
+                              solver=cfg.formalSolver)
 
 
 def _upwind_intensities(cfg: IterConfig, params, chiTot, lam, rows=None):
@@ -950,7 +972,9 @@ def build_iteration_fn(cfg: IterConfig):
     cfg.fsIterScheme selects the stages: 'mali_full_precond' runs gather,
     formal_solve and gamma_rates; 'mali_full_precond_pallas' adds the line
     kernel stage before gamma_rates; 'mali_full_precond_fused' replaces
-    gather and formal_solve with fused_stage.
+    gather and formal_solve with fused_stage.  With lambdaIterate=True
+    the step runs without the approximate operator (lambda_operator),
+    the JAX package's lambdaIterate.
     """
     scheme = cfg.fsIterScheme
 
@@ -961,7 +985,7 @@ def build_iteration_fn(cfg: IterConfig):
             return fused_pack(cfg, params)
         return None
 
-    def iteration(params):
+    def iteration(params, lambdaIterate=False):
         packed = params.get('pack')
         if packed is None:
             packed = pack(params)
@@ -976,6 +1000,8 @@ def build_iteration_fn(cfg: IterConfig):
             chiTot, srcNum = gather(cfg, params, scaJ)
             I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot,
                                                      srcNum)
+        if lambdaIterate:
+            I, Psi, IeffBase, moments = lambda_operator(I, Psi, moments)
         if scheme == SCHEME_PALLAS:
             lineTerms = line_kernel_stage(cfg, params, I, Psi, IeffBase,
                                           srcNum, packed)
@@ -1009,6 +1035,17 @@ def build_iteration_fn(cfg: IterConfig):
     iteration.gamma_rates = lambda params, *rays: gamma_rates(
         cfg, _working_params(cfg, params), *rays)
     return iteration
+
+
+def lambda_operator(I, Psi, moments):
+    """The rays and moments of a Lambda iteration step (formal_sol): Psi
+    = 0 and IeffBase = I, so on the moments path PsiBar = 0 and
+    IeffSrcBar = IBar, under every scheme; the line Gamma kernel reads
+    them so too (lightweaver_tpu/context.py:992-996, 1034-1036,
+    1121-1129)."""
+    moments = dict(moments, PsiBar=torch.zeros_like(moments['PsiBar']),
+                   IeffSrcBar=moments['IBar'])
+    return I, torch.zeros_like(Psi), I, moments
 
 
 def rest_frame_J(cfg: IterConfig, params, lam, I):
@@ -1093,7 +1130,8 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
 
     def prd_subset_stage(params):
         params = _working_params(cfg, params)
-        I, Psi, IeffBase, moments = formal_solve_sweep(*sweep_inputs(params))
+        I, Psi, IeffBase, moments = formal_solve_sweep(
+            *sweep_inputs(params), solver=cfg.formalSolver)
         adt = cfg.accumDtype
         Jdag = params['J'][subT].to(adt)
         Jnew = moments['J']
@@ -1146,6 +1184,17 @@ def _time_dep_solve(Gamma, nOld, dt, theta=1.0):
     return solve_KxK_over_depth(M, nOld)
 
 
+def _check_scheme(scheme: str, cfg: IterConfig):
+    """Raise ValueError where ``scheme``'s kernel does not cover ``cfg``."""
+    check = {SCHEME_DEFAULT: lambda c: True,
+             SCHEME_FUSED: fusedOps.fused_scheme_supported,
+             SCHEME_PALLAS: gammaOps.gamma_scheme_supported}[scheme]
+    if not check(cfg):
+        raise ValueError(f'{scheme} does not support this configuration ('
+                         + SCHEME_NEEDS[scheme].format(KMAX=gammaOps.KMAX)
+                         + ')')
+
+
 def phi_direction_major(phi):
     """[W, Nmu, 2, Nk] profile (the JAX package's layout) -> contiguous
     [2, W, Nmu, Nk], the iteration's layout."""
@@ -1162,7 +1211,15 @@ class Context:
     read I / J / populations / rhoPrd.  All state lives on ``device``, the
     card unless the caller passes device='cpu'; on a CUDA device every
     stage with a kernel launches it.  ``hprd=True`` selects hybrid PRD
-    (comoving-frame rho, default scheme only).
+    (comoving-frame rho, default scheme only).  ``formalSolver`` (or
+    set_formal_solver) picks the 1D solver of every sweep: piecewise
+    linear, Bezier-3 (the default) or BESSER.
+
+    From a converged state, formal_sol is the Lambda step, compute_rays
+    the emergent spectrum on any wavelength and mu grid, and
+    single_stokes_fs the Zeeman-polarised one (with a field on the
+    atmosphere); state_dict, pickle and construct_from_state_dict_with
+    carry the state across.
 
     ``ngOptions`` (an NgOptions) runs Ng acceleration on the populations
     in stat_equil; ``conserveCharge`` follows each statistical-equilibrium
@@ -1202,7 +1259,7 @@ class Context:
         unsupported = {
             'a 2D/3D atmosphere': atmos.Ndim != 1,
             f'formalSolver={formalSolver!r}':
-                formalSolver != 'piecewise_bezier3_1d',
+                formalSolver not in SOLVER_NAMES_1D,
             f'gammaMode={gammaMode!r}': gammaMode != 'factored',
             f'dtype={dtype}': dtype not in (torch.float64, torch.float32),
             f'accumDtype={accumDtype}': accumDtype != STATE_DTYPE,
@@ -1251,7 +1308,7 @@ class Context:
             wavelength=np.asarray(spect.wavelength),
             muz=np.asarray(atmos.muz), wmu=np.asarray(atmos.wmu),
             device=self.device, dtype=dtype, accumDtype=accumDtype,
-            gammaAccum=gammaAccum)
+            gammaAccum=gammaAccum, formalSolver=formalSolver)
 
         bg = basic_background(spect, atmos, eqPops, radSet)
         self.background = bg
@@ -1317,6 +1374,11 @@ class Context:
         self._prdSubIdxs = None
         self._rhoHost = {}
 
+        # full-Stokes synthesis (single_stokes_fs)
+        self.phi7 = None
+        self.Quv = None
+        self.J20 = None
+
         self._iter_fn = build_iteration_fn(self.cfg)
         self._params = None
         self._nrFn = None
@@ -1355,6 +1417,7 @@ class Context:
                     lambda0=t.lambda0, Aji=t.Aji, Bji=t.Bji, Bij=t.Bij,
                     wavelength=np.asarray(grid),
                     wlambda=_wlambda(grid, Const.CLight / t.lambda0),
+                    polarisable=t.polarisable,
                     isPrd=(t.type == LineType.PRD and not detailed))
             else:
                 ts = TransStatic(
@@ -1466,7 +1529,9 @@ class Context:
         return self.cfg.tensor(data)
 
     # ------------------------------------------------------------------
-    def build_params(self, crswVal: float = 1.0) -> Dict:
+    def build_params(self, crswVal: float = 1.0, pack: bool = True) -> Dict:
+        """The params dict of one MALI step (build_iteration_fn), with the
+        scheme's packed kernel input unless ``pack`` is False."""
         params = {
             'J': self.J,
             'bgChi': self.bgChi, 'bgEta': self.bgEta, 'bgSca': self.bgSca,
@@ -1488,7 +1553,7 @@ class Context:
             'hprdI0': self._hprd_coeff_params(0),
             'hprdFrac': self._hprd_coeff_params(1),
         }
-        params['pack'] = self._iter_fn.pack(params)
+        params['pack'] = self._iter_fn.pack(params) if pack else None
         return params
 
     def _hprd_coeff_params(self, which: int):
@@ -1521,34 +1586,43 @@ class Context:
         registry, LwMiddleLayer.pyx:3077-3098; the JAX package's names):
         'mali_full_precond' (the stages in torch ops around the sweep
         kernel), 'mali_full_precond_fused' (the fused lambda-step kernel,
-        ops/fused.py) or 'mali_full_precond_pallas' (the line Gamma
-        kernel, ops/gamma.py).  The reference's per-SIMD suffixes
-        (_scalar/_SSE2/_AVX*) alias the base name.  A configuration that
-        the scheme's kernel does not cover raises ValueError."""
+        ops/fused.py; Bezier-3 only, as in the JAX package) or
+        'mali_full_precond_pallas' (the line Gamma kernel, ops/gamma.py).
+        The reference's per-SIMD suffixes (_scalar/_SSE2/_AVX*) alias the
+        base name.  A configuration that the scheme's kernel does not
+        cover raises ValueError."""
         base = name.partition('_scalar')[0].partition('_SSE2')[0] \
                    .partition('_AVX')[0]
-        supported = {
-            SCHEME_DEFAULT: (lambda cfg: True, ''),
-            SCHEME_FUSED: (fusedOps.fused_scheme_supported,
-                           'needs float64 or float32 and no hybrid PRD'),
-            SCHEME_PALLAS: (gammaOps.gamma_scheme_supported,
-                            'needs float64 or float32, no hybrid PRD and '
-                            'same-atom '
-                            f'line groups of at most {gammaOps.KMAX} '
-                            'overlapping lines')}
-        if base not in supported:
+        if base not in SCHEME_NEEDS:
             raise ValueError(f'Unknown iteration scheme {name!r}; '
                              "available: 'mali_full_precond', "
                              "'mali_full_precond_fused', "
                              "'mali_full_precond_pallas'")
-        check, needs = supported[base]
-        if not check(self.cfg):
-            raise ValueError(f'{base} does not support this configuration '
-                             f'({needs})')
-        self.cfg = dataclasses.replace(self.cfg, fsIterScheme=base)
+        _check_scheme(base, self.cfg)
+        self._swap_cfg(fsIterScheme=base)
+
+    def _swap_cfg(self, **replacements):
+        """Replace fields of the iteration config and drop everything
+        built from it: the iteration function, the cached params with the
+        scheme's packed input (the line table, the fused pack) and the PRD
+        subset function (lightweaver_tpu/context.py:3364-3373)."""
+        self.cfg = dataclasses.replace(self.cfg, **replacements)
         self._iter_fn = build_iteration_fn(self.cfg)
         self._params = None
         self._prd_fs_fn = None
+
+    def set_formal_solver(self, name: str):
+        """Select the 1D formal solver by name (ops/formal_solver.py:
+        SOLVER_NAMES_1D; ref: LwMiddleLayer.pyx:3039): every later sweep
+        runs the kernel's instance of that solver.  An unknown or 2D name
+        raises ValueError, and so does a solver the current scheme's
+        kernel does not cover (the fused kernel is Bezier-3 only)."""
+        if name not in SOLVER_NAMES_1D:
+            raise ValueError(f'Unknown formal solver {name!r} for a 1D '
+                             f'atmosphere; available: {SOLVER_NAMES_1D}')
+        _check_scheme(self.cfg.fsIterScheme,
+                      dataclasses.replace(self.cfg, formalSolver=name))
+        self._swap_cfg(formalSolver=name)
 
     def get_fs_iter_scheme_properties(self, fsIterScheme=None) -> dict:
         """Properties of the selected iteration scheme, with the
@@ -1561,9 +1635,11 @@ class Context:
                 'defaultWlaGijStorage': True}
 
     # ------------------------------------------------------------------
-    def formal_sol_gamma_matrices(self) -> IterationUpdate:
+    def formal_sol_gamma_matrices(self, lambdaIterate: bool = False) \
+            -> IterationUpdate:
         """One full MALI step: formal solution over all wavelengths with
-        Gamma-matrix and rate accumulation.
+        Gamma-matrix and rate accumulation; with ``lambdaIterate`` without
+        the approximate operator (Psi = 0, the Lambda iteration).
         ref: Source/LwMiddleLayer.pyx:3152"""
         crswVal = self.crswCallback() if self.crswCallback is not None else 1.0
         self.crswDone = crswVal == 1.0
@@ -1584,7 +1660,7 @@ class Context:
         # reads these rows from self._params too)
         p['upperBcData'] = self._bc_data(self.atmos.upperBc)
         p['lowerBcData'] = self._bc_data(self.atmos.lowerBc)
-        out = self._iter_fn(p)
+        out = self._iter_fn(p, lambdaIterate=lambdaIterate)
         self._crswVal = crswVal
         self._Gamma = out['Gamma']
         self._Rij = out['Rij']
@@ -1595,6 +1671,12 @@ class Context:
             self.JRest = out['JRest']
         return IterationUpdate(self, updatedJ=True, dJMax=out['dJ'],
                                crsw=crswVal)
+
+    def formal_sol(self, upOnly: bool = True) -> IterationUpdate:
+        """Plain formal solution updating I and J: the MALI step without
+        the operator (lambdaIterate), as in the JAX package (which also
+        ignores upOnly)."""
+        return self.formal_sol_gamma_matrices(lambdaIterate=True)
 
     # ------------------------------------------------------------------
     def _pops_on_host(self) -> List[np.ndarray]:
@@ -2106,3 +2188,333 @@ class Context:
             self._configure_hprd_coeffs()
             self._prd_fs_fn = None
         self._params = None
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> Dict:
+        """Serialisable snapshot of the simulation state (checkpoint,
+        clone, warm restart): the atmosphere, spectrum and eqPops objects,
+        and J, I, the active populations and nStar and each PRD line's rho
+        (with its window) copied to host numpy.  ``kwargs`` rebuild the
+        Context: conserveCharge, hprd, formalSolver and the device.  As in
+        the JAX package the working dtype is not kept, so a float32
+        Context comes back float64.
+        ref: Source/LwMiddleLayer.pyx:2977-3037"""
+        return {
+            'atmos': self.atmos,
+            'spect': self.spect,
+            'eqPops': self.eqPops,
+            'J': _host(self.J),
+            'I': _host(self.I),
+            'pops': [_host(st['n']) for st in self.popsState],
+            'nStar': [_host(st['nStar']) for st in self.popsState],
+            'rhoPrd': {
+                (a.model.element, t.i, t.j):
+                    (t.wavelength.copy(), _host(self.rhoPrd[ai][ti]))
+                for ai, ti, a, t in self._prd_lines()},
+            'kwargs': {
+                'conserveCharge': self.conserveCharge,
+                'hprd': self.cfg.hprd,
+                'formalSolver': self.cfg.formalSolver,
+                'device': str(self.device),
+            },
+        }
+
+    def __getstate__(self):
+        """Pickle protocol: the Context pickles through its state dict
+        (checkpoint and resume with plain pickle.dump / pickle.load), as
+        the reference's Cython classes do.
+        ref: Source/LwMiddleLayer.pyx:2977-3037"""
+        return self.state_dict()
+
+    def __setstate__(self, state: Dict):
+        """Rebuild from a state dict on its kwargs' device."""
+        ctx = Context.construct_from_state_dict_with(state)
+        self.__dict__.update(ctx.__dict__)
+
+    @classmethod
+    def construct_from_state_dict_with(cls, state: Dict, atmos=None,
+                                       spect=None, eqPops=None) -> 'Context':
+        """Rebuild a Context from a state dict, optionally with another
+        atmosphere, spectral configuration or eqPops: J is interpolated
+        onto the new wavelength grid (linear in wavelength, per depth),
+        the populations and nStar are copied, and each PRD line's rho is
+        interpolated onto its new window.
+        ref: Source/LwMiddleLayer.pyx:3758-3896"""
+        atmos = atmos if atmos is not None else state['atmos']
+        spect = spect if spect is not None else state['spect']
+        eqPops = eqPops if eqPops is not None else state['eqPops']
+        ctx = cls(atmos, spect, eqPops, **state['kwargs'])
+
+        oldLam = np.asarray(state['spect'].wavelength)
+        newLam = np.asarray(spect.wavelength)
+        Jold = state['J']
+        if len(newLam) == len(oldLam) and np.allclose(newLam, oldLam):
+            Jnew = Jold
+            if state.get('I') is not None \
+                    and state['I'].shape == tuple(ctx.I.shape):
+                ctx.I = ctx.cfg.tensor(state['I'])
+        else:
+            Jnew = np.empty((len(newLam), Jold.shape[1]))
+            for k in range(Jold.shape[1]):
+                Jnew[:, k] = np.interp(newLam, oldLam, Jold[:, k])
+        ctx.J = torch.tensor(Jnew, dtype=ctx.accumDtype, device=ctx.device)
+        for st, n, nStar in zip(ctx.popsState, state['pops'], state['nStar']):
+            st['n'] = ctx.cfg.state(n)
+            st['nStar'] = ctx.cfg.state(nStar)
+
+        # rho onto the new per-line windows
+        # (ref: Source/LwMiddleLayer.pyx:1960-1963)
+        oldRho = state.get('rhoPrd', {})
+        for ai, ti, a, t in ctx._prd_lines():
+            key = (a.model.element, t.i, t.j)
+            if key not in oldRho:
+                continue
+            oldLamW, rho = oldRho[key]
+            rhoNew = np.empty((t.W, rho.shape[1]))
+            for k in range(rho.shape[1]):
+                rhoNew[:, k] = np.interp(t.wavelength, oldLamW, rho[:, k])
+            ctx.rhoPrd[ai][ti] = ctx.cfg.state(rhoNew)
+        return ctx
+
+    # ------------------------------------------------------------------
+    def compute_rays(self, wavelengths=None, mus=None, stokes: bool = False,
+                     refinePrd: bool = False) -> np.ndarray:
+        """Emergent intensities on any (wavelength, mu) grid from the
+        current state: a Context on this one's device over a subset
+        spectral configuration in which every transition covers the whole
+        grid (spect.subset_configuration) and with one ray per mu
+        (Atmosphere.rays), built from state_dict, runs formal_sol (the
+        sweep kernel on the card) or, with ``stokes``, single_stokes_fs.
+        ``refinePrd`` first runs a MALI step and prd_redistribute
+        (maxIter=100).  Returns I [Nlam, Nmu], or with ``stokes`` [4, Nlam,
+        Nmu] (I, Q, U, V), as numpy.
+        ref: Source/LwMiddleLayer.pyx:3898-4003"""
+        state = self.state_dict()
+        spect2 = self.spect.subset_configuration(
+            self.spect.wavelength if wavelengths is None else wavelengths)
+        atmos2 = copy.copy(self.atmos)
+        if mus is not None:
+            atmos2.rays(mus)
+        rayCtx = Context.construct_from_state_dict_with(
+            state, atmos=atmos2, spect=spect2)
+        if refinePrd and rayCtx._prd_lines():
+            rayCtx.formal_sol_gamma_matrices()
+            rayCtx.prd_redistribute(maxIter=100)
+        if stokes:
+            rayCtx.single_stokes_fs()
+            return np.concatenate([_host(rayCtx.I)[None],
+                                   _host(rayCtx.Quv)], axis=0)
+        rayCtx.formal_sol()
+        return _host(rayCtx.I)
+
+    # ------------------------------------------------------------------
+    def compute_polarised_profiles(self):
+        """Zeeman-split profiles of every polarisable line with Zeeman
+        components: phi (Stokes I), phi_{Q,U,V} and the anomalous
+        dispersion psi_{Q,U,V}, each [W, Nmu, 2, Nk] (the JAX package's
+        layout), and wphi, as self.phi7[atom][trans] (None elsewhere), from
+        the anomalous-splitting components (zeeman.py), the field's
+        projections on each ray (Atmosphere.B_projections) and the real
+        pair (H, F) of the Faddeeva function (ops/faddeeva.py:voigt_HF).
+        Without a field every entry is None.
+        ref: Source/FormalStokes.cpp:9-117"""
+        atmos = self.atmos
+        allAtoms = self.cfg.allAtoms
+        if atmos.B is None:
+            self.phi7 = [[None] * len(a.trans) for a in allAtoms]
+            return
+        t_ = self.cfg.tensor
+        vlosMu = t_(atmos.vlos_mu())
+        wmu = t_(atmos.wmu)
+        cosGamma, cos2chi, sin2chi = atmos.B_projections()
+        cosG = t_(cosGamma)[None, :, None, :]
+        sin2G = 1.0 - cosG * cosG
+        c2chi = t_(cos2chi)[None, :, None, :]
+        s2chi = t_(sin2chi)[None, :, None, :]
+        s = t_([-1.0, 1.0])[None, None, :, None]
+        vBFac = (Const.QElectron / (4.0 * np.pi * Const.MElectron)
+                 * Const.NM_TO_M)
+        names = {-1: 'sb', 0: 'pi', 1: 'sr'}
+
+        self.phi7 = []
+        for ai, a in enumerate(allAtoms):
+            vBroad = a.model.vBroad(atmos)
+            lineByIdx = {(l.i, l.j): l for l in a.model.lines}
+            phiA = []
+            for ti, t in enumerate(a.trans):
+                z = (lineByIdx[(t.i, t.j)].zeeman_components()
+                     if t.isLine and t.polarisable else None)
+                if z is None:
+                    phiA.append(None)
+                    continue
+                aDamp = t_(self.aDamp[ai][ti])[None, None, None, :]
+                vB = t_(vBFac * t.lambda0 * atmos.B / vBroad)
+                sv = t_(1.0 / (Const.SqrtPi * vBroad))
+                vBase = (t.wavelengthT - t.lambda0) * Const.CLight / t.lambda0
+                vk = ((vBase[:, None, None, None]
+                       + s * vlosMu[None, :, None, :])
+                      / t_(vBroad)[None, None, None, :])
+                acc = dict.fromkeys(('phi_sb', 'phi_pi', 'phi_sr', 'psi_sb',
+                                     'psi_pi', 'psi_sr'), 0.0)
+                for nz in range(len(z.alpha)):
+                    H, Fd = voigt_HF(aDamp, vk - float(z.shift[nz])
+                                     * vB[None, None, None, :])
+                    key = names[int(z.alpha[nz])]
+                    acc['phi_' + key] += float(z.strength[nz]) * H
+                    acc['psi_' + key] += float(z.strength[nz]) * Fd
+                phiSigma = acc['phi_sr'] + acc['phi_sb']
+                phiDelta = 0.5 * acc['phi_pi'] - 0.25 * phiSigma
+                psiSigma = acc['psi_sr'] + acc['psi_sb']
+                psiDelta = 0.5 * acc['psi_pi'] - 0.25 * psiSigma
+                svB = sv[None, None, None, :]
+                phi = (phiDelta * sin2G + 0.5 * phiSigma) * svB
+                out = {
+                    'phi': phi,
+                    'phiQ': s * phiDelta * sin2G * c2chi * svB,
+                    'phiU': phiDelta * sin2G * s2chi * svB,
+                    'phiV': s * 0.5 * (acc['phi_sr'] - acc['phi_sb'])
+                            * cosG * svB,
+                    'psiQ': s * psiDelta * sin2G * c2chi * svB,
+                    'psiU': psiDelta * sin2G * s2chi * svB,
+                    'psiV': s * 0.5 * (acc['psi_sr'] - acc['psi_sb'])
+                            * cosG * svB,
+                }
+                out['wphi'] = 1.0 / torch.einsum('lmdk,l,m->k', phi,
+                                                 t.wlambdaT, 0.5 * wmu)
+                phiA.append(out)
+            self.phi7.append(phiA)
+
+    def single_stokes_fs(self, recompute: bool = False, updateJ: bool = False,
+                         upOnly: bool = True, J20: bool = False) \
+            -> IterationUpdate:
+        """Polarised (Zeeman) formal solution of the upgoing rays: the
+        emergent Stokes I as self.I [Nlam, Nmu] and Q, U, V as self.Quv
+        [3, Nlam, Nmu] (no Gamma or rates).  ``updateJ`` replaces J by the
+        mu moment of the Stokes I of the upgoing rays (0.5 wmu, as the JAX
+        package does); ``J20`` adds the anisotropic-scattering tensor J^2_0
+        of the last call to the background scattering emissivity (wI(mu)
+        sca J20 in I, wQ(mu) sca J20 in Q) and, with updateJ, re-forms
+        self.J20 [Nlam, Nk] from the new I and Q.  The depth sweep is
+        ops/stokes.py:delo_bezier_stokes (torch ops; the JAX package
+        leaves it to XLA).
+        ref: Source/LwMiddleLayer.pyx:3605,
+             Source/FormalStokes.cpp:418-728"""
+        if self.phi7 is None or recompute:
+            self.compute_polarised_profiles()
+        chi7, S4 = self._assemble_stokes_chi_S()
+        return self._stokes_solve(chi7, S4, chi7[:, :, 0, :],
+                                  updateJ=updateJ, J20=J20)
+
+    def _assemble_stokes_chi_S(self):
+        """chi7 [Nlam, Nmu, 7, Nk] and S4 [Nlam, Nmu, 4, Nk] of the
+        upgoing rays in the working dtype: the background and every
+        transition in chi7[:, :, 0] and eta4[:, :, 0]; each polarised
+        line's seven profiles in chi7's seven components and its first
+        four in eta4's; S4 = eta4 / chiI, plus (bgEta + bgSca J) / chiI in
+        Stokes I."""
+        cfg = self.cfg
+        Nlam, Nmu, Nk = cfg.Nlam, cfg.Nmu, cfg.Nk
+        d = 1          # upgoing only
+        params = _working_params(cfg, self.build_params(pack=False))
+
+        chi7 = torch.zeros((Nlam, Nmu, 7, Nk), dtype=cfg.dtype,
+                           device=cfg.device)
+        eta4 = torch.zeros((Nlam, Nmu, 4, Nk), dtype=cfg.dtype,
+                           device=cfg.device)
+        chi7[:, :, 0, :] += params['bgChi'][:, None, :]
+        comps = (('phi', 0), ('phiQ', 1), ('phiU', 2), ('phiV', 3),
+                 ('psiQ', 4), ('psiU', 5), ('psiV', 6))
+        for ai, a in enumerate(cfg.allAtoms):
+            n = params['allPops'][ai]
+            for ti, t in enumerate(a.trans):
+                sl = slice(t.Nblue, t.Nred)
+                p7 = self.phi7[ai][ti] if t.isLine else None
+                if p7 is None:
+                    Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
+                    # continua carry one direction
+                    dd = min(d, Vij.shape[0] - 1)
+                    chi7[sl, :, 0, :] += (n[t.i] * Vij - n[t.j] * Vji)[dd]
+                    eta4[sl, :, 0, :] += (n[t.j] * Uji)[dd]
+                    continue
+                hnu_4pi = Const.HC_FOURPI * (t.lambda0 / t.wavelengthT)
+                rho = line_rho(params, ai, ti, t)
+                for name, ci in comps:
+                    Vij = hnu_4pi[:, None, None] * t.Bij * p7[name][:, :, d, :]
+                    Vji = (t.Bji / t.Bij) * Vij
+                    if rho is not None:
+                        Vji = Vji * rho[:, None, :]
+                    Uji = (t.Aji / t.Bji) * Vji
+                    chi7[sl, :, ci, :] += n[t.i] * Vij - n[t.j] * Vji
+                    if ci < 4:
+                        eta4[sl, :, ci, :] += n[t.j] * Uji
+
+        chiI = chi7[:, :, 0, :]
+        S4 = eta4 / chiI[:, :, None, :]
+        S4[:, :, 0, :] += ((params['bgEta'] + params['bgSca']
+                            * self.J.to(cfg.dtype))[:, None, :] / chiI)
+        return chi7, S4
+
+    def _stokes_solve(self, chi7, S4, chiI, updateJ=False, J20=False):
+        """The 1D Stokes solve of single_stokes_fs from chi7 and S4 (the
+        port's Context is 1D only: the JAX package's 2D branch does not
+        arise)."""
+        cfg = self.cfg
+        Nlam, Nmu, Nk = cfg.Nlam, cfg.Nmu, cfg.Nk
+        dt, adt = cfg.dtype, cfg.accumDtype
+        muz = cfg.muzT
+        if J20:
+            # anisotropic scattering source terms from the previous J20
+            # (ref FormalStokes.cpp:483-486, 575-582): the mu-dependent
+            # irreducible-tensor weights feed I and Q emissivity
+            inv2root2 = 1.0 / (2.0 * np.sqrt(2.0))
+            mu2 = muz ** 2
+            wJ20_I = inv2root2 * (3.0 * mu2 - 1.0)
+            wJ20_Q = inv2root2 * 3.0 * (mu2 - 1.0)
+            if self.J20 is None:
+                self.J20 = torch.zeros((Nlam, Nk), dtype=adt,
+                                       device=self.device)
+            etaJ20 = ((self.bgSca.to(dt) * self.J20.to(dt))[:, None, :]
+                      / chiI)
+            S4[:, :, 0, :] += wJ20_I[None, :, None] * etaJ20
+            S4[:, :, 1, :] += wJ20_Q[None, :, None] * etaJ20
+
+        # thermalised lower boundary for Stokes I; Q = U = V = 0
+        if cfg.lowerThermalised:
+            T = self.temperature.to(dt)
+            height = self.height.to(dt)
+            BnuN = planck_nu(T[Nk - 1], cfg.wavelengthT)
+            BnuN1 = planck_nu(T[Nk - 2], cfg.wavelengthT)
+            dtau = (0.5 * (chiI[:, :, Nk - 1] + chiI[:, :, Nk - 2])
+                    * torch.abs(height[Nk - 1] - height[Nk - 2])
+                    / muz[None, :])
+            I0 = BnuN[:, None] - (BnuN1[:, None] - BnuN[:, None]) / dtau
+        else:
+            I0 = torch.zeros((Nlam, Nmu), dtype=dt, device=self.device)
+        Iupw = torch.cat([I0.reshape(-1, 1),
+                          torch.zeros((Nlam * Nmu, 3), dtype=dt,
+                                      device=self.device)], dim=1)
+        muzB = muz[None, :].expand(Nlam, Nmu).reshape(-1)
+        Ifull = delo_bezier_stokes(chi7.reshape(Nlam * Nmu, 7, Nk),
+                                   S4.reshape(Nlam * Nmu, 4, Nk),
+                                   self.height.to(dt), muzB, Iupw,
+                                   to_obs=True).reshape(Nlam, Nmu, 4, Nk)
+        self.I = Ifull[:, :, 0, 0]
+        self.Quv = torch.movedim(Ifull[:, :, 1:, 0], 2, 0)  # [3, Nlam, Nmu]
+        if updateJ:
+            wmu = cfg.wmuT.to(adt)
+            self.J = torch.einsum('lmk,m->lk', Ifull[:, :, 0, :].to(adt),
+                                  0.5 * wmu)
+            if J20:
+                # J20(la, k) = sum_mu wmu [wI I + wQ Q]
+                # (ref FormalStokes.cpp:642-648)
+                self.J20 = (
+                    torch.einsum('lmk,m->lk', Ifull[:, :, 0, :].to(adt),
+                                 wmu * wJ20_I.to(adt))
+                    + torch.einsum('lmk,m->lk', Ifull[:, :, 1, :].to(adt),
+                                   wmu * wJ20_Q.to(adt)))
+        return IterationUpdate(self, updatedJ=updateJ)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A numpy copy of tensor x on the host."""
+    return x.detach().cpu().numpy().copy()

@@ -36,12 +36,11 @@
 // would cost (3 + 2C) Nk values of shared memory per block (28 KB at
 // FALC-500 in f64, C = 2) and fewer blocks per SM.  The thermalised
 // boundary needs the assembled chi at the ray's two outermost depths:
-// lanes 0 and 1 of the first chunk, by shuffle (bezier3_warp_ray's
-// upwind).  J is a double sum of the working-type products w I, as in
-// sweep.cu (the TPU kernel's TwoSum pair met the same contract); in
-// float32 chi, eta and srcNum are assembled in float and the other
-// moments accumulate in float, IBar = sum w I among them (in float64 IBar
-// is J).
+// lanes 0 and 1 of the first chunk, by shuffle (warp_ray's upwind).  J
+// is a double sum of the working-type products w I, as in sweep.cu (the
+// TPU kernel's TwoSum pair met the same contract); in float32 chi, eta
+// and srcNum are assembled in float and the other moments accumulate in
+// float, IBar = sum w I among them (in float64 IBar is J).
 //
 // Bound on an H100: bytes.  It reads phiP (83.7 MB at FALC-500 in f64,
 // C = 2) and the rows, and writes I, Psi and IeffBase (125 MB): ~210 MB,
@@ -112,7 +111,7 @@ __global__ void __launch_bounds__(1024)
                  T* __restrict__ ieffbOut, double* __restrict__ Jout,
                  T* __restrict__ psiBarOut, T* __restrict__ iBarOut,
                  T* __restrict__ isBarOut, int NL, int Nmu, int N) {
-    lw::sweep_row<T>(rays, dh, muz, wmuHalf, Iout, psiOut, ieffbOut, Jout,
+    lw::sweep_row<lw::kBezier3, T>(rays, dh, muz, wmuHalf, Iout, psiOut, ieffbOut, Jout,
                      psiBarOut, iBarOut, isBarOut, NL, Nmu, N);
 }
 
@@ -127,9 +126,9 @@ int launch(const T* phiP, const T* chiCo, const T* etaCo, const T* bgChi,
                            bcUp, bcLo, C, Nk, Nmu, upKind, loKind,
                            static_cast<size_t>(2) * NL * Nmu * Nk,
                            static_cast<size_t>(NL) * Nk};
-    return lw::launch_rows<T>(fused_kernel<T>, NL, Nmu, Nk, stream, rays,
-                              dh, muz, wmuHalf, Iout, psi, ieffb, J, psiBar,
-                              iBar, isBar, NL, Nmu, Nk);
+    return lw::launch_rows<T, fused_kernel<T>>(
+        NL, Nmu, Nk, stream, rays, dh, muz, wmuHalf, Iout, psi, ieffb, J,
+        psiBar, iBar, isBar, NL, Nmu, Nk);
 }
 
 }  // namespace

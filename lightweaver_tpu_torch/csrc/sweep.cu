@@ -1,31 +1,37 @@
-// Depth-sweep formal solver for 1D short characteristics (cubic Bezier),
-// with the angular moments of the MALI iteration.
+// Depth-sweep formal solver for 1D short characteristics, with the
+// angular moments of the MALI iteration.
 //
 // Replaces the TPU kernel lightweaver_tpu/ops/pallas_sweep.py:_sweep_kernel
-// (body lane_sweep_affine; the pallas_call at line 297), in two instances:
-// float64 (lw_sweep_f64) and float32 (lw_sweep_f32), the precision the TPU
-// runs it in.  Computes the same function as the plain PyTorch version in
+// (body lane_sweep_affine; the pallas_call at line 297), in two
+// precisions: float64 (lw_sweep_f64) and float32 (lw_sweep_f32), the
+// precision the TPU runs it in.  The TPU kernel is cubic Bezier only; this
+// one is instantiated for each 1D solver of the JAX package (the other two
+// run in XLA there), chosen by the solver argument: piecewise linear (0),
+// cubic Bezier (1) or BESSER (2), the codes of ops/sweep.py:SOLVER_CODES.
+// Computes the same function as the plain PyTorch version in
 // lightweaver_tpu_torch/ops/sweep.py (formal_solve_sweep_plain, built on
 // ops/formal_solver.py:formal_sol_1d):
 //
 //   for every ray (lambda, mu, direction) of the direction-major
 //   [2, NL, Nmu, Nk] layout (d = 0 sweeps down from k = 0, d = 1 up from
-//   k = Nk-1):  S = srcNum / chi; Steffen-limited Bezier-3 coefficients
-//   along depth (linear w2 step at the last point); the affine recurrence
+//   k = Nk-1):  S = srcNum / chi; the solver's coefficients along depth
+//   (Steffen-limited Bezier-3 or BESSER's monotonic quadratic Bezier at the
+//   interior points, the linear w2 step at the last point; the linear
+//   solver's w2 step everywhere); the affine recurrence
 //   I_m = A_m I_{m-1} + b_m from the upwind boundary value; Psi = psiN/chi
 //   and IeffBase = A_m I_{m-1} + bNL_m.
 //   Then, per (lambda, k), the moments with weights wmu/2:
 //   J = sum_d sum_mu w I, PsiBar = sum w Psi,
 //   IeffSrcBar = sum w (IeffBase + Psi srcNum).
 //
-// Design.  The Bezier-3 coefficients at a depth depend on chi and S near
+// Design.  Each solver's coefficients at a depth depend on chi and S near
 // it, never on I; only the recurrence is sequential, and it is
 // associative.  The TPU kernel rode depth on the 128 vector lanes with a
 // Kogge-Stone prefix; here one block takes one lambda row and each of its
 // 2 Nmu rays gets a warp (320 threads at Nmu = 5; past 16 rays per
 // direction the warps take the rays in passes), which walks the ray from
 // its upwind end in chunks of 32 consecutive depths
-// (bezier3.cuh:bezier3_warp_ray): coalesced loads of chi and srcNum with
+// (bezier3.cuh:warp_ray): coalesced loads of chi and srcNum with
 // the next chunk prefetched, the stencil neighbours by shuffles, each
 // lane's (A, b, bNL, psiN), a 5-step warp scan of the affine maps with
 // the last I carried into the next chunk, and coalesced stores of I, Psi
@@ -82,7 +88,7 @@ struct StoredRays {
     }
 };
 
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(1024)
     sweep_kernel(StoredRays<T> rays, const T* __restrict__ dh,
                  const T* __restrict__ muz, const T* __restrict__ wmuHalf,
@@ -90,19 +96,44 @@ __global__ void __launch_bounds__(1024)
                  T* __restrict__ ieffbOut, double* __restrict__ Jout,
                  T* __restrict__ psiBarOut, T* __restrict__ iBarOut,
                  T* __restrict__ isBarOut, int NL, int Nmu, int N) {
-    lw::sweep_row<T>(rays, dh, muz, wmuHalf, Iout, psiOut, ieffbOut, Jout,
+    lw::sweep_row<S, T>(rays, dh, muz, wmuHalf, Iout, psiOut, ieffbOut, Jout,
                      psiBarOut, iBarOut, isBarOut, NL, Nmu, N);
+}
+
+template <typename T, int S>
+int launch_solver(const T* chi, const T* src, const T* dh, const T* muz,
+                  const T* wmuHalf, const T* iupw, T* Iout, T* psi, T* ieffb,
+                  double* J, T* psiBar, T* iBar, T* isBar, int NL, int Nmu,
+                  int Nk, void* stream) {
+    return lw::launch_rows<T, sweep_kernel<T, S>>(
+        NL, Nmu, Nk, stream, StoredRays<T>{chi, src, iupw, Nk}, dh, muz,
+        wmuHalf, Iout, psi, ieffb, J, psiBar, iBar, isBar, NL, Nmu, Nk);
 }
 
 template <typename T>
 int launch(const T* chi, const T* src, const T* dh, const T* muz,
            const T* wmuHalf, const T* iupw, T* Iout, T* psi, T* ieffb,
            double* J, T* psiBar, T* iBar, T* isBar, int NL, int Nmu, int Nk,
-           void* stream) {
-    return lw::launch_rows<T>(sweep_kernel<T>, NL, Nmu, Nk, stream,
-                              StoredRays<T>{chi, src, iupw, Nk}, dh, muz,
-                              wmuHalf, Iout, psi, ieffb, J, psiBar, iBar,
-                              isBar, NL, Nmu, Nk);
+           int solver, void* stream) {
+    switch (solver) {
+    case lw::kLinear:
+        return launch_solver<T, lw::kLinear>(chi, src, dh, muz, wmuHalf,
+                                             iupw, Iout, psi, ieffb, J,
+                                             psiBar, iBar, isBar, NL, Nmu,
+                                             Nk, stream);
+    case lw::kBezier3:
+        return launch_solver<T, lw::kBezier3>(chi, src, dh, muz, wmuHalf,
+                                              iupw, Iout, psi, ieffb, J,
+                                              psiBar, iBar, isBar, NL, Nmu,
+                                              Nk, stream);
+    case lw::kBesser:
+        return launch_solver<T, lw::kBesser>(chi, src, dh, muz, wmuHalf,
+                                             iupw, Iout, psi, ieffb, J,
+                                             psiBar, iBar, isBar, NL, Nmu,
+                                             Nk, stream);
+    default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace
@@ -112,9 +143,10 @@ extern "C" int lw_sweep_f64(const double* chi, const double* src,
                             const double* wmuHalf, const double* iupw,
                             double* Iout, double* psi, double* ieffb,
                             double* J, double* psiBar, double* isBar, int NL,
-                            int Nmu, int Nk, void* stream) {
+                            int Nmu, int Nk, int solver, void* stream) {
     return launch<double>(chi, src, dh, muz, wmuHalf, iupw, Iout, psi, ieffb,
-                          J, psiBar, nullptr, isBar, NL, Nmu, Nk, stream);
+                          J, psiBar, nullptr, isBar, NL, Nmu, Nk, solver,
+                          stream);
 }
 
 extern "C" int lw_sweep_f32(const float* chi, const float* src,
@@ -122,7 +154,7 @@ extern "C" int lw_sweep_f32(const float* chi, const float* src,
                             const float* wmuHalf, const float* iupw,
                             float* Iout, float* psi, float* ieffb, double* J,
                             float* psiBar, float* iBar, float* isBar, int NL,
-                            int Nmu, int Nk, void* stream) {
+                            int Nmu, int Nk, int solver, void* stream) {
     return launch<float>(chi, src, dh, muz, wmuHalf, iupw, Iout, psi, ieffb,
-                         J, psiBar, iBar, isBar, NL, Nmu, Nk, stream);
+                         J, psiBar, iBar, isBar, NL, Nmu, Nk, solver, stream);
 }

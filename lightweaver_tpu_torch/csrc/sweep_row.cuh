@@ -1,8 +1,9 @@
-// One lambda row per block: the Bezier-3 sweep of its 2 Nmu rays, a warp
-// per ray (bezier3.cuh:bezier3_warp_ray), and their angular moments, in
-// one pass.  Shared by the depth-sweep kernel (sweep.cu, rays read from
-// chi and srcNum) and the fused lambda-step kernel (fused.cu, rays
-// assembled from line slots); each supplies a Rays type with
+// One lambda row per block: the sweep of its 2 Nmu rays by the solver S
+// (linear, Bezier-3 or BESSER), a warp per ray (bezier3.cuh:warp_ray),
+// and their angular moments, in one pass.  Shared by the depth-sweep
+// kernel (sweep.cu, rays read from chi and srcNum) and the fused
+// lambda-step kernel (fused.cu, Bezier-3, rays assembled from line
+// slots); each supplies a Rays type with
 //
 //   load(ray, l, k, chi, srcNum)   chi and srcNum of ray `ray` (the index
 //                                  into the direction-major [2, NL, Nmu]
@@ -66,7 +67,7 @@ size_t smem_bytes(int Nmu, int N) {
 
 // Block l = blockIdx.x, blockDim.x = 32 rays_per_pass(Nmu).  iBarOut is
 // written by the float instance only (the double one's IBar is J).
-template <typename T, typename Rays>
+template <int S, typename T, typename Rays>
 __device__ __forceinline__ void sweep_row(
     const Rays& rays, const T* __restrict__ dh,  // [N-1]
     const T* __restrict__ muz, const T* __restrict__ wmuHalf,  // [Nmu]
@@ -148,7 +149,7 @@ __device__ __forceinline__ void sweep_row(
             ++chunk;
             ++barrier;
         };
-        bezier3_warp_ray<T>(load, dh, mu, N, dir == 1, upwind, emit);
+        warp_ray<S, T>(load, dh, mu, N, dir == 1, upwind, emit);
     }
     __syncthreads();
 
@@ -162,23 +163,24 @@ __device__ __forceinline__ void sweep_row(
     }
 }
 
-// Launch `kernel` over NL rows with 32 rays_per_pass(Nmu) threads and
+// Launch `Kernel` over NL rows with 32 rays_per_pass(Nmu) threads and
 // its shared memory; cudaErrorInvalidValue for shapes it does not take.
-template <typename T, typename Kernel, typename... Args>
-int launch_rows(Kernel kernel, int NL, int Nmu, int N, void* stream,
-                Args... args) {
+// The kernel is a template argument, so that each kernel keeps its own
+// record of the shared memory it was allowed.
+template <typename T, auto Kernel, typename... Args>
+int launch_rows(int NL, int Nmu, int N, void* stream, Args... args) {
     const size_t smem = smem_bytes<T>(Nmu, N);
     if (N < 3 || Nmu < 1 || NL < 1 || smem > kMaxSmem)
         return static_cast<int>(cudaErrorInvalidValue);
-    static size_t smemSet = 48 * 1024;   // per instance of this template
+    static size_t smemSet = 48 * 1024;   // per kernel
     if (smem > smemSet) {
         const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
         smemSet = smem;
     }
-    kernel<<<NL, 32 * rays_per_pass(Nmu), smem,
+    Kernel<<<NL, 32 * rays_per_pass(Nmu), smem,
              static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }

@@ -67,3 +67,13 @@ def voigt_H(a, v):
     """
     a, v = torch.broadcast_tensors(a, v)
     return wofz_parts(v, a)[0]
+
+
+def voigt_HF(a, v):
+    """Voigt and dispersion profiles as a real pair (H, F), H + iF =
+    w(v + ia): the anomalous dispersion of Zeeman-polarised lines.
+
+    ref: Source/LwMisc.hpp:21-27
+    """
+    a, v = torch.broadcast_tensors(a, v)
+    return wofz_parts(v, a)

@@ -1,8 +1,9 @@
-"""Batched 1D short-characteristics formal solver (cubic Bezier).
+"""Batched 1D short-characteristics formal solvers: piecewise linear,
+cubic Bezier and BESSER.
 
-Port of lightweaver_tpu/ops/formal_solver.py for the
-'piecewise_bezier3_1d' solver with the sequential ('scan') depth
-recurrence.  The per-point coefficients of the affine recurrence
+Port of lightweaver_tpu/ops/formal_solver.py's three 1D solvers
+(SOLVER_NAMES_1D) with the sequential ('scan') depth recurrence.  The
+per-point coefficients of the affine recurrence
 
     I_m = A_m * I_{m-1} + b_m          (m in sweep order, m = 0 upwind)
 
@@ -13,7 +14,7 @@ checked against; affine_solve's mode 'chunked' sums the recurrence in that
 kernel's order.
 ref: Source/LwInternal.hpp:90-110 (w2),
      Source/Bezier.hpp (cent_deriv, Bezier3_coeffs),
-     Source/FormalScalar.cpp:209-325
+     Source/FormalScalar.cpp:136-467
 """
 import torch
 import torch.nn.functional as F
@@ -142,6 +143,92 @@ def bezier3_coeffs(dt):
             sel(e_small, e_big, edt_m))
 
 
+def besser_control_point(hM, hP, yM, yO, yP):
+    """BESSER (Stepan & Trujillo Bueno 2013) monotonic quadratic-Bezier
+    control point.  ref: Source/FormalScalar.cpp:327-363"""
+    dM = (yO - yM) / hM
+    dP = (yP - yO) / hP
+    yOp = (hM * dP + hP * dM) / (hM + hP)
+    cM = yO - 0.5 * hM * yOp
+    cP = yO + 0.5 * hP * yOp
+
+    incr = dM >= 0.0
+    minYMO = torch.where(incr, yM, yO)
+    maxYMO = torch.where(incr, yO, yM)
+    minYOP = torch.where(incr, yO, yP)
+    maxYOP = torch.where(incr, yP, yO)
+
+    cM_bad = (cM < minYMO) | (cM > maxYMO)
+    cP_bad = (cP < minYOP) | (cP > maxYOP)
+
+    # if cP is out of range: cP = yP, recompute cM
+    cM_fixed = yO - 0.5 * hM * ((yP - yO) / (0.5 * hP))
+    out = torch.where(cM_bad, yM, torch.where(cP_bad, cM_fixed, cM))
+    return torch.where(dM * dP <= 0.0, yO, out)
+
+
+def besser_coeffs(t):
+    """BESSER integration coefficients (M, O, C, edt), Taylor branch for
+    t < 0.14.  The same formulas in either dtype, as in the JAX package:
+    in float32 the middle branch cancels just above t = 0.14.
+    ref: Source/FormalScalar.cpp:365-394"""
+    small = t < 0.14
+    tm = torch.clamp(t, min=0.14)
+    t2 = tm * tm
+    edt_m = torch.exp(-torch.clamp(tm, max=200.0))
+    m_mid = (2.0 - edt_m * (t2 + 2.0 * tm + 2.0)) / t2
+    o_mid = 1.0 - 2.0 * (edt_m + tm - 1.0) / t2
+    c_mid = 2.0 * (tm - 2.0 + edt_m * (tm + 2.0)) / t2
+
+    m_small = (t * (t * (t * (t * (t * (t * ((140.0 - 18.0 * t) * t - 945.0)
+               + 5400.0) - 25200.0) + 90720.0) - 226800.0) + 302400.0)) / 907200.0
+    o_small = (t * (t * (t * (t * (t * (t * ((10.0 - t) * t - 90.0) + 720.0)
+               - 5040.0) + 30240.0) - 151200.0) + 604800.0)) / 1814400.0
+    c_small = (t * (t * (t * (t * (t * (t * ((35.0 - 4.0 * t) * t - 270.0)
+               + 1800.0) - 10080.0) + 45360.0) - 151200.0) + 302400.0)) / 907200.0
+    t3 = t * t * t
+    e_small = (1.0 - t + 0.5 * t * t - t3 / 6.0 + t * t3 / 24.0
+               - t * t * t3 / 120.0 + t3 * t3 / 720.0 - t3 * t3 * t / 5040.0)
+
+    M = torch.where(small, m_small, m_mid)
+    O = torch.where(small, o_small, o_mid)
+    Cc = torch.where(small, c_small, c_mid)
+    edt = torch.where(small, e_small, edt_m)
+    return M, O, Cc, edt
+
+
+def _pad0(x):
+    """x with a zero at the sweep start (m = 0) of its last axis."""
+    return F.pad(x, (1, 0))
+
+
+def _sweep_coeffs_linear(chi, S, ds):
+    """Affine coefficients (A, b, psiN, bNL) [B, N] of piecewise-linear
+    short characteristics, in sweep order; psiN is Psi before the
+    division by chi, bNL = (w1/dtau) S_uw the non-local part of b,
+    formed without the cancelling subtraction b - psiN S_0.
+    ref: Source/FormalScalar.cpp:136-207
+    """
+    # dtau of interval (m-1, m), defined for m >= 1
+    dtau = 0.5 * (chi[..., :-1] + chi[..., 1:]) * ds       # [B, N-1]
+    dS = (S[..., :-1] - S[..., 1:]) / dtau                 # (S_uw - S_m)/dtau
+    w0, w1 = w2(dtau)
+    return (_pad0(1.0 - w0), _pad0(w0 * S[..., 1:] + w1 * dS),
+            _pad0(w0 - w1 / dtau), _pad0((w1 / dtau) * S[..., :-1]))
+
+
+def _linear_end(chi, S, ds):
+    """The last point's (A, b, psiN, bNL), each [B, 1]: the linear w2
+    step with the plain-average dtau, which ends the Bezier-3 and BESSER
+    sweeps."""
+    dtau_end = 0.5 * (chi[..., -1] + chi[..., -2]) * ds[..., -1]
+    dS_end = (S[..., -1] - S[..., -2]) / dtau_end
+    w0e, w1e = w2(dtau_end)
+    return ((1.0 - w0e)[..., None], (w0e * S[..., -1] - w1e * dS_end)[..., None],
+            (w0e - w1e / dtau_end)[..., None],
+            ((w1e / dtau_end) * S[..., -2])[..., None])
+
+
 def _point_derivs(y, ds):
     """Per-point derivatives: Steffen central at interior, one-sided at ends.
 
@@ -164,9 +251,6 @@ def _sweep_coeffs_bezier3(chi, S, ds):
     falls back to the linear w2 step (with the plain-average dtau).
     ref: Source/FormalScalar.cpp:209-325
     """
-    def pad0(x):
-        return F.pad(x, (1, 0))
-
     # chi control points per interval (m, m+1), m = 0..N-2
     dchi = _point_derivs(chi, ds)                          # [B, N]
     Cuw = chi[..., :-1] + (ds / 3.0) * dchi[..., :-1]
@@ -188,20 +272,45 @@ def _sweep_coeffs_bezier3(chi, S, ds):
     bNL_bez = (alpha * S[..., :-2] + gamma * CuwS
                - delta * (dt_uw / 3.0) * dS[..., 1:-1])
 
-    # final point: linear step with plain-average dtau
-    dtau_end = 0.5 * (chi[..., -1] + chi[..., -2]) * ds[..., -1]
-    dS_end = (S[..., -1] - S[..., -2]) / dtau_end
-    w0e, w1e = w2(dtau_end)
-    A_end = (1.0 - w0e)[..., None]
-    b_end = (w0e * S[..., -1] - w1e * dS_end)[..., None]
-    Psi_end = (w0e - w1e / dtau_end)[..., None]
-    bNL_end = ((w1e / dtau_end) * S[..., -2])[..., None]
+    return tuple(_pad0(torch.cat([x, e], dim=-1)) for x, e in
+                 zip((A_bez, b_bez, Psi_bez, bNL_bez), _linear_end(chi, S, ds)))
 
-    A = pad0(torch.cat([A_bez, A_end], dim=-1))
-    b = pad0(torch.cat([b_bez, b_end], dim=-1))
-    Psi = pad0(torch.cat([Psi_bez, Psi_end], dim=-1))
-    bNL = pad0(torch.cat([bNL_bez, bNL_end], dim=-1))
-    return A, b, Psi, bNL
+
+def _sweep_coeffs_besser(chi, S, ds):
+    """Affine coefficients (A, b, psiN, bNL) [B, N] of the BESSER solver,
+    in sweep order: monotonic quadratic Bezier at the interior points m =
+    1..N-2 (control points from m-1, m and m+1, the downwind dtau the
+    plain average), the linear w2 step at m = N-1.
+    ref: Source/FormalScalar.cpp:396-467
+    """
+    # target point m = 1..N-2: upwind interval (m-1, m), downwind (m, m+1)
+    ds_uw = ds[..., :-1]
+    ds_dw = ds[..., 1:]
+    chi_uw = chi[..., :-2]
+    chi_0 = chi[..., 1:-1]
+    chi_dw = chi[..., 2:]
+    chiC = besser_control_point(ds_uw, ds_dw, chi_uw, chi_0, chi_dw)
+    dtau_uw = (1.0 / 3.0) * (chi_uw + chiC + chi_0) * ds_uw
+    dtau_dw = 0.5 * (chi_0 + chi_dw) * ds_dw
+
+    S_uw = S[..., :-2]
+    S_0 = S[..., 1:-1]
+    S_dw = S[..., 2:]
+    SC = besser_control_point(dtau_uw, dtau_dw, S_uw, S_0, S_dw)
+    M, O, Cc, edt = besser_coeffs(dtau_uw)
+    inner = (edt, M * S_uw + O * S_0 + Cc * SC, O + Cc,
+             M * S_uw + Cc * (SC - S_0))
+    return tuple(_pad0(torch.cat([x, e], dim=-1)) for x, e in
+                 zip(inner, _linear_end(chi, S, ds)))
+
+
+_COEFF_FNS = {
+    'piecewise_linear_1d': _sweep_coeffs_linear,
+    'piecewise_bezier3_1d': _sweep_coeffs_bezier3,
+    'piecewise_besser_1d': _sweep_coeffs_besser,
+}
+
+SOLVER_NAMES_1D = tuple(_COEFF_FNS)
 
 
 CHUNK = 32     # the sweep kernel's chunk: the 32 lanes of a warp
@@ -212,7 +321,7 @@ def affine_solve(A, b, mode='sequential'):
     with I_{-1} = 0 (so I_0 = b_0 when A_0 = 0).  A, b: [..., N].
 
     'sequential' is the loop over m.  'chunked' is the order of the CUDA
-    sweep kernel (csrc/bezier3.cuh:bezier3_warp_ray): chunks of CHUNK
+    sweep kernel (csrc/bezier3.cuh:warp_ray): chunks of CHUNK
     consecutive m, in each an inclusive Kogge-Stone scan of the affine
     maps (step s composes lane L with lane L - s: A_L A_{L-s},
     A_L b_{L-s} + b_L), then I = A_cum I_carry + b_cum with the previous
@@ -241,7 +350,8 @@ def affine_solve(A, b, mode='sequential'):
     return I
 
 
-def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True):
+def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True,
+                  method='piecewise_bezier3_1d', mode='sequential'):
     """Batched 1D formal solution along depth for many rays at once.
 
     chi, S : [B, Ndep] opacity and source function per ray (k=0 is the top).
@@ -249,22 +359,28 @@ def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True):
     muz : [B] |mu| of each ray.
     I_upw : [B] upwind boundary intensity at the sweep start.
     to_obs : sweep direction; True = bottom-to-top (upgoing).
+    method : the solver, one of SOLVER_NAMES_1D.
+    mode : affine_solve's order of the recurrence, 'sequential' (the JAX
+        package's scan) or 'chunked' (the sweep kernel's).
 
     Returns (I, Psi, IeffBase), each [B, Ndep] in the original depth
     indexing: Psi is the diagonal approximate operator (divided by chi),
     IeffBase = A * I_upwind + bNL, the MALI effective intensity's part
     that does not cancel in optically-thick regions.
     """
+    if method not in _COEFF_FNS:
+        raise ValueError(f'unknown 1D formal solver {method!r}; available: '
+                         f'{SOLVER_NAMES_1D}')
     if to_obs:
         chi_s, S_s, h_s = chi.flip(-1), S.flip(-1), height.flip(-1)
     else:
         chi_s, S_s, h_s = chi, S, height
 
     ds = torch.abs(h_s[1:] - h_s[:-1])[None, :] / muz[:, None]
-    A, b, Psi, bNL = _sweep_coeffs_bezier3(chi_s, S_s, ds)
+    A, b, Psi, bNL = _COEFF_FNS[method](chi_s, S_s, ds)
     b[..., 0] = I_upw
 
-    I_s = affine_solve(A, b, 'sequential')
+    I_s = affine_solve(A, b, mode)
 
     # IeffBase = A * I_upwind + bNL; at the sweep start Psi = 0 and
     # IeffBase = I = I_upw

@@ -37,7 +37,7 @@ ops/sweep.py:smem_bytes).
 import torch
 
 from . import _build
-from .sweep import check_smem, formal_solve_sweep_plain
+from .sweep import BEZIER3, check_smem, formal_solve_sweep_plain
 
 BC_KINDS = {'zero': 0, 'therm': 1, 'data': 2}
 
@@ -65,13 +65,14 @@ def assign_line_slots(allAtoms):
 
 def fused_scheme_supported(cfg) -> bool:
     """Whether the fused kernel covers this configuration: float64 or
-    float32, the two instances built, and no hybrid PRD (a slot's
-    coefficient rows hold one rho per row, not the comoving-frame rho of
-    each ray).  The port's
-    Context refuses 2D, dense Gamma and solvers other than Bezier-3 at
-    construction, which are fused_scheme_supported's other checks in the
-    JAX package."""
-    return cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
+    float32, the two instances built; the Bezier-3 solver, the only one
+    it is built for (as the JAX package's fused kernel); and no hybrid
+    PRD (a slot's coefficient rows hold one rho per row, not the
+    comoving-frame rho of each ray).  The port's Context refuses 2D and
+    dense Gamma at construction, which are fused_scheme_supported's other
+    checks in the JAX package."""
+    return (cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
+            and getattr(cfg, 'formalSolver', BEZIER3) == BEZIER3)
 
 
 def assemble(phiP, chiCo, etaCo, bgChi, bgEta, scaJ):

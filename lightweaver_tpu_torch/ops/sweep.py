@@ -6,6 +6,12 @@ Counterpart of lightweaver_tpu/ops/pallas_sweep.py.  The CUDA kernel
 version below (built on ops/formal_solver.py) computes the same function
 and is what runs for tensors on the CPU.
 
+Three 1D solvers (ops/formal_solver.py:SOLVER_NAMES_1D): piecewise
+linear, cubic Bezier (the default, the only one of the TPU kernel) and
+BESSER.  The JAX package runs the other two in XLA; here the kernel is
+templated on the solver's per-point step, so that every solver's sweep
+is one launch.
+
 Layout: chi and srcNum are direction-major [2, NL, Nmu, Nk] (d = 0 is the
 down sweep from the upper boundary, d = 1 the up sweep from the lower
 one), unpadded and contiguous.  S = srcNum / chi is formed inside.
@@ -16,8 +22,8 @@ passes, so any Nmu is taken): it sums the recurrence in the order of
 ops/formal_solver.py:affine_solve(mode='chunked'), the plain version in
 the sequential order.
 
-Two instances, float64 and float32 (the f32 state; the TPU runs the
-kernel only in f32).  Both return J in float64: the sum of the
+Two precisions per solver, float64 and float32 (the f32 state; the TPU
+runs the kernel only in f32).  Both return J in float64: the sum of the
 working-type products w I in a double accumulator, which in float32 is
 J = sum fl32(w I) to double rounding, the contract the TPU kernel's
 TwoSum pair met.  PsiBar, IBar and IeffSrcBar are summed in the working
@@ -31,7 +37,9 @@ the plain version or to another instance.
 import torch
 
 from . import _build
-from .formal_solver import formal_sol_1d
+from .formal_solver import SOLVER_NAMES_1D, formal_sol_1d
+
+BEZIER3 = 'piecewise_bezier3_1d'
 
 
 def angular_moments(I, Psi, IeffBase, srcNum, wmu):
@@ -61,9 +69,10 @@ def angular_moments(I, Psi, IeffBase, srcNum, wmu):
             'IeffSrcBar': IeffSrcBar[0] + IeffSrcBar[1]}
 
 
-def formal_solve_sweep_plain(chi, srcNum, height, muz, IupwD, IupwU, wmu):
-    """Plain PyTorch version of the sweep kernel: the sequential Bezier-3
-    formal solution per direction, then the angular moments."""
+def formal_solve_sweep_plain(chi, srcNum, height, muz, IupwD, IupwU, wmu,
+                             solver=BEZIER3):
+    """Plain PyTorch version of the sweep kernel: the sequential formal
+    solution of ``solver`` per direction, then the angular moments."""
     _, NL, Nmu, Nk = chi.shape
     S = srcNum / chi
     muzB = muz[None, :].expand(NL, Nmu).reshape(-1)
@@ -71,18 +80,22 @@ def formal_solve_sweep_plain(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     for d, toObs, Iupw in ((0, False, IupwD), (1, True, IupwU)):
         outs.append(formal_sol_1d(chi[d].reshape(-1, Nk),
                                   S[d].reshape(-1, Nk), height, muzB,
-                                  Iupw.reshape(-1), to_obs=toObs))
+                                  Iupw.reshape(-1), to_obs=toObs,
+                                  method=solver))
     I, Psi, IeffBase = (torch.stack([o[i].reshape(NL, Nmu, Nk)
                                      for o in outs]) for i in range(3))
     return I, Psi, IeffBase, angular_moments(I, Psi, IeffBase, srcNum, wmu)
 
 
-def _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu):
+def _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver):
+    if solver not in SOLVER_NAMES_1D:
+        raise ValueError(f'the sweep kernel has no solver {solver!r}; '
+                         f'available: {SOLVER_NAMES_1D}')
     if chi.dim() != 4 or chi.shape[0] != 2:
         raise ValueError(f'chi must be [2, NL, Nmu, Nk], got {tuple(chi.shape)}')
     _, NL, Nmu, Nk = chi.shape
     if Nk < 3:
-        raise ValueError(f'the Bezier-3 sweep needs Nk >= 3, got {Nk}')
+        raise ValueError(f'the sweep needs Nk >= 3, got {Nk}')
     shapes = {'srcNum': (srcNum, (2, NL, Nmu, Nk)), 'height': (height, (Nk,)),
               'muz': (muz, (Nmu,)), 'IupwD': (IupwD, (NL, Nmu)),
               'IupwU': (IupwU, (NL, Nmu)), 'wmu': (wmu, (Nmu,))}
@@ -96,26 +109,29 @@ def _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu):
             raise ValueError(f'{name} is {x.dtype}, chi is {chi.dtype}')
 
 
-def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu):
+def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu,
+                       solver=BEZIER3):
     """Formal solution of every ray plus the angular moments.
 
     chi, srcNum: [2, NL, Nmu, Nk] direction-major (srcNum = eta + sca*J;
     S = srcNum/chi is formed inside); height [Nk]; muz, wmu [Nmu];
-    IupwD, IupwU [NL, Nmu] boundary intensities of the down and up sweeps.
+    IupwD, IupwU [NL, Nmu] boundary intensities of the down and up sweeps;
+    solver one of SOLVER_NAMES_1D.
     Returns (I, Psi, IeffBase) [2, NL, Nmu, Nk] and the moments dict
     {'J', 'PsiBar', 'IBar', 'IeffSrcBar'} of [NL, Nk] (weights wmu/2).
 
     On the CPU this is the plain PyTorch version; on a CUDA device it
-    launches the instance of csrc/sweep.cu for the dtype (float64 or
-    float32) or raises.  J is float64 in both (module docstring).
+    launches the instance of csrc/sweep.cu for the solver and dtype
+    (float64 or float32) or raises.  J is float64 in both (module
+    docstring).
     """
-    _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu)
+    _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver)
     if chi.device.type == 'cpu':
         return formal_solve_sweep_plain(chi, srcNum, height, muz, IupwD,
-                                        IupwU, wmu)
+                                        IupwU, wmu, solver)
     if chi.device.type != 'cuda':
         raise RuntimeError(f'no sweep kernel for device {chi.device}')
-    return sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu)
+    return sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver)
 
 
 MAX_SMEM = 232448      # bytes of shared memory an H100 block may have
@@ -151,10 +167,27 @@ def check_smem(dtype, Nmu, Nk):
                          f'H100 block may have')
 
 
-def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
-    """Launch the CUDA sweep kernel's instance for chi's dtype;
-    ``sweep_cuda.launches`` counts the float64 launches,
-    ``sweep_cuda.launches_f32`` the float32 ones."""
+# the sweep kernel's solver argument (csrc/sweep.cu: lw::Solver)
+SOLVER_CODES = {name: code for code, name in enumerate(SOLVER_NAMES_1D)}
+
+
+def launch_attr(solver, dtype):
+    """The attribute of sweep_cuda that counts the launches of the
+    instance for ``solver`` and ``dtype``: 'launches' (Bezier-3, float64),
+    'launches_f32', 'launches_linear', 'launches_besser_f32', ..."""
+    name = '' if solver == BEZIER3 else '_' + solver.split('_')[1]
+    return 'launches' + name + ('_f32' if dtype == torch.float32 else '')
+
+
+def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver=BEZIER3):
+    """Launch the CUDA sweep kernel's instance for ``solver`` and chi's
+    dtype; each instance counts its launches in the attribute
+    launch_attr(solver, dtype) of sweep_cuda (``sweep_cuda.launches`` the
+    Bezier-3 float64 ones, ``sweep_cuda.launches_f32`` the float32 ones).
+    A solver the kernel does not instantiate raises."""
+    if solver not in SOLVER_CODES:
+        raise ValueError(f'the sweep kernel has no solver {solver!r}; '
+                         f'available: {SOLVER_NAMES_1D}')
     if not chi.is_cuda:
         raise ValueError(f'sweep_cuda takes CUDA tensors, got {chi.device}')
     if chi.dtype not in (torch.float64, torch.float32):
@@ -179,18 +212,18 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu):
     err = (lib.lw_sweep_f32 if f32 else lib.lw_sweep_f64)(
         chi.data_ptr(), srcNum.data_ptr(), dh.data_ptr(), muz.data_ptr(),
         wmuHalf.data_ptr(), iupw.data_ptr(), I.data_ptr(), Psi.data_ptr(),
-        IeffBase.data_ptr(), *rows, NL, Nmu, Nk, _build.cuda_stream(chi))
+        IeffBase.data_ptr(), *rows, NL, Nmu, Nk, SOLVER_CODES[solver],
+        _build.cuda_stream(chi))
     _build.check_launch(err, 'sweep')
-    if f32:
-        sweep_cuda.launches_f32 += 1
-    else:
-        sweep_cuda.launches += 1
+    attr = launch_attr(solver, chi.dtype)
+    setattr(sweep_cuda, attr, getattr(sweep_cuda, attr) + 1)
     return I, Psi, IeffBase, {'J': J, 'PsiBar': PsiBar, 'IBar': IBar,
                               'IeffSrcBar': IeffSrcBar}
 
 
-sweep_cuda.launches = 0
-sweep_cuda.launches_f32 = 0
+for _solver in SOLVER_NAMES_1D:
+    for _dtype in (torch.float64, torch.float32):
+        setattr(sweep_cuda, launch_attr(_solver, _dtype), 0)
 
 
 def _contiguous(name, x):
@@ -202,5 +235,5 @@ def _contiguous(name, x):
 def load_library():
     """Build csrc/sweep.cu with nvcc (once per source hash) and load it."""
     return _build.load('sweep', {
-        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 3 + [_build.PTR],
-        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 3 + [_build.PTR]})
+        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 4 + [_build.PTR],
+        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 4 + [_build.PTR]})

@@ -17,6 +17,9 @@
 - falc_ca_timedep: FAL-C with H 6-level + Ca II, Ca II active, 5 rays,
   the problem of the golden backward-Euler run
   (tests/golden/falc_ca_timedep_*.npz).
+- falc_h6ca_stokes: falc_h6ca in a uniform field of 0.1 T at
+  inclination pi/3 and azimuth pi/6 (BASELINE config 4, the golden
+  problem tests/golden/falc_h6ca_stokes_*.npz).
 
 and random inputs (rays, a line group, slot-packed lines) that check the
 kernels against their plain versions and against the JAX package.
@@ -244,3 +247,27 @@ def timedep_context(device='cuda', dtype=None, atmos: Atmosphere = None,
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, device=device, dtype=dtype)
+
+
+def magnetise(atmos: Atmosphere, B: float = 0.1, gammaB: float = np.pi / 3,
+              chiB: float = np.pi / 6) -> Atmosphere:
+    """Give ``atmos`` a uniform magnetic field of strength ``B`` (T),
+    inclination ``gammaB`` and azimuth ``chiB`` (rad); returns atmos."""
+    Nk = atmos.Nspace
+    atmos.B = np.full(Nk, B)
+    atmos.gammaB = np.full(Nk, gammaB)
+    atmos.chiB = np.full(Nk, chiB)
+    return atmos
+
+
+def stokes_context(device='cuda', dtype=None, atmos: Atmosphere = None,
+                   Nrays: int = 5) -> Context:
+    """H 6-level + Ca II, both active, on ``atmos`` (default FAL-C, 82
+    depths) in the field of magnetise() with an ``Nrays`` quadrature;
+    ``device`` and ``dtype`` as for h6ca_context.  The defaults build
+    BASELINE config 4 as tests/test_vs_reference_golden.py:199-210 does:
+    converge it (iterate_ctx_se), then compute_polarised_profiles and
+    single_stokes_fs(updateJ=True)."""
+    if atmos is None:
+        atmos = Falc82()
+    return h6ca_context(magnetise(atmos), Nrays, device=device, dtype=dtype)

@@ -914,3 +914,202 @@ def test_nr_step_on_cuda_matches_cpu():
         assert _floor_rel(g['nStar'].cpu(), c['nStar']) < 1e-9
     for ai in range(2):
         assert _floor_rel(gpu._Gamma[ai].cpu(), cpu._Gamma[ai]) < 1e-10
+
+
+SOLVERS = tsweep.SOLVER_NAMES_1D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('Nk', [82, 500])
+@pytest.mark.parametrize('Nmu', [1, 5, 17])
+@pytest.mark.parametrize('solver', SOLVERS)
+def test_sweep_kernel_matches_plain_per_solver(solver, Nmu, Nk, dtype):
+    """The sweep kernel's instance of each 1D solver (linear, Bezier-3,
+    BESSER) in each precision against the plain version of that solver
+    (_check_instance: 1e-9 of each output's maximum in float64, the f32
+    rule in float32), launched once and counted by its own counter."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c = _sweep_case(128, Nmu, Nk, seed=Nmu + Nk, device='cuda')
+    ref = None
+    if dtype == torch.float32:
+        c, c64 = _f32_args(c)
+        ref = tsweep.formal_solve_sweep_plain(**c64, solver=solver)
+    attrs = [tsweep.launch_attr(s, d) for s in SOLVERS for d in DTYPES]
+    before = {a: getattr(tsweep.sweep_cuda, a) for a in attrs}
+    kern = tsweep.formal_solve_sweep(**c, solver=solver)
+    torch.cuda.synchronize()
+    mine = tsweep.launch_attr(solver, dtype)
+    assert {a: getattr(tsweep.sweep_cuda, a) - before[a] for a in attrs} \
+        == {a: int(a == mine) for a in attrs}
+    _check_instance(kern, tsweep.formal_solve_sweep_plain(**c, solver=solver),
+                    ref, dtype, c['wmu'])
+
+
+def test_sweep_refuses_an_unknown_solver():
+    """A solver the kernel does not instantiate raises, on the CPU's
+    plain route and on the CUDA route alike: nothing falls back to the
+    Bezier-3 sweep."""
+    c = _sweep_case(4, 2, 10)
+    with pytest.raises(ValueError, match='no solver'):
+        tsweep.formal_solve_sweep(**c, solver='piecewise_linear_2d')
+    with pytest.raises(ValueError, match='no solver'):
+        tsweep.sweep_cuda(**c, solver='piecewise_besser_2d')
+
+
+def _row_err(a, b):
+    """max over rows of max |a - b| / max |b| along the row."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (np.abs(a - b).max(axis=-1) / np.abs(b).max(axis=-1)).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES[:2])
+@pytest.mark.parametrize('solver', ['piecewise_linear_1d',
+                                    'piecewise_besser_1d'])
+def test_solver_context_on_cuda_goes_through_its_kernel(solver, scheme):
+    """A linear or BESSER Context on the card (H 6 + Ca II, FAL-C at 20
+    depths, 3 rays) under the default and line Gamma schemes: two MALI
+    steps and stat_equil, each step one launch of the sweep kernel's
+    instance for the solver and none of another; J within 1e-9 of each
+    wavelength's maximum and the populations within 1e-9 of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+
+    def run(device):
+        ctx = h6ca_context(falc_interpolated(20), 3, device=device)
+        ctx.set_formal_solver(solver)
+        ctx.set_fs_iter_scheme(scheme)
+        for _ in range(2):
+            ctx.formal_sol_gamma_matrices()
+            ctx.stat_equil()
+        return ctx
+    attrs = [tsweep.launch_attr(s, d) for s in SOLVERS for d in DTYPES]
+    before = {a: getattr(tsweep.sweep_cuda, a) for a in attrs}
+    gpu = run('cuda')
+    torch.cuda.synchronize()
+    mine = tsweep.launch_attr(solver, torch.float64)
+    assert {a: getattr(tsweep.sweep_cuda, a) - before[a] for a in attrs} \
+        == {a: 2 * (a == mine) for a in attrs}
+    cpu = run('cpu')
+    assert _row_err(gpu.J.cpu(), cpu.J) < 1e-9
+    for g, c in zip(gpu.popsState, cpu.popsState):
+        assert _floor_rel(g['n'].cpu(), c['n']) < 1e-9
+
+
+@pytest.mark.gpu
+def test_synthesis_on_cuda_matches_cpu():
+    """From one state on the card and on the CPU (H 6 + Ca II, FAL-C at 20
+    depths in BASELINE config 4's field, 3 rays, after three MALI steps on
+    the CPU): formal_sol (one sweep launch, J and I 1e-9), compute_rays on
+    50 wavelengths at mu = 1 and 0.5 (one sweep launch: the ray Context's
+    formal_sol; 1e-9 of each wavelength's maximum), and single_stokes_fs
+    with updateJ and J20 and compute_rays(stokes=True) (torch ops: I, Q,
+    U, V and J20 within 1e-9 of their amplitude)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import falc_interpolated, stokes_context
+    cpu = stokes_context(device='cpu', atmos=falc_interpolated(20), Nrays=3)
+    for _ in range(3):
+        cpu.formal_sol_gamma_matrices()
+        cpu.stat_equil()
+    from lightweaver_tpu_torch.context import Context
+    gpu = Context.construct_from_state_dict_with(
+        dict(cpu.state_dict(), kwargs=dict(cpu.state_dict()['kwargs'],
+                                           device='cuda')))
+    assert gpu.device.type == 'cuda'
+    before = tsweep.sweep_cuda.launches
+    gpu.formal_sol()
+    cpu.formal_sol()
+    torch.cuda.synchronize()
+    assert tsweep.sweep_cuda.launches == before + 1
+    assert _row_err(gpu.J.cpu(), cpu.J) < 1e-9
+    assert _row_err(gpu.I.cpu(), cpu.I) < 1e-9
+    lam = np.linspace(392.8, 393.9, 50)
+    before = tsweep.sweep_cuda.launches
+    rays = gpu.compute_rays(lam, mus=[1.0, 0.5])
+    assert tsweep.sweep_cuda.launches == before + 1
+    assert _row_err(rays, cpu.compute_rays(lam, mus=[1.0, 0.5])) < 1e-9
+    for ctx in (gpu, cpu):
+        ctx.single_stokes_fs(updateJ=True, J20=True)
+        ctx.single_stokes_fs(updateJ=True, J20=True)
+    assert _max_rel(gpu.I.cpu(), cpu.I) < 1e-9
+    for s in range(3):
+        assert _max_rel(gpu.Quv[s].cpu(), cpu.Quv[s]) < 1e-9
+    assert _max_rel(gpu.J20.cpu(), cpu.J20) < 1e-9
+    lam = np.linspace(853.9, 855.0, 41)
+    iquv = gpu.compute_rays(lam, mus=[1.0], stokes=True)
+    ref = cpu.compute_rays(lam, mus=[1.0], stokes=True)
+    for s in range(4):
+        assert np.abs(iquv[s] - ref[s]).max() < 1e-9 * np.abs(ref[s]).max()
+
+
+@pytest.mark.gpu
+def test_pickled_card_context_resumes_on_the_card():
+    """tests/test_pickle_context.py's oracle on the card (FAL-C at 20
+    depths, 3 rays, Ca II active, BESSER): pickle at step 12, load (the
+    tensors come back on the card), and the resumed run matches the
+    uninterrupted one after 30 steps to 5e-12 (the same kernels on the
+    same card)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    import pickle
+
+    from lightweaver_tpu_torch.problems import falc_decimated, timedep_context
+
+    def setup():
+        ctx = timedep_context(device='cuda', atmos=falc_decimated(20),
+                              Nrays=3)
+        ctx.set_formal_solver('piecewise_besser_1d')
+        return ctx
+
+    def iterate(ctx, n, start=0):
+        for it in range(start, start + n):
+            ctx.formal_sol_gamma_matrices()
+            if it >= 3:
+                ctx.stat_equil()
+    ref = setup()
+    iterate(ref, 30)
+    half = setup()
+    iterate(half, 12)
+    resumed = pickle.loads(pickle.dumps(half))
+    assert resumed.J.is_cuda and resumed.popsState[0]['n'].is_cuda
+    assert resumed.cfg.formalSolver == 'piecewise_besser_1d'
+    assert torch.equal(resumed.J, half.J)
+    before = tsweep.sweep_cuda.launches_besser
+    iterate(resumed, 18, start=12)
+    assert tsweep.sweep_cuda.launches_besser == before + 18
+    np.testing.assert_allclose(resumed.popsState[0]['n'].cpu().numpy(),
+                               ref.popsState[0]['n'].cpu().numpy(),
+                               rtol=5e-12)
+    np.testing.assert_allclose(resumed.J.cpu().numpy(), ref.J.cpu().numpy(),
+                               rtol=5e-12)
+
+
+@pytest.mark.gpu
+def test_compute_rays_refine_prd_on_cuda_matches_cpu():
+    """compute_rays(refinePrd=True) of falc_h6mg (FAL-C at 20 depths, 3
+    rays, PRD) from one state on the card and on the CPU: the ray
+    Context's MALI step, prd_redistribute and formal_sol go through the
+    sweep kernel (the PRD subset solve included), and the spectrum agrees
+    with the CPU's to 1e-9 of each wavelength's maximum."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6mg_context
+    cpu = h6mg_context(falc_interpolated(20), 3, device='cpu')
+    for _ in range(3):
+        cpu.formal_sol_gamma_matrices()
+        cpu.stat_equil()
+        cpu.prd_redistribute(maxIter=2)
+    state = cpu.state_dict()
+    gpu = Context.construct_from_state_dict_with(
+        dict(state, kwargs=dict(state['kwargs'], device='cuda')))
+    lam = np.linspace(279.4, 280.5, 40)
+    before = tsweep.sweep_cuda.launches
+    rays = gpu.compute_rays(lam, refinePrd=True)
+    assert tsweep.sweep_cuda.launches - before >= 3
+    assert np.isfinite(rays).all()
+    assert _row_err(rays, cpu.compute_rays(lam, refinePrd=True)) < 1e-9

@@ -177,7 +177,7 @@ def small_inputs():
 
 
 @pytest.mark.parametrize('option', [
-    {'formalSolver': 'piecewise_linear_1d'},
+    {'formalSolver': 'piecewise_linear_2d'},
     {'gammaMode': 'dense'},
     pytest.param({'dtype': torch.float32, 'hprd': True}, id='dtype'),
     pytest.param({'dtype': torch.float16}, id='float16'),
