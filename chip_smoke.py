@@ -40,23 +40,28 @@ result):
    every group (Mg II's four-line group among them), the fused kernel
    with its three rho-scaled slots and the sweep on the PRD subset rows,
    each against its plain version; times.
-8. falc_h6mg PRD converged under each scheme through
+8. falc_h6mg PRD converged under the default scheme through
    iterate_ctx_se(prd=True), and its hybrid-PRD variant (0-5 km/s
-   outflow) under the default scheme, against their golden runs
+   outflow), against their golden runs
    (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
-   sub-iterations, wall time and launch counts; the kernel schemes must
-   refuse hybrid PRD.  Then a stage breakdown of one PRD iteration.
+   sub-iterations, wall time and launch counts; the kernel schemes for
+   PRD_SCHEME_STEPS = 40 MALI steps against the default scheme's state
+   after as many (populations and rho within GOLDEN_RTOL; converged
+   against golden until phase 13 needed the time), and they must refuse
+   hybrid PRD.  Then a stage breakdown of one PRD iteration.
 9. The population-update options, in float64.  (a) falc_multi_ng
    (BASELINE config 2: FAL-C, H 6-level + Ca II + Na I active, Mg II
    passive, 5 rays, Ng(2, 5, 50) on the populations): its inputs against
    the golden file; the sweep, line Gamma (three atoms' groups, Na I
    D1/D2 one K = 2 group) and fused kernels against their plain versions
    on one iteration's inputs after 3 MALI steps, with times and bounds;
-   converged under each scheme against its golden run
+   converged under the default scheme against its golden run
    (tests/golden/falc_multi_ng_ref.npz: 221 iterations, populations
    within 1e-6, J and I within 3e-6), the dJ and dPops histories beside
    the golden file's with the iterations Ng extrapolated, and launch
-   counts; Ng(2, 5, 10) must raise ExplodingMatrixError.  (b) On phase 5's
+   counts; the kernel schemes for NG_SCHEME_STEPS = 60 MALI steps (two
+   Ng extrapolations) against the default scheme's populations after as
+   many (1e-6); Ng(2, 5, 10) must raise ExplodingMatrixError.  (b) On phase 5's
    converged falc_h6ca: the finite-difference dC/dne against
    falc_h6ca_nr_inputs.npz (1e-10) and one raw Newton-Raphson charge-
    conservation step against the compiled reference's
@@ -87,7 +92,7 @@ result):
    6.5e-2, median within 5e-3), the populations' largest error, and the
    float32 instances' launches.
 11. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
-   bench.py's problem) under each scheme, float64 then float32: best of 3
+   bench.py's problem) under each scheme, float64 then float32: best of 2
    blocks of formal_sol_gamma_matrices iterations (50 for the default
    scheme, 20 for the others) and a per-stage breakdown.
 12. Spectrum synthesis, in float64 unless stated.  (a) Right after phase
@@ -113,6 +118,29 @@ result):
    over Ca II 854.2 nm, card against CPU (1e-9).  (e) falc_h6ca pickled at
    MALI step 12, loaded on the card and resumed, against an
    uninterrupted 30-step run (5e-12).
+13. The 1.5D column batch (parallel.ColumnBatch, problems.column_batch:
+   FAL-C columns with T x uniform(0.95, 1.05), H 6-level + Ca II
+   active, 5 rays).  (a) One iteration's inputs of 64 columns: the
+   sweep, line Gamma and fused kernels (f64, f32) over every column in
+   one launch against their plain versions (KERNEL_TOL / GAMMA_TOL, the
+   float32 rule), with times and bounds, and the first, middle and last
+   columns of each sweep and fused launch bit for bit their own
+   single-column launches.  (b) BASELINE config 5's 1.5D leg: 512
+   columns (halved while the card's memory refuses them) through
+   ColumnBatch.iterate(NmaxIter=400); every column converges; three
+   columns chosen with the seed, the slowest among them, re-run as
+   single card Contexts for their nIterCol iterations (populations
+   1e-9); ms per batch step, column-iterations per second against the
+   single Contexts', peak memory, one sweep launch per MALI step and the
+   sweep's time at the batch shape.  (c) 20 steps of that batch (from
+   LTE) under each scheme, populations within 1e-9 of the default's,
+   one launch per stage per step, a stage breakdown and the line Gamma
+   and fused kernels' times at the batch shape; then 10 float32 steps,
+   finite and contracting.  (d) 32 columns with H 6-level active,
+   Ly-alpha and Ly-beta in PRD, hybrid PRD, accelerateScattering and
+   0-5 km/s outflows spread over the columns: 20 MALI steps with
+   prd_redistribute(maxIter=3), two columns against single card
+   Contexts (rho and populations 1e-8).
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
@@ -927,21 +955,70 @@ def callable_bc_check():
                                  f'{max(errs):.3e}, J moved {moved:.3e}')
 
 
-def converge_h6mg(scheme, hprd=False):
-    """falc_h6mg (PRD, or hybrid PRD with the outflow ramp) converged on
-    the card under ``scheme`` with iterate_ctx_se(prd=True), held against
-    its golden run; the launch counts show the path's kernels ran: the
-    sweep once per MALI step (default, _pallas) and once per PRD
-    sub-iteration (the subset solve, every scheme), the line kernel once
-    per MALI step for all groups, the fused kernel once per MALI step.
-    Returns (Context, launch counts)."""
+# the kernel schemes' falc_h6mg PRD and falc_multi_ng runs: this many
+# MALI steps against the default scheme's state after as many (its run
+# converges against the golden file), to the golden bars; converged runs
+# under each scheme until the column batch's phase needed the time
+PRD_SCHEME_STEPS, NG_SCHEME_STEPS = 40, 60
+
+
+def snapshot(ctx):
+    """The populations and each PRD line's rho of ``ctx``, on the host."""
+    return ([st['n'].cpu() for st in ctx.popsState],
+            {(ai, ti): ctx.rhoPrd[ai][ti].cpu()
+             for ai, ti, _, _ in ctx._prd_lines()})
+
+
+def snapshot_after(ctx, nSteps, store):
+    """Wrap ctx.formal_sol_gamma_matrices so that ``store`` gets the state
+    at the end of MALI step ``nSteps`` (before step nSteps + 1);
+    ``del ctx.formal_sol_gamma_matrices`` removes the wrapper."""
+    fsgm, calls = ctx.formal_sol_gamma_matrices, []
+
+    def wrapped(*args, **kwargs):
+        if len(calls) == nSteps:
+            store.append(snapshot(ctx))
+        calls.append(1)
+        return fsgm(*args, **kwargs)
+    ctx.formal_sol_gamma_matrices = wrapped
+
+
+def against_default(label, ctx, ref, bar):
+    """The populations and rho of ``ctx`` against the default scheme's
+    snapshot ``ref`` after as many steps; raises past ``bar``."""
+    pops, rho = snapshot(ctx)
+    errs = {f'pops_a{ai}': relerr(p, r) for ai, (p, r) in
+            enumerate(zip(pops, ref[0]))}
+    errs.update({f'rho_a{ai}t{ti}': relerr(r, ref[1][(ai, ti)])
+                 for (ai, ti), r in rho.items()})
+    print(f'{label} against the default scheme after as many steps: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bar {bar})')
+    bad = {k: v for k, v in errs.items() if not v < bar}
+    if bad:
+        raise AssertionError(f'{label} differs from the default scheme: '
+                             f'{bad}')
+
+
+def converge_h6mg(scheme, hprd=False, nSteps=None, ref=None, snap=None):
+    """falc_h6mg (PRD, or hybrid PRD with the outflow ramp) on the card
+    under ``scheme`` with iterate_ctx_se(prd=True): converged and held
+    against its golden run, or with ``nSteps`` for that many MALI steps
+    and held against the default scheme's snapshot ``ref`` after as many
+    (GOLDEN_RTOL); ``snap`` = (steps, list) stores the state after that
+    many steps.  The launch counts show the path's kernels ran: the sweep
+    once per MALI step (default, _pallas) and once per PRD sub-iteration
+    (the subset solve, every scheme), the line kernel once per MALI step
+    for all groups, the fused kernel once per MALI step.  Returns
+    (Context, launch counts)."""
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.ops import gamma
     from lightweaver_tpu_torch.problems import h6mg_context
     name = 'hprd' if hprd else 'prd'
-    phase(f'falc_h6mg {name.upper()} under {scheme}: converged on the card '
-          'vs the golden reference')
-    ref = golden(f'falc_h6mg_{name}_ref')
+    phase(f'falc_h6mg {name.upper()} under {scheme}: '
+          + (f'{nSteps} MALI steps on the card vs the default scheme'
+             if nSteps else 'converged on the card vs the golden reference'))
+    ref = golden(f'falc_h6mg_{name}_ref') if nSteps is None else ref
     t0 = time.perf_counter()
     ctx = h6mg_context(hprd=hprd, device='cuda')
     ctx.set_fs_iter_scheme(scheme)
@@ -959,15 +1036,42 @@ def converge_h6mg(scheme, hprd=False):
         return update
     ctx.prd_redistribute = counted
 
+    if snap is not None:
+        snapshot_after(ctx, *snap)
     reset_counts()
     t0 = time.perf_counter()
-    nIter = iterate_ctx_se(ctx, NmaxIter=500, prd=True, quiet=True)
+    nIter = iterate_ctx_se(ctx, NmaxIter=nSteps or 500, prd=True,
+                           quiet=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     del ctx.prd_redistribute
+    if snap is not None:
+        del ctx.formal_sol_gamma_matrices
     nSub = sum(subIters)
+    if nSteps is not None:
+        print(f'{nIter} MALI steps, {wall:.2f} s, {wall / nIter * 1e3:.3f} '
+              f'ms/iter, {nSub} PRD sub-iterations; kernel launches '
+              + ', '.join(f'{k} {v}' for k, v in counts.items()))
+        against_default(f'falc_h6mg under {scheme}', ctx, ref, GOLDEN_RTOL)
+    else:
+        converged_h6mg_checks(ctx, ref, hprd, nIter, wall, nSub, counts)
+    sizes = [len(g) for a in ctx.activeAtoms for g in gamma.line_groups(a)]
+    if scheme == PALLAS:
+        print(f'line kernel: one launch per MALI step for {len(sizes)} '
+              f'groups, K = {sizes}')
+    expected = {
+        'mali_full_precond': dict(sweep=nIter + nSub, gamma=0, fused=0),
+        PALLAS: dict(sweep=nIter + nSub, gamma=nIter, fused=0),
+        FUSED: dict(sweep=nSub, gamma=0, fused=nIter)}[scheme]
+    got = {k: counts[k] for k in expected}
+    if got != expected or nSub < 1:
+        raise AssertionError(f'launches {got}, expected {expected}')
+    return ctx, counts
 
+
+def converged_h6mg_checks(ctx, ref, hprd, nIter, wall, nSub, counts):
+    """A converged falc_h6mg run against its golden file."""
     errs = {f'pops_a{ia}': relerr(ctx.popsState[ia]['n'].cpu(),
                                   ref[f'out_pops_a{ia}']) for ia in range(2)}
     for key in ('J', 'I'):
@@ -997,33 +1101,27 @@ def converge_h6mg(scheme, hprd=False):
     bad = {k: v for k, v in errs.items() if not v < GOLDEN_RTOL}
     if bad:
         raise AssertionError(f'golden mismatch above {GOLDEN_RTOL}: {bad}')
-    sizes = [len(g) for a in ctx.activeAtoms for g in gamma.line_groups(a)]
-    if scheme == PALLAS:
-        print(f'line kernel: one launch per MALI step for {len(sizes)} '
-              f'groups, K = {sizes}')
-    expected = {
-        'mali_full_precond': dict(sweep=nIter + nSub, gamma=0, fused=0),
-        PALLAS: dict(sweep=nIter + nSub, gamma=nIter, fused=0),
-        FUSED: dict(sweep=nSub, gamma=0, fused=nIter)}[scheme]
-    got = {k: counts[k] for k in expected}
-    if got != expected or nSub < 1:
-        raise AssertionError(f'launches {got}, expected {expected}')
-    return ctx, counts
 
 
 def prd_paths():
-    """falc_h6mg PRD under each scheme, then hybrid PRD under the default
-    scheme (the kernel schemes refuse it); then the stage breakdown of one
-    PRD iteration on the default scheme's converged Context."""
+    """falc_h6mg PRD converged under the default scheme, the kernel
+    schemes for PRD_SCHEME_STEPS MALI steps against it, then hybrid PRD
+    converged under the default scheme (the kernel schemes refuse it);
+    then the stage breakdown of one PRD iteration on the default scheme's
+    converged Context."""
     launches = dict.fromkeys(('sweep', 'gamma', 'fused'), 0)
-    runs = [('mali_full_precond', False), (PALLAS, False), (FUSED, False),
-            ('mali_full_precond', True)]
-    for scheme, hprd in runs:
-        ctx, counts = converge_h6mg(scheme, hprd)
+    snap = []
+    breakdownCtx, counts = converge_h6mg(
+        'mali_full_precond', snap=(PRD_SCHEME_STEPS, snap))
+    for k in launches:
+        launches[k] += counts[k]
+    runs = [(PALLAS, False, PRD_SCHEME_STEPS),
+            (FUSED, False, PRD_SCHEME_STEPS),
+            ('mali_full_precond', True, None)]
+    for scheme, hprd, nSteps in runs:
+        ctx, counts = converge_h6mg(scheme, hprd, nSteps, snap[0])
         for k in launches:
             launches[k] += counts[k]
-        if scheme == 'mali_full_precond' and not hprd:
-            breakdownCtx = ctx
     for scheme in (PALLAS, FUSED):
         try:
             ctx.set_fs_iter_scheme(scheme)
@@ -1066,20 +1164,27 @@ def prd_breakdown(ctx, reps=5):
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
 
 
+# FALC-500's timed blocks per configuration (3 until the column batch's
+# phase needed the time)
+FALC500_BLOCKS = 2
+
+
 def falc500(scheme, dtype, nIter):
-    """FALC-500 under ``scheme`` in the working ``dtype``: best of 3 blocks
-    of ``nIter`` formal_sol_gamma_matrices iterations, then the stage
-    breakdown (host clock, synchronised after each stage, mean of 5)."""
+    """FALC-500 under ``scheme`` in the working ``dtype``: best of
+    FALC500_BLOCKS blocks of ``nIter`` formal_sol_gamma_matrices
+    iterations, then the stage breakdown (host clock, synchronised after
+    each stage, mean of 5)."""
     from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
     name = {torch.float64: 'float64', F32: 'float32'}[dtype]
-    phase(f'FALC-500 under {scheme}, {name}: {nIter} iterations, best of 3')
+    phase(f'FALC-500 under {scheme}, {name}: {nIter} iterations, best of '
+          f'{FALC500_BLOCKS}')
     ctx = h6ca_context(falc_interpolated(500), 5, device='cuda', dtype=dtype)
     ctx.set_fs_iter_scheme(scheme)
     for _ in range(2):
         ctx.formal_sol_gamma_matrices()
     torch.cuda.synchronize()
     best = np.inf
-    for _ in range(3):
+    for _ in range(FALC500_BLOCKS):
         t0 = time.perf_counter()
         for _ in range(nIter):
             u = ctx.formal_sol_gamma_matrices()
@@ -1094,8 +1199,14 @@ def falc500(scheme, dtype, nIter):
           f'{gridPoints * nIter / best:.4e} gridpoint-updates/s '
           '(host clock, synchronised per block)')
 
-    it, params = ctx._iter_fn, ctx._params
-    reps = 5
+    stage_breakdown(ctx._iter_fn, ctx._params, scheme)
+    del ctx
+    torch.cuda.empty_cache()
+
+
+def stage_breakdown(it, params, scheme, reps=5):
+    """The MALI step's stages under ``scheme`` on ``params`` (host clock,
+    synchronised after each stage, mean of ``reps``), printed."""
     stages = {}
 
     def timed(stage, fn):
@@ -1127,8 +1238,6 @@ def falc500(scheme, dtype, nIter):
                 params, *rays[:3], src, rays[3]))
     print(f'stage breakdown (ms, mean of {reps}): '
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
-    del ctx, it, params
-    torch.cuda.empty_cache()
 
 
 # ---- the population-update options (float64) ---------------------------
@@ -1215,22 +1324,27 @@ def multi_ng_kernel_check():
     torch.cuda.empty_cache()
 
 
-def converge_multi_ng(scheme):
-    """(a) falc_multi_ng converged on the card under ``scheme`` through
-    iterate_ctx_se, against its golden run: iterations within
+def converge_multi_ng(scheme, nSteps=None, snap=None):
+    """(a) falc_multi_ng on the card under ``scheme`` through
+    iterate_ctx_se: converged, against its golden run (iterations within
     NITER_REF_SLACK of 221, populations within NG_POPS_RTOL, J and I
     within NG_JI_RTOL; the dJ and dPops histories beside the golden
-    file's, with the iterations Ng extrapolated; launch counts.  Returns
-    the counts."""
-    phase(f'falc_multi_ng under {scheme}: converged on the card vs the '
-          'golden reference')
+    file's, with the iterations Ng extrapolated), or with ``nSteps`` for
+    that many MALI steps against the default scheme's populations after
+    as many (``snap``, NG_POPS_RTOL); launch counts.  Returns the counts
+    and the populations after NG_SCHEME_STEPS steps."""
+    phase(f'falc_multi_ng under {scheme}: '
+          + (f'{nSteps} MALI steps on the card vs the default scheme'
+             if nSteps else 'converged on the card vs the golden reference'))
     from lightweaver_tpu_torch import iterate_ctx_se
     ref = golden('falc_multi_ng_ref')
     ctx = multi_ng(NG_OPTIONS, scheme)
     fsgm, se = ctx.formal_sol_gamma_matrices, ctx.stat_equil
-    dJ, dPops, accel = [], [], []
+    dJ, dPops, accel, snaps = [], [], [], []
 
     def fs():
+        if len(dJ) == NG_SCHEME_STEPS:
+            snaps.append(snapshot(ctx))
         upd = fsgm()
         dJ.append(upd.dJMax)
         return upd
@@ -1244,12 +1358,27 @@ def converge_multi_ng(scheme):
     ctx.formal_sol_gamma_matrices, ctx.stat_equil = fs, stat
     reset_counts()
     t0 = time.perf_counter()
-    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    nIter = iterate_ctx_se(ctx, NmaxIter=nSteps or 500, quiet=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     del ctx.formal_sol_gamma_matrices, ctx.stat_equil
     dJ = [float(x) for x in dJ]
+    expected = {'mali_full_precond': dict(sweep=nIter, gamma=0, fused=0),
+                PALLAS: dict(sweep=nIter, gamma=nIter, fused=0),
+                FUSED: dict(sweep=0, gamma=0, fused=nIter)}[scheme]
+    got = {k: counts[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f'launches {got}, expected {expected}')
+    if nSteps is not None:
+        print(f'{nIter} MALI steps, {wall:.2f} s, {wall / nIter * 1e3:.3f} '
+              f'ms/iter; Ng extrapolated at iterations {accel}; kernel '
+              'launches ' + ', '.join(f'{k} {v}' for k, v in counts.items()))
+        against_default(f'falc_multi_ng under {scheme}', ctx, snap,
+                        NG_POPS_RTOL)
+        if not accel:
+            raise AssertionError('Ng did not extrapolate')
+        return counts, None
 
     errs = {f'pops_a{ia}': relerr(ctx.popsState[ia]['n'].cpu(),
                                   ref[f'out_pops_a{ia}']) for ia in range(3)}
@@ -1284,13 +1413,7 @@ def converge_multi_ng(scheme):
     if bad or not accel:
         raise AssertionError(f'golden mismatch: {bad}; Ng extrapolations '
                              f'{accel}')
-    expected = {'mali_full_precond': dict(sweep=nIter, gamma=0, fused=0),
-                PALLAS: dict(sweep=nIter, gamma=nIter, fused=0),
-                FUSED: dict(sweep=0, gamma=0, fused=nIter)}[scheme]
-    got = {k: counts[k] for k in expected}
-    if got != expected:
-        raise AssertionError(f'launches {got}, expected {expected}')
-    return counts
+    return counts, snaps[0]
 
 
 def multi_ng_early_ng_raises():
@@ -2167,6 +2290,457 @@ def pickle_check():
                              'uninterrupted run')
 
 
+# ---- the 1.5D column batch (phase 13) ----------------------------------
+# BASELINE config 5's 1.5D leg: FAL-C columns, H 6-level + Ca II active,
+# 5 rays, 1046 wavelengths, float64, the default scheme
+BATCH_C = 512
+# (a)'s batch: one iteration's inputs of this many of (b)'s columns
+BATCH_KERNEL_C = 64
+BATCH_SEED = 1
+# (b)'s re-run columns against single Contexts; (c)'s schemes against the
+# default one over BATCH_SCHEME_STEPS free-running steps (the stat-eq
+# solve amplifies the schemes' ~1e-11 differences of Gamma 40-100x at
+# every step, as tests/test_torch_slice.py's 1e-9 bar on the populations
+# says: 1.25e-10 after 20 steps of 8 columns on the CPU); (d)'s PRD
+# columns against single Contexts in lockstep
+BATCH_SINGLE_TOL = 1e-9
+BATCH_SCHEME_TOL = 1e-9
+BATCH_SCHEME_STEPS, BATCH_F32_STEPS = 20, 10
+BATCH_PRD_C, BATCH_PRD_STEPS, BATCH_PRD_TOL = 32, 20, 1e-8
+
+
+def column_slice(x, c, Nc):
+    return x[..., c * Nc:(c + 1) * Nc]
+
+
+def one_column_args(args, c, Nc, kind):
+    """The single-column arguments (height [Nc], boundaries without the
+    column axis) of column c of a batch's sweep or fused arguments."""
+    if kind == 'sweep':
+        chi, src, h, muz, Iu, Il, wmu = args
+        return (column_slice(chi, c, Nc).contiguous(),
+                column_slice(src, c, Nc).contiguous(), h[c].contiguous(),
+                muz, Iu[..., c].contiguous(), Il[..., c].contiguous(), wmu)
+    out = [column_slice(x, c, Nc).contiguous() for x in args[:6]]
+    out += [args[6][c].contiguous(), args[7], args[8]]
+    for bcKind, rows in args[9:]:
+        out.append((bcKind, None if rows is None else (
+            rows[..., c] if bcKind == 'data' else rows[:, c]).contiguous()))
+    return out
+
+
+def columns_bitwise(label, fn, args, C, Nc, kind):
+    """Each of the first, middle and last columns of the batch launch
+    equals the launch on that column alone, bit for bit."""
+    out = ray_outputs(fn(*args))
+    for c in sorted({0, C // 2, C - 1}):
+        one = ray_outputs(fn(*one_column_args(args, c, Nc, kind)))
+        for n, a, b in zip(RAY_NAMES, out, one):
+            if not torch.equal(column_slice(a, c, Nc), b):
+                raise AssertionError(f'{label}: column {c} of the batch '
+                                     f'launch differs from its own launch '
+                                     f'on {n}')
+    print(f'  {label}: columns 0, {C // 2}, {C - 1} of the {C}-column '
+          'launch equal their single-column launches bit for bit')
+
+
+def batch_inputs(C, dtype):
+    """A column batch of C columns on the card after one MALI step and
+    stat_equil, its params, scaJ, srcNum and the rays of one step."""
+    from lightweaver_tpu_torch.problems import column_batch
+    b = column_batch(C, seed=BATCH_SEED, device='cuda', dtype=dtype)
+    b.formal_sol_gamma_matrices()
+    b.stat_equil()
+    params = b.params
+    it = b._iter_fn
+    scaJ = it.scaJ(params)
+    chi, src = it.gather(params, scaJ)
+    return b, params, scaJ, chi, src
+
+
+def batch_kernel_check():
+    """(a) The kernels at the batch shape: one iteration's inputs of
+    BATCH_KERNEL_C columns of (b)'s batch, each kernel against its plain
+    version (float64 within KERNEL_TOL / GAMMA_TOL, float32 by phase 10's
+    rule), with device times and bounds; each column of the sweep and
+    fused launches bit for bit its own single-column launch."""
+    from lightweaver_tpu_torch.ops import fused, sweep
+    C = BATCH_KERNEL_C
+    phase(f'column batch (a): the kernels at the batch shape, {C} columns '
+          'of 82 depths in one launch, against their plain versions')
+    b, params, scaJ, chi, src = batch_inputs(C, torch.float64)
+    Nc = b.NkCol
+    it = b._iter_fn
+    args = it.sweep_inputs(params, chi, src)
+    label = f'{C} columns f64'
+    kern = sweep.formal_solve_sweep(*args)
+    plain = sweep.formal_solve_sweep_plain(*args)
+    torch.cuda.synchronize()
+    rel, absErr = compare_outputs(label, RAY_NAMES, ray_outputs(kern),
+                                  ray_outputs(plain), KERNEL_TOL)
+    print(f'  {label} sweep: max|kernel-plain|/max|plain| = {rel:.3e} '
+          f'(bar {KERNEL_TOL}), max abs {absErr:.3e}')
+    timed_pair(f'{label} sweep, per call', lambda: sweep.formal_solve_sweep(
+        *args), lambda: sweep.formal_solve_sweep_plain(*args),
+        SYMBOLS['sweep'], bnd=sweep_bound(args, kern))
+    columns_bitwise(f'{label} sweep', sweep.formal_solve_sweep, args, C, Nc,
+                    'sweep')
+    rays = it.formal_solve(params, chi, src)
+    check_line_kernel(label, b, params, src, rays)
+    fargs = fused_args(b, params, scaJ)
+    check_fused_args(label, fargs)
+    columns_bitwise(f'{label} fused', fused.fused_lambda_step, fargs, C, Nc,
+                    'fused')
+    del b, params, chi, src, rays, args, fargs, kern, plain
+    torch.cuda.empty_cache()
+
+    b, params, scaJ, chi, src = batch_inputs(C, F32)
+    it = b._iter_fn
+    label = f'{C} columns f32'
+    args = it.sweep_inputs(params, chi, src)
+    check_sweep_f32(label, args)
+    columns_bitwise(f'{label} sweep', sweep.formal_solve_sweep, args, C, Nc,
+                    'sweep')
+    rays = it.formal_solve(params, chi, src)
+    check_line_f32(label, b, params, src, rays)
+    fargs = fused_args(b, params, scaJ)
+    check_fused_f32_args(label, fargs)
+    columns_bitwise(f'{label} fused', fused.fused_lambda_step, fargs, C, Nc,
+                    'fused')
+    del b, params, chi, src, rays, args, fargs
+    torch.cuda.empty_cache()
+
+
+def single_column_context(c, **kwargs):
+    """A card Context of column c of the batch of problems.column_batch
+    (seed BATCH_SEED), built from the same stacked arrays."""
+    from lightweaver_tpu_torch import (Atmosphere, CaII_atom, H_6_atom,
+                                       RadiativeSet)
+    from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.problems import stacked_falc
+    models = kwargs.pop('models', lambda: [H_6_atom(), CaII_atom()])
+    active = kwargs.pop('active', ('H', 'Ca'))
+    vlos = kwargs.pop('vlos', None)
+    C = kwargs.pop('C')
+    h, T, v, vt, ne, nH = stacked_falc(C, seed=BATCH_SEED)
+    if vlos is not None:
+        v = vlos
+    atmos = Atmosphere(height=h.copy(), temperature=T[c].copy(),
+                       vlos=v[c].copy(), vturb=vt[c].copy(),
+                       ne=ne[c].copy(), nHTot=nH[c].copy())
+    atmos.quadrature(5)
+    rs = RadiativeSet(models())
+    rs.set_active(*active)
+    spect = rs.compute_wavelength_grid()
+    return Context(atmos, spect, rs.compute_eq_pops(atmos), device='cuda',
+                   **kwargs)
+
+
+def build_batch(C, **kwargs):
+    """problems.column_batch(C) on the card; halves C while the card's
+    memory does not hold the batch's set-up and first MALI step, and
+    prints the memory that stopped it.  Returns the batch, its C and the
+    set-up's seconds."""
+    from lightweaver_tpu_torch.problems import column_batch
+    while True:
+        try:
+            t0 = time.perf_counter()
+            b = column_batch(C, seed=BATCH_SEED, device='cuda', **kwargs)
+            torch.cuda.synchronize()
+            return b, C, time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            print(f'  {C} columns do not fit: {str(e).splitlines()[0]}; '
+                  f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} '
+                  'GiB allocated; halving')
+            torch.cuda.empty_cache()
+            C //= 2
+
+
+def restarted(b, scheme):
+    """A ColumnBatch over ``b``'s flat Context put back at its LTE start
+    (populations from eqPops, J = 0; the atmosphere is unchanged without
+    charge conservation) under ``scheme``: the set-up (background,
+    collisions, profiles of every column) is not repeated."""
+    from lightweaver_tpu_torch.parallel import ColumnBatch
+    fc = b.flatCtx
+    for a, st in zip(fc.cfg.activeAtoms, fc.popsState):
+        st['n'] = fc.cfg.state(fc.eqPops.atomicPops[a.model.element].n)
+        st.pop('nLastSE', None)
+    fc.J = torch.zeros_like(fc.J)
+    fc.set_fs_iter_scheme(scheme)
+    return ColumnBatch(flatCtx=fc, Ncol=b.Ncol)
+
+
+def batch_converged():
+    """(b) BASELINE config 5's 1.5D leg at full width: BATCH_C columns
+    (problems.column_batch: FAL-C, 82 depths, temperature x uniform(0.95,
+    1.05) per column, H 6-level + Ca II active, 5 rays, 1046 wavelengths,
+    float64, default scheme) through ColumnBatch.iterate(NmaxIter=400);
+    every column converges; three columns chosen with the seed (the
+    slowest among them) re-run as single card Contexts for exactly their
+    nIterCol iterations (tests/test_column_batch.py:53-63's protocol),
+    populations within BATCH_SINGLE_TOL; ms per batch step,
+    column-iterations per second against the single Contexts', peak
+    memory, the sweep's launches (one per MALI step) and its device time
+    at the batch shape.  Returns the batch (converged)."""
+    from lightweaver_tpu_torch.ops import sweep
+    phase(f'column batch (b): BASELINE config 5 1.5D leg, {BATCH_C} '
+          'FAL-C columns (H 6 + Ca II active, 5 rays, f64, default '
+          'scheme), ColumnBatch.iterate(NmaxIter=400)')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b, C, setup = build_batch(BATCH_C)
+    cfg = b.cfg
+    print(f'  {C} columns: flat Context of Nk = {cfg.Nk} ({C} x '
+          f'{b.NkCol}), Nlam = {cfg.Nlam}, Nmu = {cfg.Nmu}, ray tensor '
+          f'{2 * cfg.Nlam * cfg.Nmu * cfg.Nk * 8 / 1e9:.2f} GB; set-up '
+          f'{setup:.1f} s')
+    steps = []
+    fsgm = b.formal_sol_gamma_matrices
+
+    def counted(*a, **k):
+        steps.append(1)
+        return fsgm(*a, **k)
+    b.formal_sol_gamma_matrices = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    nIt = b.iterate(NmaxIter=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del b.formal_sol_gamma_matrices
+    peak = torch.cuda.max_memory_allocated()
+    nSteps = len(steps)
+    n = b.nIterCol
+    print(f'  {int(b.converged.sum())} of {C} columns converged in {nIt} '
+          f'batch steps; nIterCol min / median / max {n.min()} / '
+          f'{int(np.median(n))} / {n.max()}')
+    print(f'  {wall:.2f} s: {wall / nSteps * 1e3:.2f} ms per batch step '
+          f'(MALI step + stat_equil, host clock), {C * nSteps / wall:.1f} '
+          f'column-iterations/s, {C / wall:.2f} converged columns/s; peak '
+          f'memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); '
+          f'sweep launches {counts["sweep"]} in {nSteps} MALI steps')
+    if not b.converged.all():
+        raise AssertionError(f'{int((~b.converged).sum())} columns did not '
+                             'converge in 400 iterations')
+    if counts['sweep'] != nSteps or any(
+            v for k, v in counts.items() if k != 'sweep'):
+        raise AssertionError(f'launches {counts} in {nSteps} MALI steps')
+
+    # the sweep kernel at the batch shape: the last step's inputs
+    it, params = b._iter_fn, b.params
+    chi, src = it.gather(params, it.scaJ(params))
+    args = it.sweep_inputs(params, chi, src)
+    out = sweep.formal_solve_sweep(*args)
+    bnd = sweep_bound(args, out)
+    k1, k2 = kernel_device_ms(lambda: sweep.formal_solve_sweep(*args),
+                              SYMBOLS['sweep'], reps=10)
+    print(f'  sweep kernel, {C} columns (1046 x 5 x 2 rays x {cfg.Nk} '
+          f'depths): {k1:.3f} / {k2:.3f} ms per launch{bound_text(bnd)}')
+    del chi, src, args, out
+
+    rng = np.random.default_rng(BATCH_SEED)
+    slow = int(np.argmax(n))
+    others = rng.choice(np.delete(np.arange(C), slow), 2, replace=False)
+    pops = b.pops
+    singleMs = []
+    for c in [slow] + sorted(int(x) for x in others):
+        ctx = single_column_context(c, C=C)
+        t0 = time.perf_counter()
+        for k in range(int(n[c])):
+            ctx.formal_sol_gamma_matrices()
+            if k >= 3:
+                ctx.stat_equil()
+        torch.cuda.synchronize()
+        singleMs.append((time.perf_counter() - t0) / int(n[c]) * 1e3)
+        errs = [relerr(pops[ai][c], ctx.popsState[ai]['n'].cpu())
+                for ai in range(len(pops))]
+        print(f'  column {c} ({n[c]} iterations) as a single card Context: '
+              f'populations max rel ' + ', '.join(f'{e:.2e}' for e in errs)
+              + f' (bar {BATCH_SINGLE_TOL}); {singleMs[-1]:.2f} ms/iter')
+        if not max(errs) < BATCH_SINGLE_TOL:
+            raise AssertionError(f'batch column {c} differs from its single '
+                                 f'Context: {errs}')
+    ms1 = float(np.median(singleMs))
+    print(f'  single falc_h6ca-column Context: {ms1:.2f} ms/iter, '
+          f'{1e3 / ms1:.1f} column-iterations/s; the batch '
+          f'{C * nSteps / wall / (1e3 / ms1):.0f}x that')
+    del pops, params, it
+    torch.cuda.empty_cache()
+    return b
+
+
+def batch_schemes(converged):
+    """(c) BATCH_SCHEME_STEPS MALI steps of (b)'s batch under the default,
+    `_pallas` and `_fused` schemes (ColumnBatch.iterate, stat_equil from
+    the fourth), populations of the kernel schemes within
+    BATCH_SCHEME_TOL of the default's, one launch of each stage's kernel
+    per step, the line Gamma and fused kernels' device times at the batch
+    shape; then BATCH_F32_STEPS steps in float32, finite and
+    contracting.  The float64 runs restart (b)'s batch from LTE."""
+    from lightweaver_tpu_torch.ops import fused, gamma
+    C = converged.Ncol
+    phase(f'column batch (c): {C} columns, {BATCH_SCHEME_STEPS} MALI steps '
+          'under each scheme, then float32')
+    ref = None
+    expected = {'mali_full_precond': {'sweep': 1},
+                PALLAS: {'sweep': 1, 'gamma': 1}, FUSED: {'fused': 1}}
+    for scheme in SCHEMES:
+        t0 = time.perf_counter()
+        b = restarted(converged, scheme)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        b.iterate(NmaxIter=BATCH_SCHEME_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        pops = b.pops
+        if ref is None:
+            ref, err = pops, 0.0
+        else:
+            err = max(relerr(p, r) for p, r in zip(pops, ref))
+        print(f'  {scheme}: {wall / BATCH_SCHEME_STEPS * 1e3:.2f} ms per '
+              f'batch step (set-up {setup:.1f} s), launches '
+              + ', '.join(f'{k} {v}' for k, v in counts.items())
+              + f'; populations vs the default scheme {err:.2e} (bar '
+              f'{BATCH_SCHEME_TOL})')
+        want = {k: v * BATCH_SCHEME_STEPS for k, v in expected[scheme].items()}
+        if counts != want:
+            raise AssertionError(f'{scheme}: launches {counts}, expected '
+                                 f'{want}')
+        if not err < BATCH_SCHEME_TOL:
+            raise AssertionError(f'{scheme} batch differs from the default '
+                                 f'scheme: {err:.3e}')
+        it, params = b._iter_fn, b.params
+        print(f'  {scheme}, {C} columns: ', end='')
+        stage_breakdown(it, params, scheme, reps=3)
+        t0 = time.perf_counter()
+        b.stat_equil()
+        torch.cuda.synchronize()
+        print(f'  stat_equil of {C} columns (flat solve, one host pull, '
+              f'BatchedNg): {(time.perf_counter() - t0) * 1e3:.3f} ms')
+        scaJ = it.scaJ(params)
+        if scheme == PALLAS:
+            chi, src = it.gather(params, scaJ)
+            rays = it.formal_solve(params, chi, src)
+            args = it.line_inputs(params, *rays[:3], src, params['pack'])
+            k1, k2 = kernel_device_ms(lambda: gamma.line_gamma_rates(*args),
+                                      SYMBOLS['gamma'], reps=10)
+            print(f'  line Gamma kernel, {C} columns: {k1:.3f} / {k2:.3f} '
+                  f'ms per launch{bound_text(gamma_bound(args))}')
+            del chi, src, rays, args
+        elif scheme == FUSED:
+            args = it.fused_inputs(params, scaJ, params['pack'])
+            out = fused.fused_lambda_step(*args)
+            bnd = fused_bound(args, out)
+            del out
+            k1, k2 = kernel_device_ms(lambda: fused.fused_lambda_step(*args),
+                                      SYMBOLS['fused'], reps=10)
+            print(f'  fused kernel, {C} columns: {k1:.3f} / {k2:.3f} ms per '
+                  f'launch{bound_text(bnd)}')
+            del args
+        del b, it, params, scaJ
+        torch.cuda.empty_cache()
+    del converged
+    torch.cuda.empty_cache()
+
+    b, _, setup = build_batch(C, dtype=F32)
+    reset_counts()
+    dJ = []
+    t0 = time.perf_counter()
+    for k in range(BATCH_F32_STEPS):
+        dJ.append(b.formal_sol_gamma_matrices().dJMax)
+        if k >= 3:
+            b.stat_equil()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    finite = (np.isfinite(dJ).all() and np.isfinite(b.I).all()
+              and all(np.isfinite(p).all() for p in b.pops))
+    print(f'  float32: {wall / BATCH_F32_STEPS * 1e3:.2f} ms per batch step, '
+          f'dJ {dJ[4]:.3e} at step 5, {dJ[-1]:.3e} at step '
+          f'{BATCH_F32_STEPS}; launches '
+          + ', '.join(f'{k} {v}' for k, v in counts.items()))
+    if not (finite and dJ[-1] < dJ[4]):
+        raise AssertionError(f'float32 batch: finite {finite}, dJ {dJ}')
+    if counts != {'sweep_f32': BATCH_F32_STEPS}:
+        raise AssertionError(f'float32 batch launches {counts}')
+    del b
+    torch.cuda.empty_cache()
+
+
+def batch_prd():
+    """(d) BATCH_PRD_C FAL-C columns with H 6-level active (Ly-alpha,
+    Ly-beta in PRD), hybrid PRD, accelerateScattering and 0-5 km/s
+    outflow ramps spread over the columns: BATCH_PRD_STEPS MALI steps
+    with stat_equil and prd_redistribute(maxIter=3) from the fourth; two
+    columns held against single card Contexts run in lockstep (rho and
+    populations within BATCH_PRD_TOL)."""
+    from lightweaver_tpu_torch import H_6_atom
+    from lightweaver_tpu_torch.problems import (column_batch,
+                                                column_vlos_ramps,
+                                                stacked_falc)
+    C = BATCH_PRD_C
+    phase(f'column batch (d): {C} columns, H 6 active with Ly-alpha and '
+          'Ly-beta in PRD, hybrid PRD, accelerateScattering, 0-5 km/s '
+          f'outflows; {BATCH_PRD_STEPS} MALI steps with prd_redistribute')
+    h = stacked_falc(C, seed=BATCH_SEED)[0]
+    vlos = column_vlos_ramps(h, C)
+    kw = dict(hprd=True, accelerateScattering=True)
+    b = column_batch(C, models=lambda: [H_6_atom()], activeSpecies=('H',),
+                     seed=BATCH_SEED, vlos=vlos, device='cuda', **kw)
+    cols = [C // 3, C - 1]
+    singles = [single_column_context(c, C=C, models=lambda: [H_6_atom()],
+                                     active=('H',), vlos=vlos, **kw)
+               for c in cols]
+    lines = b.flatCtx._prd_lines()
+    reset_counts()
+    t0 = time.perf_counter()
+    nSub = 0
+    for k in range(BATCH_PRD_STEPS):
+        b.formal_sol_gamma_matrices()
+        if k >= 3:
+            b.stat_equil()
+            nSub += b.prd_redistribute(maxIter=3, tol=0.0).NprdSubIter
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    for ctx in singles:
+        for k in range(BATCH_PRD_STEPS):
+            ctx.formal_sol_gamma_matrices()
+            if k >= 3:
+                ctx.stat_equil()
+                ctx.prd_redistribute(maxIter=3, tol=0.0)
+    Nc = b.NkCol
+    worst = 0.0
+    for c, ctx in zip(cols, singles):
+        errs = {f'pops_a{ai}': relerr(p[c], ctx.popsState[ai]['n'].cpu())
+                for ai, p in enumerate(b.pops)}
+        for ai, ti, a, t in lines:
+            errs[f'rho {ti}'] = relerr(column_slice(
+                b.params['rhoPrd'][ai][ti], c, Nc).cpu(),
+                ctx.rhoPrd[ai][ti].cpu())
+        worst = max(worst, max(errs.values()))
+        print(f'  column {c} (vlos top {vlos[c, 0]:.0f} m/s) against a '
+              'single card Context: ' + ', '.join(
+                  f'{k} {v:.2e}' for k, v in errs.items()))
+    rho = b.params['rhoPrd'][lines[0][0]][lines[0][1]]
+    print(f'  {wall / BATCH_PRD_STEPS * 1e3:.2f} ms per batch step with '
+          f'{nSub} PRD sub-iterations; max|rho - 1| '
+          f'{(rho - 1).abs().max().item():.2f}; launches '
+          + ', '.join(f'{k} {v}' for k, v in counts.items()))
+    if not worst < BATCH_PRD_TOL:
+        raise AssertionError(f'PRD batch differs from single Contexts: '
+                             f'{worst:.3e} > {BATCH_PRD_TOL}')
+    if counts.get('sweep', 0) != BATCH_PRD_STEPS + nSub:
+        raise AssertionError(f'PRD batch launches {counts}: one sweep per '
+                             'MALI step and PRD sub-iteration expected')
+    del b, singles
+    torch.cuda.empty_cache()
+
+
 # ---- the least time the card could take for a kernel's work -----------
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # peak rates outside the tensor cores, float32 and float64, from NVIDIA's
@@ -2294,8 +2868,9 @@ def main():
     prdKern = prd_kernel_check()
     launches = prd_paths()
     multi_ng_kernel_check()
-    for scheme in SCHEMES:
-        converge_multi_ng(scheme)
+    _, snap = converge_multi_ng(SCHEMES[0])
+    for scheme in SCHEMES[1:]:
+        converge_multi_ng(scheme, NG_SCHEME_STEPS, snap)
     multi_ng_early_ng_raises()
     nr_check(nrCtx)
     del nrCtx
@@ -2330,6 +2905,9 @@ def main():
     for scheme, nIter in zip(SCHEMES, (50, 20, 20)):
         for dtype in (torch.float64, F32):
             falc500(scheme, dtype, nIter)
+    batch_kernel_check()
+    batch_schemes(batch_converged())
+    batch_prd()
     # the kernels' record: the float64 instances on the PRD path (phase 8's
     # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
     # path (phase (c)'s launches, phase (a)'s inputs), the probes

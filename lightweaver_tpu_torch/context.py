@@ -198,6 +198,14 @@ class IterConfig:
     laToPrdLa: Optional[np.ndarray] = None
     hprdCoeffs: Optional[Dict] = None
     vlosMu: Optional[np.ndarray] = None
+    # the local operator acceleration of the coherent background
+    # scattering (_accelerate_scattering)
+    accelerateScattering: bool = False
+    # independent columns laid end to end along depth: Nk = Ncol NkCol,
+    # column c the depths [c NkCol, (c + 1) NkCol), each with its own
+    # height, boundaries and emergent point (parallel/columns.py's batch;
+    # every pointwise stage runs over all Nk depths unchanged)
+    Ncol: int = 1
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -226,6 +234,50 @@ class IterConfig:
     @property
     def allAtoms(self):
         return self.activeAtoms + self.detailedAtoms
+
+    @property
+    def NkCol(self):
+        """The depths of one column."""
+        return self.Nk // self.Ncol
+
+
+def _heights(cfg: IterConfig, params):
+    """The height of the sweeps: [Nk], or [Ncol, NkCol] per column."""
+    h = params['height']
+    return h if cfg.Ncol == 1 else h.view(cfg.Ncol, cfg.NkCol)
+
+
+def _emergent(cfg: IterConfig, I):
+    """The emergent intensity, the up sweep at the top of each column:
+    I [2, NL, Nmu, Nk] -> [NL, Nmu], or [Ncol, NL, Nmu] per column."""
+    if cfg.Ncol == 1:
+        return I[1, :, :, 0]
+    return I[1, :, :, ::cfg.NkCol].permute(2, 0, 1)
+
+
+def _dJ(cfg: IterConfig, Jdag, Jnew):
+    """max |1 - Jdag/Jnew| over J's rows and depths (Jnew != 0): a 0-d
+    tensor, or [Ncol] per column."""
+    rel = torch.abs(1.0 - torch.where(Jnew != 0.0, Jdag / Jnew,
+                                      torch.ones_like(Jnew)))
+    if cfg.Ncol == 1:
+        return torch.max(rel)
+    return torch.amax(rel.view(rel.shape[0], cfg.Ncol, cfg.NkCol),
+                      dim=(0, 2))
+
+
+def _accelerate_scattering(Jnew, Jdag, PsiBar, sca, adt):
+    """Local (diagonal) operator acceleration of the coherent background-
+    scattering Lambda iteration (lightweaver_tpu/context.py:353-370): the
+    formal solution's J_fs = Lambda[(eta + sca Jdag)/chi] depends on the
+    lagged Jdag pointwise through c = sca PsiBar (PsiBar = sum_mu wmu/2
+    Psi, the sweep's moment), so J = (J_fs - c Jdag) / (1 - c) solves the
+    scalar fixed point J = J_fs + c (J - Jdag), with c clipped to
+    [0, 1 - 1e-3].  Same fixed point; the scattering-dominated rows
+    converge in a few steps instead of O(1/(1 - c))."""
+    c = sca.to(adt) * PsiBar.to(adt)
+    c = torch.clamp(c, 0.0, 1.0 - 1e-3)
+    return (Jnew - c * Jdag) / (1.0 - c)
 
 
 def _sum_mu(x, wmu):
@@ -410,7 +462,7 @@ def sweep_inputs(cfg: IterConfig, params, chiTot, srcNum):
     the ray tensors, the boundary intensities and the quadrature."""
     Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiTot,
                                          cfg.wavelengthT)
-    return (chiTot, srcNum, params['height'], cfg.muzT, Iupw_d, Iupw_u,
+    return (chiTot, srcNum, _heights(cfg, params), cfg.muzT, Iupw_d, Iupw_u,
             cfg.wmuT)
 
 
@@ -425,7 +477,10 @@ def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
 def _upwind_intensities(cfg: IterConfig, params, chiTot, lam, rows=None):
     """Boundary intensities [NL, Nmu] of the down (upper BC) and up (lower
     BC) sweeps over the rows of chiTot [2, NL, Nmu, Nk], whose wavelengths
-    are lam [NL] and, when ``rows`` is given, global grid rows ``rows``."""
+    are lam [NL] and, when ``rows`` is given, global grid rows ``rows``;
+    [NL, Nmu, Ncol] at each column's ends over columns."""
+    if cfg.Ncol > 1:
+        return _upwind_columns(cfg, params, chiTot, lam, rows)
     T = params['temperature']
     height = params['height']
     muz = cfg.muzT
@@ -462,16 +517,63 @@ def _upwind_intensities(cfg: IterConfig, params, chiTot, lam, rows=None):
     return Iupw_d, Iupw_u
 
 
+def _upwind_columns(cfg: IterConfig, params, chiTot, lam, rows=None):
+    """_upwind_intensities over Ncol columns: each column's boundary
+    values [NL, Nmu, Ncol] from its own two outermost depths; a boundary's
+    data rows [NL, Nmu] (a callable BC) go to every column."""
+    C, Nc = cfg.Ncol, cfg.NkCol
+    T = params['temperature'].view(C, Nc)
+    h = params['height'].view(C, Nc)
+    chi = chiTot.unflatten(-1, (C, Nc))         # [2, NL, Nmu, C, Nc]
+    shape = (*chiTot.shape[1:3], C)
+    lamC = lam[:, None]
+
+    def data(key):
+        x = params[key] if rows is None else params[key][rows]
+        return x if x.dim() == 3 else x[..., None].expand(shape)
+
+    def therm(d, k0, k1):
+        B0 = planck_nu(T[None, :, k0], lamC)[:, None, :]   # [NL, 1, C]
+        B1 = planck_nu(T[None, :, k1], lamC)[:, None, :]
+        dtau = (0.5 * (chi[d, :, :, :, k0] + chi[d, :, :, :, k1])
+                * torch.abs(h[:, k0] - h[:, k1]) / cfg.muzT[None, :, None])
+        return B0 - (B1 - B0) / dtau
+
+    out = []
+    for d, key, thermalised, k0, k1 in (
+            (0, 'upperBcData', cfg.upperThermalised, 0, 1),
+            (1, 'lowerBcData', cfg.lowerThermalised, Nc - 1, Nc - 2)):
+        if params.get(key) is not None:
+            out.append(data(key))
+        elif thermalised:
+            out.append(therm(d, k0, k1))
+        else:
+            out.append(torch.zeros(shape, dtype=cfg.dtype,
+                                   device=cfg.device))
+    return tuple(out)
+
+
 # ---- scheme 'mali_full_precond_fused': stages 1 and 2 in one kernel ----
 def _boundary(cfg, params, key, thermalised, k0, k1):
     """One end's boundary for ops/fused.py: caller data, the Planck rows at
-    depths (k0, k1) of a thermalised end, or zero."""
+    depths (k0, k1) of a thermalised end, or zero.  Over columns k0, k1
+    index each column's depths: the data rows go to every column
+    ([Nlam, Nmu, Ncol]) and the Planck rows are [Nlam, Ncol, 2]."""
+    C = cfg.Ncol
     if params.get(key) is not None:
-        return 'data', params[key].contiguous()
+        x = params[key]
+        if C > 1 and x.dim() == 2:
+            x = x[..., None].expand(*x.shape, C)
+        return 'data', x.contiguous()
     if thermalised:
         T, lam = params['temperature'], cfg.wavelengthT
-        return 'therm', torch.stack([planck_nu(T[k0], lam),
-                                     planck_nu(T[k1], lam)], dim=1)
+        if C == 1:
+            return 'therm', torch.stack([planck_nu(T[k0], lam),
+                                         planck_nu(T[k1], lam)], dim=1)
+        T = T.view(C, cfg.NkCol)
+        return 'therm', torch.stack([planck_nu(T[None, :, k0], lam[:, None]),
+                                     planck_nu(T[None, :, k1], lam[:, None])],
+                                    dim=2)
     return 'zero', None
 
 
@@ -531,11 +633,12 @@ def fused_inputs(cfg: IterConfig, params, scaJ, pack):
                 etaCo[c, t.Nblue:t.Nred] = ((uS * gS) * a1[:, None] * rho
                                             * nj)
 
+    Nc = cfg.NkCol
     upper = _boundary(cfg, params, 'upperBcData', cfg.upperThermalised, 0, 1)
     lower = _boundary(cfg, params, 'lowerBcData', cfg.lowerThermalised,
-                      Nk - 1, Nk - 2)
+                      Nc - 1, Nc - 2)
     args = (pack['phiP'], chiCo, etaCo, params['bgChi'] + contChi,
-            params['bgEta'] + contEta, scaJ, params['height'], cfg.muzT,
+            params['bgEta'] + contEta, scaJ, _heights(cfg, params), cfg.muzT,
             cfg.wmuT, upper, lower)
     return args, contEtaA
 
@@ -966,8 +1069,11 @@ def build_iteration_fn(cfg: IterConfig):
               or None; built in the call when absent,
     }
     Returns {'Gamma', 'Rij', 'Rji', 'J', 'I' (emergent [Nlam, Nmu]),
-    'dJ' (0-d tensor)}, and under cfg.hprd 'JRest' [Nprd, Nk].  The
-    stages are exposed as attributes.
+    'dJ' (0-d tensor)}, and under cfg.hprd 'JRest' [Nprd, Nk]; over
+    cfg.Ncol > 1 columns 'I' is [Ncol, Nlam, Nmu] and 'dJ' [Ncol].  With
+    cfg.accelerateScattering, J is the accelerated one
+    (_accelerate_scattering) and dJ measures it.  The stages are exposed
+    as attributes.
 
     cfg.fsIterScheme selects the stages: 'mali_full_precond' runs gather,
     formal_solve and gamma_rates; 'mali_full_precond_pallas' adds the line
@@ -1006,12 +1112,16 @@ def build_iteration_fn(cfg: IterConfig):
             lineTerms = line_kernel_stage(cfg, params, I, Psi, IeffBase,
                                           srcNum, packed)
         Jnew = moments['J']
-        dJ = torch.max(torch.abs(1.0 - torch.where(
-            Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
+        if cfg.accelerateScattering:
+            # c from the sweep's (or fused kernel's) PsiBar moment, zero
+            # under lambdaIterate (lambda_operator), as in the JAX package
+            Jnew = _accelerate_scattering(Jnew, Jdag, moments['PsiBar'],
+                                          params['bgSca'], cfg.accumDtype)
+        dJ = _dJ(cfg, Jdag, Jnew)
         Gamma, Rij, Rji = gamma_rates(cfg, params, I, Psi, IeffBase, srcNum,
                                       moments, lineTerms, srcRowsA)
         out = {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
-               'I': I[1, :, :, 0], 'dJ': dJ}
+               'I': _emergent(cfg, I), 'dJ': dJ}
         if cfg.hprd:
             out['JRest'] = rest_frame_J(cfg, params, cfg.wavelengthT, I)
         return out
@@ -1081,7 +1191,10 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
     contained in it.  ``prdLines`` is a list of (ai, ti) into
     cfg.activeAtoms.  Returns prd_subset_stage(params) -> {'J' [Nsub, Nk],
     'I' [Nsub, Nmu] (up sweep at k = 0), 'dJ', 'Rij', 'Rji' (per PRD
-    line, [Nk])}, plus 'JRest' [Nprd, Nk] under cfg.hprd.
+    line, [Nk])}, plus 'JRest' [Nprd, Nk] under cfg.hprd; over cfg.Ncol >
+    1 columns each column has its own boundaries, 'I' is [Ncol, Nsub,
+    Nmu] and 'dJ' [Ncol].  cfg.accelerateScattering accelerates J as the
+    MALI step does, with the subset's PsiBar.
     """
     subIdxs = np.asarray(subIdxs, np.int64)
     Nsub = len(subIdxs)
@@ -1125,8 +1238,8 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
         srcSub = etaSub + _sca_j(cfg, params)[subT][None, :, None, :]
         Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiSub, lamSub,
                                              rows=subT)
-        return (chiSub, srcSub, params['height'], cfg.muzT, Iupw_d, Iupw_u,
-                cfg.wmuT)
+        return (chiSub, srcSub, _heights(cfg, params), cfg.muzT, Iupw_d,
+                Iupw_u, cfg.wmuT)
 
     def prd_subset_stage(params):
         params = _working_params(cfg, params)
@@ -1135,8 +1248,10 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
         adt = cfg.accumDtype
         Jdag = params['J'][subT].to(adt)
         Jnew = moments['J']
-        dJ = torch.max(torch.abs(1.0 - torch.where(
-            Jnew != 0.0, Jdag / Jnew, torch.ones_like(Jnew))))
+        if cfg.accelerateScattering:
+            Jnew = _accelerate_scattering(Jnew, Jdag, moments['PsiBar'],
+                                          params['bgSca'][subT], adt)
+        dJ = _dJ(cfg, Jdag, Jnew)
 
         wmu2w = 0.5 * cfg.wmuT
         wmu2 = wmu2w.to(adt)
@@ -1150,7 +1265,7 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
             RjiOut.append(_sum_lmd_split(Uji + I_w * Vji, wlaA, wmu2, wmu2w,
                                          adt))
 
-        out = {'J': Jnew, 'I': I[1, :, :, 0], 'dJ': dJ, 'Rij': RijOut,
+        out = {'J': Jnew, 'I': _emergent(cfg, I), 'dJ': dJ, 'Rij': RijOut,
                'Rji': RjiOut}
         if cfg.hprd:
             out['JRest'] = rest_frame_J(cfg, params, lamSub, I)
@@ -1195,6 +1310,20 @@ def _check_scheme(scheme: str, cfg: IterConfig):
                          + ')')
 
 
+def profile_weights(phi, wlambda, wmu, Ncol: int = 1):
+    """A line's normalisation wphi [Nk] = 1 / sum_{lambda, mu, +/-} phi
+    wlambda wmu/2 of its profile phi [W, Nmu, 2, Nk].  Over Ncol columns
+    each column's sum is formed on its own depths, in the order a Context
+    of that column alone forms it, so that a column of a batch starts
+    from its single Context's wphi to the bit."""
+    if Ncol == 1:
+        return 1.0 / torch.einsum('lmdk,l,m->k', phi, wlambda, 0.5 * wmu)
+    Nc = phi.shape[-1] // Ncol
+    return torch.cat([profile_weights(phi[..., c * Nc:(c + 1) * Nc]
+                                      .contiguous(), wlambda, wmu)
+                      for c in range(Ncol)])
+
+
 def phi_direction_major(phi):
     """[W, Nmu, 2, Nk] profile (the JAX package's layout) -> contiguous
     [2, W, Nmu, Nk], the iteration's layout."""
@@ -1235,7 +1364,9 @@ class Context:
     and rates are in ``accumDtype`` = float64.  ``gammaAccum`` ('exact' or
     'blocked'; default config.params' ``GammaAccum``, else 'exact', as in
     the JAX package) picks the lambda reduction of Gamma/rates under the
-    f32 state.
+    f32 state.  ``accelerateScattering`` solves the coherent background
+    scattering's local fixed point in every J update
+    (_accelerate_scattering; the JAX Context's option).
     """
 
     def __init__(self, atmos: Atmosphere, spect, eqPops,
@@ -1247,7 +1378,8 @@ class Context:
                  accumDtype: Optional[torch.dtype] = None, device='cuda',
                  gammaMode: str = 'factored',
                  fsIterScheme: Optional[str] = None,
-                 gammaAccum: Optional[str] = None):
+                 gammaAccum: Optional[str] = None,
+                 accelerateScattering: bool = False):
         from .config import params as cfgParams
         if dtype is None:
             dtype = (torch.float32 if cfgParams.get('Precision') == 'mixed'
@@ -1308,7 +1440,8 @@ class Context:
             wavelength=np.asarray(spect.wavelength),
             muz=np.asarray(atmos.muz), wmu=np.asarray(atmos.wmu),
             device=self.device, dtype=dtype, accumDtype=accumDtype,
-            gammaAccum=gammaAccum, formalSolver=formalSolver)
+            gammaAccum=gammaAccum, formalSolver=formalSolver,
+            accelerateScattering=accelerateScattering)
 
         bg = basic_background(spect, atmos, eqPops, radSet)
         self.background = bg
@@ -1484,10 +1617,9 @@ class Context:
                 QelastA.append(np.asarray(res.Qelast))
                 phi = torch.as_tensor(res.phi, dtype=self.dtype,
                                       device=self.device)
-                wphi_inv = torch.einsum('lmdk,l,m->k', phi, t.wlambdaT,
-                                        0.5 * wmu)
                 phiA.append(phi)
-                wphiA.append(1.0 / wphi_inv)
+                wphiA.append(profile_weights(phi, t.wlambdaT, wmu,
+                                             self.cfg.Ncol))
             self.phi.append(phiA)
             self.wphi.append(wphiA)
             self.aDamp.append(aDampA)
@@ -1496,6 +1628,18 @@ class Context:
         # the PRD statics the damping
         self._params = None
         self._prdStatics = None
+
+    def _normalise_profiles(self):
+        """Recompute every line's wphi from its phi for cfg.Ncol columns
+        (profile_weights; parallel/columns.py calls it after splitting
+        the depth axis into columns)."""
+        for ai, a in enumerate(self.cfg.allAtoms):
+            for ti, t in enumerate(a.trans):
+                if self.phi[ai][ti] is not None:
+                    self.wphi[ai][ti] = profile_weights(
+                        self.phi[ai][ti], t.wlambdaT, self.cfg.wmuT,
+                        self.cfg.Ncol)
+        self._params = None
 
     # ------------------------------------------------------------------
     def compute_collisions(self, force: bool = False):
@@ -2195,7 +2339,8 @@ class Context:
         clone, warm restart): the atmosphere, spectrum and eqPops objects,
         and J, I, the active populations and nStar and each PRD line's rho
         (with its window) copied to host numpy.  ``kwargs`` rebuild the
-        Context: conserveCharge, hprd, formalSolver and the device.  As in
+        Context: conserveCharge, hprd, formalSolver, accelerateScattering
+        and the device.  As in
         the JAX package the working dtype is not kept, so a float32
         Context comes back float64.
         ref: Source/LwMiddleLayer.pyx:2977-3037"""
@@ -2215,6 +2360,7 @@ class Context:
                 'conserveCharge': self.conserveCharge,
                 'hprd': self.cfg.hprd,
                 'formalSolver': self.cfg.formalSolver,
+                'accelerateScattering': self.cfg.accelerateScattering,
                 'device': str(self.device),
             },
         }

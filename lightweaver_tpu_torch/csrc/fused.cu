@@ -21,8 +21,13 @@
 // holds one line's profile and a coefficient row that absorbs the
 // populations and a1 = (hc/4pi)(lambda0/lambda) Bij.
 //
+// Columns, as in sweep.cu: the depth axis holds Ncol independent columns
+// of Nk depths; each has its own path lengths dh [Ncol, Nk-1] and
+// boundary rows (data [NL, Nmu, Ncol], Planck rows [NL, Ncol, 2]), and
+// one launch takes them all (grid NL x Ncol).
+//
 // Design.  The sweep kernel's body (sweep_row.cuh) behind the slot
-// assembly: one block per lambda row, a warp per ray walking depth in
+// assembly: one block per lambda row and column, a warp per ray walking depth in
 // chunks of 32 (in passes past 16 rays per direction), the recurrence as
 // a warp scan, the moments through a shared tile in the same pass.  Each
 // lane assembles chi and srcNum of its depth from the background rows
@@ -56,26 +61,26 @@ namespace {
 
 enum BcKind { BC_ZERO = 0, BC_THERM = 1, BC_DATA = 2 };
 
-// rays assembled from the background rows and C line slots
+// rays assembled from the background rows and C line slots, over Ncol
+// columns of N depths along the last axis (NT = Ncol N)
 template <typename T>
 struct SlotRays {
-    const T* __restrict__ phiP;   // [C, 2, NL, Nmu, N]
-    const T* __restrict__ chiCo;  // [C, NL, N]
-    const T* __restrict__ etaCo;  // [C, NL, N]
-    const T* __restrict__ bgChi;  // [NL, N]
-    const T* __restrict__ bgEta;  // [NL, N]
-    const T* __restrict__ scaJ;   // [NL, N]
-    const T* __restrict__ dh;     // [N-1]
-    const T* __restrict__ bcUp;   // by kind: [NL, Nmu] data, [NL, 2] therm
+    const T* __restrict__ phiP;   // [C, 2, NL, Nmu, NT]
+    const T* __restrict__ chiCo;  // [C, NL, NT]
+    const T* __restrict__ etaCo;  // [C, NL, NT]
+    const T* __restrict__ bgChi;  // [NL, NT]
+    const T* __restrict__ bgEta;  // [NL, NT]
+    const T* __restrict__ scaJ;   // [NL, NT]
+    const T* __restrict__ dh;     // [Ncol, N-1]
+    // by kind: [NL, Nmu, Ncol] data, [NL, Ncol, 2] therm
+    const T* __restrict__ bcUp;
     const T* __restrict__ bcLo;
-    int C, N, Nmu, upKind, loKind;
-    size_t slotStride;  // 2 NL Nmu N
-    size_t coStride;    // NL N
+    int C, N, Nmu, Ncol, upKind, loKind;
+    size_t slotStride;  // 2 NL Nmu NT
+    size_t coStride;    // NL NT
 
-    __device__ __forceinline__ void load(size_t ray, int l, int k, T& chi,
-                                         T& src) const {
-        const size_t rowOff = static_cast<size_t>(l) * N + k;
-        const size_t rayOff = ray * N + k;
+    __device__ __forceinline__ void load(size_t rayOff, size_t rowOff,
+                                         T& chi, T& src) const {
         T c = bgChi[rowOff];
         T e = bgEta[rowOff];
         for (int s = 0; s < C; ++s) {
@@ -87,18 +92,23 @@ struct SlotRays {
         src = e + scaJ[rowOff];
     }
 
-    // c0, c1: the assembled chi at the ray's outermost and next depth
-    __device__ __forceinline__ T upwind(size_t, int l, int dir, int imu,
-                                        T mu, T c0, T c1) const {
+    // c0, c1: the assembled chi at the ray's outermost and next depth of
+    // its column
+    __device__ __forceinline__ T upwind(size_t, int l, int col, int dir,
+                                        int imu, T mu, T c0, T c1) const {
         const int kind = dir == 0 ? upKind : loKind;
         const T* bc = dir == 0 ? bcUp : bcLo;
-        if (kind == BC_DATA) return bc[static_cast<size_t>(l) * Nmu + imu];
+        if (kind == BC_DATA)
+            return bc[(static_cast<size_t>(l) * Nmu + imu) * Ncol + col];
         if (kind != BC_THERM) return T(0.0);
-        // Planck rows [NL, 2] at the two depths; dtau between them as
-        // context.formal_solve forms it
-        const T dtau = T(0.5) * (c0 + c1) * dh[dir == 0 ? 0 : N - 2] / mu;
-        const T b0 = bc[2 * static_cast<size_t>(l)];
-        const T b1 = bc[2 * static_cast<size_t>(l) + 1];
+        // Planck rows [NL, Ncol, 2] at the two depths; dtau between them
+        // as context.formal_solve forms it
+        const T dtau = T(0.5) * (c0 + c1)
+                       * dh[static_cast<size_t>(col) * (N - 1)
+                            + (dir == 0 ? 0 : N - 2)] / mu;
+        const size_t o = 2 * (static_cast<size_t>(l) * Ncol + col);
+        const T b0 = bc[o];
+        const T b1 = bc[o + 1];
         return b0 - (b1 - b0) / dtau;
     }
 };
@@ -120,15 +130,16 @@ int launch(const T* phiP, const T* chiCo, const T* etaCo, const T* bgChi,
            const T* bgEta, const T* scaJ, const T* dh, const T* muz,
            const T* wmuHalf, const T* bcUp, const T* bcLo, T* Iout, T* psi,
            T* ieffb, double* J, T* psiBar, T* iBar, T* isBar, int C, int NL,
-           int Nmu, int Nk, int upKind, int loKind, void* stream) {
+           int Nmu, int Nk, int Ncol, int upKind, int loKind, void* stream) {
     if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t NT = static_cast<size_t>(Ncol) * Nk;
     const SlotRays<T> rays{phiP, chiCo, etaCo, bgChi, bgEta, scaJ, dh,
-                           bcUp, bcLo, C, Nk, Nmu, upKind, loKind,
-                           static_cast<size_t>(2) * NL * Nmu * Nk,
-                           static_cast<size_t>(NL) * Nk};
+                           bcUp, bcLo, C, Nk, Nmu, Ncol, upKind, loKind,
+                           static_cast<size_t>(2) * NL * Nmu * NT,
+                           static_cast<size_t>(NL) * NT};
     return lw::launch_rows<T, fused_kernel<T>>(
-        NL, Nmu, Nk, stream, rays, dh, muz, wmuHalf, Iout, psi, ieffb, J,
-        psiBar, iBar, isBar, NL, Nmu, Nk);
+        NL, Nmu, Nk, Ncol, stream, rays, dh, muz, wmuHalf, Iout, psi, ieffb,
+        J, psiBar, iBar, isBar, NL, Nmu, Nk);
 }
 
 }  // namespace
@@ -141,11 +152,11 @@ extern "C" int lw_fused_f64(const double* phiP, const double* chiCo,
                             const double* bcLo, double* Iout, double* psi,
                             double* ieffb, double* J, double* psiBar,
                             double* isBar, int C, int NL, int Nmu, int Nk,
-                            int upKind, int loKind, void* stream) {
+                            int Ncol, int upKind, int loKind, void* stream) {
     return launch<double>(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, dh, muz,
                           wmuHalf, bcUp, bcLo, Iout, psi, ieffb, J, psiBar,
-                          nullptr, isBar, C, NL, Nmu, Nk, upKind, loKind,
-                          stream);
+                          nullptr, isBar, C, NL, Nmu, Nk, Ncol, upKind,
+                          loKind, stream);
 }
 
 extern "C" int lw_fused_f32(const float* phiP, const float* chiCo,
@@ -156,10 +167,10 @@ extern "C" int lw_fused_f32(const float* phiP, const float* chiCo,
                             const float* bcLo, float* Iout, float* psi,
                             float* ieffb, double* J, float* psiBar,
                             float* iBar, float* isBar, int C, int NL,
-                            int Nmu, int Nk, int upKind, int loKind,
-                            void* stream) {
+                            int Nmu, int Nk, int Ncol, int upKind,
+                            int loKind, void* stream) {
     return launch<float>(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, dh, muz,
                          wmuHalf, bcUp, bcLo, Iout, psi, ieffb, J, psiBar,
-                         iBar, isBar, C, NL, Nmu, Nk, upKind, loKind,
+                         iBar, isBar, C, NL, Nmu, Nk, Ncol, upKind, loKind,
                          stream);
 }

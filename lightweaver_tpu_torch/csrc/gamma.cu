@@ -46,6 +46,13 @@
 // under 255 registers without spills; the shared continuum slab is
 // reused for the row reduction.
 //
+// Index widths.  The kernel is pointwise in depth, so a batch of columns
+// laid end to end along Nk runs through it as one wide atmosphere.  Ray
+// tensor, continuum-row and etaC offsets are size_t; the packed per-group
+// offsets (phi, rho, wphi, G4, PPB, pair) and Nlam, Nmu, Nk are int,
+// which ops/gamma.py keeps below 2^31 (LineTable refuses larger packed
+// buffers, line_gamma_rates a ray tensor past 2^31 - 1 elements).
+//
 // Bound on an H100: bytes.  Every group reads Psi, IeffBase, I and srcNum
 // on its window rows (4 x 2 Nmu Nk values per row) plus phi and rho of
 // each member and its levels' continuum rows; at falc_h6mg (Nk = 82) all

@@ -13,8 +13,11 @@
 // ops/formal_solver.py:formal_sol_1d):
 //
 //   for every ray (lambda, mu, direction) of the direction-major
-//   [2, NL, Nmu, Nk] layout (d = 0 sweeps down from k = 0, d = 1 up from
-//   k = Nk-1):  S = srcNum / chi; the solver's coefficients along depth
+//   [2, NL, Nmu, Ncol Nk] layout, column by column (Ncol independent
+//   columns of Nk depths along the last axis, each with its own path
+//   lengths dh [Ncol, Nk-1] and boundary values iupw [2, NL, Nmu, Ncol];
+//   d = 0 sweeps down from a column's k = 0, d = 1 up from its k = Nk-1):
+//   S = srcNum / chi; the solver's coefficients along depth
 //   (Steffen-limited Bezier-3 or BESSER's monotonic quadratic Bezier at the
 //   interior points, the linear w2 step at the last point; the linear
 //   solver's w2 step everywhere); the affine recurrence
@@ -27,8 +30,10 @@
 // Design.  Each solver's coefficients at a depth depend on chi and S near
 // it, never on I; only the recurrence is sequential, and it is
 // associative.  The TPU kernel rode depth on the 128 vector lanes with a
-// Kogge-Stone prefix; here one block takes one lambda row and each of its
-// 2 Nmu rays gets a warp (320 threads at Nmu = 5; past 16 rays per
+// Kogge-Stone prefix (and took a batch of columns as a grid axis under
+// vmap); here one block takes one lambda row of one column (grid NL x
+// Ncol: one launch serves every column) and each of its 2 Nmu rays gets
+// a warp (320 threads at Nmu = 5; past 16 rays per
 // direction the warps take the rays in passes), which walks the ray from
 // its upwind end in chunks of 32 consecutive depths
 // (bezier3.cuh:warp_ray): coalesced loads of chi and srcNum with
@@ -47,10 +52,12 @@
 // moments accumulate in the working type; the float instance writes
 // IBar = sum w I in float beside J, the double one has IBar = J.
 //
-// Any Nmu >= 1 and Nk >= 3: the dynamic shared memory grows as 48 Nk +
-// 1536 R bytes in float64 (40 Nk + 768 R in float32; R the rays per pass,
-// at most 32; ops/sweep.py:smem_bytes); past the 227 KB a block may have
-// (Nk ~4,500 at Nmu = 5 in float64) the launch is refused.
+// Any Nmu >= 1, Nk >= 3 and 1 <= Ncol <= 65535: the dynamic shared memory
+// grows with one column's depths, 48 Nk + 1536 R bytes in float64 (40 Nk
+// + 768 R in float32; R the rays per pass, at most 32;
+// ops/sweep.py:smem_bytes); past the 227 KB a block may have (Nk ~4,500
+// at Nmu = 5 in float64) the launch is refused.  Offsets are size_t; the
+// wrapper refuses a ray tensor of 2^31 elements or more.
 //
 // Bound on an H100: bytes.  The kernel streams 2 ray tensors in and 3
 // out, ~209 MB at FALC-500 in f64 (1046 x 5 x 2 x 500 x 8 B each), ~62 us
@@ -68,23 +75,23 @@
 
 namespace {
 
-// rays read from chi and srcNum [2, NL, Nmu, N], boundary values from
-// iupw [2, NL, Nmu]
+// rays read from chi and srcNum [2, NL, Nmu, Ncol N], boundary values
+// from iupw [2, NL, Nmu, Ncol]
 template <typename T>
 struct StoredRays {
     const T* __restrict__ chi;
     const T* __restrict__ src;
     const T* __restrict__ iupw;
-    int N;
+    int Ncol;
 
-    __device__ __forceinline__ void load(size_t ray, int, int k, T& c,
+    __device__ __forceinline__ void load(size_t rayOff, size_t, T& c,
                                          T& s) const {
-        c = chi[ray * N + k];
-        s = src[ray * N + k];
+        c = chi[rayOff];
+        s = src[rayOff];
     }
-    __device__ __forceinline__ T upwind(size_t ray, int, int, int, T, T,
-                                        T) const {
-        return iupw[ray];
+    __device__ __forceinline__ T upwind(size_t ray, int, int col, int, int,
+                                        T, T, T) const {
+        return iupw[ray * Ncol + col];
     }
 };
 
@@ -104,33 +111,33 @@ template <typename T, int S>
 int launch_solver(const T* chi, const T* src, const T* dh, const T* muz,
                   const T* wmuHalf, const T* iupw, T* Iout, T* psi, T* ieffb,
                   double* J, T* psiBar, T* iBar, T* isBar, int NL, int Nmu,
-                  int Nk, void* stream) {
+                  int Nk, int Ncol, void* stream) {
     return lw::launch_rows<T, sweep_kernel<T, S>>(
-        NL, Nmu, Nk, stream, StoredRays<T>{chi, src, iupw, Nk}, dh, muz,
-        wmuHalf, Iout, psi, ieffb, J, psiBar, iBar, isBar, NL, Nmu, Nk);
+        NL, Nmu, Nk, Ncol, stream, StoredRays<T>{chi, src, iupw, Ncol}, dh,
+        muz, wmuHalf, Iout, psi, ieffb, J, psiBar, iBar, isBar, NL, Nmu, Nk);
 }
 
 template <typename T>
 int launch(const T* chi, const T* src, const T* dh, const T* muz,
            const T* wmuHalf, const T* iupw, T* Iout, T* psi, T* ieffb,
            double* J, T* psiBar, T* iBar, T* isBar, int NL, int Nmu, int Nk,
-           int solver, void* stream) {
+           int Ncol, int solver, void* stream) {
     switch (solver) {
     case lw::kLinear:
         return launch_solver<T, lw::kLinear>(chi, src, dh, muz, wmuHalf,
                                              iupw, Iout, psi, ieffb, J,
                                              psiBar, iBar, isBar, NL, Nmu,
-                                             Nk, stream);
+                                             Nk, Ncol, stream);
     case lw::kBezier3:
         return launch_solver<T, lw::kBezier3>(chi, src, dh, muz, wmuHalf,
                                               iupw, Iout, psi, ieffb, J,
                                               psiBar, iBar, isBar, NL, Nmu,
-                                              Nk, stream);
+                                              Nk, Ncol, stream);
     case lw::kBesser:
         return launch_solver<T, lw::kBesser>(chi, src, dh, muz, wmuHalf,
                                              iupw, Iout, psi, ieffb, J,
                                              psiBar, iBar, isBar, NL, Nmu,
-                                             Nk, stream);
+                                             Nk, Ncol, stream);
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -143,10 +150,11 @@ extern "C" int lw_sweep_f64(const double* chi, const double* src,
                             const double* wmuHalf, const double* iupw,
                             double* Iout, double* psi, double* ieffb,
                             double* J, double* psiBar, double* isBar, int NL,
-                            int Nmu, int Nk, int solver, void* stream) {
+                            int Nmu, int Nk, int Ncol, int solver,
+                            void* stream) {
     return launch<double>(chi, src, dh, muz, wmuHalf, iupw, Iout, psi, ieffb,
-                          J, psiBar, nullptr, isBar, NL, Nmu, Nk, solver,
-                          stream);
+                          J, psiBar, nullptr, isBar, NL, Nmu, Nk, Ncol,
+                          solver, stream);
 }
 
 extern "C" int lw_sweep_f32(const float* chi, const float* src,
@@ -154,7 +162,9 @@ extern "C" int lw_sweep_f32(const float* chi, const float* src,
                             const float* wmuHalf, const float* iupw,
                             float* Iout, float* psi, float* ieffb, double* J,
                             float* psiBar, float* iBar, float* isBar, int NL,
-                            int Nmu, int Nk, int solver, void* stream) {
+                            int Nmu, int Nk, int Ncol, int solver,
+                            void* stream) {
     return launch<float>(chi, src, dh, muz, wmuHalf, iupw, Iout, psi, ieffb,
-                         J, psiBar, iBar, isBar, NL, Nmu, Nk, solver, stream);
+                         J, psiBar, iBar, isBar, NL, Nmu, Nk, Ncol, solver,
+                         stream);
 }

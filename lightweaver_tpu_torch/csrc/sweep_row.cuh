@@ -1,16 +1,26 @@
-// One lambda row per block: the sweep of its 2 Nmu rays by the solver S
-// (linear, Bezier-3 or BESSER), a warp per ray (bezier3.cuh:warp_ray),
-// and their angular moments, in one pass.  Shared by the depth-sweep
-// kernel (sweep.cu, rays read from chi and srcNum) and the fused
-// lambda-step kernel (fused.cu, Bezier-3, rays assembled from line
-// slots); each supplies a Rays type with
+// One lambda row of one column per block: the sweep of its 2 Nmu rays by
+// the solver S (linear, Bezier-3 or BESSER), a warp per ray
+// (bezier3.cuh:warp_ray), and their angular moments, in one pass.  Shared
+// by the depth-sweep kernel (sweep.cu, rays read from chi and srcNum) and
+// the fused lambda-step kernel (fused.cu, Bezier-3, rays assembled from
+// line slots); each supplies a Rays type with
 //
-//   load(ray, l, k, chi, srcNum)   chi and srcNum of ray `ray` (the index
-//                                  into the direction-major [2, NL, Nmu]
-//                                  rays) of row l at depth k;
-//   upwind(ray, l, dir, imu, mu, chi0, chi1)
-//                                  the ray's upwind boundary value, given
-//                                  chi at its two outermost depths.
+//   load(rayOff, rowOff, chi, srcNum)
+//                                  chi and srcNum of one point: rayOff its
+//                                  index into the direction-major
+//                                  [2, NL, Nmu, Ncol N] rays, rowOff into
+//                                  the [NL, Ncol N] rows;
+//   upwind(ray, l, col, dir, imu, mu, chi0, chi1)
+//                                  the upwind boundary value of ray `ray`
+//                                  (the index into the [2, NL, Nmu] rays)
+//                                  of column col, given chi at its two
+//                                  outermost depths.
+//
+// Columns.  The depth axis holds Ncol = gridDim.y independent columns of
+// N depths each, column c at offset c N of every row (Ncol N the row
+// stride); block (l, c) sweeps column c of row l over its own N depths
+// and path lengths dh + c (N - 1), so no thread reads across a column's
+// ends.  Ncol = 1 is the single atmosphere.
 //
 // Rays per pass.  A block has R = ceil(2 Nmu / P) warps, P =
 // ceil(2 Nmu / 32) passes (rays_per_pass): up to 16 rays per direction
@@ -31,9 +41,10 @@
 // IeffSrcBar as down + up.  Nothing is read back from device memory and
 // there are no atomics.
 //
-// Shared memory: 16 Nk + 2 NA Nk sizeof(T) + 2 x 3 x 32 R sizeof(T) bytes
+// Shared memory: 16 N + 2 NA N sizeof(T) + 2 x 3 x 32 R sizeof(T) bytes
 // (NA = 2 moment rows in double, 3 in float; smem_bytes, mirrored by
-// ops/sweep.py:smem_bytes); past kMaxSmem the launch is refused.
+// ops/sweep.py:smem_bytes), sized by one column's N whatever Ncol is;
+// past kMaxSmem the launch is refused.
 #pragma once
 
 #include "bezier3.cuh"
@@ -44,6 +55,7 @@ namespace lw {
 
 constexpr int kMaxSmem = 232448;   // 227 KB, the most an H100 block may have
 constexpr int kMaxRaysPerPass = 32;   // warps of a 1024-thread block
+constexpr int kMaxColumns = 65535;    // the grid's y extent
 
 // rays' w I, w Psi, w (IeffBase + Psi srcNum)
 constexpr int kNQ = 3;
@@ -65,11 +77,12 @@ size_t smem_bytes(int Nmu, int N) {
            + sizeof(T) * 2 * kNQ * 32 * rays_per_pass(Nmu);
 }
 
-// Block l = blockIdx.x, blockDim.x = 32 rays_per_pass(Nmu).  iBarOut is
-// written by the float instance only (the double one's IBar is J).
+// Block (l, c) = (blockIdx.x, blockIdx.y), blockDim.x = 32
+// rays_per_pass(Nmu).  iBarOut is written by the float instance only (the
+// double one's IBar is J).
 template <int S, typename T, typename Rays>
 __device__ __forceinline__ void sweep_row(
-    const Rays& rays, const T* __restrict__ dh,  // [N-1]
+    const Rays& rays, const T* __restrict__ dh,  // [Ncol, N-1]
     const T* __restrict__ muz, const T* __restrict__ wmuHalf,  // [Nmu]
     T* __restrict__ Iout, T* __restrict__ psiOut, T* __restrict__ ieffbOut,
     double* __restrict__ Jout, T* __restrict__ psiBarOut,
@@ -83,6 +96,11 @@ __device__ __forceinline__ void sweep_row(
     T* tiles = acc + 2 * NA * N;                         // [2][kNQ][R][32]
 
     const int l = blockIdx.x;
+    const int col = blockIdx.y;
+    const size_t NT = static_cast<size_t>(gridDim.y) * N;   // row stride
+    const size_t colOff = static_cast<size_t>(col) * N;
+    const size_t rowBase = static_cast<size_t>(l) * NT + colOff;
+    const T* __restrict__ dhCol = dh + static_cast<size_t>(col) * (N - 1);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int R = blockDim.x >> 5;
     const int nRays = 2 * Nmu;
@@ -92,18 +110,19 @@ __device__ __forceinline__ void sweep_row(
         const int r = active ? r0 + warp : nRays - 1;
         const int dir = r / Nmu, imu = r % Nmu;
         const size_t ray = (static_cast<size_t>(dir) * NL + l) * Nmu + imu;
-        T* IR = Iout + ray * N;
-        T* psiR = psiOut + ray * N;
-        T* ieffbR = ieffbOut + ray * N;
+        const size_t rayBase = ray * NT + colOff;
+        T* IR = Iout + rayBase;
+        T* psiR = psiOut + rayBase;
+        T* ieffbR = ieffbOut + rayBase;
         const T w = wmuHalf[imu];
         const T mu = muz[imu];
 
         int chunk = 0;
         const auto load = [&](int k, T& c, T& s) {
-            rays.load(ray, l, k, c, s);
+            rays.load(rayBase + k, rowBase + k, c, s);
         };
         const auto upwind = [&](T c0, T c1) {
-            return rays.upwind(ray, l, dir, imu, mu, c0, c1);
+            return rays.upwind(ray, l, col, dir, imu, mu, c0, c1);
         };
         const auto emit = [&](int k, bool valid, T I, T psi, T ieffb,
                               T srcv) {
@@ -149,12 +168,12 @@ __device__ __forceinline__ void sweep_row(
             ++chunk;
             ++barrier;
         };
-        warp_ray<S, T>(load, dh, mu, N, dir == 1, upwind, emit);
+        warp_ray<S, T>(load, dhCol, mu, N, dir == 1, upwind, emit);
     }
     __syncthreads();
 
     for (int k = threadIdx.x; k < N; k += blockDim.x) {
-        const size_t o = static_cast<size_t>(l) * N + k;
+        const size_t o = rowBase + k;
         Jout[o] = accJ[k] + accJ[N + k];
         psiBarOut[o] = acc[k] + acc[NA * N + k];
         isBarOut[o] = acc[N + k] + acc[(NA + 1) * N + k];
@@ -163,14 +182,17 @@ __device__ __forceinline__ void sweep_row(
     }
 }
 
-// Launch `Kernel` over NL rows with 32 rays_per_pass(Nmu) threads and
-// its shared memory; cudaErrorInvalidValue for shapes it does not take.
-// The kernel is a template argument, so that each kernel keeps its own
-// record of the shared memory it was allowed.
+// Launch `Kernel` over NL rows x Ncol columns of N depths with 32
+// rays_per_pass(Nmu) threads and its shared memory;
+// cudaErrorInvalidValue for shapes it does not take.  The kernel is a
+// template argument, so that each kernel keeps its own record of the
+// shared memory it was allowed.
 template <typename T, auto Kernel, typename... Args>
-int launch_rows(int NL, int Nmu, int N, void* stream, Args... args) {
+int launch_rows(int NL, int Nmu, int N, int Ncol, void* stream,
+                Args... args) {
     const size_t smem = smem_bytes<T>(Nmu, N);
-    if (N < 3 || Nmu < 1 || NL < 1 || smem > kMaxSmem)
+    if (N < 3 || Nmu < 1 || NL < 1 || Ncol < 1 || Ncol > kMaxColumns
+        || smem > kMaxSmem)
         return static_cast<int>(cudaErrorInvalidValue);
     static size_t smemSet = 48 * 1024;   // per kernel
     if (smem > smemSet) {
@@ -180,7 +202,7 @@ int launch_rows(int NL, int Nmu, int N, void* stream, Args... args) {
         if (e != cudaSuccess) return static_cast<int>(e);
         smemSet = smem;
     }
-    Kernel<<<NL, 32 * rays_per_pass(Nmu), smem,
+    Kernel<<<dim3(NL, Ncol), 32 * rays_per_pass(Nmu), smem,
              static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }

@@ -355,7 +355,8 @@ def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True,
     """Batched 1D formal solution along depth for many rays at once.
 
     chi, S : [B, Ndep] opacity and source function per ray (k=0 is the top).
-    height : [Ndep] geometric height (decreasing with k).
+    height : [Ndep] geometric height (decreasing with k), or [B, Ndep], a
+        height per ray (the rays of a batch of columns).
     muz : [B] |mu| of each ray.
     I_upw : [B] upwind boundary intensity at the sweep start.
     to_obs : sweep direction; True = bottom-to-top (upgoing).
@@ -376,7 +377,7 @@ def formal_sol_1d(chi, S, height, muz, I_upw, to_obs=True,
     else:
         chi_s, S_s, h_s = chi, S, height
 
-    ds = torch.abs(h_s[1:] - h_s[:-1])[None, :] / muz[:, None]
+    ds = torch.abs(h_s[..., 1:] - h_s[..., :-1]) / muz[:, None]
     A, b, Psi, bNL = _COEFF_FNS[method](chi_s, S_s, ds)
     b[..., 0] = I_upw
 

@@ -20,7 +20,11 @@ a1 = (hc/4pi)(lambda0/lambda) Bij.  Background rows [Nlam, Nk] carry the
 continua.  Each boundary is ('zero', None), ('data', I_incident
 [Nlam, Nmu]) or ('therm', Planck rows [Nlam, 2] at the outermost and the
 next depth), the thermalised value using the dtau of the assembled chi
-between those two depths, as context.formal_solve forms it.
+between those two depths, as context.formal_solve forms it.  A height
+[Ncol, NkCol] splits depth into Ncol independent columns, as in
+ops/sweep.py; each boundary's rows then carry a column axis ('data'
+[Nlam, Nmu, Ncol], 'therm' [Nlam, Ncol, 2], also at Ncol = 1) and one
+launch takes every column.
 
 Two instances, float64 and float32 (the f32 state).  J comes out in
 float64 in both, the working-type products w I summed in a double
@@ -37,7 +41,8 @@ ops/sweep.py:smem_bytes).
 import torch
 
 from . import _build
-from .sweep import BEZIER3, check_smem, formal_solve_sweep_plain
+from .sweep import (BEZIER3, boundary_shape, check_ray_elements, check_smem,
+                    column_shapes, formal_solve_sweep_plain)
 
 BC_KINDS = {'zero': 0, 'therm': 1, 'data': 2}
 
@@ -88,26 +93,38 @@ def assemble(phiP, chiCo, etaCo, bgChi, bgEta, scaJ):
 
 
 def _upwind(bc, chi0, chi1, dh0, muz, shape):
+    """One sweep's boundary values: chi0, chi1 [NL, Nmu] at the two
+    outermost depths and their distance dh0 (per column: [NL, Nmu, Ncol]
+    and [Ncol])."""
     kind, rows = bc
     if kind == 'data':
         return rows
     if kind == 'therm':
-        dtau = 0.5 * (chi0 + chi1) * dh0 / muz[None, :]
-        return rows[:, 0:1] - (rows[:, 1:2] - rows[:, 0:1]) / dtau
+        if len(shape) == 2:
+            dtau = 0.5 * (chi0 + chi1) * dh0 / muz[None, :]
+            return rows[:, 0:1] - (rows[:, 1:2] - rows[:, 0:1]) / dtau
+        dtau = 0.5 * (chi0 + chi1) * dh0 / muz[None, :, None]
+        b0, b1 = rows[:, None, :, 0], rows[:, None, :, 1]
+        return b0 - (b1 - b0) / dtau
     return chi0.new_zeros(shape)
 
 
 def fused_lambda_step_plain(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height,
                             muz, wmu, upper, lower):
     """Plain PyTorch version of the fused kernel: the slot assembly, the
-    boundary values, then the plain sweep."""
+    boundary values of every column, then the plain sweep."""
     chi, srcNum = assemble(phiP, chiCo, etaCo, bgChi, bgEta, scaJ)
-    Nk = chi.shape[-1]
-    shape = chi.shape[1:3]
-    IupwD = _upwind(upper, chi[0, :, :, 0], chi[0, :, :, 1],
-                    torch.abs(height[0] - height[1]), muz, shape)
-    IupwU = _upwind(lower, chi[1, :, :, Nk - 1], chi[1, :, :, Nk - 2],
-                    torch.abs(height[Nk - 1] - height[Nk - 2]), muz, shape)
+    _, NL, Nmu, Nk = chi.shape
+    Ncol, Nc = column_shapes(Nk, height)
+    shape = boundary_shape(NL, Nmu, height)
+    h = height.reshape(Ncol, Nc)
+    ends = chi.unflatten(-1, (Ncol, Nc))
+    if height.dim() == 1:
+        ends, h = ends[..., 0, :], h[0]
+    IupwD = _upwind(upper, ends[0, ..., 0], ends[0, ..., 1],
+                    torch.abs(h[..., 0] - h[..., 1]), muz, shape)
+    IupwU = _upwind(lower, ends[1, ..., Nc - 1], ends[1, ..., Nc - 2],
+                    torch.abs(h[..., Nc - 1] - h[..., Nc - 2]), muz, shape)
     return formal_solve_sweep_plain(chi, srcNum, height, muz, IupwD, IupwU,
                                     wmu)
 
@@ -118,12 +135,17 @@ def _check_inputs(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
         raise ValueError(f'phiP must be [C, 2, Nlam, Nmu, Nk], got '
                          f'{tuple(phiP.shape)}')
     C, _, NL, Nmu, Nk = phiP.shape
-    if Nk < 3:
-        raise ValueError(f'the Bezier-3 sweep needs Nk >= 3, got {Nk}')
-    bcShape = {'zero': None, 'data': (NL, Nmu), 'therm': (NL, 2)}
+    check_ray_elements(phiP[0], 'a slot of phiP')
+    Ncol, Nc = column_shapes(Nk, height)
+    if Nc < 3:
+        raise ValueError(f'the Bezier-3 sweep needs Nk >= 3 per column, '
+                         f'got {Nc}')
+    bcShape = {'zero': None, 'data': boundary_shape(NL, Nmu, height),
+               'therm': (NL, 2) if height.dim() == 1 else (NL, Ncol, 2)}
     shapes = {'chiCo': (chiCo, (C, NL, Nk)), 'etaCo': (etaCo, (C, NL, Nk)),
               'bgChi': (bgChi, (NL, Nk)), 'bgEta': (bgEta, (NL, Nk)),
-              'scaJ': (scaJ, (NL, Nk)), 'height': (height, (Nk,)),
+              'scaJ': (scaJ, (NL, Nk)),
+              'height': (height, tuple(height.shape)),
               'muz': (muz, (Nmu,)), 'wmu': (wmu, (Nmu,))}
     for name, (kind, rows) in (('upper', upper), ('lower', lower)):
         if kind not in BC_KINDS:
@@ -163,8 +185,8 @@ def fused_lambda_step(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz,
 def load_library():
     """Build csrc/fused.cu with nvcc (once per source hash) and load it."""
     return _build.load('fused', {
-        'lw_fused_f64': [_build.PTR] * 17 + [_build.INT] * 6 + [_build.PTR],
-        'lw_fused_f32': [_build.PTR] * 18 + [_build.INT] * 6 + [_build.PTR]})
+        'lw_fused_f64': [_build.PTR] * 17 + [_build.INT] * 7 + [_build.PTR],
+        'lw_fused_f32': [_build.PTR] * 18 + [_build.INT] * 7 + [_build.PTR]})
 
 
 def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
@@ -183,8 +205,11 @@ def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
     if not all(x.is_contiguous() for x in ins + bcs):
         raise ValueError('the fused kernel takes contiguous tensors')
     C, _, NL, Nmu, Nk = phiP.shape
-    check_smem(phiP.dtype, Nmu, Nk)
-    dh = torch.abs(height[:-1] - height[1:]).contiguous()
+    check_ray_elements(phiP[0], 'a slot of phiP')
+    Ncol, Nc = column_shapes(Nk, height)
+    check_smem(phiP.dtype, Nmu, Nc)
+    # per column |h[k] - h[k+1]| [Ncol, Nc - 1]
+    dh = torch.abs(height[..., :-1] - height[..., 1:]).contiguous()
     muz = muz.contiguous()
     wmuHalf = (0.5 * wmu).contiguous()
     shape = (2, NL, Nmu, Nk)
@@ -201,7 +226,7 @@ def fused_cuda(phiP, chiCo, etaCo, bgChi, bgEta, scaJ, height, muz, wmu,
         *(None if rows is None else rows.data_ptr()
           for _, rows in (upper, lower)),
         I.data_ptr(), Psi.data_ptr(), IeffBase.data_ptr(), *rowPtrs, C, NL,
-        Nmu, Nk, BC_KINDS[upper[0]], BC_KINDS[lower[0]],
+        Nmu, Nc, Ncol, BC_KINDS[upper[0]], BC_KINDS[lower[0]],
         _build.cuda_stream(phiP))
     _build.check_launch(err, 'fused')
     if f32:

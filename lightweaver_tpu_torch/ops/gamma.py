@@ -34,6 +34,13 @@ srcNum (= S chiTot to one rounding), which the gather emits.
 Groups of up to KMAX = 16 lines: the kernel has paths templated on K =
 1..4 and one where K is a runtime value; a larger group raises.
 
+The kernel is pointwise in depth, so a batch of columns laid end to end
+along Nk (parallel/columns.py) runs through it unchanged.  Its packed
+offsets are int32: LineTable refuses packed inputs or outputs of 2^31
+elements or more, and line_gamma_rates a ray tensor of more than 2^31 - 1
+(ops/sweep.py:MAX_RAY_ELEMENTS; ~2,400 falc_h6ca columns); ray, continuum
+and eta offsets are size_t in the kernel.
+
 Two instances, float64 and float32 (the f32 state).  In float32 G4 holds
 float partials of at most BW rows x 2 Nmu rays, as the TPU kernel's; the
 caller finishes the lambda sum in float64.  A CUDA tensor launches the
@@ -45,6 +52,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from . import _build
+from .sweep import check_ray_elements
 
 BW = 8         # rows per lambda block of G4
 TK = 32        # depths per thread block of the kernel
@@ -269,7 +277,10 @@ class LineTable:
                               ('pair', max(1, K * (K - 1) // 2) * Wu * Nk)):
                 offs[key] += size
         if max(offs.values()) >= 2 ** 31:
-            raise ValueError('the packed line inputs exceed int32 offsets')
+            key = max(offs, key=offs.get)
+            raise ValueError(f'the packed line {key} has {offs[key]} '
+                             'elements, past the 2^31 - 1 of the kernel\'s '
+                             'int32 offsets; split the batch of columns')
         self.groups = tuple(entries)
         self.phi = _flat([g['phi'] for g in groups])
         self.coef = _flat([g['coef'] for g in groups])
@@ -347,6 +358,7 @@ def _check_line_inputs(table, rho, Psi, IeffBase, I, srcNum, chiCL, UCL,
         raise ValueError(f'Psi must be [2, Nlam, {Nmu}, {Nk}], got '
                          f'{tuple(Psi.shape)}')
     Nlam = Psi.shape[1]
+    check_ray_elements(Psi, 'Psi')
     if any(e.row0 < 0 or e.row0 + e.Wu > Nlam for e in table.groups):
         raise ValueError(f'a group window lies outside the {Nlam} '
                          'wavelength rows')

@@ -16,8 +16,16 @@ Layout: chi and srcNum are direction-major [2, NL, Nmu, Nk] (d = 0 is the
 down sweep from the upper boundary, d = 1 the up sweep from the lower
 one), unpadded and contiguous.  S = srcNum / chi is formed inside.
 
-The kernel runs one block per lambda row and a warp per ray, parallel
-along depth (past 16 rays per direction the warps take the rays in
+Columns: a height of shape [Ncol, NkCol] (Ncol NkCol = Nk) splits the
+depth axis into Ncol independent columns of NkCol depths, column c at
+offset c NkCol of every ray, each swept from its own ends with its own
+heights and boundary values IupwD/IupwU [NL, Nmu, Ncol] (also at
+Ncol = 1; parallel/columns.py's batch; the TPU kernel took columns under
+vmap).  A height [Nk] is one column with boundaries [NL, Nmu].  One
+launch takes every column.
+
+The kernel runs one block per lambda row and column and a warp per ray,
+parallel along depth (past 16 rays per direction the warps take the rays in
 passes, so any Nmu is taken): it sums the recurrence in the order of
 ops/formal_solver.py:affine_solve(mode='chunked'), the plain version in
 the sequential order.
@@ -72,19 +80,57 @@ def angular_moments(I, Psi, IeffBase, srcNum, wmu):
 def formal_solve_sweep_plain(chi, srcNum, height, muz, IupwD, IupwU, wmu,
                              solver=BEZIER3):
     """Plain PyTorch version of the sweep kernel: the sequential formal
-    solution of ``solver`` per direction, then the angular moments."""
+    solution of ``solver`` per direction (of every column of its own
+    heights), then the angular moments."""
     _, NL, Nmu, Nk = chi.shape
     S = srcNum / chi
-    muzB = muz[None, :].expand(NL, Nmu).reshape(-1)
+    Nc = height.shape[-1]
+    Ncol = Nk // Nc
+    # rays in the order (lambda, mu, column), each over one column's depths
+    muzB = muz[None, :, None].expand(NL, Nmu, Ncol).reshape(-1)
+    hB = height if height.dim() == 1 else height[None, None].expand(
+        NL, Nmu, Ncol, Nc).reshape(-1, Nc)
     outs = []
     for d, toObs, Iupw in ((0, False, IupwD), (1, True, IupwU)):
-        outs.append(formal_sol_1d(chi[d].reshape(-1, Nk),
-                                  S[d].reshape(-1, Nk), height, muzB,
+        outs.append(formal_sol_1d(chi[d].reshape(-1, Nc),
+                                  S[d].reshape(-1, Nc), hB, muzB,
                                   Iupw.reshape(-1), to_obs=toObs,
                                   method=solver))
     I, Psi, IeffBase = (torch.stack([o[i].reshape(NL, Nmu, Nk)
                                      for o in outs]) for i in range(3))
     return I, Psi, IeffBase, angular_moments(I, Psi, IeffBase, srcNum, wmu)
+
+
+# the largest ray tensor the kernels take: the line Gamma kernel's
+# offsets are int32, and the wrappers hold every kernel to it
+MAX_RAY_ELEMENTS = 2 ** 31 - 1
+
+
+def check_ray_elements(x, what='the ray tensor'):
+    """Raise ValueError, naming the limit, where ``x`` has more elements
+    than MAX_RAY_ELEMENTS."""
+    if x.numel() > MAX_RAY_ELEMENTS:
+        raise ValueError(f'{what} of shape {tuple(x.shape)} has '
+                         f'{x.numel()} elements, more than the '
+                         f'{MAX_RAY_ELEMENTS} (2^31 - 1) the kernels take; '
+                         'split the batch of columns')
+
+
+def column_shapes(Nk, height, what='height'):
+    """(Ncol, NkCol) of a height [Nk] (one column) or [Ncol, NkCol] with
+    Ncol NkCol = Nk; anything else raises ValueError."""
+    if height.dim() == 1 and height.shape[0] == Nk:
+        return 1, Nk
+    if height.dim() == 2 and height.shape[0] * height.shape[1] == Nk:
+        return tuple(height.shape)
+    raise ValueError(f'{what} must be [{Nk}] or [Ncol, NkCol] with '
+                     f'Ncol NkCol = {Nk}, got {tuple(height.shape)}')
+
+
+def boundary_shape(NL, Nmu, height):
+    """The shape of one sweep's boundary values: [NL, Nmu] for a height
+    [Nk], [NL, Nmu, Ncol] for a height [Ncol, NkCol] (Ncol = 1 too)."""
+    return (NL, Nmu) if height.dim() == 1 else (NL, Nmu, height.shape[0])
 
 
 def _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver):
@@ -94,11 +140,15 @@ def _check_inputs(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver):
     if chi.dim() != 4 or chi.shape[0] != 2:
         raise ValueError(f'chi must be [2, NL, Nmu, Nk], got {tuple(chi.shape)}')
     _, NL, Nmu, Nk = chi.shape
-    if Nk < 3:
-        raise ValueError(f'the sweep needs Nk >= 3, got {Nk}')
-    shapes = {'srcNum': (srcNum, (2, NL, Nmu, Nk)), 'height': (height, (Nk,)),
-              'muz': (muz, (Nmu,)), 'IupwD': (IupwD, (NL, Nmu)),
-              'IupwU': (IupwU, (NL, Nmu)), 'wmu': (wmu, (Nmu,))}
+    check_ray_elements(chi, 'chi')
+    Ncol, Nc = column_shapes(Nk, height)
+    if Nc < 3:
+        raise ValueError(f'the sweep needs Nk >= 3 per column, got {Nc}')
+    bc = boundary_shape(NL, Nmu, height)
+    shapes = {'srcNum': (srcNum, (2, NL, Nmu, Nk)),
+              'height': (height, tuple(height.shape)),
+              'muz': (muz, (Nmu,)), 'IupwD': (IupwD, bc),
+              'IupwU': (IupwU, bc), 'wmu': (wmu, (Nmu,))}
     for name, (x, shape) in shapes.items():
         if tuple(x.shape) != shape:
             raise ValueError(f'{name} must be {shape}, got {tuple(x.shape)}')
@@ -114,9 +164,10 @@ def formal_solve_sweep(chi, srcNum, height, muz, IupwD, IupwU, wmu,
     """Formal solution of every ray plus the angular moments.
 
     chi, srcNum: [2, NL, Nmu, Nk] direction-major (srcNum = eta + sca*J;
-    S = srcNum/chi is formed inside); height [Nk]; muz, wmu [Nmu];
-    IupwD, IupwU [NL, Nmu] boundary intensities of the down and up sweeps;
-    solver one of SOLVER_NAMES_1D.
+    S = srcNum/chi is formed inside); height [Nk], or [Ncol, NkCol] for
+    Ncol independent columns along depth (module docstring); muz, wmu
+    [Nmu]; IupwD, IupwU [NL, Nmu] ([NL, Nmu, Ncol] over columns) boundary
+    intensities of the down and up sweeps; solver one of SOLVER_NAMES_1D.
     Returns (I, Psi, IeffBase) [2, NL, Nmu, Nk] and the moments dict
     {'J', 'PsiBar', 'IBar', 'IeffSrcBar'} of [NL, Nk] (weights wmu/2).
 
@@ -150,7 +201,7 @@ def smem_bytes(dtype, Nmu, Nk):
     """The dynamic shared memory per block of the sweep and fused kernels
     (csrc/sweep_row.cuh:smem_bytes): J's [2][Nk] doubles, the [2][2 or
     3][Nk] moment accumulators and two [3][R][32] tiles of the working
-    type, R = rays_per_pass(Nmu)."""
+    type, R = rays_per_pass(Nmu); Nk is one column's depths."""
     item = 4 if dtype == torch.float32 else 8
     nAcc = 3 if dtype == torch.float32 else 2
     return (16 * Nk + item * 2 * nAcc * Nk
@@ -197,11 +248,15 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver=BEZIER3):
     chi = _contiguous('chi', chi)
     srcNum = _contiguous('srcNum', srcNum)
     _, NL, Nmu, Nk = chi.shape
-    dh = torch.abs(height[:-1] - height[1:]).contiguous()
+    check_ray_elements(chi, 'chi')
+    Ncol, Nc = column_shapes(Nk, height)
+    # per column |h[k] - h[k+1]| [Ncol, Nc - 1], boundaries [2, NL, Nmu,
+    # Ncol]
+    dh = torch.abs(height[..., :-1] - height[..., 1:]).contiguous()
     iupw = torch.stack([IupwD, IupwU]).contiguous()
     wmuHalf = (0.5 * wmu).contiguous()
     muz = muz.contiguous()
-    check_smem(chi.dtype, Nmu, Nk)
+    check_smem(chi.dtype, Nmu, Nc)
     I, Psi, IeffBase = (torch.empty_like(chi) for _ in range(3))
     J = chi.new_empty((NL, Nk), dtype=torch.float64)
     PsiBar, IeffSrcBar = (chi.new_empty((NL, Nk)) for _ in range(2))
@@ -212,7 +267,7 @@ def sweep_cuda(chi, srcNum, height, muz, IupwD, IupwU, wmu, solver=BEZIER3):
     err = (lib.lw_sweep_f32 if f32 else lib.lw_sweep_f64)(
         chi.data_ptr(), srcNum.data_ptr(), dh.data_ptr(), muz.data_ptr(),
         wmuHalf.data_ptr(), iupw.data_ptr(), I.data_ptr(), Psi.data_ptr(),
-        IeffBase.data_ptr(), *rows, NL, Nmu, Nk, SOLVER_CODES[solver],
+        IeffBase.data_ptr(), *rows, NL, Nmu, Nc, Ncol, SOLVER_CODES[solver],
         _build.cuda_stream(chi))
     _build.check_launch(err, 'sweep')
     attr = launch_attr(solver, chi.dtype)
@@ -235,5 +290,5 @@ def _contiguous(name, x):
 def load_library():
     """Build csrc/sweep.cu with nvcc (once per source hash) and load it."""
     return _build.load('sweep', {
-        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 4 + [_build.PTR],
-        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 4 + [_build.PTR]})
+        'lw_sweep_f64': [_build.PTR] * 12 + [_build.INT] * 5 + [_build.PTR],
+        'lw_sweep_f32': [_build.PTR] * 13 + [_build.INT] * 5 + [_build.PTR]})

@@ -20,6 +20,10 @@
 - falc_h6ca_stokes: falc_h6ca in a uniform field of 0.1 T at
   inclination pi/3 and azimuth pi/6 (BASELINE config 4, the golden
   problem tests/golden/falc_h6ca_stokes_*.npz).
+- column_batch: C FAL-C columns with their temperature scaled per column
+  by uniform(0.95, 1.05) from a numpy seed, as a parallel.ColumnBatch
+  (BASELINE config 5's 1.5D leg at C = 512, H 6-level + Ca II active;
+  tests/test_column_batch.py's columns at fewer depths).
 
 and random inputs (rays, a line group, slot-packed lines) that check the
 kernels against their plain versions and against the JAX package.
@@ -30,6 +34,7 @@ from .atmosphere import Atmosphere
 from .atomic_set import RadiativeSet
 from .context import Context
 from .fal import Falc82
+from .ops.ng import NgOptions
 from .rh_atoms import CaII_atom, H_6_atom, MgII_atom, NaI_atom
 
 
@@ -87,6 +92,40 @@ def _smooth(x, w=9):
     lo = (w - 1) // 2
     return np.apply_along_axis(
         lambda r: np.convolve(r, k, mode='full')[lo:lo + r.size], -1, x)
+
+
+def column_rays(C: int, NL: int, Nmu: int, Nk: int, seed: int = 0) -> dict:
+    """C columns of random_rays(NL, Nmu, Nk, seed + c) laid end to end
+    along depth, keyed as ops.sweep.formal_solve_sweep's column arguments:
+    chi, srcNum [2, NL, Nmu, C Nk], height [C, Nk], IupwD, IupwU
+    [NL, Nmu, C]; muz and wmu those of the first column."""
+    cols = [random_rays(NL, Nmu, Nk, seed + c) for c in range(C)]
+    out = dict(cols[0])
+    for k in ('chi', 'srcNum'):
+        out[k] = np.concatenate([c[k] for c in cols], axis=-1)
+    out['height'] = np.stack([c['height'] for c in cols])
+    for k in ('IupwD', 'IupwU'):
+        out[k] = np.stack([c[k] for c in cols], axis=-1)
+    return out
+
+
+def column_slots(C: int, S: int, NL: int, Nmu: int, Nk: int,
+                 seed: int = 0) -> dict:
+    """C columns of random_slots(S, NL, Nmu, Nk, seed + c) and
+    random_boundaries(NL, Nmu, seed + c) laid end to end along depth,
+    keyed as ops.fused.fused_lambda_step's column arguments: phiP
+    [S, 2, NL, Nmu, C Nk], the rows [.., C Nk], height [C, Nk], and the
+    boundary rows 'data' [NL, Nmu, C] and 'therm' [NL, C, 2]; muz and wmu
+    those of the first column."""
+    cols = [random_slots(S, NL, Nmu, Nk, seed + c) for c in range(C)]
+    bcs = [random_boundaries(NL, Nmu, seed + c) for c in range(C)]
+    out = dict(cols[0])
+    for k in ('phiP', 'chiCo', 'etaCo', 'bgChi', 'bgEta', 'scaJ'):
+        out[k] = np.concatenate([c[k] for c in cols], axis=-1)
+    out['height'] = np.stack([c['height'] for c in cols])
+    out['data'] = np.stack([b['data'] for b in bcs], axis=-1)
+    out['therm'] = np.stack([b['therm'] for b in bcs], axis=1)
+    return out
 
 
 # (i, j) of the members of random_line_group, sharing levels so that every
@@ -271,3 +310,57 @@ def stokes_context(device='cuda', dtype=None, atmos: Atmosphere = None,
     if atmos is None:
         atmos = Falc82()
     return h6ca_context(magnetise(atmos), Nrays, device=device, dtype=dtype)
+
+
+def stacked_falc(C: int, Nk: int = 82, seed: int = 1, spread: float = 0.05):
+    """C FAL-C columns at the depths np.unique(np.linspace(0, 81, Nk)
+    .astype(int)) as the stacked arrays of ColumnBatch.from_stacked:
+    (height [Nk], temperature, vlos, vturb, ne, nHTot [C, Nk]), each
+    column's temperature scaled by uniform(1 - spread, 1 + spread) from a
+    numpy seed, vlos zero (tests/test_column_batch.py:_stacked)."""
+    full = Falc82()
+    idx = np.unique(np.linspace(0, 81, Nk).astype(int))
+    Nk = len(idx)
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(1.0 - spread, 1.0 + spread, (C, 1))
+    T = full.temperature[idx][None, :] * scale
+
+    def rep(a):
+        return np.broadcast_to(a[idx], (C, Nk)).copy()
+    return (full.height[idx], T, np.zeros((C, Nk)), rep(full.vturb),
+            rep(full.ne), rep(full.nHTot))
+
+
+def column_vlos_ramps(height, C: int, vMax: float = 5e3) -> np.ndarray:
+    """[C, Nk] line-of-sight velocities: column c the outflow ramp of
+    vlos_ramp (0 at the bottom, rising linearly with height) up to
+    vMax c / (C - 1) m/s at the top, spreading 0-vMax over the columns."""
+    h = np.asarray(height, np.float64)
+    ramp = (h - h.min()) / (h.max() - h.min())
+    tops = vMax * np.arange(C) / max(C - 1, 1)
+    return tops[:, None] * ramp[None, :]
+
+
+def column_batch(C: int, models=None, activeSpecies=('H', 'Ca'),
+                 Nrays: int = 5, Nk: int = 82, seed: int = 1,
+                 spread: float = 0.05, vlos=None,
+                 ngOptions: NgOptions = None, conserveCharge: bool = False,
+                 **ctxKwargs):
+    """A parallel.ColumnBatch of the C columns of stacked_falc(C, Nk,
+    seed, spread) with ``models`` (a zero-argument factory; default H
+    6-level + Ca II), ``activeSpecies`` active, an ``Nrays`` quadrature,
+    optional per-column ``vlos`` [C, Nk], ``ngOptions`` and
+    ``conserveCharge``; ``ctxKwargs`` go to the flat Context (``device``,
+    the card unless 'cpu'; ``dtype``, ``fsIterScheme``, ``hprd``,
+    ``accelerateScattering``, ...).  The defaults at C = 512 are BASELINE
+    config 5's 1.5D leg: FAL-C 82 depths, H 6-level + Ca II active, 5
+    rays, 1046 wavelengths."""
+    from .parallel import ColumnBatch
+    if models is None:
+        def models():
+            return [H_6_atom(), CaII_atom()]
+    height, T, v0, vturb, ne, nHTot = stacked_falc(C, Nk, seed, spread)
+    return ColumnBatch.from_stacked(
+        height, T, v0 if vlos is None else vlos, vturb, ne, nHTot, models,
+        activeSpecies, Nrays=Nrays, ngOptions=ngOptions,
+        conserveCharge=conserveCharge, **ctxKwargs)

@@ -138,6 +138,7 @@ def test_state_dict_is_host_numpy(pair):
     assert all(isinstance(x, np.ndarray) for x in st['pops'] + st['nStar'])
     assert st['kwargs'] == {'conserveCharge': False, 'hprd': False,
                             'formalSolver': 'piecewise_bezier3_1d',
+                            'accelerateScattering': False,
                             'device': 'cpu'}
     st['J'][0, 0] += 1.0
     assert tctx.J[0, 0] != st['J'][0, 0]
