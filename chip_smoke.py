@@ -141,6 +141,26 @@ result):
    0-5 km/s outflows spread over the columns: 20 MALI steps with
    prd_redistribute(maxIter=3), two columns against single card
    Contexts (rho and populations 1e-8).
+14. 2D (problems.slab_2d: FAL-C with a +-5% temperature perturbation and
+   a 1 km/s shear flow along x, H 6-level + Ca II with Ca II active), in
+   float64 unless stated; the plane sweep is torch ops, as the JAX
+   package leaves it to XLA, and every run must launch no csrc/ kernel.
+   (a) The golden 2D problem (30 x 8, callable x boundaries, 6 rays)
+   converged through iterate_ctx_se under piecewise_linear_2d with the
+   compat x-lower boundary (tests/golden/falc2d_ca_ref.npz: 154
+   iterations, populations, J and I within 1e-8) and under
+   piecewise_besser_2d (falc2d_ca_besser_ref.npz: 218, 1e-9); ms per
+   iteration.  (b) BASELINE config 5's 2D leg: 82 x 256 periodic (40 km
+   columns), 12 rays, BESSER, 20 MALI steps from LTE with stat_equil after
+   each: finite, dJ contracting; ms per step, peak memory, the stage
+   breakdown and the profile (kernels per step, idle share:
+   scripts/torch_profile.py); the same slab rolled by 64 columns: J and
+   the populations after 3 steps equal the unrolled ones, rolled (1e-10;
+   populations relative to each level's maximum).  (c) On the golden
+   atmosphere: 3 float32 MALI steps, card against CPU by phase 10's rule;
+   single_stokes_fs on the slab in phase 12's field and
+   compute_rays(mus=[0.7, 1.0]), card against CPU (1e-9 of each
+   wavelength's maximum), with their ms.
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
@@ -153,7 +173,8 @@ instances, and the probes'; each with the
 least time the card could take for its inputs (bound_ms) and, where one
 PyTorch call computes the same function, that call's time.  The last four
 lines are the total wall time, the card's name and power limit as
-nvidia-smi prints them, the kernels' JSON record and the ok line.
+nvidia-smi prints them, the kernels' JSON record and the ok line (the 2D
+path adds no kernel to the record).
 """
 import dataclasses
 import json
@@ -1206,7 +1227,8 @@ def falc500(scheme, dtype, nIter):
 
 def stage_breakdown(it, params, scheme, reps=5):
     """The MALI step's stages under ``scheme`` on ``params`` (host clock,
-    synchronised after each stage, mean of ``reps``), printed."""
+    synchronised after each stage, mean of ``reps``), printed and returned
+    in seconds."""
     stages = {}
 
     def timed(stage, fn):
@@ -1238,6 +1260,7 @@ def stage_breakdown(it, params, scheme, reps=5):
                 params, *rays[:3], src, rays[3]))
     print(f'stage breakdown (ms, mean of {reps}): '
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
+    return stages
 
 
 # ---- the population-update options (float64) ---------------------------
@@ -2741,6 +2764,254 @@ def batch_prd():
     torch.cuda.empty_cache()
 
 
+# ---- 2D (phase 14) -------------------------------------------------------
+# (a) the golden 2D problem (problems.slab_2d(30, 8, periodic=False)):
+# solver, golden file, the compat x-lower boundary, the bar of
+# tests/test_vs_reference_golden.py
+GOLDEN_2D = (('piecewise_linear_2d', 'falc2d_ca_ref', True, 1e-8),
+             ('piecewise_besser_2d', 'falc2d_ca_besser_ref', False, 1e-9))
+# (b) BASELINE config 5's 2D leg: Nz, Nx, rays per half-plane, MALI steps
+# from LTE, and the roll check (columns, steps, bar on J pointwise and on
+# the populations of each level relative to its maximum: the stat-eq solve
+# takes the ring scans' rounding, which depends on the columns' order, to
+# ~1e-9 in populations eight decades below their level's maximum)
+SLAB_2D = (82, 256, 6)
+SLAB_2D_STEPS = 20
+SLAB_2D_ROLL = 64
+SLAB_2D_ROLL_STEPS = 3
+SLAB_2D_ROLL_TOL = 1e-10
+# MALI steps under the profiler (each records ~56k kernels)
+SLAB_2D_PROFILED = 2
+# (c) card against CPU: float32 MALI steps; the synthesis calls' bar
+F32_2D_STEPS = 3
+CARD_CPU_2D_TOL = 1e-9
+
+
+def no_kernel_launched(label, counts):
+    """The 2D path runs torch ops only (the JAX package leaves it to XLA):
+    any launch of a csrc/ kernel is a path gone astray."""
+    if any(counts.values()):
+        raise AssertionError(f'{label} launched csrc/ kernels: '
+                             f'{ {k: v for k, v in counts.items() if v} }')
+
+
+def golden_2d(solver, refName, compat, bar):
+    """(a) The golden 2D problem converged on the card through
+    iterate_ctx_se: iterations within NITER_REF_SLACK of the reference's,
+    populations, J and I within ``bar`` of its run; ms per iteration."""
+    from lightweaver_tpu_torch import iterate_ctx_se
+    from lightweaver_tpu_torch.problems import slab_2d
+    phase(f'2D (a): falc2d_ca under {solver}'
+          + (' with the compat x-lower boundary' if compat else '')
+          + ' converged on the card vs the golden run')
+    ref = golden(refName)
+    ctx = slab_2d(30, 8, periodic=False, device='cuda', formalSolver=solver,
+                  refBugCompat=compat)
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launched(solver, read_counts())
+    nRef = int(ref['out_niter'][0])
+    errs = {'pops': relerr(ctx.popsState[0]['n'].cpu(), ref['out_pops_a0']),
+            'J': relerr(ctx.J.cpu(), ref['out_J']),
+            'I': relerr(ctx.I.cpu().numpy().reshape(ref['out_I'].shape),
+                        ref['out_I'])}
+    print(f'  {nIter} iterations (reference {nRef}); {wall:.2f} s, '
+          f'{wall / nIter * 1e3:.3f} ms/iter; vs golden: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bar {bar})')
+    if abs(nIter - nRef) > NITER_REF_SLACK:
+        raise AssertionError(f'{solver}: {nIter} iterations vs {nRef}')
+    if not max(errs.values()) <= bar:
+        raise AssertionError(f'{solver} vs golden: {errs}')
+    return wall / nIter * 1e3
+
+
+def slab_2d_steps(ctx, nSteps, snapAt=None):
+    """nSteps MALI steps with stat_equil after each; their dJ, the seconds
+    per step (synchronised), and (J, populations) after snapAt steps."""
+    dJ, snap = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(nSteps):
+        dJ.append(float(ctx.formal_sol_gamma_matrices().dJMax))
+        ctx.stat_equil()
+        if snapAt is not None and k + 1 == snapAt:
+            snap = (ctx.J.clone(), ctx.popsState[0]['n'].clone())
+    torch.cuda.synchronize()
+    return dJ, (time.perf_counter() - t0) / nSteps, snap
+
+
+def slab_2d_real():
+    """(b) BASELINE config 5's 2D leg on the card: problems.slab_2d(82,
+    256, periodic=True, quadrature=6) under the BESSER 2D solver, the
+    reference's default, SLAB_2D_STEPS MALI steps from LTE: finite, dJ
+    contracting; ms per step, peak memory, the stage breakdown (the 2D
+    formal solve against gamma_rates, host clock) and the profile (kernels
+    per step, idle share: scripts/torch_profile.py); then the same slab
+    rolled by SLAB_2D_ROLL columns against the unrolled one, rolled, after
+    SLAB_2D_ROLL_STEPS steps.  Returns the numbers printed."""
+    from lightweaver_tpu_torch.problems import slab_2d
+    sys.path.insert(0, str(ROOT / 'scripts'))
+    from torch_profile import profile_problem
+    Nz, Nx, nq = SLAB_2D
+    phase(f'2D (b): BASELINE config 5\'s 2D leg, slab_2d({Nz}, {Nx}, '
+          f'periodic=True, quadrature={nq}) under piecewise_besser_2d, '
+          f'{SLAB_2D_STEPS} MALI steps from LTE')
+    solver = 'piecewise_besser_2d'
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = slab_2d(Nz, Nx, periodic=True, quadrature=nq, device='cuda',
+                  formalSolver=solver)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    cfg = ctx.cfg
+    rayBytes = 2 * cfg.Nlam * cfg.Nmu * cfg.Nk * 8
+    print(f'  Nlam {cfg.Nlam}, Nmu {cfg.Nmu}, Nz x Nx = {cfg.Nz} x {cfg.Nx} '
+          f'= {cfg.Nk} points; a float64 ray tensor {rayBytes / 1e9:.2f} GB; '
+          f'Context built in {build:.1f} s')
+    reset_counts()
+    dJ, sPerStep, snap = slab_2d_steps(ctx, SLAB_2D_STEPS, SLAB_2D_ROLL_STEPS)
+    no_kernel_launched('the 2D slab', read_counts())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(ctx.I).all() and torch.isfinite(ctx.J).all()
+                  and torch.isfinite(ctx.popsState[0]['n']).all())
+    print(f'  {sPerStep * 1e3:.1f} ms per MALI step (stat_equil included, '
+          f'mean of {SLAB_2D_STEPS}); peak memory {peak:.2f} GiB; dJ '
+          + ' '.join(f'{d:.3g}' for d in dJ) + f'; finite {finite}')
+    if not finite or not dJ[-1] < dJ[4]:
+        raise AssertionError(f'the 2D slab: finite {finite}, dJ {dJ}')
+    it = ctx._iter_fn
+    params = ctx.build_params()
+    stages = stage_breakdown(it, params, 'mali_full_precond', reps=3)
+
+    def mali(c):
+        c.formal_sol_gamma_matrices()
+        c.stat_equil()
+    prof = profile_problem(f'slab_2d({Nz}, {Nx}), {solver}, '
+                           'formal_sol_gamma_matrices + stat_equil', ctx,
+                           mali, iters=SLAB_2D_PROFILED)
+    del ctx, it, params
+    torch.cuda.empty_cache()
+
+    rolled = slab_2d(Nz, Nx, periodic=True, quadrature=nq, device='cuda',
+                     formalSolver=solver, roll=SLAB_2D_ROLL)
+    slab_2d_steps(rolled, SLAB_2D_ROLL_STEPS)
+
+    def roll(x):
+        return x.view(x.shape[0], Nz, Nx).roll(SLAB_2D_ROLL, dims=-1) \
+            .reshape(x.shape)
+    J0, n0 = (roll(x) for x in snap)
+    errJ = float(((rolled.J - J0).abs() / J0.abs()).max())
+    n = rolled.popsState[0]['n']
+    errN = float(((n - n0).abs().amax(dim=1) / n0.abs().amax(dim=1)).max())
+    print(f'  rolled by {SLAB_2D_ROLL} columns, after {SLAB_2D_ROLL_STEPS} '
+          f'steps against the unrolled slab rolled: J {errJ:.3e}, '
+          f'populations {errN:.3e} of each level\'s maximum (bar '
+          f'{SLAB_2D_ROLL_TOL})')
+    if not (errJ <= SLAB_2D_ROLL_TOL and errN <= SLAB_2D_ROLL_TOL):
+        raise AssertionError(f'the 2D roll check: J {errJ}, pops {errN}')
+    del rolled, snap, J0, n0
+    torch.cuda.empty_cache()
+    return {'ms_per_step': sPerStep * 1e3, 'peak_gib': peak,
+            'stages_ms': {k: v * 1e3 for k, v in stages.items()},
+            'profile': prof}
+
+
+def params_to(params, device):
+    """The port's params dict with every tensor moved to ``device`` (the
+    iteration casts what the ray math reads to its working dtype)."""
+    def move(x):
+        if torch.is_tensor(x):
+            return x.to(device)
+        if isinstance(x, list):
+            return [move(y) for y in x]
+        return x
+    return {k: move(v) for k, v in params.items()}
+
+
+def card_cpu_2d():
+    """(c) Card against CPU on the golden atmosphere: F32_2D_STEPS float32
+    MALI steps in lockstep (the CPU Context's params into the card's
+    float32 iteration, the CPU's and a float64 one on the card), each
+    float32 result held to the float64 one by err(card f32) <= 2 err(CPU
+    f32) + 32 float32 ulps of the maximum; then single_stokes_fs on the
+    magnetised slab and compute_rays(mus=[0.7, 1.0]), card against its CPU
+    twin within CARD_CPU_2D_TOL of each wavelength's maximum; the ms of
+    each."""
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.problems import magnetise, slab_2d
+    phase('2D (c): card against CPU on falc2d_ca: float32 MALI steps, '
+          'single_stokes_fs on the magnetised slab, compute_rays')
+    bar = 32 * float(np.finfo(np.float32).eps)
+    cpu = slab_2d(30, 8, periodic=False, device='cpu', dtype=F32)
+    card = slab_2d(30, 8, periodic=False, device='cuda', dtype=F32)
+    cfg64 = dataclasses.replace(card.cfg, dtype=torch.float64)
+    it32, it64 = build_iteration_fn(card.cfg), build_iteration_fn(cfg64)
+    worst = 0.0
+    for step in range(F32_2D_STEPS):
+        p = cpu.build_params()
+        ref = cpu._iter_fn(p)
+        out = it32(params_to(p, card.device))
+        truth = it64(params_to(p, card.device))
+        for key in ('J', 'I', 'Gamma'):
+            o, r, t = (x[key][0] if key == 'Gamma' else x[key]
+                       for x in (out, ref, truth))
+            t = t.cpu().double()
+            scale = float(t.abs().max())
+            eCard = float((o.cpu().double() - t).abs().max()) / scale
+            eCpu = float((r.cpu().double() - t).abs().max()) / scale
+            worst = max(worst, eCard / (2.0 * eCpu + bar))
+            if not eCard <= 2.0 * eCpu + bar:
+                raise AssertionError(f'float32 {key} step {step}: card '
+                                     f'{eCard:.3e}, CPU {eCpu:.3e}')
+        cpu.formal_sol_gamma_matrices()
+        cpu.stat_equil()
+    print(f'  {F32_2D_STEPS} float32 steps: err(card f32, f64) / (2 err(CPU '
+          f'f32, f64) + 32 ulps) at most {worst:.3f} over J, I, Gamma')
+
+    ctx = slab_2d(30, 8, periodic=False, device='cuda')
+    magnetise(ctx.atmos)
+    for k in range(3):
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+    twin = cpu_twin(ctx)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.single_stokes_fs()
+    torch.cuda.synchronize()
+    stokesMs = (time.perf_counter() - t0) * 1e3
+    twin.single_stokes_fs()
+    I, Quv = ctx.I.cpu().numpy(), ctx.Quv.cpu().numpy()
+    Iref, Qref = twin.I.numpy(), twin.Quv.numpy()
+    amp = np.abs(Iref).reshape(len(Iref), -1).max(axis=1)
+    errS = max(float((np.abs(a - b).reshape(len(b), -1).max(axis=1)
+                      / amp).max())
+               for a, b in [(I, Iref)] + list(zip(Quv, Qref)))
+    t0 = time.perf_counter()
+    rays = ctx.compute_rays(mus=[0.7, 1.0])
+    torch.cuda.synchronize()
+    raysMs = (time.perf_counter() - t0) * 1e3
+    no_kernel_launched('2D synthesis', read_counts())
+    raysRef = twin.compute_rays(mus=[0.7, 1.0])
+    errR = float((np.abs(rays - raysRef).reshape(len(rays), -1).max(axis=1)
+                  / np.abs(raysRef).reshape(len(rays), -1).max(axis=1)).max())
+    print(f'  single_stokes_fs {I.shape} + Q/U/V (max |V| / max I '
+          f'{np.abs(Quv[2]).max() / np.abs(I).max():.2e}): card vs CPU '
+          f'{errS:.3e} of each wavelength\'s Stokes I maximum, {stokesMs:.1f}'
+          f' ms on the card; compute_rays(mus=[0.7, 1.0]) {rays.shape}: '
+          f'{errR:.3e}, {raysMs:.1f} ms (bar {CARD_CPU_2D_TOL})')
+    if not (errS <= CARD_CPU_2D_TOL and errR <= CARD_CPU_2D_TOL
+            and np.isfinite(rays).all()):
+        raise AssertionError(f'2D synthesis card vs CPU: Stokes {errS}, '
+                             f'compute_rays {errR}')
+    return {'stokes_ms': stokesMs, 'rays_ms': raysMs}
+
+
 # ---- the least time the card could take for a kernel's work -----------
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # peak rates outside the tensor cores, float32 and float64, from NVIDIA's
@@ -2908,6 +3179,11 @@ def main():
     batch_kernel_check()
     batch_schemes(batch_converged())
     batch_prd()
+    # phase 14, 2D: torch ops only (the JAX package runs no Pallas kernel
+    # there), each run checked to launch no csrc/ kernel
+    golden2dMs = [golden_2d(*g) for g in GOLDEN_2D]
+    slab = slab_2d_real()
+    syn2d = card_cpu_2d()
     # the kernels' record: the float64 instances on the PRD path (phase 8's
     # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
     # path (phase (c)'s launches, phase (a)'s inputs), the probes
@@ -2921,6 +3197,15 @@ def main():
     print(f'synthesis: compute_rays (the README program, 1001 wavelengths, '
           f'mu = 1) {raysMs:.1f} ms, single_stokes_fs (BASELINE config 4) '
           f'{stokesMs:.1f} ms')
+    print(f'2D: falc2d_ca {golden2dMs[0]:.1f} (linear) / '
+          f'{golden2dMs[1]:.1f} (BESSER) ms/iter; slab_2d{SLAB_2D[:2]} '
+          f'{slab["ms_per_step"]:.1f} ms per MALI step, peak '
+          f'{slab["peak_gib"]:.2f} GiB, {slab["profile"]["kernels"]:.0f} '
+          f'kernels per step, idle share {slab["profile"]["idle"]:.3f}, '
+          'stages ' + ', '.join(f'{k} {v:.1f} ms'
+                                for k, v in slab['stages_ms'].items())
+          + f'; single_stokes_fs {syn2d["stokes_ms"]:.1f} ms, compute_rays '
+          f'{syn2d["rays_ms"]:.1f} ms')
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')
     print(smi)

@@ -11,8 +11,11 @@ after the atmosphere changes) and the escape-probability start (initSol);
 and spectrum synthesis from a converged state: the Lambda step formal_sol,
 state_dict / pickling / construct_from_state_dict_with, compute_rays, and
 full-Stokes Zeeman synthesis (compute_polarised_profiles,
-single_stokes_fs, ops/stokes.py).  Everything outside that slice raises
-ValueError rather than running something else.
+single_stokes_fs, ops/stokes.py).  2D (x, z) atmospheres take the same
+iteration with the plane sweep of ops/formal_solver2d.py as stage 2
+(formal_solve_2d) and ops/stokes2d.py for the Stokes synthesis.
+Everything outside that slice raises ValueError rather than running
+something else.
 
 Precision, as in the JAX package: a float64 state, or a float32 working
 dtype (the f32 state, lightweaverrc ``Precision: mixed``) with the
@@ -26,8 +29,9 @@ lambda contractions of gamma_rates run through _sum_lmd_split or, with
 gammaAccum='blocked', _sum_lam_blocked).
 
 All ray tensors are direction-major [2, Nlam, Nmu, Nk] (d = 0 the down
-sweep, d = 1 the up sweep), the layout the depth-sweep kernel takes.  The
-iteration is split into three stage functions with one interface each:
+sweep, d = 1 the up sweep), the layout the depth-sweep kernel takes; on a
+2D atmosphere k = z Nx + x.  The iteration is split into three stage
+functions with one interface each:
 
     gather(cfg, params, scaJ)                  -> chiTot, srcNum
     formal_solve(cfg, params, chiTot, srcNum)  -> I, Psi, IeffBase, moments
@@ -35,12 +39,15 @@ iteration is split into three stage functions with one interface each:
                                                -> Gamma, Rij, Rji
 
 The formal solve goes through ops/sweep.py, which launches the CUDA kernel
-on a CUDA device; the other stages are plain torch ops on the chosen
-device, as the JAX package leaves them to XLA.  PRD lines carry their
-emission-profile ratio rho (params['rhoPrd']) into every stage through
-_uv; between MALI steps prd_redistribute refreshes rho (ops/prd.py) and
-re-solves the PRD-active wavelengths (build_prd_subset_fn, again through
-ops/sweep.py).
+on a CUDA device (on a 2D atmosphere the plane sweep, torch ops as the
+JAX package leaves it to XLA: one loop over the planes per direction for
+every wavelength and ray of the direction); the other stages are plain
+torch ops on the chosen device, as the JAX package leaves them to XLA.
+PRD lines carry their emission-profile ratio rho (params['rhoPrd']) into
+every stage through _uv; between MALI steps prd_redistribute refreshes
+rho (ops/prd.py) and re-solves the PRD-active wavelengths
+(build_prd_subset_fn, again through ops/sweep.py; on a 2D atmosphere the
+full-grid MALI step).
 
 Two iteration schemes (Context.set_fs_iter_scheme) put a further kernel
 behind a stage:
@@ -50,7 +57,8 @@ behind a stage:
     'mali_full_precond_fused': fused_stage runs ops/fused.py in place of
         gather and formal_solve (chiTot and srcNum are never formed).
 
-Both take rho from the params of each call; neither covers hybrid PRD.
+Both take rho from the params of each call; neither covers hybrid PRD or
+a 2D atmosphere.
 """
 import copy
 import dataclasses
@@ -61,7 +69,7 @@ import numpy as np
 import torch
 
 from . import constants as Const
-from .atmosphere import Atmosphere, ThermalisedRadiation
+from .atmosphere import Atmosphere, PeriodicRadiation, ThermalisedRadiation
 from .atomic_model import (AtomicLine, AtomicModel, LineProfileState,
                            LineType)
 from .atomic_set import lte_pops
@@ -70,6 +78,7 @@ from .background import basic_background
 from .escape import set_pops_escape_probability
 from .iteration_update import IterationUpdate
 from .nr_update import build_nr_fn
+from .ops import formal_solver2d as fs2d
 from .ops import fused as fusedOps
 from .ops import gamma as gammaOps
 from .ops.faddeeva import voigt_H, voigt_HF
@@ -79,7 +88,8 @@ from .ops.ng import Ng, NgOptions
 from .ops.planck import planck_nu
 from .ops.prd import interp, prd_scatter_rho
 from .ops.stokes import delo_bezier_stokes
-from .ops.sweep import BEZIER3, formal_solve_sweep
+from .ops.stokes2d import sweep_stokes_rays_2d
+from .ops.sweep import BEZIER3, angular_moments, formal_solve_sweep
 from .utils import ExplodingMatrixError, InitialSolution
 
 DEFAULT_DTYPE = torch.float64
@@ -87,6 +97,11 @@ DEFAULT_DTYPE = torch.float64
 # precisions (the JAX package's accumDtype for the f32 state)
 STATE_DTYPE = torch.float64
 GAMMA_ACCUM = ('exact', 'blocked')
+
+# the 2D formal solvers and upwind interpolations (ref:
+# Source/FormalInterface.cpp:35-42; the JAX package's names)
+SOLVER_NAMES_2D = ('piecewise_linear_2d', 'piecewise_besser_2d')
+INTERP_NAMES_2D = ('interp_linear_2d', 'interp_besser_2d')
 
 SCHEME_DEFAULT = 'mali_full_precond'
 SCHEME_PALLAS = 'mali_full_precond_pallas'
@@ -98,8 +113,9 @@ SCHEME_NEEDS = {
                    "formalSolver='piecewise_bezier3_1d': the Bezier-3 "
                    "kernel over float64 or float32 rays, without hybrid "
                    "PRD"),
-    SCHEME_PALLAS: ('needs float64 or float32, no hybrid PRD and same-atom '
-                    'line groups of at most {KMAX} overlapping lines'),
+    SCHEME_PALLAS: ('needs 1D, float64 or float32, no hybrid PRD and '
+                    'same-atom line groups of at most {KMAX} overlapping '
+                    'lines'),
 }
 
 
@@ -185,8 +201,8 @@ class IterConfig:
     # rows (the line Gamma kernel's contract); ignored in float64
     gammaAccum: str = 'exact'
     fsIterScheme: str = SCHEME_DEFAULT
-    # the 1D formal solver of the sweep (ops/formal_solver.py:
-    # SOLVER_NAMES_1D)
+    # the formal solver: one of SOLVER_NAMES_1D (ops/formal_solver.py, the
+    # sweep kernel's instances), or of SOLVER_NAMES_2D on a 2D atmosphere
     formalSolver: str = BEZIER3
     # hybrid PRD (Context._configure_hprd_coeffs; ref: Source/Prd.cpp:
     # 697-945): the PRD-active wavelength rows, the map from the global
@@ -206,6 +222,20 @@ class IterConfig:
     # height, boundaries and emergent point (parallel/columns.py's batch;
     # every pointwise stage runs over all Nk depths unchanged)
     Ncol: int = 1
+    # 2D (x, z) atmospheres (Ndim == 2): the grid, each ray's x cosine,
+    # whether x is periodic (else both x boundaries are callable), the
+    # geometry per (mu, toObs) (ops/formal_solver2d.py:build_geometry_2d)
+    # and the upwind interpolation (INTERP_NAMES_2D); formalSolver is then
+    # one of SOLVER_NAMES_2D.  __post_init__ puts each direction's ray
+    # group on the device (rays2d[d], ops/formal_solver2d.py:ray_group).
+    Ndim: int = 1
+    Nz: Optional[int] = None
+    Nx: Optional[int] = None
+    zGrid: Optional[np.ndarray] = None
+    mux: Optional[np.ndarray] = None
+    xPeriodic: bool = True
+    geom2d: Optional[Dict] = None
+    interpFn2d: str = 'interp_linear_2d'
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -218,6 +248,16 @@ class IterConfig:
                 t.wavelengthT = t_(t.wavelength)
                 t.wlambdaT = t_(t.wlambda)
                 t.alphaT = None if t.alpha is None else t_(t.alpha)
+        self.rays2d = None
+        if self.Ndim == 2:
+            # a vertical ray has no x coupling and is never fixed to the x
+            # boundary (ref: FormalScalar2d.cpp:505-546)
+            periodic = [self.xPeriodic or m == 0.0 for m in self.mux]
+            self.rays2d = [
+                fs2d.ray_group([self.geom2d[(mu, toObs)]
+                                for mu in range(self.Nmu)], periodic,
+                               self.device, self.dtype)
+                for toObs in (False, True)]
 
     def tensor(self, x):
         """A copy of x in the working dtype on the device."""
@@ -249,7 +289,10 @@ def _heights(cfg: IterConfig, params):
 
 def _emergent(cfg: IterConfig, I):
     """The emergent intensity, the up sweep at the top of each column:
-    I [2, NL, Nmu, Nk] -> [NL, Nmu], or [Ncol, NL, Nmu] per column."""
+    I [2, NL, Nmu, Nk] -> [NL, Nmu], or [Ncol, NL, Nmu] per column, or on
+    a 2D atmosphere the top plane [NL, Nmu, Nx]."""
+    if cfg.Ndim == 2:
+        return I[1, :, :, :cfg.Nx]
     if cfg.Ncol == 1:
         return I[1, :, :, 0]
     return I[1, :, :, ::cfg.NkCol].permute(2, 0, 1)
@@ -419,7 +462,8 @@ def _working_params(cfg: IterConfig, params):
     params['allNStar'] = [cast(n) for n in
                           list(params['nStar']) + list(params['detNStar'])]
     for key in ('bgChi', 'bgEta', 'bgSca', 'temperature', 'height',
-                'upperBcData', 'lowerBcData'):
+                'upperBcData', 'lowerBcData', 'xLowerBcData',
+                'xUpperBcData'):
         params[key] = cast(params.get(key))
     for key in ('phi', 'wphi', 'rhoPrd'):
         if params.get(key) is not None:
@@ -468,10 +512,78 @@ def sweep_inputs(cfg: IterConfig, params, chiTot, srcNum):
 
 def formal_solve(cfg: IterConfig, params, chiTot, srcNum):
     """Boundary intensities, then the depth sweep of every ray with its
-    angular moments (ops/sweep.py: the CUDA kernel on a CUDA device).
-    Returns (I, Psi, IeffBase, moments)."""
+    angular moments (ops/sweep.py: the CUDA kernel on a CUDA device); on a
+    2D atmosphere formal_solve_2d.  Returns (I, Psi, IeffBase, moments)."""
+    if cfg.Ndim == 2:
+        return formal_solve_2d(cfg, params, chiTot, srcNum)
     return formal_solve_sweep(*sweep_inputs(cfg, params, chiTot, srcNum),
                               solver=cfg.formalSolver)
+
+
+def _schemes_2d(cfg: IterConfig):
+    """(interp, alongRay) of ops/formal_solver2d.py for cfg's names: the
+    upwind interpolation from interpFn2d, the along-ray integration from
+    the 2D solver (ref: Source/FormalInterface.cpp:35-42)."""
+    return ('besser' if cfg.interpFn2d == 'interp_besser_2d' else 'linear',
+            'besser' if cfg.formalSolver == 'piecewise_besser_2d'
+            else 'linear')
+
+
+def _x_inflow(cfg: IterConfig, params, d: int):
+    """The fixed x column's intensity [Nlam, Nmu, Nz] of direction d for
+    every ray: a ray stepping towards +x (mux of its direction >= 0) enters
+    through the lower x boundary, the others through the upper one (ref:
+    FormalScalar2d.cpp:496-546); from the x BC data [Nlam, Nmu, 2, Nz]."""
+    lower, upper = params.get('xLowerBcData'), params.get('xUpperBcData')
+    if lower is None or upper is None:
+        raise ValueError('a non-periodic 2D atmosphere needs callable x '
+                         'boundaries whose compute_bc returns [Nlam, Nmu, '
+                         '2, Nz] data')
+    sgn = 1.0 if d == 1 else -1.0
+    fromLower = torch.as_tensor(sgn * cfg.mux >= 0, device=cfg.device)
+    return torch.where(fromLower[None, :, None], lower[:, :, d],
+                       upper[:, :, d])
+
+
+def formal_solve_2d(cfg: IterConfig, params, chiTot, srcNum):
+    """Stage 2 on a 2D atmosphere: per direction, the start plane (the
+    thermalised z boundary from each ray's downwind intersection,
+    ops/formal_solver2d.py:thermalised_start_2d, or zero), the fixed x
+    column's inflow of the non-periodic rays (also on the start plane),
+    then ONE plane sweep of every wavelength and ray of the direction
+    (sweep_rays_2d) written into the [2, Nlam, Nmu, Nk] layout (k = z Nx +
+    x); then the angular moments (ops/sweep.py:angular_moments).  The JAX
+    package's formal_solve_2d (lightweaver_tpu/context.py:791-882), which
+    loops over (mu, direction).  Returns (I, Psi, IeffBase, moments)."""
+    NL, Nmu, Nz, Nx = chiTot.shape[1], cfg.Nmu, cfg.Nz, cfg.Nx
+    shape = (NL, Nmu, Nz, Nx)
+    I, Psi, IeffBase = (torch.empty_like(chiTot) for _ in range(3))
+    T2 = params['temperature'].view(Nz, Nx)
+    interp, alongRay = _schemes_2d(cfg)
+    for d in range(2):
+        group = cfg.rays2d[d]
+        chi = chiTot[d].view(shape)
+        thermalised = cfg.lowerThermalised if d == 1 else cfg.upperThermalised
+        i0, i1 = (Nz - 1, Nz - 2) if d == 1 else (0, 1)
+        if thermalised:
+            Iupw = fs2d.thermalised_start_2d(chi[:, :, i0], chi[:, :, i1],
+                                             T2[i0], T2[i1], cfg.wavelengthT,
+                                             group)
+        else:
+            Iupw = chiTot.new_zeros((NL, Nmu, Nx))
+        Ibc = None
+        if group['anyFixed']:
+            # the boundary column keeps its x-BC value on the start plane
+            # too (the reference pre-fills the whole column before the
+            # z-BC plane loop, which skips it)
+            Ibc = _x_inflow(cfg, params, d)
+            Iupw = torch.where(group['fixedNat'], Ibc[:, :, i0, None], Iupw)
+        fs2d.sweep_rays_2d(chi, group, Iupw, srcNum=srcNum[d].view(shape),
+                           Ibc=Ibc, interp=interp, alongRay=alongRay,
+                           out=(I[d].view(shape), Psi[d].view(shape),
+                                IeffBase[d].view(shape)))
+    return I, Psi, IeffBase, angular_moments(I, Psi, IeffBase, srcNum,
+                                             cfg.wmuT)
 
 
 def _upwind_intensities(cfg: IterConfig, params, chiTot, lam, rows=None):
@@ -1331,7 +1443,7 @@ def phi_direction_major(phi):
 
 
 class Context:
-    """NLTE radiative transfer context over a single 1D atmosphere.
+    """NLTE radiative transfer context over a 1D or a 2D (x, z) atmosphere.
 
     Mirrors the user-facing API of lightweaver_tpu.Context on the ported
     slice: construct from (atmos, spect, eqPops), then iterate
@@ -1367,20 +1479,36 @@ class Context:
     f32 state.  ``accelerateScattering`` solves the coherent background
     scattering's local fixed point in every J update
     (_accelerate_scattering; the JAX Context's option).
+
+    On a 2D atmosphere (Atmosphere.make_2d) stage 2 is the plane sweep
+    (formal_solve_2d): ``formalSolver`` is one of SOLVER_NAMES_2D (default
+    lightweaverrc ``FormalSolver2d``, 'piecewise_linear_2d', the solver
+    the JAX Context runs by default there), ``interpFn2d`` one of
+    INTERP_NAMES_2D; the x boundaries are both periodic or both callable
+    (compute_bc returning [Nlam, Nmu, 2, Nz]); I is the emergent top plane
+    [Nlam, Nmu, Nx].  A 1D solver name on a 2D atmosphere raises (the JAX
+    Context runs it as the linear 2D solver), as do the kernel schemes, a
+    3D atmosphere and ``mesh=`` (the x-sharded sweep is not ported).
     """
 
     def __init__(self, atmos: Atmosphere, spect, eqPops,
                  ngOptions=None, initSol=None, conserveCharge: bool = False,
                  nrHOnly: bool = False, hprd: bool = False,
-                 formalSolver: str = 'piecewise_bezier3_1d',
+                 formalSolver: Optional[str] = None,
+                 interpFn2d: str = 'interp_linear_2d',
                  crswCallback=None,
                  dtype: Optional[torch.dtype] = None,
                  accumDtype: Optional[torch.dtype] = None, device='cuda',
                  gammaMode: str = 'factored',
                  fsIterScheme: Optional[str] = None,
                  gammaAccum: Optional[str] = None,
-                 accelerateScattering: bool = False):
+                 accelerateScattering: bool = False, mesh=None):
         from .config import params as cfgParams
+        twoD = atmos.Ndim == 2
+        if formalSolver is None:
+            formalSolver = (cfgParams.get('FormalSolver2d',
+                                          'piecewise_linear_2d') if twoD
+                            else 'piecewise_bezier3_1d')
         if dtype is None:
             dtype = (torch.float32 if cfgParams.get('Precision') == 'mixed'
                      else DEFAULT_DTYPE)
@@ -1389,9 +1517,12 @@ class Context:
         if gammaAccum is None:
             gammaAccum = cfgParams.get('GammaAccum', 'exact')
         unsupported = {
-            'a 2D/3D atmosphere': atmos.Ndim != 1,
-            f'formalSolver={formalSolver!r}':
-                formalSolver not in SOLVER_NAMES_1D,
+            f'a {atmos.Ndim}D atmosphere': atmos.Ndim not in (1, 2),
+            f'formalSolver={formalSolver!r} on a {atmos.Ndim}D atmosphere':
+                formalSolver not in (SOLVER_NAMES_2D if twoD
+                                     else SOLVER_NAMES_1D),
+            f'interpFn2d={interpFn2d!r}': interpFn2d not in INTERP_NAMES_2D,
+            'mesh= (the x-sharded 2D sweep)': mesh is not None,
             f'gammaMode={gammaMode!r}': gammaMode != 'factored',
             f'dtype={dtype}': dtype not in (torch.float64, torch.float32),
             f'accumDtype={accumDtype}': accumDtype != STATE_DTYPE,
@@ -1441,7 +1572,8 @@ class Context:
             muz=np.asarray(atmos.muz), wmu=np.asarray(atmos.wmu),
             device=self.device, dtype=dtype, accumDtype=accumDtype,
             gammaAccum=gammaAccum, formalSolver=formalSolver,
-            accelerateScattering=accelerateScattering)
+            accelerateScattering=accelerateScattering,
+            interpFn2d=interpFn2d, **self._grid_2d(atmos))
 
         bg = basic_background(spect, atmos, eqPops, radSet)
         self.background = bg
@@ -1457,7 +1589,8 @@ class Context:
 
         self.J = torch.zeros((spect.Nspect, atmos.Nspace), dtype=accumDtype,
                              device=self.device)
-        self.I = torch.zeros((spect.Nspect, atmos.Nrays), dtype=dtype,
+        self.I = torch.zeros((spect.Nspect, atmos.Nrays)
+                             + ((atmos.Nx,) if twoD else ()), dtype=dtype,
                              device=self.device)
         self.popsState = []
         for a in activeAtoms:
@@ -1529,6 +1662,32 @@ class Context:
     @property
     def detailedAtoms(self):
         return self.cfg.detailedAtoms
+
+    @staticmethod
+    def _grid_2d(atmos: Atmosphere) -> Dict:
+        """The IterConfig fields of a 2D atmosphere (none for 1D): the
+        grid, the rays' x cosines, the x periodicity and the geometry of
+        every (mu, toObs) ray (ops/formal_solver2d.py:build_geometry_2d,
+        mux and muz signed by the direction, as the JAX Context builds
+        them).  Mixed periodic and callable x boundaries raise."""
+        if atmos.Ndim != 2:
+            return {}
+        xlP = isinstance(atmos.xLowerBc, PeriodicRadiation)
+        xuP = isinstance(atmos.xUpperBc, PeriodicRadiation)
+        if xlP != xuP:
+            raise ValueError('Mixed x boundary types not supported: '
+                             'both periodic or both callable')
+        x, zGrid = np.asarray(atmos.x), np.asarray(atmos.zGrid)
+        mux = np.asarray(atmos.mux)
+        geom = {}
+        for mu in range(atmos.Nrays):
+            for toObs in (False, True):
+                sgn = 1.0 if toObs else -1.0
+                geom[(mu, toObs)] = fs2d.build_geometry_2d(
+                    x, zGrid, sgn * mux[mu], sgn * atmos.muz[mu], toObs,
+                    periodic=xlP)
+        return {'Ndim': 2, 'Nz': atmos.Nz, 'Nx': atmos.Nx, 'zGrid': zGrid,
+                'mux': mux, 'xPeriodic': xlP, 'geom2d': geom}
 
     # ------------------------------------------------------------------
     def _build_atom_static(self, model: AtomicModel, detailed: bool) \
@@ -1672,6 +1831,37 @@ class Context:
             data = data[..., 0]
         return self.cfg.tensor(data)
 
+    def _x_bc_data(self, bc):
+        """A callable x boundary condition of a non-periodic 2D atmosphere
+        as I_incident[Nlam, Nmu, 2, Nz] ((down, up) like the intensity
+        layout), or None for periodic, absent or 1D; any other shape
+        raises ValueError.
+        ref: Source/FormalScalar2d.cpp:496-546"""
+        cfg = self.cfg
+        if cfg.Ndim != 2 or cfg.xPeriodic or bc is None:
+            return None
+        data = bc.compute_bc(self.atmos, self.spect)
+        if data is None:
+            return None
+        data = np.asarray(data, np.float64)
+        if data.shape != (cfg.Nlam, cfg.Nmu, 2, cfg.Nz):
+            raise ValueError(
+                'Callable x BC must return [Nlam, Nmu, 2(down,up), Nz], '
+                f'got {data.shape}')
+        return cfg.tensor(data)
+
+    def _boundary_data(self):
+        """Every boundary's data rows, re-read on each call (a callable BC
+        may change between MALI steps): the z boundaries' [Nlam, Nmu] and
+        the x boundaries' [Nlam, Nmu, 2, Nz] (None where analytic)."""
+        atmos = self.atmos
+        return {'upperBcData': self._bc_data(atmos.upperBc),
+                'lowerBcData': self._bc_data(atmos.lowerBc),
+                'xLowerBcData': self._x_bc_data(
+                    getattr(atmos, 'xLowerBc', None)),
+                'xUpperBcData': self._x_bc_data(
+                    getattr(atmos, 'xUpperBc', None))}
+
     # ------------------------------------------------------------------
     def build_params(self, crswVal: float = 1.0, pack: bool = True) -> Dict:
         """The params dict of one MALI step (build_iteration_fn), with the
@@ -1690,8 +1880,7 @@ class Context:
                      for p in pa] for pa in self.phi],
             'wphi': self.wphi,
             'rhoPrd': self.rhoPrd,
-            'upperBcData': self._bc_data(self.atmos.upperBc),
-            'lowerBcData': self._bc_data(self.atmos.lowerBc),
+            **self._boundary_data(),
             'vlosMu': (self.cfg.tensor(self.cfg.vlosMu) if self.cfg.hprd
                        else None),
             'hprdI0': self._hprd_coeff_params(0),
@@ -1756,23 +1945,38 @@ class Context:
         self._prd_fs_fn = None
 
     def set_formal_solver(self, name: str):
-        """Select the 1D formal solver by name (ops/formal_solver.py:
-        SOLVER_NAMES_1D; ref: LwMiddleLayer.pyx:3039): every later sweep
-        runs the kernel's instance of that solver.  An unknown or 2D name
-        raises ValueError, and so does a solver the current scheme's
-        kernel does not cover (the fused kernel is Bezier-3 only)."""
-        if name not in SOLVER_NAMES_1D:
-            raise ValueError(f'Unknown formal solver {name!r} for a 1D '
-                             f'atmosphere; available: {SOLVER_NAMES_1D}')
+        """Select the formal solver by name (ref: LwMiddleLayer.pyx:3039):
+        on a 1D atmosphere one of SOLVER_NAMES_1D (ops/formal_solver.py),
+        every later sweep then running the kernel's instance of that
+        solver; on a 2D atmosphere one of SOLVER_NAMES_2D, the along-ray
+        integration of the plane sweep.  A name of the other dimension or
+        an unknown one raises ValueError, and so does a solver the current
+        scheme's kernel does not cover (the fused kernel is Bezier-3
+        only)."""
+        valid = SOLVER_NAMES_2D if self.cfg.Ndim == 2 else SOLVER_NAMES_1D
+        if name not in valid:
+            raise ValueError(f'Unknown formal solver {name!r} for a '
+                             f'{self.cfg.Ndim}D atmosphere; '
+                             f'available: {valid}')
         _check_scheme(self.cfg.fsIterScheme,
                       dataclasses.replace(self.cfg, formalSolver=name))
         self._swap_cfg(formalSolver=name)
+
+    def set_interp_fn(self, name: str):
+        """Select the upwind interpolation of the 2D plane sweep by name,
+        one of INTERP_NAMES_2D (ref: LwMiddleLayer.pyx:3057); an unknown
+        name raises ValueError.  A 1D atmosphere keeps the name, as in the
+        JAX package, and its sweep does not read it."""
+        if name not in INTERP_NAMES_2D:
+            raise ValueError(f'Unknown interpolation function {name!r}; '
+                             f'available: {INTERP_NAMES_2D}')
+        self._swap_cfg(interpFn2d=name)
 
     def get_fs_iter_scheme_properties(self, fsIterScheme=None) -> dict:
         """Properties of the selected iteration scheme, with the
         reference's key layout (ref: LwMiddleLayer.pyx:4186-4194)."""
         return {'name': self.cfg.fsIterScheme,
-                'Ndim': self.atmos.Ndim,
+                'Ndim': self.cfg.Ndim,
                 'dimensionSpecific': False,
                 'respectsFormalSolver': True,
                 'defaultPerAtomStorage': True,
@@ -1802,8 +2006,7 @@ class Context:
         p['rhoPrd'] = self.rhoPrd
         # a callable BC may change between steps (the PRD subset solve
         # reads these rows from self._params too)
-        p['upperBcData'] = self._bc_data(self.atmos.upperBc)
-        p['lowerBcData'] = self._bc_data(self.atmos.lowerBc)
+        p.update(self._boundary_data())
         out = self._iter_fn(p, lambdaIterate=lambdaIterate)
         self._crswVal = crswVal
         self._Gamma = out['Gamma']
@@ -2276,8 +2479,10 @@ class Context:
 
             # refresh J and the PRD lines' rates with the new rho on the
             # PRD-active wavelength subset only (ref FsMode::PrdOnly), or
-            # with the full-grid MALI step under prdFsMode == 'full'
-            if self.prdFsMode == 'subset' and self._params is not None:
+            # with the full-grid MALI step under prdFsMode == 'full' and
+            # on a 2D atmosphere (as the JAX package does)
+            if (self.prdFsMode == 'subset' and self.cfg.Ndim == 1
+                    and self._params is not None):
                 self._prd_subset_fs()
             else:
                 # freeze the CRSW schedule across sub-iterations
@@ -2339,8 +2544,8 @@ class Context:
         clone, warm restart): the atmosphere, spectrum and eqPops objects,
         and J, I, the active populations and nStar and each PRD line's rho
         (with its window) copied to host numpy.  ``kwargs`` rebuild the
-        Context: conserveCharge, hprd, formalSolver, accelerateScattering
-        and the device.  As in
+        Context: conserveCharge, hprd, formalSolver, interpFn2d,
+        accelerateScattering and the device.  As in
         the JAX package the working dtype is not kept, so a float32
         Context comes back float64.
         ref: Source/LwMiddleLayer.pyx:2977-3037"""
@@ -2360,6 +2565,7 @@ class Context:
                 'conserveCharge': self.conserveCharge,
                 'hprd': self.cfg.hprd,
                 'formalSolver': self.cfg.formalSolver,
+                'interpFn2d': self.cfg.interpFn2d,
                 'accelerateScattering': self.cfg.accelerateScattering,
                 'device': str(self.device),
             },
@@ -2542,9 +2748,15 @@ class Context:
         sca J20 in I, wQ(mu) sca J20 in Q) and, with updateJ, re-forms
         self.J20 [Nlam, Nk] from the new I and Q.  The depth sweep is
         ops/stokes.py:delo_bezier_stokes (torch ops; the JAX package
-        leaves it to XLA).
+        leaves it to XLA).  On a 2D atmosphere it is synthesis only (self.I
+        [Nlam, Nmu, Nx], self.Quv [3, Nlam, Nmu, Nx] of the top plane;
+        ops/stokes2d.py) and ``updateJ`` or ``J20`` raise ValueError, as in
+        the JAX package.
         ref: Source/LwMiddleLayer.pyx:3605,
              Source/FormalStokes.cpp:418-728"""
+        if self.cfg.Ndim == 2 and (updateJ or J20):
+            raise ValueError('2D Stokes synthesis does not support '
+                             'updateJ/J20 (synthesis only)')
         if self.phi7 is None or recompute:
             self.compute_polarised_profiles()
         chi7, S4 = self._assemble_stokes_chi_S()
@@ -2601,9 +2813,12 @@ class Context:
         return chi7, S4
 
     def _stokes_solve(self, chi7, S4, chiI, updateJ=False, J20=False):
-        """The 1D Stokes solve of single_stokes_fs from chi7 and S4 (the
-        port's Context is 1D only: the JAX package's 2D branch does not
-        arise)."""
+        """The Stokes solve of single_stokes_fs from chi7 and S4: the
+        DELO-Bezier3 depth sweep on a 1D atmosphere, on a 2D one
+        _stokes_solve_2d (single_stokes_fs has refused updateJ and J20
+        there)."""
+        if self.cfg.Ndim == 2:
+            return self._stokes_solve_2d(chi7, S4, chiI)
         cfg = self.cfg
         Nlam, Nmu, Nk = cfg.Nlam, cfg.Nmu, cfg.Nk
         dt, adt = cfg.dtype, cfg.accumDtype
@@ -2659,6 +2874,40 @@ class Context:
                     + torch.einsum('lmk,m->lk', Ifull[:, :, 1, :].to(adt),
                                    wmu * wJ20_Q.to(adt)))
         return IterationUpdate(self, updatedJ=updateJ)
+
+    def _stokes_solve_2d(self, chi7, S4, chiI):
+        """2D Stokes synthesis (the JAX package's 2D branch of
+        _stokes_solve, lightweaver_tpu/context.py:2888-2951): the upgoing
+        rays in one plane sweep (ops/stokes2d.py:sweep_stokes_rays_2d) from
+        the thermalised bottom plane of the scalar 2D path for Stokes I
+        (Q = U = V = 0), the non-periodic rays' fixed x column taking the
+        x BC's Stokes-I inflow; self.I [Nlam, Nmu, Nx] and self.Quv [3,
+        Nlam, Nmu, Nx] of the top plane."""
+        cfg = self.cfg
+        Nlam, Nmu, Nz, Nx = cfg.Nlam, cfg.Nmu, cfg.Nz, cfg.Nx
+        dt = cfg.dtype
+        group = cfg.rays2d[1]
+        chi7m = chi7.view(Nlam, Nmu, 7, Nz, Nx).permute(0, 1, 3, 4, 2)
+        S4m = S4.view(Nlam, Nmu, 4, Nz, Nx).permute(0, 1, 3, 4, 2)
+        chiIm = chiI.view(Nlam, Nmu, Nz, Nx)
+        if cfg.lowerThermalised:
+            T2 = self.temperature.to(dt).view(Nz, Nx)
+            I0 = fs2d.thermalised_start_2d(chiIm[:, :, Nz - 1],
+                                           chiIm[:, :, Nz - 2], T2[Nz - 1],
+                                           T2[Nz - 2], cfg.wavelengthT,
+                                           group)
+        else:
+            I0 = chi7.new_zeros((Nlam, Nmu, Nx))
+        Ibc = None
+        if group['anyFixed']:
+            Ibc = _x_inflow(cfg, self._boundary_data(), 1)
+            I0 = torch.where(group['fixedNat'], Ibc[:, :, Nz - 1, None], I0)
+        Iupw = torch.cat([I0[..., None], I0.new_zeros((Nlam, Nmu, Nx, 3))],
+                         dim=-1)
+        Ifull = sweep_stokes_rays_2d(chi7m, S4m, group, Iupw, Ibc)
+        self.I = Ifull[:, :, 0, :, 0]
+        self.Quv = Ifull[:, :, 0, :, 1:].permute(3, 0, 1, 2)
+        return IterationUpdate(self, updatedJ=False)
 
 
 def _host(x: torch.Tensor) -> np.ndarray:

@@ -12,10 +12,6 @@ import torch
 
 from .context import DEFAULT_DTYPE, STATE_DTYPE, phi_direction_major
 
-# params of the 2D path, which the port does not carry: they must be
-# absent or None
-_UNSUPPORTED = ('xLowerBcData', 'xUpperBcData')
-
 
 def params_from_numpy(params, cfg=None, device='cuda'):
     """JAX ``build_params()`` pytree -> the port's params dict, in the
@@ -23,7 +19,9 @@ def params_from_numpy(params, cfg=None, device='cuda'):
     one: float64 on ``device``).  The state (J, populations, background,
     thermodynamics, collisional rates, rho) becomes float64, as the port's
     Context keeps it in either precision; the profiles, their weights and
-    the boundary data take the working dtype.  A JAX float32 Context's
+    the boundary data (the z boundaries' [Nlam, Nmu] and a 2D
+    atmosphere's x boundaries' [Nlam, Nmu, 2, Nz]) take the working
+    dtype.  A JAX float32 Context's
     values are all float32-representable, so the port's float32 iteration
     reads exactly the JAX one's inputs.  Profiles and the hybrid-PRD
     coefficients hprdI0/hprdFrac move from the JAX layout [W, Nmu, 2, Nk]
@@ -46,14 +44,11 @@ def params_from_numpy(params, cfg=None, device='cuda'):
         return None if rows is None else [[None if x is None else fn(x)
                                            for x in row] for row in rows]
 
-    for key in _UNSUPPORTED:
-        if params.get(key) is not None:
-            raise ValueError(f'params[{key!r}] is outside the ported slice')
-
     out = {key: t_(params.get(key)) for key in
            ('J', 'bgChi', 'bgEta', 'bgSca', 'temperature', 'height',
             'vlosMu')}
-    for key in ('upperBcData', 'lowerBcData'):
+    for key in ('upperBcData', 'lowerBcData', 'xLowerBcData',
+                'xUpperBcData'):
         out[key] = w_(params.get(key))
     for key in ('pops', 'nStar', 'detPops', 'detNStar', 'C'):
         out[key] = [t_(x) for x in params[key]]

@@ -71,12 +71,13 @@ def assign_line_slots(allAtoms):
 def fused_scheme_supported(cfg) -> bool:
     """Whether the fused kernel covers this configuration: float64 or
     float32, the two instances built; the Bezier-3 solver, the only one
-    it is built for (as the JAX package's fused kernel); and no hybrid
-    PRD (a slot's coefficient rows hold one rho per row, not the
-    comoving-frame rho of each ray).  The port's Context refuses 2D and
-    dense Gamma at construction, which are fused_scheme_supported's other
-    checks in the JAX package."""
+    it is built for (as the JAX package's fused kernel); no hybrid PRD (a
+    slot's coefficient rows hold one rho per row, not the comoving-frame
+    rho of each ray); and a 1D atmosphere (the kernel sweeps depth).  The
+    port's Context refuses dense Gamma at construction, the JAX package's
+    other check."""
     return (cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
+            and getattr(cfg, 'Ndim', 1) == 1
             and getattr(cfg, 'formalSolver', BEZIER3) == BEZIER3)
 
 

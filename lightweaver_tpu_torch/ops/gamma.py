@@ -87,12 +87,14 @@ def line_groups(atom) -> List[List[int]]:
 
 
 def gamma_scheme_supported(cfg) -> bool:
-    """Whether the line Gamma kernel covers this configuration: float64
-    or float32 (the two instances built), no hybrid PRD (its comoving-frame rho
+    """Whether the line Gamma kernel covers this configuration: a 1D
+    atmosphere (the JAX package's scheme needs 1D), float64 or float32
+    (the two instances built), no hybrid PRD (its comoving-frame rho
     varies per ray, the kernel's per row) and no line group above KMAX
-    members.  The port's Context refuses 2D and dense Gamma at
-    construction, which are pallas_scheme_supported's other checks."""
+    members.  The port's Context refuses dense Gamma at construction,
+    pallas_scheme_supported's other check."""
     return (cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
+            and getattr(cfg, 'Ndim', 1) == 1
             and all(len(g) <= KMAX for a in cfg.activeAtoms
                     for g in line_groups(a)))
 

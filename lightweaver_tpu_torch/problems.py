@@ -24,17 +24,25 @@
   by uniform(0.95, 1.05) from a numpy seed, as a parallel.ColumnBatch
   (BASELINE config 5's 1.5D leg at C = 512, H 6-level + Ca II active;
   tests/test_column_batch.py's columns at fewer depths).
+- slab_2d: a 2D (x, z) FAL-C slab with a +-5% sinusoidal temperature
+  perturbation and a 1 km/s shear flow along x, H 6-level + Ca II with
+  Ca II active: at (30, 8) with callable x boundaries the golden 2D
+  problem (tests/golden/falc2d_ca_*.npz, scripts/refgold/
+  export_inputs.py:build_2d_atmos), at (82, 256) periodic with 12 rays
+  BASELINE config 5's 2D leg.
 
 and random inputs (rays, a line group, slot-packed lines) that check the
 kernels against their plain versions and against the JAX package.
 """
 import numpy as np
+import torch
 
-from .atmosphere import Atmosphere
+from .atmosphere import Atmosphere, BoundaryCondition
 from .atomic_set import RadiativeSet
 from .context import Context
 from .fal import Falc82
 from .ops.ng import NgOptions
+from .ops.planck import planck_nu
 from .rh_atoms import CaII_atom, H_6_atom, MgII_atom, NaI_atom
 
 
@@ -364,3 +372,108 @@ def column_batch(C: int, models=None, activeSpecies=('H', 'Ca'),
         height, T, v0 if vlos is None else vlos, vturb, ne, nHTot, models,
         activeSpecies, Nrays=Nrays, ngOptions=ngOptions,
         conserveCharge=conserveCharge, **ctxKwargs)
+
+
+class HalfPlanckXBc(BoundaryCondition):
+    """Callable x boundary condition of the 2D golden problem: the incident
+    intensity 0.5 B_nu(T) of the boundary column ``colIdx``, for every
+    wavelength, ray and direction ([Nlam, Nmu, 2, Nz]; the port's copy of
+    scripts/refgold/export_inputs.py:HalfPlanckXBc, Planck from
+    ops/planck.py in float64 on the CPU)."""
+
+    def __init__(self, colIdx: int):
+        self.colIdx = colIdx
+
+    def compute_bc(self, atmos, spect):
+        lam = torch.as_tensor(np.asarray(spect.wavelength, np.float64))
+        T = np.asarray(atmos.temperature).reshape(atmos.Nz, atmos.Nx)
+        Tcol = torch.as_tensor(T[:, self.colIdx])
+        B = 0.5 * planck_nu(Tcol[None, :], lam[:, None]).numpy()
+        return np.broadcast_to(B[:, None, None, :],
+                               (len(lam), atmos.Nrays, 2, atmos.Nz)).copy()
+
+
+class RefBugCompatXLower(HalfPlanckXBc):
+    """HalfPlanckXBc with the down-direction rows 1..Nx-1 zeroed: it
+    reproduces the index-swap bug of the reference's linear 2D solver (its
+    start-plane loop writes I(j, k) = 0 instead of I(k, j),
+    FormalScalar2d.cpp:570, which zeroes the first Nx - 1 z rows of the
+    callable x-lower column on every down pass), so that the port can be
+    held to the golden linear run (tests/golden/falc2d_ca_ref.npz).  The
+    default HalfPlanckXBc keeps the right physics; the BESSER golden run
+    needs no compat boundary.  A copy of
+    scripts/refgold/export_inputs.py:RefBugCompatXLower."""
+
+    def compute_bc(self, atmos, spect):
+        data = super().compute_bc(atmos, spect)
+        data[:, :, 0, 1:atmos.Nx] = 0.0
+        return data
+
+
+def slab_2d_atmos(Nz: int = 30, Nx: int = 8, dx: float = 40e3,
+                  periodic: bool = True, quadrature: int = 3,
+                  refBugCompat: bool = False, roll: int = 0) -> Atmosphere:
+    """A 2D (x, z) FAL-C slab: FAL-C at the depths np.unique(np.linspace(0,
+    81, Nz).astype(int)) of its 82, Nx columns ``dx`` m apart, T x (1 +
+    0.05 sin 2 pi j / Nx), vx = 1 km/s sin 2 pi j / Nx, vz = FAL-C's vlos;
+    periodic x boundaries or the callable HalfPlanckXBc of columns 0 and
+    Nx - 1 (``refBugCompat``: RefBugCompatXLower below); the 2D quadrature
+    set of ``quadrature`` rays per half-plane (Atmosphere.quadrature: 3 ->
+    6 rays, 6 -> 12); ``roll`` moves the columns' fields by that many
+    columns along x (np.roll; the grid stays).  slab_2d_atmos(30, 8,
+    periodic=False) is
+    scripts/refgold/export_inputs.py:build_2d_atmos(), the golden 2D
+    problem's atmosphere."""
+    full = Falc82()
+    idx = np.unique(np.linspace(0, 81, Nz).astype(int))
+    Nz = len(idx)
+    x = np.arange(Nx) * dx
+    phase = np.sin(2 * np.pi * np.arange(Nx) / Nx)
+    pert = 1.0 + 0.05 * phase
+
+    def col(a):
+        return np.broadcast_to(a[idx][:, None], (Nz, Nx)).copy()
+    T = np.roll(full.temperature[idx][:, None] * pert[None, :], roll, axis=1)
+    vx = np.roll(1e3 * phase[None, :] * np.ones((Nz, 1)), roll, axis=1)
+    xBcs = {}
+    if not periodic:
+        xBcs = {'xLowerBc': (RefBugCompatXLower(0) if refBugCompat
+                             else HalfPlanckXBc(0)),
+                'xUpperBc': HalfPlanckXBc(Nx - 1)}
+    atmos = Atmosphere.make_2d(
+        height=full.height[idx], x=x, temperature=T, vx=vx,
+        vz=col(full.vlos), vturb=col(full.vturb), ne=col(full.ne),
+        nHTot=col(full.nHTot), **xBcs)
+    atmos.quadrature(quadrature)
+    return atmos
+
+
+def slab_2d(Nz: int = 30, Nx: int = 8, dx: float = 40e3,
+            periodic: bool = True, quadrature: int = 3, device='cuda',
+            dtype=None, formalSolver: str = None,
+            interpFn2d: str = 'interp_linear_2d',
+            refBugCompat: bool = False, roll: int = 0,
+            **ctxKwargs) -> Context:
+    """H 6-level + Ca II with Ca II active on slab_2d_atmos(Nz, Nx, dx,
+    periodic, quadrature, refBugCompat, roll), from LTE, with the 2D
+    ``formalSolver`` (Context's default: 'piecewise_linear_2d') and
+    ``interpFn2d``, on ``device`` (the card unless 'cpu') in the working
+    ``dtype``; ``ctxKwargs`` go to the Context.
+
+    - slab_2d(30, 8, periodic=False, formalSolver='piecewise_linear_2d',
+      refBugCompat=True) is the golden linear 2D problem
+      (tests/golden/falc2d_ca_ref.npz, 154 iterations);
+      formalSolver='piecewise_besser_2d' without the compat boundary the
+      golden BESSER one (falc2d_ca_besser_ref.npz, 218 iterations).
+    - slab_2d(82, 256, periodic=True, quadrature=6) is BASELINE config 5's
+      2D leg: full FAL-C depth, 256 columns 40 km apart (a 10.24 Mm
+      periodic box), 12 rays, Nlam = 546: 20,992 points."""
+    atmos = slab_2d_atmos(Nz, Nx, dx, periodic, quadrature, refBugCompat,
+                          roll)
+    rs = RadiativeSet([H_6_atom(), CaII_atom()])
+    rs.set_active('Ca')
+    spect = rs.compute_wavelength_grid()
+    eqPops = rs.compute_eq_pops(atmos)
+    return Context(atmos, spect, eqPops, formalSolver=formalSolver,
+                   interpFn2d=interpFn2d, device=device, dtype=dtype,
+                   **ctxKwargs)

@@ -30,14 +30,19 @@ from lightweaver_tpu_torch.problems import (falc_interpolated,  # noqa: E402
 ITERS = 5
 
 
-def profile_problem(name, ctx, step):
+def profile_problem(name, ctx, step, iters=ITERS):
+    """Profile ``iters`` calls of step(ctx) after two warm-up calls (a step
+    of tens of thousands of kernels takes fewer: the profiler's records
+    cost host time); print the
+    per-iteration numbers and the top kernels, and return {'wall_ms',
+    'kernels', 'busy_ms', 'idle'} per iteration."""
     for _ in range(2):
         step(ctx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ITERS):
+        for _ in range(iters):
             step(ctx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -51,14 +56,16 @@ def profile_problem(name, ctx, step):
     busyUs = sum(v[1] for v in byName.values())
     wallUs = wall * 1e6
     print(f'== {name}: Nlam={ctx.cfg.Nlam} Nmu={ctx.cfg.Nmu} Nk={ctx.cfg.Nk}')
-    print(f'per iteration: wall {wallUs / ITERS / 1e3:.3f} ms (profiled), '
-          f'{len(kernels) / ITERS:.0f} kernels, device busy '
-          f'{busyUs / ITERS / 1e3:.3f} ms, idle share '
+    print(f'per iteration: wall {wallUs / iters / 1e3:.3f} ms (profiled), '
+          f'{len(kernels) / iters:.0f} kernels, device busy '
+          f'{busyUs / iters / 1e3:.3f} ms, idle share '
           f'{1.0 - busyUs / wallUs:.3f}')
     top = sorted(byName.items(), key=lambda kv: -kv[1][1])[:8]
     for kname, (count, us) in top:
-        print(f'  {us / ITERS / 1e3:8.3f} ms/iter  {count / ITERS:7.1f} '
+        print(f'  {us / iters / 1e3:8.3f} ms/iter  {count / iters:7.1f} '
               f'launches/iter  {kname[:90]}')
+    return {'wall_ms': wallUs / iters / 1e3, 'kernels': len(kernels) / iters,
+            'busy_ms': busyUs / iters / 1e3, 'idle': 1.0 - busyUs / wallUs}
 
 
 def main():
