@@ -161,6 +161,22 @@ result):
    single_stokes_fs on the slab in phase 12's field and
    compute_rays(mus=[0.7, 1.0]), card against CPU (1e-9 of each
    wavelength's maximum), with their ms.
+15. The Context options, each on the card with no CPU fallback and
+   checked against the CPU or the card's own other path.  (a) falc_h6mg
+   with hybrid PRD in float32 (0-5 km/s outflow): 10 MALI steps with
+   prd_redistribute(maxIter=3), ms per outer iteration, the float32
+   sweep's launches on the full grid and on the PRD subset rows (both
+   above 0); from that state one MALI iteration and one prd_redistribute,
+   card against CPU by phase 10's rule against a float64 twin.  (b)
+   falc_h6ca with dense Gamma, float64 and float32, 3 MALI steps deep:
+   dense against factored (1e-12 and 3e-5 of each array's maximum,
+   tests/test_gamma_modes.py's bars).  (c) depthData on falc_h6ca under
+   each scheme: chi, eta and I per wavelength across the schemes and
+   against the CPU (1e-10); compute_radiative_losses on the card's
+   capture against the CPU's.  (d) A counting backgroundProvider,
+   initSol=InitialSolution.Zero and a detailed Ca II atom beside H 6
+   active: two MALI steps each with stat_equil between, card against
+   CPU.
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
@@ -169,7 +185,8 @@ plain versions' are CUDA events around their calls.  The kernels' JSON record ho
 instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
 and times and (c)'s launch counts for the sweep's linear and BESSER
-instances, and the probes'; each with the
+instances, and the probes'; phase 15's launches are added to each
+instance's count; each with the
 least time the card could take for its inputs (bound_ms) and, where one
 PyTorch call computes the same function, that call's time.  The last four
 lines are the total wall time, the card's name and power limit as
@@ -3012,6 +3029,341 @@ def card_cpu_2d():
     return {'stokes_ms': stokesMs, 'rays_ms': raysMs}
 
 
+# ---- phase 15: the Context options ----------------------------------------
+OPTIONS_HPRD_STEPS = 10
+# dense Gamma against factored, of each array's maximum
+# (tests/test_gamma_modes.py's bars)
+DENSE_TOL = {torch.float64: 1e-12, torch.float32: 3e-5}
+# depthData's chi, eta and I across the schemes and against the CPU, per
+# wavelength, and the radiative losses; the float64 card-against-CPU steps
+# of (d) take KERNEL_TOL
+DEPTH_TOL = 1e-10
+
+
+def rows_err(ours, ref):
+    """max |ours - ref| over the row's max |ref| per row of the first
+    axis (wavelength), as numpy."""
+    ours = np.asarray(ours.cpu() if torch.is_tensor(ours) else ours,
+                      np.float64)
+    ref = np.asarray(ref.cpu() if torch.is_tensor(ref) else ref, np.float64)
+    ours, ref = ours.reshape(len(ref), -1), ref.reshape(len(ref), -1)
+    return np.abs(ours - ref).max(axis=1) / np.abs(ref).max(axis=1)
+
+
+def f32_card_rule(label, items):
+    """Phase 10's rule on whole results: each (name, card f32, CPU f32,
+    float64 on the same state, perRow) holds err(card, f64) <= F32_SLACK
+    err(CPU, f64) + F32_FLOOR; per row (J, I, JRest: each wavelength over
+    its maximum) against the larger of the row's CPU distance and the
+    worst over the rows where the CPU's is within 10%.  Returns the
+    largest err / bar."""
+    worst = 0.0
+    for name, card, cpu, truth, perRow in items:
+        if perRow:
+            eCard, eCpu = rows_err(card, truth), rows_err(cpu, truth)
+            eCpu = np.maximum(eCpu, eCpu[eCpu < 0.1].max())
+        else:
+            truth = truth.double().cpu()
+            eCard = np.array(max_rel(card.double().cpu(), truth))
+            eCpu = np.array(max_rel(cpu.double().cpu(), truth))
+        ratio = float((eCard / (F32_SLACK * eCpu + F32_FLOOR)).max())
+        worst = max(worst, ratio)
+        if not ratio <= 1.0 or not np.isfinite(eCard).all():
+            raise AssertionError(f'{label}: float32 {name} card '
+                                 f'{eCard.max():.3e} against CPU '
+                                 f'{eCpu.max():.3e}')
+    print(f'  {label}: err(card f32, f64) / ({F32_SLACK} err(CPU f32, f64) '
+          f'+ {F32_FLOOR}) at most {worst:.3f}')
+    return worst
+
+
+def options_twin(ctx, device, dtype=None, scheme=None):
+    """A Context on ``device`` (in ``dtype``, under ``scheme``) from
+    ``ctx``'s state dict, with its rates, JRest and the crsw of its last
+    step, so that its MALI step and prd_redistribute start from ctx's
+    state."""
+    from lightweaver_tpu_torch.context import Context
+    state = ctx.state_dict()
+    state['kwargs'] = dict(state['kwargs'], device=device,
+                           **({} if dtype is None else {'dtype': dtype}))
+    twin = Context.construct_from_state_dict_with(state)
+    if scheme is not None:
+        twin.set_fs_iter_scheme(scheme)
+
+    def move(rows):
+        return [[None if x is None else x.to(twin.device) for x in row]
+                for row in rows]
+    if ctx._Rij is not None:
+        twin._Rij, twin._Rji = move(ctx._Rij), move(ctx._Rji)
+    twin.JRest = None if ctx.JRest is None else ctx.JRest.to(twin.device)
+    twin._crswVal = ctx._crswVal
+    twin._params = twin.build_params()
+    return twin
+
+
+def options_hprd_f32():
+    """(a) falc_h6mg with hybrid PRD in float32 (0-5 km/s outflow, the
+    float32 sweep on the full grid and on the PRD subset rows): 10 MALI
+    steps with stat_equil and prd_redistribute(maxIter=3) each, ms per
+    outer iteration, sweep_f32 launches on the full grid and on the
+    subset; then from that state one MALI iteration and one
+    prd_redistribute, card against CPU by phase 10's rule with a float64
+    card twin as the reference."""
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.problems import h6mg_context
+    phase('Context options (a): falc_h6mg hybrid PRD in float32, '
+          f'{OPTIONS_HPRD_STEPS} MALI steps with prd_redistribute(maxIter=3)')
+    ctx = h6mg_context(hprd=True, dtype=F32)
+    reset_counts()
+    full = sub = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OPTIONS_HPRD_STEPS):
+        c0 = read_counts()['sweep_f32']
+        u = ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+        c1 = read_counts()['sweep_f32']
+        ur = ctx.prd_redistribute(maxIter=3)
+        full += c1 - c0
+        sub += read_counts()['sweep_f32'] - c1
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_HPRD_STEPS
+    counts = read_counts()
+    dJ, dRho = float(u.dJMax), max(ur.dRho)
+    print(f'  {ms:.1f} ms per outer iteration; sweep_f32 launches: {full} '
+          f'on the full grid, {sub} on the PRD subset rows; last dJ '
+          f'{dJ:.3e}, dRho {dRho:.3e}; JRest {ctx.JRest.dtype}')
+    if not (full > 0 and sub > 0 and counts['sweep'] == 0
+            and np.isfinite(dJ) and np.isfinite(dRho)
+            and ctx.JRest.dtype == torch.float64):
+        raise AssertionError(f'hybrid PRD in float32: launches {counts}, '
+                             f'dJ {dJ}, dRho {dRho}')
+
+    params = ctx.build_params()
+    cpu = options_twin(ctx, 'cpu', F32)
+    out = ctx._iter_fn(params)
+    ref = build_iteration_fn(cpu.cfg)(params_to(params, 'cpu'))
+    truth = build_iteration_fn(dataclasses.replace(
+        ctx.cfg, dtype=torch.float64))(params)
+    items = [(k, out[k], ref[k], truth[k], True) for k in ('J', 'I', 'JRest')]
+    for ai in range(len(out['Gamma'])):
+        items.append((f'Gamma {ai}', out['Gamma'][ai], ref['Gamma'][ai],
+                      truth['Gamma'][ai], False))
+        for key in ('Rij', 'Rji'):
+            items += [(f'{key} {ai} {ti}', x, ref[key][ai][ti],
+                       truth[key][ai][ti], False)
+                      for ti, x in enumerate(out[key][ai])]
+    f32_card_rule('one MALI iteration', items)
+
+    card, card64 = options_twin(ctx, 'cuda', F32), options_twin(ctx, 'cuda')
+    for c in (card, cpu, card64):
+        c.prd_redistribute(maxIter=1)
+    items = [('J', card.J, cpu.J, card64.J, True),
+             ('JRest', card.JRest, cpu.JRest, card64.JRest, True)]
+    for ai, ti, _, _ in card._prd_lines():
+        items.append((f'rho {ai} {ti}', card.rhoPrd[ai][ti],
+                      cpu.rhoPrd[ai][ti], card64.rhoPrd[ai][ti], False))
+        for key in ('_Rij', '_Rji'):
+            items.append((f'{key} {ai} {ti}', getattr(card, key)[ai][ti],
+                          getattr(cpu, key)[ai][ti],
+                          getattr(card64, key)[ai][ti], False))
+    f32_card_rule('one prd_redistribute', items)
+    return {'ms': ms, 'counts': counts}
+
+
+def options_dense():
+    """(b) falc_h6ca with gammaMode='dense' on the card, float64 and the
+    float32 state: 3 MALI steps with stat_equil, a fourth, then dense and
+    factored on its params (DENSE_TOL of each array's maximum); the ms of
+    each mode's iteration (host clock, synchronised)."""
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    phase('Context options (b): dense Gamma on falc_h6ca against factored')
+    total = {}
+    for dtype in (torch.float64, F32):
+        ctx = h6ca_context(Falc82(), 5, gammaMode='dense', dtype=dtype)
+        reset_counts()
+        for _ in range(3):
+            ctx.formal_sol_gamma_matrices()
+            ctx.stat_equil()
+        ctx.formal_sol_gamma_matrices()
+        counts = read_counts()
+        params = dict(ctx._params)
+        outs, msMode = {}, {}
+        for mode in ('factored', 'dense'):
+            it = build_iteration_fn(dataclasses.replace(ctx.cfg,
+                                                        gammaMode=mode))
+            outs[mode] = it(params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            it(params)
+            torch.cuda.synchronize()
+            msMode[mode] = (time.perf_counter() - t0) * 1e3
+        f, d = outs['factored'], outs['dense']
+        pairs = [('J', f['J'], d['J'])]
+        for ai in range(len(f['Gamma'])):
+            pairs.append((f'Gamma {ai}', f['Gamma'][ai], d['Gamma'][ai]))
+            for key in ('Rij', 'Rji'):
+                pairs += [(f'{key} {ai} {ti}', x, d[key][ai][ti])
+                          for ti, x in enumerate(f[key][ai])]
+        worst = max(max_rel(a.double(), b.double()) for _, a, b in pairs)
+        name = 'sweep' if dtype == torch.float64 else 'sweep_f32'
+        print(f'  {dtype}: dense vs factored {worst:.3e} of each array\'s '
+              f'maximum (bar {DENSE_TOL[dtype]}); one iteration factored '
+              f'{msMode["factored"]:.1f} ms, dense {msMode["dense"]:.1f} ms; '
+              f'{name} launches {counts[name]}')
+        if not (worst <= DENSE_TOL[dtype] and counts[name] == 4):
+            raise AssertionError(f'dense Gamma in {dtype}: {worst:.3e}, '
+                                 f'launches {counts}')
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def options_depth_data():
+    """(c) depthData on falc_h6ca (3 MALI steps deep): one filled MALI step
+    under each scheme on card twins of the same state and on a CPU twin;
+    chi, eta and I within DEPTH_TOL of each wavelength's maximum across
+    the schemes and against the CPU, the capture on the card; compute_radiative_losses on the card's capture
+    finite and equal to the CPU's (DEPTH_TOL of each wavelength's
+    maximum of the angle-integrated chi S)."""
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    from lightweaver_tpu_torch.utils import compute_radiative_losses
+    phase('Context options (c): depthData on falc_h6ca under each scheme, '
+          'card against CPU, and compute_radiative_losses')
+    base = h6ca_context(Falc82(), 5)
+    for _ in range(3):
+        base.formal_sol_gamma_matrices()
+        base.stat_equil()
+    cpu = options_twin(base, 'cpu')
+    cpu.depthData.fill = True
+    cpu.formal_sol_gamma_matrices()
+    lossRef = compute_radiative_losses(cpu)
+    dd = cpu.depthData
+    chiS = np.einsum('lmdk,m->lk', dd.eta.numpy() + (
+        cpu.bgSca.numpy() * cpu.J.numpy())[:, None, None, :],
+        np.asarray(cpu.atmos.wmu))
+    cards = {}
+    reset_counts()
+    for scheme in SCHEMES:
+        card = options_twin(base, 'cuda', scheme=scheme)
+        card.depthData.fill = True
+        card.formal_sol_gamma_matrices()
+        cards[scheme] = card
+    torch.cuda.synchronize()
+    counts = read_counts()
+    errs = {}
+    for scheme, card in cards.items():
+        for key in ('chi', 'eta', 'I'):
+            x = getattr(card.depthData, key)
+            if x.device.type != 'cuda' or x.shape != getattr(dd, key).shape:
+                raise AssertionError(f'depthData.{key} under {scheme}: '
+                                     f'{x.device} {tuple(x.shape)}')
+            e = max(float(rows_err(x, getattr(dd, key)).max()),
+                    float(rows_err(x, getattr(cards[SCHEMES[0]].depthData,
+                                              key)).max()))
+            errs[(scheme, key)] = e
+        loss = compute_radiative_losses(card)
+        errs[(scheme, 'loss')] = float(
+            (np.abs(loss - lossRef).max(axis=1)
+             / np.abs(chiS).max(axis=1)).max()) if np.isfinite(
+                 loss).all() else np.inf
+    for scheme in SCHEMES:
+        print(f'  {scheme}: chi {errs[(scheme, "chi")]:.2e}, eta '
+              f'{errs[(scheme, "eta")]:.2e}, I {errs[(scheme, "I")]:.2e} '
+              '(against the CPU and the default scheme), radiative losses '
+              f'{errs[(scheme, "loss")]:.2e}')
+    print(f'  launches: sweep {counts["sweep"]}, gamma {counts["gamma"]}, '
+          f'fused {counts["fused"]} (bar {DEPTH_TOL})')
+    for (scheme, key), e in errs.items():
+        if not e <= DEPTH_TOL:
+            raise AssertionError(f'depthData under {scheme}: {key} {e:.3e}')
+    if not (counts['sweep'] == 2 and counts['gamma'] == 1
+            and counts['fused'] == 1):
+        raise AssertionError(f'depthData launches {counts}')
+    return counts
+
+
+def options_rest():
+    """(d) Two MALI steps with stat_equil between each, card against CPU
+    (KERNEL_TOL: J and I per wavelength, Gamma and the rates of each
+    array's maximum, after the second step): falc_h6ca
+    with a backgroundProvider wrapping basic_background that counts its
+    calls (one per Context), with initSol=InitialSolution.Zero, and H 6
+    active with a detailed Ca II atom."""
+    from lightweaver_tpu_torch import InitialSolution
+    from lightweaver_tpu_torch.atomic_set import RadiativeSet
+    from lightweaver_tpu_torch.background import basic_background
+    from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    from lightweaver_tpu_torch.rh_atoms import CaII_atom, H_6_atom
+    phase('Context options (d): backgroundProvider, initSol=Zero, a '
+          'detailed Ca II atom; two MALI steps each, card against CPU')
+    calls = []
+
+    def provider(*args):
+        calls.append(1)
+        return basic_background(*args)
+
+    def detailed(device):
+        atmos = Falc82()
+        atmos.quadrature(5)
+        rs = RadiativeSet([H_6_atom(), CaII_atom()])
+        rs.set_active('H')
+        rs.set_detailed_static('Ca')
+        return Context(atmos, rs.compute_wavelength_grid(),
+                       rs.compute_eq_pops(atmos), device=device)
+    makers = {
+        'backgroundProvider': lambda d: h6ca_context(
+            Falc82(), 5, device=d, backgroundProvider=provider),
+        'initSol=Zero': lambda d: h6ca_context(
+            Falc82(), 5, device=d, initSol=InitialSolution.Zero),
+        'detailed Ca II': detailed}
+    total = {}
+    for label, make in makers.items():
+        card, cpu = make('cuda'), make('cpu')
+        reset_counts()
+        for ctx in (card, cpu):
+            ctx.formal_sol_gamma_matrices()
+            ctx.stat_equil()
+            ctx.formal_sol_gamma_matrices()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        errs = [float(rows_err(card.J, cpu.J).max()),
+                float(rows_err(card.I, cpu.I).max())]
+        for ai in range(len(cpu._Gamma)):
+            errs.append(max_rel(card._Gamma[ai].cpu(), cpu._Gamma[ai]))
+            for key in ('_Rij', '_Rji'):
+                errs += [max_rel(x.cpu(), getattr(cpu, key)[ai][ti])
+                         for ti, x in enumerate(getattr(card, key)[ai])]
+        print(f'  {label}: J {errs[0]:.2e}, I {errs[1]:.2e}, Gamma and rates '
+              f'{max(errs[2:]):.2e} (bar {KERNEL_TOL}); sweep launches '
+              f'{counts["sweep"]}')
+        if not (max(errs) <= KERNEL_TOL and counts['sweep'] == 2):
+            raise AssertionError(f'{label}: card vs CPU {max(errs):.3e}, '
+                                 f'launches {counts}')
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if len(calls) != 2:
+        raise AssertionError(f'backgroundProvider called {len(calls)} '
+                             'times, once per Context expected')
+    return total
+
+
+def context_options():
+    """Phase 15: the Context options on the card.  Returns each phase's
+    launch counts (the path's own, each read just after it ran) and the
+    hybrid-PRD run's ms per outer iteration."""
+    hprd = options_hprd_f32()
+    counts = [hprd['counts'], options_dense(), options_depth_data(),
+              options_rest()]
+    total = {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+    return {'launches': total, 'hprd_ms': hprd['ms']}
+
+
 # ---- the least time the card could take for a kernel's work -----------
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # peak rates outside the tensor cores, float32 and float64, from NVIDIA's
@@ -3184,9 +3536,13 @@ def main():
     golden2dMs = [golden_2d(*g) for g in GOLDEN_2D]
     slab = slab_2d_real()
     syn2d = card_cpu_2d()
+    # phase 15, the Context options: the sweep (f64, f32), line Gamma and
+    # fused kernels on their paths
+    options = context_options()
     # the kernels' record: the float64 instances on the PRD path (phase 8's
     # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
-    # path (phase (c)'s launches, phase (a)'s inputs), the probes
+    # path (phase (c)'s launches, phase (a)'s inputs), the probes; phase
+    # 15's launches added to each instance's
     records = {name: dict(prdKern[name], launches=launches[name])
                for name in ('sweep', 'gamma', 'fused')}
     records.update({name: dict(f32Kern[name], launches=f32Launches[name])
@@ -3194,6 +3550,9 @@ def main():
     records.update({name: dict(solverKern[name], launches=n)
                     for name, n in solverLaunches.items()})
     records.update(probes)
+    for name, n in options['launches'].items():
+        if name in records:
+            records[name]['launches'] += n
     print(f'synthesis: compute_rays (the README program, 1001 wavelengths, '
           f'mu = 1) {raysMs:.1f} ms, single_stokes_fs (BASELINE config 4) '
           f'{stokesMs:.1f} ms')
@@ -3206,6 +3565,10 @@ def main():
                                 for k, v in slab['stages_ms'].items())
           + f'; single_stokes_fs {syn2d["stokes_ms"]:.1f} ms, compute_rays '
           f'{syn2d["rays_ms"]:.1f} ms')
+    print(f'Context options: falc_h6mg hybrid PRD in float32 '
+          f'{options["hprd_ms"]:.1f} ms per outer iteration; launches '
+          + ', '.join(f'{k} {v}' for k, v in options['launches'].items()
+                      if v))
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')
     print(smi)

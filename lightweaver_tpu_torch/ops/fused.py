@@ -73,11 +73,12 @@ def fused_scheme_supported(cfg) -> bool:
     float32, the two instances built; the Bezier-3 solver, the only one
     it is built for (as the JAX package's fused kernel); no hybrid PRD (a
     slot's coefficient rows hold one rho per row, not the comoving-frame
-    rho of each ray); and a 1D atmosphere (the kernel sweeps depth).  The
-    port's Context refuses dense Gamma at construction, the JAX package's
-    other check."""
+    rho of each ray); a 1D atmosphere (the kernel sweeps depth); and
+    factored Gamma (dense Gamma reads srcNum, which the kernel never
+    forms), as the JAX package's fused_scheme_supported."""
     return (cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
             and getattr(cfg, 'Ndim', 1) == 1
+            and getattr(cfg, 'gammaMode', 'factored') == 'factored'
             and getattr(cfg, 'formalSolver', BEZIER3) == BEZIER3)
 
 

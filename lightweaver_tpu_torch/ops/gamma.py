@@ -91,10 +91,11 @@ def gamma_scheme_supported(cfg) -> bool:
     atmosphere (the JAX package's scheme needs 1D), float64 or float32
     (the two instances built), no hybrid PRD (its comoving-frame rho
     varies per ray, the kernel's per row) and no line group above KMAX
-    members.  The port's Context refuses dense Gamma at construction,
-    pallas_scheme_supported's other check."""
+    members; factored Gamma, as the JAX package's pallas_scheme_supported
+    holds (the kernel forms the factored line terms)."""
     return (cfg.dtype in (torch.float64, torch.float32) and not cfg.hprd
             and getattr(cfg, 'Ndim', 1) == 1
+            and getattr(cfg, 'gammaMode', 'factored') == 'factored'
             and all(len(g) <= KMAX for a in cfg.activeAtoms
                     for g in line_groups(a)))
 

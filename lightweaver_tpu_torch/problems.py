@@ -208,17 +208,19 @@ def random_boundaries(NL: int, Nmu: int, seed: int = 0) -> dict:
 
 
 def h6ca_context(atmos: Atmosphere, Nrays: int = 5, device='cuda',
-                 dtype=None) -> Context:
+                 dtype=None, **ctxKwargs) -> Context:
     """H 6-level + Ca II, both active, on ``atmos`` with an ``Nrays``
     Gauss-Legendre quadrature, on ``device`` (the card unless the caller
     passes 'cpu') in the working ``dtype`` (Context's default: float64, or
-    float32 under lightweaverrc ``Precision: mixed``)."""
+    float32 under lightweaverrc ``Precision: mixed``); ``ctxKwargs`` go to
+    the Context."""
     atmos.quadrature(Nrays)
     rs = RadiativeSet([H_6_atom(), CaII_atom()])
     rs.set_active('H', 'Ca')
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
-    return Context(atmos, spect, eqPops, device=device, dtype=dtype)
+    return Context(atmos, spect, eqPops, device=device, dtype=dtype,
+                   **ctxKwargs)
 
 
 def mixed_precision_context(device='cuda', dtype=None,
@@ -239,12 +241,13 @@ def vlos_ramp(atmos: Atmosphere, vMax: float = 5e3) -> Atmosphere:
 
 
 def h6mg_context(atmos: Atmosphere = None, Nrays: int = 5,
-                 hprd: bool = False, device='cuda', dtype=None) -> Context:
+                 hprd: bool = False, device='cuda', dtype=None,
+                 **ctxKwargs) -> Context:
     """H 6-level + Mg II, both active, PRD lines in PRD, on ``atmos``
     (default FAL-C, 82 depths) with an ``Nrays`` quadrature.  With
     ``hprd`` the atmosphere gets the 0-5 km/s outflow ramp (vlos_ramp) and
-    the Context runs hybrid PRD.  ``device`` and ``dtype`` as for
-    h6ca_context.  The defaults build BASELINE config 3 as
+    the Context runs hybrid PRD.  ``device``, ``dtype`` and ``ctxKwargs``
+    as for h6ca_context.  The defaults build BASELINE config 3 as
     tests/test_vs_reference_golden.py:540-546 does, and with hprd=True its
     hybrid variant as lines 411-420 there do."""
     if atmos is None:
@@ -257,7 +260,7 @@ def h6mg_context(atmos: Atmosphere = None, Nrays: int = 5,
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, hprd=hprd, device=device,
-                   dtype=dtype)
+                   dtype=dtype, **ctxKwargs)
 
 
 def multi_ng_context(ngOptions=None, device='cuda', dtype=None,

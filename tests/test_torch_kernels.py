@@ -1113,3 +1113,162 @@ def test_compute_rays_refine_prd_on_cuda_matches_cpu():
     assert tsweep.sweep_cuda.launches - before >= 3
     assert np.isfinite(rays).all()
     assert _row_err(rays, cpu.compute_rays(lam, refinePrd=True)) < 1e-9
+
+
+def _rows(ours, ref):
+    """max |ours - ref| over the row's max |ref|, per wavelength row."""
+    ours = ours.detach().cpu().double().reshape(len(ref), -1)
+    ref = ref.detach().cpu().double().reshape(len(ref), -1)
+    return ((ours - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).numpy()
+
+
+def _to(x, device):
+    """``x`` (a params dict, nested lists of tensors) on ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to(v, device) for v in x]
+    return x
+
+
+def _detailed_context(device):
+    from lightweaver_tpu_torch import CaII_atom, H_6_atom, RadiativeSet
+    from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.problems import falc_interpolated
+    atmos = falc_interpolated(20)
+    atmos.quadrature(3)
+    rs = RadiativeSet([H_6_atom(), CaII_atom()])
+    rs.set_active('H')
+    rs.set_detailed_static('Ca')
+    return Context(atmos, rs.compute_wavelength_grid(),
+                   rs.compute_eq_pops(atmos), device=device)
+
+
+def _count_calls(calls):
+    from lightweaver_tpu_torch.background import basic_background
+
+    def provider(*args):
+        calls.append(1)
+        return basic_background(*args)
+    return provider
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('option', [
+    'dense', 'zero', 'provider', 'detailed', 'accum_f32', 'parallel'])
+def test_context_option_on_cuda_matches_cpu(option):
+    """Two MALI steps with stat_equil of a small problem under each
+    Context option, on the card (through the sweep kernel) against the
+    CPU: J and I per wavelength within 1e-9.  Under accumDtype = float32
+    one MALI step, J within 1e-6 (the float64 sums cast to float32; the
+    float32 Gamma's lambda sums run in another order on the card, so the
+    populations after stat_equil differ at float32 rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch import InitialSolution
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+    calls = []
+    kwargs = {'dense': {'gammaMode': 'dense'},
+              'zero': {'initSol': InitialSolution.Zero},
+              'provider': {'backgroundProvider': _count_calls(calls)},
+              'accum_f32': {'accumDtype': torch.float32},
+              'parallel': {'recurrenceMode': 'parallel'}}.get(option)
+    ctxs = [(_detailed_context(d) if option == 'detailed' else
+             h6ca_context(falc_interpolated(20), 3, device=d, **kwargs))
+            for d in ('cpu', 'cuda')]
+    steps = 1 if option == 'accum_f32' else 2
+    before = tsweep.sweep_cuda.launches
+    for ctx in ctxs:
+        for _ in range(steps):
+            ctx.formal_sol_gamma_matrices()
+            ctx.stat_equil()
+    assert tsweep.sweep_cuda.launches == before + steps
+    bar = 1e-6 if option == 'accum_f32' else 1e-9
+    for key in ('J', 'I'):
+        assert _rows(getattr(ctxs[1], key), getattr(ctxs[0], key)).max() \
+            < bar, key
+    assert ctxs[1].J.dtype == ctxs[0].J.dtype
+    if option == 'provider':
+        assert len(calls) == 2
+
+
+@pytest.mark.gpu
+def test_hprd_f32_on_cuda_by_the_rule():
+    """Hybrid PRD in float32 on the card (the small H 6 problem of
+    tests/test_torch_prd_context.py with its outflow): two MALI steps with
+    prd_redistribute launch the float32 sweep on the full grid and on the
+    PRD subset rows; then one MALI iteration on the card and on the CPU
+    from the same params, each held to the float64 iteration by
+    err(card) <= 2 err(CPU) + 1e-6 (Gamma of its maximum; J, I, JRest per
+    wavelength, each row against the larger of its CPU distance and the
+    worst over the rows where the CPU's is within 10%, as chip_smoke's
+    phase 15)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    import dataclasses
+    from lightweaver_tpu_torch.context import build_iteration_fn
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6mg_context
+    card = h6mg_context(falc_interpolated(20), 3, hprd=True, device='cuda',
+                        dtype=torch.float32)
+    cpu = h6mg_context(falc_interpolated(20), 3, hprd=True, device='cpu',
+                       dtype=torch.float32)
+    full = sub = 0
+    for _ in range(2):
+        n0 = tsweep.sweep_cuda.launches_f32
+        card.formal_sol_gamma_matrices()
+        card.stat_equil()
+        n1 = tsweep.sweep_cuda.launches_f32
+        card.prd_redistribute(maxIter=2)
+        full += n1 - n0
+        sub += tsweep.sweep_cuda.launches_f32 - n1
+    assert full == 2 and sub > 0
+    params = card.build_params()
+    out = card._iter_fn(params)
+    ref = build_iteration_fn(cpu.cfg)(_to(params, 'cpu'))
+    truth = build_iteration_fn(dataclasses.replace(
+        card.cfg, dtype=torch.float64))(params)
+    for key in ('J', 'I', 'JRest'):
+        e, e32 = _rows(out[key], truth[key]), _rows(ref[key], truth[key])
+        e32 = np.maximum(e32, e32[e32 < 0.1].max())
+        assert np.all(e <= 2.0 * e32 + 1e-6), (key, (e - 2.0 * e32).max())
+    t = truth['Gamma'][0].cpu()
+    e = ((out['Gamma'][0].cpu() - t).abs().max() / t.abs().max()).item()
+    e32 = ((ref['Gamma'][0] - t).abs().max() / t.abs().max()).item()
+    assert e <= 2.0 * e32 + 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scheme', SCHEMES)
+def test_depth_data_on_cuda_matches_cpu(scheme):
+    """One MALI step with depthData.fill under each scheme, on the card
+    and on the CPU from the same state: the capture stays on the card;
+    chi and eta per wavelength within 1e-10, I within 1e-9;
+    compute_radiative_losses of the card's capture finite and within
+    1e-9 of the CPU's relative to each wavelength's largest angle-
+    integrated chi (S + I) (the loss chi (S - I) cancels where S and I
+    meet, and I's 1e-9 carries over where I exceeds S)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
+    from lightweaver_tpu_torch.utils import compute_radiative_losses
+    ctxs = [h6ca_context(falc_interpolated(20), 3, device=d)
+            for d in ('cpu', 'cuda')]
+    for ctx in ctxs:
+        ctx.set_fs_iter_scheme(scheme)
+        ctx.depthData.fill = True
+        ctx.formal_sol_gamma_matrices()
+    cpu, card = ctxs
+    for key, bar in (('chi', 1e-10), ('eta', 1e-10), ('I', 1e-9)):
+        x = getattr(card.depthData, key)
+        assert x.is_cuda and x.shape == (cpu.cfg.Nlam, 3, 2, 20)
+        assert _rows(x, getattr(cpu.depthData, key)).max() < bar, key
+    loss, ref = (compute_radiative_losses(c) for c in (card, cpu))
+    assert np.isfinite(loss).all()
+    dd = cpu.depthData
+    chiSI = np.einsum('lmdk,m->lk', dd.eta.numpy() + (
+        cpu.bgSca.numpy() * cpu.J.numpy())[:, None, None, :]
+        + dd.chi.numpy() * dd.I.numpy(), np.asarray(cpu.atmos.wmu))
+    err = np.abs(loss - ref).max(axis=1) / np.abs(chiSI).max(axis=1)
+    assert err.max() < 1e-9

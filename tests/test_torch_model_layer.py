@@ -33,7 +33,8 @@ torch.set_num_threads(1)
 COPIED = ['constants', 'config', 'atomic_table', 'atmosphere', 'fal',
           'zeeman', 'broadening', 'ops/weno', 'collisional_rates',
           'atomic_model', 'rh_atoms', 'molecule', 'atomic_set', 'background',
-          'iteration_update', 'iterate_ctx', 'wittmann_eos']
+          'iteration_update', 'iterate_ctx', 'wittmann_eos', 'multi',
+          'utils/wavelength']
 
 # the only edits the copies may carry: data tables are read from the JAX
 # package's data directory through one helper

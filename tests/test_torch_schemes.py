@@ -102,6 +102,22 @@ def test_unsupported_configuration_raises(small, monkeypatch):
     assert tfused.fused_scheme_supported(f32)
 
 
+@pytest.mark.parametrize('scheme', SCHEMES[1:])
+def test_kernel_schemes_refuse_dense_gamma(small, scheme):
+    """As the JAX package's pallas_scheme_supported and
+    fused_scheme_supported: dense Gamma raises with their message, from
+    set_fs_iter_scheme (the scheme stays the default) and at construction;
+    no fallback."""
+    dense = Context(small.atmos, small.spect, small.eqPops, device='cpu',
+                    gammaMode='dense')
+    with pytest.raises(ValueError, match='factored Gamma'):
+        dense.set_fs_iter_scheme(scheme)
+    assert _name(dense) == 'mali_full_precond'
+    with pytest.raises(ValueError, match='factored Gamma'):
+        Context(small.atmos, small.spect, small.eqPops, device='cpu',
+                gammaMode='dense', fsIterScheme=scheme)
+
+
 def test_one_jax_params_dict_drives_every_scheme(pair):  # noqa: F811
     """params_from_numpy carries one JAX params dict unchanged into each
     scheme's iteration; each matches the JAX iteration at the slice

@@ -31,7 +31,7 @@ from lightweaver_tpu.context import Context as JContext
 from lightweaver_tpu.context import _cast_params_to_working
 from lightweaver_tpu.context import build_iteration_fn as j_build_iteration_fn
 from lightweaver_tpu.fal import Falc82 as JFalc82
-from lightweaver_tpu_torch import ExplodingMatrixError, InitialSolution
+from lightweaver_tpu_torch import ExplodingMatrixError
 from lightweaver_tpu_torch.context import Context
 from lightweaver_tpu_torch.convert import params_from_numpy
 from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
@@ -178,16 +178,18 @@ def small_inputs():
 
 @pytest.mark.parametrize('option', [
     {'formalSolver': 'piecewise_linear_2d'},
-    {'gammaMode': 'dense'},
-    pytest.param({'dtype': torch.float32, 'hprd': True}, id='dtype'),
+    {'gammaMode': 'sparse'},
     pytest.param({'dtype': torch.float16}, id='float16'),
-    {'accumDtype': torch.float32},
+    {'accumDtype': torch.float16},
     {'gammaAccum': 'pairwise'},
-    {'initSol': InitialSolution.Zero},
 ], ids=lambda o: next(iter(o)))
 def test_options_outside_the_slice_raise(small_inputs, option):
-    """Each option outside the port raises ValueError at construction;
-    the float32 state is in the slice, hybrid PRD with it is not yet."""
+    """Each option outside the port raises ValueError at construction:
+    names no package has (a gamma mode, a gamma accumulation), a 2D
+    solver on a 1D atmosphere and float16.  Dense Gamma, accumDtype
+    float32, hybrid PRD with the float32 state and every initSol are in
+    the port (tests/test_torch_context_options.py,
+    tests/test_torch_hprd_f32.py)."""
     with pytest.raises(ValueError, match='does not support'):
         Context(*small_inputs, device='cpu', **option)
 

@@ -129,7 +129,8 @@ def test_lambda_step_differs_from_the_mali_step(pair):
 
 def test_state_dict_is_host_numpy(pair):
     """Every array of the state dict is a host numpy copy; kwargs name
-    the solver, the options and the device."""
+    the solver, the options (recurrenceMode too, as in the JAX package)
+    and the device."""
     _, tctx = pair
     st = tctx.state_dict()
     for key in ('J', 'I'):
@@ -139,6 +140,7 @@ def test_state_dict_is_host_numpy(pair):
     assert st['kwargs'] == {'conserveCharge': False, 'hprd': False,
                             'formalSolver': 'piecewise_bezier3_1d',
                             'interpFn2d': 'interp_linear_2d',
+                            'recurrenceMode': 'scan',
                             'accelerateScattering': False,
                             'device': 'cpu'}
     st['J'][0, 0] += 1.0
