@@ -30,7 +30,10 @@ result):
    reference's golden run (tests/golden/falc_h6ca_ref.npz); the sweep
    kernel's launch count over that run.
 6. The same under each iteration scheme, 'mali_full_precond_pallas' and
-   'mali_full_precond_fused', with the launch counts of their kernels.
+   'mali_full_precond_fused', for SCHEME_STEPS = 40 MALI steps against
+   the default scheme's state after as many (GOLDEN_RTOL; converged
+   against golden until phase 16 needed the time), with the launch
+   counts of their kernels.
    Then a callable upper boundary whose data grow 100x between two MALI
    steps of the mixed-precision problem (f64), under the default and
    fused schemes, on the card against the CPU.
@@ -93,8 +96,9 @@ result):
    float32 instances' launches.
 11. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
    bench.py's problem) under each scheme, float64 then float32: best of 2
-   blocks of formal_sol_gamma_matrices iterations (50 for the default
-   scheme, 20 for the others) and a per-stage breakdown.
+   blocks of formal_sol_gamma_matrices iterations (30 for the default
+   scheme, 15 for the others; 50 and 20 until phase 16 needed the time)
+   and a per-stage breakdown.
 12. Spectrum synthesis, in float64 unless stated.  (a) Right after phase
    5, the README program's last call on its converged falc_h6ca:
    compute_rays(np.linspace(392.5, 394.5, 1001), mus=[1.0]) on the card
@@ -127,16 +131,18 @@ result):
    columns of each sweep and fused launch bit for bit their own
    single-column launches.  (b) BASELINE config 5's 1.5D leg: 512
    columns (halved while the card's memory refuses them) through
-   ColumnBatch.iterate(NmaxIter=400); every column converges; three
-   columns chosen with the seed, the slowest among them, re-run as
-   single card Contexts for their nIterCol iterations (populations
-   1e-9); ms per batch step, column-iterations per second against the
-   single Contexts', peak memory, one sweep launch per MALI step and the
+   ColumnBatch.iterate(NmaxIter=400); every column converges; the
+   slowest column re-run as a single card Context for 60 iterations
+   against the batch's state after as many (populations 1e-9; three
+   columns for their nIterCol iterations until phase 16 needed the
+   time); ms per batch step, column-iterations per second against
+   the single Context's, peak memory, one sweep launch per MALI step and the
    sweep's time at the batch shape.  (c) 20 steps of that batch (from
    LTE) under each scheme, populations within 1e-9 of the default's,
    one launch per stage per step, a stage breakdown and the line Gamma
    and fused kernels' times at the batch shape; then 10 float32 steps,
-   finite and contracting.  (d) 32 columns with H 6-level active,
+   finite and contracting, and the three kernels' float32 instances'
+   times and bounds at the batch shape.  (d) 32 columns with H 6-level active,
    Ly-alpha and Ly-beta in PRD, hybrid PRD, accelerateScattering and
    0-5 km/s outflows spread over the columns: 20 MALI steps with
    prd_redistribute(maxIter=3), two columns against single card
@@ -151,8 +157,8 @@ result):
    iterations, populations, J and I within 1e-8) and under
    piecewise_besser_2d (falc2d_ca_besser_ref.npz: 218, 1e-9); ms per
    iteration.  (b) BASELINE config 5's 2D leg: 82 x 256 periodic (40 km
-   columns), 12 rays, BESSER, 20 MALI steps from LTE with stat_equil after
-   each: finite, dJ contracting; ms per step, peak memory, the stage
+   columns), 12 rays, BESSER, 6 MALI steps from LTE with stat_equil after
+   each (20 until phase 16 needed the time): finite, dJ contracting; ms per step, peak memory, the stage
    breakdown and the profile (kernels per step, idle share:
    scripts/torch_profile.py); the same slab rolled by 64 columns: J and
    the populations after 3 steps equal the unrolled ones, rolled (1e-10;
@@ -177,6 +183,24 @@ result):
    initSol=InitialSolution.Zero and a detailed Ca II atom beside H 6
    active: two MALI steps each with stat_equil between, card against
    CPU.
+16. Distribution (parallel/): ranks in processes of their own
+   (multiprocessing's spawn), every rank on this card, joined by gloo
+   (NCCL refuses two ranks on one device); a rank that fails or outlives
+   DIST_DEADLINE fails the phase, and the ranks end before the parent
+   prints its last lines.  (a) Phase 13's 512 columns on a (2, 1) mesh,
+   256 per rank, 20 steps from LTE: populations and J within 1e-9 of
+   phase 13 (c)'s default scheme after as many steps, ms per batch step
+   beside it, one sweep launch per rank and step.  (b) Phase 14's 82 x
+   256 slab x-sharded over the two ranks (Context(mesh=)), 3 BESSER MALI
+   steps with stat_equil: J within 1e-10 of each wavelength's maximum
+   against phase 14's after as many, ms per step, the all_gathers per
+   step, no csrc/ kernel.  (c) 8 falc_h6ca columns on a (1, 2)
+   wavelength mesh under each scheme, 5 steps (stat_equil from the
+   fourth): the Gamma of each step within 1e-10 of the unsharded batch's
+   step from the same state (J and populations).  (d) NCCL at world size 1
+   (initialize_multihost(num_processes=1, backend='nccl')): its
+   all_reduce, all_gather and broadcast on CUDA tensors, and a 64-column
+   batch on the (1, 1) mesh equal to the unmeshed one.
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
@@ -858,13 +882,17 @@ def prd_kernel_check():
     return result
 
 
-def converge_falc_h6ca(scheme):
+def converge_falc_h6ca(scheme, nSteps=None, ref=None, snap=None):
     """falc_h6ca converged on the card under ``scheme``, held against the
-    golden run; returns (iterations, launch counts of the run)."""
+    golden run, or with ``nSteps`` for that many MALI steps and held
+    against the default scheme's snapshot ``ref`` after as many
+    (GOLDEN_RTOL); ``snap`` = (steps, list) stores the state after that
+    many steps.  Returns (Context, iterations, launch counts of the
+    run)."""
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.fal import Falc82
     from lightweaver_tpu_torch.problems import h6ca_context
-    ref = golden('falc_h6ca_ref')
+    ref = golden('falc_h6ca_ref') if nSteps is None else ref
     t0 = time.perf_counter()
     ctx = h6ca_context(Falc82(), 5, device='cuda')
     if scheme is not None:
@@ -874,12 +902,22 @@ def converge_falc_h6ca(scheme):
           f'Nk={ctx.cfg.Nk}, scheme {ctx.cfg.fsIterScheme}, built in '
           f'{time.perf_counter() - t0:.2f} s')
 
+    if snap is not None:
+        snapshot_after(ctx, *snap)
     reset_counts()
     t0 = time.perf_counter()
-    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    nIter = iterate_ctx_se(ctx, NmaxIter=nSteps or 500, quiet=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    if snap is not None:
+        del ctx.formal_sol_gamma_matrices
+    if nSteps is not None:
+        print(f'{nIter} MALI steps, {wall:.2f} s, {wall / nIter * 1e3:.3f} '
+              'ms/iter; kernel launches '
+              + ', '.join(f'{k} {v}' for k, v in counts.items() if v))
+        against_default(f'falc_h6ca under {scheme}', ctx, ref, GOLDEN_RTOL)
+        return ctx, nIter, counts
 
     nIterRef = int(ref['out_niter'][0])
     errs = {f'pops_a{ia}': relerr(ctx.popsState[ia]['n'].cpu(),
@@ -902,25 +940,35 @@ def converge_falc_h6ca(scheme):
     return ctx, nIter, counts
 
 
+# the kernel schemes' falc_h6ca runs: this many MALI steps against the
+# default scheme's state after as many (converged against golden until
+# phase 16 needed the time)
+SCHEME_STEPS = 40
+
+
 def main_path():
     """falc_h6ca under the default scheme; returns the converged Context
-    (the charge-conservation phase steps it on)."""
+    (the charge-conservation phase steps it on) and its state after
+    SCHEME_STEPS steps."""
     phase('main path: falc_h6ca on the card vs the golden reference')
-    ctx, nIter, counts = converge_falc_h6ca(None)
+    snap = []
+    ctx, nIter, counts = converge_falc_h6ca(None, snap=(SCHEME_STEPS, snap))
     if counts['sweep'] < nIter:
         raise AssertionError(f'sweep kernel launched {counts["sweep"]} '
                              f'times in {nIter} iterations')
-    return ctx
+    return ctx, snap[0]
 
 
-def scheme_paths():
-    """falc_h6ca under each kernel scheme; the launch counts show that the
-    scheme's kernel ran: the line kernel once per iteration for all its
-    groups, the fused kernel once per iteration and the sweep never."""
+def scheme_paths(ref):
+    """falc_h6ca under each kernel scheme for SCHEME_STEPS MALI steps
+    against the default scheme's state ``ref`` after as many; the launch
+    counts show that the scheme's kernel ran: the line kernel once per
+    iteration for all its groups, the fused kernel once per iteration and
+    the sweep never."""
     for scheme in (PALLAS, FUSED):
-        phase(f'scheme {scheme}: falc_h6ca on the card vs the golden '
-              'reference')
-        ctx, nIter, counts = converge_falc_h6ca(scheme)
+        phase(f'scheme {scheme}: falc_h6ca on the card, {SCHEME_STEPS} MALI '
+              'steps vs the default scheme')
+        ctx, nIter, counts = converge_falc_h6ca(scheme, SCHEME_STEPS, ref)
         if scheme == PALLAS:
             if counts['gamma'] != nIter:
                 raise AssertionError(
@@ -1205,6 +1253,9 @@ def prd_breakdown(ctx, reps=5):
 # FALC-500's timed blocks per configuration (3 until the column batch's
 # phase needed the time)
 FALC500_BLOCKS = 2
+# iterations per block under the default, _pallas and _fused schemes
+# ((50, 20, 20) until phase 16 needed the time)
+FALC500_ITERS = (30, 15, 15)
 
 
 def falc500(scheme, dtype, nIter):
@@ -2344,6 +2395,12 @@ BATCH_SEED = 1
 # says: 1.25e-10 after 20 steps of 8 columns on the CPU); (d)'s PRD
 # columns against single Contexts in lockstep
 BATCH_SINGLE_TOL = 1e-9
+# (b)'s columns re-run as single Contexts: the slowest, and this many
+# less one chosen with the seed (3 until phase 16 needed the time), for
+# this many iterations against the batch's state after as many (their
+# nIterCol iterations, with the freeze, until phase 16 needed the time)
+BATCH_SINGLE_COLUMNS = 1
+BATCH_SINGLE_STEPS = 60
 BATCH_SCHEME_TOL = 1e-9
 BATCH_SCHEME_STEPS, BATCH_F32_STEPS = 20, 10
 BATCH_PRD_C, BATCH_PRD_STEPS, BATCH_PRD_TOL = 32, 20, 1e-8
@@ -2516,9 +2573,10 @@ def batch_converged():
     (problems.column_batch: FAL-C, 82 depths, temperature x uniform(0.95,
     1.05) per column, H 6-level + Ca II active, 5 rays, 1046 wavelengths,
     float64, default scheme) through ColumnBatch.iterate(NmaxIter=400);
-    every column converges; three columns chosen with the seed (the
-    slowest among them) re-run as single card Contexts for exactly their
-    nIterCol iterations (tests/test_column_batch.py:53-63's protocol),
+    every column converges; BATCH_SINGLE_COLUMNS columns (the slowest,
+    and the others chosen with the seed) re-run as single card Contexts
+    for BATCH_SINGLE_STEPS iterations against the batch's state after as
+    many (tests/test_column_batch.py:53-63's protocol, cut in depth),
     populations within BATCH_SINGLE_TOL; ms per batch step,
     column-iterations per second against the single Contexts', peak
     memory, the sweep's launches (one per MALI step) and its device time
@@ -2535,10 +2593,12 @@ def batch_converged():
           f'{b.NkCol}), Nlam = {cfg.Nlam}, Nmu = {cfg.Nmu}, ray tensor '
           f'{2 * cfg.Nlam * cfg.Nmu * cfg.Nk * 8 / 1e9:.2f} GB; set-up '
           f'{setup:.1f} s')
-    steps = []
+    steps, snap = [], []
     fsgm = b.formal_sol_gamma_matrices
 
     def counted(*a, **k):
+        if len(steps) == BATCH_SINGLE_STEPS:
+            snap.append(b.pops)
         steps.append(1)
         return fsgm(*a, **k)
     b.formal_sol_gamma_matrices = counted
@@ -2581,22 +2641,25 @@ def batch_converged():
 
     rng = np.random.default_rng(BATCH_SEED)
     slow = int(np.argmax(n))
-    others = rng.choice(np.delete(np.arange(C), slow), 2, replace=False)
-    pops = b.pops
+    others = rng.choice(np.delete(np.arange(C), slow),
+                        BATCH_SINGLE_COLUMNS - 1, replace=False)
+    pops = snap[0]
     singleMs = []
     for c in [slow] + sorted(int(x) for x in others):
         ctx = single_column_context(c, C=C)
         t0 = time.perf_counter()
-        for k in range(int(n[c])):
+        for k in range(BATCH_SINGLE_STEPS):
             ctx.formal_sol_gamma_matrices()
             if k >= 3:
                 ctx.stat_equil()
         torch.cuda.synchronize()
-        singleMs.append((time.perf_counter() - t0) / int(n[c]) * 1e3)
+        singleMs.append((time.perf_counter() - t0) / BATCH_SINGLE_STEPS
+                        * 1e3)
         errs = [relerr(pops[ai][c], ctx.popsState[ai]['n'].cpu())
                 for ai in range(len(pops))]
-        print(f'  column {c} ({n[c]} iterations) as a single card Context: '
-              f'populations max rel ' + ', '.join(f'{e:.2e}' for e in errs)
+        print(f'  column {c} (converged in {n[c]} iterations) as a single '
+              f'card Context, after {BATCH_SINGLE_STEPS} iterations: '
+              'populations max rel ' + ', '.join(f'{e:.2e}' for e in errs)
               + f' (bar {BATCH_SINGLE_TOL}); {singleMs[-1]:.2f} ms/iter')
         if not max(errs) < BATCH_SINGLE_TOL:
             raise AssertionError(f'batch column {c} differs from its single '
@@ -2617,7 +2680,9 @@ def batch_schemes(converged):
     BATCH_SCHEME_TOL of the default's, one launch of each stage's kernel
     per step, the line Gamma and fused kernels' device times at the batch
     shape; then BATCH_F32_STEPS steps in float32, finite and
-    contracting.  The float64 runs restart (b)'s batch from LTE."""
+    contracting.  The float64 runs restart (b)'s batch from LTE.  Returns
+    the default scheme's populations, J and ms per batch step (phase 16's
+    reference)."""
     from lightweaver_tpu_torch.ops import fused, gamma
     C = converged.Ncol
     phase(f'column batch (c): {C} columns, {BATCH_SCHEME_STEPS} MALI steps '
@@ -2639,6 +2704,9 @@ def batch_schemes(converged):
         pops = b.pops
         if ref is None:
             ref, err = pops, 0.0
+            # phase 16 (a)'s reference: the default scheme's state
+            default = {'pops': pops, 'J': b.J,
+                       'ms': wall / BATCH_SCHEME_STEPS * 1e3}
         else:
             err = max(relerr(p, r) for p, r in zip(pops, ref))
         print(f'  {scheme}: {wall / BATCH_SCHEME_STEPS * 1e3:.2f} ms per '
@@ -2707,7 +2775,46 @@ def batch_schemes(converged):
         raise AssertionError(f'float32 batch: finite {finite}, dJ {dJ}')
     if counts != {'sweep_f32': BATCH_F32_STEPS}:
         raise AssertionError(f'float32 batch launches {counts}')
+    batch_f32_kernels(b)
     del b
+    torch.cuda.empty_cache()
+    return default
+
+
+def batch_f32_kernels(b):
+    """The float32 instances of the sweep, line Gamma and fused kernels at
+    the batch shape (BATCH_C columns), on the inputs of the float32
+    batch's last step: device time per launch and the bound."""
+    from lightweaver_tpu_torch.context import fused_pack, line_pack
+    from lightweaver_tpu_torch.ops import fused, gamma, sweep
+    it, params, C = b._iter_fn, b.params, b.Ncol
+    scaJ = it.scaJ(params)
+    chi, src = it.gather(params, scaJ)
+    args = it.sweep_inputs(params, chi, src)
+    rays = sweep.formal_solve_sweep(*args)
+    bnd = sweep_bound(args, rays)
+    k1, k2 = kernel_device_ms(lambda: sweep.formal_solve_sweep(*args),
+                              SYMBOLS['sweep'], reps=10)
+    print(f'  float32 sweep kernel, {C} columns: {k1:.3f} / {k2:.3f} ms per '
+          f'launch{bound_text(bnd)}')
+    del args
+    table = line_pack(b.cfg, params)
+    args = it.line_inputs(params, *rays[:3], src, table)
+    k1, k2 = kernel_device_ms(lambda: gamma.line_gamma_rates(*args),
+                              SYMBOLS['gamma'], reps=10)
+    print(f'  float32 line Gamma kernel, {C} columns: {k1:.3f} / {k2:.3f} ms '
+          f'per launch{bound_text(gamma_bound(args))}')
+    del args, table, rays, chi, src
+    torch.cuda.empty_cache()
+    args = it.fused_inputs(params, scaJ, fused_pack(b.cfg, params))
+    out = fused.fused_lambda_step(*args)
+    bnd = fused_bound(args, out)
+    del out
+    k1, k2 = kernel_device_ms(lambda: fused.fused_lambda_step(*args),
+                              SYMBOLS['fused'], reps=10)
+    print(f'  float32 fused kernel, {C} columns: {k1:.3f} / {k2:.3f} ms per '
+          f'launch{bound_text(bnd)}')
+    del args
     torch.cuda.empty_cache()
 
 
@@ -2793,7 +2900,8 @@ GOLDEN_2D = (('piecewise_linear_2d', 'falc2d_ca_ref', True, 1e-8),
 # takes the ring scans' rounding, which depends on the columns' order, to
 # ~1e-9 in populations eight decades below their level's maximum)
 SLAB_2D = (82, 256, 6)
-SLAB_2D_STEPS = 20
+# (20 steps until phase 16 needed the time)
+SLAB_2D_STEPS = 6
 SLAB_2D_ROLL = 64
 SLAB_2D_ROLL_STEPS = 3
 SLAB_2D_ROLL_TOL = 1e-10
@@ -2869,7 +2977,8 @@ def slab_2d_real():
     formal solve against gamma_rates, host clock) and the profile (kernels
     per step, idle share: scripts/torch_profile.py); then the same slab
     rolled by SLAB_2D_ROLL columns against the unrolled one, rolled, after
-    SLAB_2D_ROLL_STEPS steps.  Returns the numbers printed."""
+    SLAB_2D_ROLL_STEPS steps.  Returns the numbers printed and J after
+    SLAB_2D_ROLL_STEPS steps (phase 16 (b)'s reference)."""
     from lightweaver_tpu_torch.problems import slab_2d
     sys.path.insert(0, str(ROOT / 'scripts'))
     from torch_profile import profile_problem
@@ -2921,6 +3030,7 @@ def slab_2d_real():
     def roll(x):
         return x.view(x.shape[0], Nz, Nx).roll(SLAB_2D_ROLL, dims=-1) \
             .reshape(x.shape)
+    snapJ = snap[0].cpu().numpy()
     J0, n0 = (roll(x) for x in snap)
     errJ = float(((rolled.J - J0).abs() / J0.abs()).max())
     n = rolled.popsState[0]['n']
@@ -2933,7 +3043,7 @@ def slab_2d_real():
         raise AssertionError(f'the 2D roll check: J {errJ}, pops {errN}')
     del rolled, snap, J0, n0
     torch.cuda.empty_cache()
-    return {'ms_per_step': sPerStep * 1e3, 'peak_gib': peak,
+    return {'ms_per_step': sPerStep * 1e3, 'peak_gib': peak, 'J3': snapJ,
             'stages_ms': {k: v * 1e3 for k, v in stages.items()},
             'profile': prof}
 
@@ -3364,6 +3474,322 @@ def context_options():
     return {'launches': total, 'hprd_ms': hprd['ms']}
 
 
+# ---- phase 16: distribution over ranks ----------------------------------
+# the ranks of (a)-(c), all on this one card: NCCL refuses two ranks on
+# one device, so they are joined by gloo (CUDA tensors staged through the
+# host); (d) is NCCL at world size 1
+DIST_RANKS = 2
+# seconds each spawn may take before its ranks are killed
+DIST_DEADLINE = 600
+# (a) against phase 13 (c)'s default scheme after as many steps: the
+# columns axis changes no column's arithmetic
+DIST_BATCH_TOL = 1e-9
+# (b) against phase 14's slab after SLAB_2D_ROLL_STEPS steps: the ring
+# closure across ranks reassociates the affine compositions
+DIST_SLAB_TOL = 1e-10
+# (c) falc_h6ca-shaped columns on a (1, 2) mesh under each scheme: the
+# Gamma of each of DIST_LAMBDA_STEPS steps against the unsharded batch's
+# step from the same state (the lambda sums split in two; free-running,
+# the first stat_equil takes their ~1e-16 to ~4e-10 of Gamma)
+DIST_LAMBDA_C, DIST_LAMBDA_STEPS, DIST_LAMBDA_TOL = 8, 5, 1e-10
+# (d) a batch on a (1, 1) NCCL mesh against the same batch without one
+DIST_NCCL_C, DIST_NCCL_STEPS = 64, 5
+
+
+def _rank_entry(target, rank, world, workdir, args):
+    """A spawned rank: target(rank, world, workdir, *args) with its result
+    pickled to workdir/rank<r>.pkl, or its traceback to rank<r>.err and
+    exit code 1.  A rank prints nothing."""
+    import os
+    import pickle
+    import traceback
+    base = Path(workdir) / f'rank{rank}'
+    try:
+        result = target(rank, world, workdir, *args)
+        with open(f'{base}.pkl', 'wb') as f:
+            pickle.dump(result, f, protocol=4)
+    except BaseException:
+        Path(f'{base}.err').write_text(traceback.format_exc())
+        os._exit(1)
+
+
+def spawn_ranks(target, world, args=()):
+    """Run target on ``world`` spawned processes; kill them all when one
+    fails or DIST_DEADLINE passes (then raise); return their results in
+    rank order."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_ranks_')
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(target, r, world, workdir, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_DEADLINE
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f'{target.__name__}: the ranks ran past '
+                                     f'{DIST_DEADLINE} s')
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        errs = [(Path(workdir) / f'rank{r}.err') for r in range(world)]
+        errs = [f'rank {r}: {e.read_text()}' for r, e in enumerate(errs)
+                if e.exists()]
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f'{target.__name__}: rank exit codes {codes}\n'
+                             + '\n'.join(errs))
+    out = []
+    for r in range(world):
+        with open(Path(workdir) / f'rank{r}.pkl', 'rb') as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def gamma_err(ours, ref):
+    """max |ours - ref| / max(|ref|, 1e-10 max |ref|) over every atom's
+    Gamma."""
+    err = 0.0
+    for a, b in zip(ours, ref):
+        a, b = np.asarray(a), np.asarray(b)
+        floor = 1e-10 * np.abs(b).max()
+        err = max(err, float((np.abs(a - b) / np.maximum(np.abs(b), floor))
+                             .max()))
+    return err
+
+
+def dist_rank(rank, world, workdir):
+    """The ranks of phase 16 (a)-(c), joined by gloo with a file://
+    rendezvous, each on the card.  Returns its numbers; rank 0 also the
+    gathered states that the parent checks."""
+    import torch.distributed as dist
+    from lightweaver_tpu_torch.parallel import make_mesh
+    from lightweaver_tpu_torch.parallel.multihost import initialize_multihost
+    from lightweaver_tpu_torch.parallel.xshard2d import make_x_mesh
+    from lightweaver_tpu_torch.problems import column_batch, slab_2d
+    initialize_multihost(init_method=f'file://{workdir}/rendezvous',
+                         num_processes=world, process_id=rank,
+                         backend='gloo')
+    out = {}
+
+    # (a) the 512-column batch, each rank its block of columns
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(world, 1)
+    t0 = time.perf_counter()
+    b = column_batch(BATCH_C, seed=BATCH_SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    b.iterate(NmaxIter=BATCH_SCHEME_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out['batch'] = {'Ncol': b.Ncol, 'setup': setup,
+                    'ms': wall / BATCH_SCHEME_STEPS * 1e3,
+                    'launches': {k: v for k, v in read_counts().items() if v},
+                    'peak': torch.cuda.max_memory_allocated() / 2 ** 30}
+    pops, J = b.pops, b.J
+    if rank == 0:
+        out['batch'].update(pops=pops, J=J)
+    del b, pops, J
+    torch.cuda.empty_cache()
+
+    # (b) the 82 x 256 slab, each rank its block of x columns
+    Nz, Nx, nq = SLAB_2D
+    torch.cuda.reset_peak_memory_stats()
+    xmesh = make_x_mesh(world)
+    t0 = time.perf_counter()
+    ctx = slab_2d(Nz, Nx, periodic=True, quadrature=nq,
+                  formalSolver='piecewise_besser_2d', mesh=xmesh)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    xs = ctx.cfg.xShard
+    dist.barrier()
+    reset_counts()
+    n0 = xs.collectives
+    dJ, sPerStep, _ = slab_2d_steps(ctx, SLAB_2D_ROLL_STEPS)
+    out['slab'] = {'Nx': ctx.cfg.Nx, 'build': build, 'dJ': dJ,
+                   'ms': sPerStep * 1e3,
+                   'collectives': (xs.collectives - n0) / SLAB_2D_ROLL_STEPS,
+                   'launches': {k: v for k, v in read_counts().items() if v},
+                   'peak': torch.cuda.max_memory_allocated() / 2 ** 30}
+    J = ctx.gather_x(ctx.J)
+    if rank == 0:
+        out['slab']['J'] = J.cpu().numpy()
+    del ctx, J
+    torch.cuda.empty_cache()
+
+    # (c) the wavelength axis under each scheme, in lockstep: rank 0 runs
+    # each step of the unsharded batch from the sharded batch's state
+    lamMesh = make_mesh(1, world)
+    out['lambda'] = {}
+    for scheme in SCHEMES:
+        b = column_batch(DIST_LAMBDA_C, seed=BATCH_SEED, mesh=lamMesh,
+                         fsIterScheme=scheme)
+        u = (column_batch(DIST_LAMBDA_C, seed=BATCH_SEED,
+                          fsIterScheme=scheme) if rank == 0 else None)
+        errs, wall, counts = [], 0.0, {}
+        for k in range(DIST_LAMBDA_STEPS):
+            J = b._lam_rows(b.params['J'], 0)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            b.formal_sol_gamma_matrices()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            for name, n in read_counts().items():
+                if n:
+                    counts[name] = counts.get(name, 0) + n
+            if u is not None:
+                u.params['J'] = J
+                u.params['pops'] = list(b.params['pops'])
+                u.formal_sol_gamma_matrices()
+                errs.append(gamma_err([g.cpu().numpy() for g in b._Gamma],
+                                      [g.cpu().numpy() for g in u._Gamma]))
+            if k >= 3:
+                b.stat_equil()
+        out['lambda'][scheme] = {
+            'ms': wall / DIST_LAMBDA_STEPS * 1e3, 'errs': errs,
+            'rows': (b.cfg.lamLo, b.cfg.lamHi), 'launches': counts}
+        del b, u
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def nccl_rank(rank, world, workdir):
+    """Phase 16 (d): initialize_multihost(num_processes=1,
+    backend='nccl'); all_reduce (sum, max, min), all_gather and broadcast
+    of CUDA tensors through NCCL; a DIST_NCCL_C-column batch on the
+    (1, 1) mesh against the same batch without a mesh."""
+    import torch.distributed as dist
+    from lightweaver_tpu_torch.parallel import multihost as mh
+    from lightweaver_tpu_torch.problems import column_batch
+    mh.initialize_multihost(num_processes=1, backend='nccl')
+    x = torch.arange(1.0, 5.0, dtype=torch.float64, device='cuda')
+    checks = {'backend': dist.get_backend()}
+    for op in (dist.ReduceOp.SUM, dist.ReduceOp.MAX, dist.ReduceOp.MIN):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        checks[str(op)] = bool(torch.equal(y, x))
+    ys = [torch.empty_like(x)]
+    dist.all_gather(ys, x)
+    y = x.clone()
+    dist.broadcast(y, 0)
+    checks['all_gather'] = bool(torch.equal(ys[0], x))
+    checks['broadcast'] = bool(torch.equal(y, x))
+    mesh = mh.global_mesh()
+    bs = column_batch(DIST_NCCL_C, seed=BATCH_SEED, mesh=mesh)
+    bu = column_batch(DIST_NCCL_C, seed=BATCH_SEED)
+    for b in (bs, bu):
+        b.iterate(NmaxIter=DIST_NCCL_STEPS)
+    err = max(relerr(a, r) for a, r in zip(bs.pops, bu.pops))
+    dist.destroy_process_group()
+    return {'checks': checks, 'err': err, 'mesh': tuple(mesh.mesh.shape)}
+
+
+def distribution(batchRef, slabRef):
+    """Phase 16: the port's distribution (parallel/) on the card.  (a)
+    BASELINE config 5's 1.5D leg, 512 columns, on a (2, 1) mesh of two
+    gloo ranks (256 columns each), BATCH_SCHEME_STEPS steps from LTE
+    (ColumnBatch.iterate): populations and J within DIST_BATCH_TOL of
+    phase 13 (c)'s default scheme after as many steps, ms per batch step
+    beside its.  (b) The 82 x 256 slab x-sharded over the two ranks
+    (Context(mesh=), 128 columns each), SLAB_2D_ROLL_STEPS BESSER MALI
+    steps with stat_equil: J per wavelength within DIST_SLAB_TOL of that
+    wavelength's maximum against phase 14's single-rank slab after as
+    many, ms per step and the collectives per step.  (c) DIST_LAMBDA_C
+    falc_h6ca columns on a (1, 2) mesh under each scheme,
+    DIST_LAMBDA_STEPS steps: the Gamma of each within DIST_LAMBDA_TOL of
+    the unsharded batch's step from the same state.  (d) NCCL at world size 1 (nccl_rank).  Every rank
+    runs on this card; one that fails or outlives DIST_DEADLINE fails the
+    phase."""
+    Nz, Nx, _ = SLAB_2D
+    phase(f'distribution (a)-(c): {DIST_RANKS} gloo ranks on this card: '
+          f'{BATCH_C} columns on a ({DIST_RANKS}, 1) mesh, the {Nz} x {Nx} '
+          f'slab x-sharded, a (1, {DIST_RANKS}) wavelength mesh')
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f'  card memory before spawning: {free / 2**30:.1f} of '
+          f'{total / 2**30:.1f} GiB free (single-rank peaks: the batch '
+          f'35.5, the slab 24.0 GiB; each rank holds about half)')
+    ranks = spawn_ranks(dist_rank, DIST_RANKS)
+    r0 = ranks[0]
+
+    a = r0['batch']
+    errPops = max(relerr(p, q) for p, q in zip(a['pops'], batchRef['pops']))
+    errJ = relerr(a['J'], batchRef['J'])
+    print(f'  (a) {DIST_RANKS} ranks x {a["Ncol"]} columns: '
+          f'{a["ms"]:.1f} ms per batch step (rank 1 '
+          f'{ranks[1]["batch"]["ms"]:.1f}; phase 13 (c) on one rank '
+          f'{batchRef["ms"]:.1f}), set-up {a["setup"]:.1f} s, peak '
+          + ' / '.join(f'{r["batch"]["peak"]:.2f}' for r in ranks)
+          + f' GiB per rank; launches per rank {a["launches"]}; after '
+          f'{BATCH_SCHEME_STEPS} steps against phase 13: populations '
+          f'{errPops:.2e}, J {errJ:.2e} (bar {DIST_BATCH_TOL})')
+    if not (errPops < DIST_BATCH_TOL and errJ < DIST_BATCH_TOL):
+        raise AssertionError(f'the sharded batch differs: pops {errPops}, '
+                             f'J {errJ}')
+    if a['launches'] != {'sweep': BATCH_SCHEME_STEPS}:
+        raise AssertionError(f'the sharded batch launched {a["launches"]}')
+
+    sl = r0['slab']
+    J, ref = sl['J'], slabRef['J3']
+    errSlab = float((np.abs(J - ref).max(axis=1)
+                     / np.abs(ref).max(axis=1)).max())
+    print(f'  (b) {DIST_RANKS} ranks x {sl["Nx"]} columns: {sl["ms"]:.1f} ms '
+          f'per MALI step (rank 1 {ranks[1]["slab"]["ms"]:.1f}; phase 14 on '
+          f'one rank {slabRef["ms_per_step"]:.1f}, stat_equil included), '
+          f'{sl["collectives"]:.0f} all_gathers per step, Context built in '
+          f'{sl["build"]:.1f} s, peak '
+          + ' / '.join(f'{r["slab"]["peak"]:.2f}' for r in ranks)
+          + f' GiB per rank; dJ ' + ' '.join(f'{d:.3g}' for d in sl['dJ'])
+          + f'; J after {SLAB_2D_ROLL_STEPS} steps against phase 14 '
+          f'{errSlab:.2e} of each wavelength\'s maximum (bar '
+          f'{DIST_SLAB_TOL})')
+    no_kernel_launched('the x-sharded slab', sl['launches'])
+    if not errSlab <= DIST_SLAB_TOL:
+        raise AssertionError(f'the x-sharded slab differs: {errSlab}')
+
+    for scheme, res in r0['lambda'].items():
+        print(f'  (c) {scheme}: rows {res["rows"]} of rank 0, '
+              f'{res["ms"]:.1f} ms per MALI step, launches per rank '
+              f'{res["launches"]} in {DIST_LAMBDA_STEPS} steps; Gamma of each '
+              f'step against the unsharded step from the same state '
+              + ' '.join(f'{e:.2e}' for e in res['errs'])
+              + f' (bar {DIST_LAMBDA_TOL})')
+        if not max(res['errs']) < DIST_LAMBDA_TOL:
+            raise AssertionError(f'{scheme} on the wavelength mesh differs: '
+                                 f'{res["errs"]}')
+        if not res['launches']:
+            raise AssertionError(f'{scheme} on the wavelength mesh launched '
+                                 'no kernel')
+
+    phase(f'distribution (d): NCCL at world size 1, {DIST_NCCL_C} columns '
+          'on a (1, 1) mesh')
+    (d,) = spawn_ranks(nccl_rank, 1)
+    print(f'  backend {d["checks"]["backend"]}, mesh {d["mesh"]}; collectives '
+          + ', '.join(f'{k} {v}' for k, v in d['checks'].items()
+                      if k != 'backend')
+          + f'; populations after {DIST_NCCL_STEPS} steps against no mesh '
+          f'{d["err"]:.2e}')
+    if not (all(v for k, v in d['checks'].items() if k != 'backend')
+            and d['checks']['backend'] == 'nccl' and d['err'] < 1e-12):
+        raise AssertionError(f'NCCL at world size 1: {d}')
+
+
 # ---- the least time the card could take for a kernel's work -----------
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # peak rates outside the tensor cores, float32 and float64, from NVIDIA's
@@ -3484,9 +3910,9 @@ def main():
     probes = probe_check()
     kernel_check()
     scheme_kernel_check()
-    nrCtx = main_path()
+    nrCtx, schemeRef = main_path()
     raysMs = readme_rays(nrCtx)
-    scheme_paths()
+    scheme_paths(schemeRef)
     callable_bc_check()
     prdKern = prd_kernel_check()
     launches = prd_paths()
@@ -3525,11 +3951,11 @@ def main():
         counts = falc_h6ca_f32(scheme)
         for k in F32_NAMES:
             f32Launches[k] += counts[k]
-    for scheme, nIter in zip(SCHEMES, (50, 20, 20)):
+    for scheme, nIter in zip(SCHEMES, FALC500_ITERS):
         for dtype in (torch.float64, F32):
             falc500(scheme, dtype, nIter)
     batch_kernel_check()
-    batch_schemes(batch_converged())
+    batchRef = batch_schemes(batch_converged())
     batch_prd()
     # phase 14, 2D: torch ops only (the JAX package runs no Pallas kernel
     # there), each run checked to launch no csrc/ kernel
@@ -3539,6 +3965,10 @@ def main():
     # phase 15, the Context options: the sweep (f64, f32), line Gamma and
     # fused kernels on their paths
     options = context_options()
+    # phase 16, distribution: ranks in processes of their own, against
+    # phases 13 and 14
+    distribution(batchRef, slab)
+    del batchRef
     # the kernels' record: the float64 instances on the PRD path (phase 8's
     # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
     # path (phase (c)'s launches, phase (a)'s inputs), the probes; phase

@@ -26,7 +26,10 @@ global defaults.  From a converged state the Context synthesises spectra:
 formal_sol, compute_rays and the full-Stokes single_stokes_fs, with
 state_dict and pickling to carry the state; depthData and utils'
 postprocessing give the depth-resolved diagnostics.  The 1.5D column
-batch (parallel.ColumnBatch) and 2D atmospheres run on one device.  The
+batch (parallel.ColumnBatch) runs on one device or over a ('columns',
+'wavelength') mesh of ranks (parallel.make_mesh, parallel.multihost),
+and a 2D atmosphere's x axis shards over ranks (Context(mesh=),
+parallel.xshard2d), one process per rank through torch.distributed.  The
 exports are the JAX package's, but ``benchmark``.
 
 ``ref:`` comments name files of the upstream Lightweaver source tree

@@ -18,7 +18,14 @@ Context options of the JAX package on one device are all taken: dense
 Gamma (gammaMode='dense', the non-factored branch of gamma_rates), every
 initSol, a backgroundProvider in place of basic_background, the
 recurrenceMode names (each runs the port's sweep) and the full-resolution
-depthData capture.  Everything outside that (mesh=, a 3D atmosphere)
+depthData capture.  Over ranks (one process each, torch.distributed):
+Context(mesh=) on a 2D atmosphere block-shards x (parallel/xshard2d.py:
+each rank iterates its block of columns, the plane sweep exchanging
+halos and closing the ring across the ranks), and a wavelength group
+(IterConfig.lamLo/lamHi/lamGroup, parallel/columns.py's 'wavelength'
+axis) runs the MALI step on a block of rows with one all_reduce of
+Gamma and the rates (build_iteration_fn).  Everything outside that (a 3D
+atmosphere, mesh= on 1D, the options the sharded Context does not take)
 raises ValueError rather than running something else.
 
 Precision, as in the JAX package: a float64 state, or a float32 working
@@ -69,6 +76,7 @@ dense Gamma or a 2D atmosphere.
 import copy
 import dataclasses
 from dataclasses import dataclass, field
+from functools import partial
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
@@ -254,6 +262,18 @@ class IterConfig:
     xPeriodic: bool = True
     geom2d: Optional[Dict] = None
     interpFn2d: str = 'interp_linear_2d'
+    # the wavelength axis of a mesh (parallel/columns.py): this rank's
+    # rows [lamLo, lamHi) of the grid and the process group over which
+    # build_iteration_fn reduces Gamma, the rates and dJ (None: the whole
+    # grid on this rank)
+    lamLo: int = 0
+    lamHi: Optional[int] = None
+    lamGroup: Optional[object] = None
+    # the x axis of a 2D atmosphere block-sharded over ranks (Context(mesh=),
+    # parallel/xshard2d.py:XShard): Nx and Nk are then this rank's block;
+    # __post_init__ puts each direction's ray group in the block's frame
+    # (rays2dX[d], parallel/xshard2d.py:shard_ray_group)
+    xShard: Optional[object] = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -276,6 +296,11 @@ class IterConfig:
                                 for mu in range(self.Nmu)], periodic,
                                self.device, self.dtype)
                 for toObs in (False, True)]
+        self.rays2dX = None
+        if self.xShard is not None:
+            from .parallel.xshard2d import shard_ray_group
+            self.rays2dX = [shard_ray_group(g, self.xShard)
+                            for g in self.rays2d]
 
     def tensor(self, x):
         """A copy of x in the working dtype on the device."""
@@ -573,21 +598,29 @@ def formal_solve_2d(cfg: IterConfig, params, chiTot, srcNum):
     (sweep_rays_2d) written into the [2, Nlam, Nmu, Nk] layout (k = z Nx +
     x); then the angular moments (ops/sweep.py:angular_moments).  The JAX
     package's formal_solve_2d (lightweaver_tpu/context.py:791-882), which
-    loops over (mu, direction).  Returns (I, Psi, IeffBase, moments)."""
+    loops over (mu, direction).  With cfg.xShard (Context(mesh=)) the
+    tensors hold this rank's block of x columns and both the start plane
+    and the sweep are parallel/xshard2d.py's, their halos exchanged
+    across the ranks.  Returns (I, Psi, IeffBase, moments)."""
     NL, Nmu, Nz, Nx = chiTot.shape[1], cfg.Nmu, cfg.Nz, cfg.Nx
     shape = (NL, Nmu, Nz, Nx)
     I, Psi, IeffBase = (torch.empty_like(chiTot) for _ in range(3))
     T2 = params['temperature'].view(Nz, Nx)
     interp, alongRay = _schemes_2d(cfg)
+    xs = cfg.xShard
+    start, sweep = fs2d.thermalised_start_2d, fs2d.sweep_rays_2d
+    if xs is not None:
+        from .parallel import xshard2d
+        start = partial(xshard2d.thermalised_start_xsharded, shard=xs)
+        sweep = partial(xshard2d.sweep_rays_2d_xsharded, shard=xs)
     for d in range(2):
-        group = cfg.rays2d[d]
+        group = cfg.rays2d[d] if xs is None else cfg.rays2dX[d]
         chi = chiTot[d].view(shape)
         thermalised = cfg.lowerThermalised if d == 1 else cfg.upperThermalised
         i0, i1 = (Nz - 1, Nz - 2) if d == 1 else (0, 1)
         if thermalised:
-            Iupw = fs2d.thermalised_start_2d(chi[:, :, i0], chi[:, :, i1],
-                                             T2[i0], T2[i1], cfg.wavelengthT,
-                                             group)
+            Iupw = start(chi[:, :, i0], chi[:, :, i1], T2[i0], T2[i1],
+                         cfg.wavelengthT, group)
         else:
             Iupw = chiTot.new_zeros((NL, Nmu, Nx))
         Ibc = None
@@ -597,10 +630,10 @@ def formal_solve_2d(cfg: IterConfig, params, chiTot, srcNum):
             # z-BC plane loop, which skips it)
             Ibc = _x_inflow(cfg, params, d)
             Iupw = torch.where(group['fixedNat'], Ibc[:, :, i0, None], Iupw)
-        fs2d.sweep_rays_2d(chi, group, Iupw, srcNum=srcNum[d].view(shape),
-                           Ibc=Ibc, interp=interp, alongRay=alongRay,
-                           out=(I[d].view(shape), Psi[d].view(shape),
-                                IeffBase[d].view(shape)))
+        sweep(chi, group, Iupw, srcNum=srcNum[d].view(shape), Ibc=Ibc,
+              interp=interp, alongRay=alongRay,
+              out=(I[d].view(shape), Psi[d].view(shape),
+                   IeffBase[d].view(shape)))
     return I, Psi, IeffBase, angular_moments(I, Psi, IeffBase, srcNum,
                                              cfg.wmuT)
 
@@ -808,6 +841,11 @@ def line_pack(cfg: IterConfig, params):
     groups = []
     for ai, a in enumerate(cfg.activeAtoms):
         for members in gammaOps.line_groups(a):
+            # a wavelength block (wavelength_block) leaves the lines
+            # outside its rows without any
+            members = [ti for ti in members if a.trans[ti].W > 0]
+            if not members:
+                continue
             ts = [a.trans[ti] for ti in members]
             K = len(ts)
             row0 = min(t.Nblue for t in ts)
@@ -830,6 +868,8 @@ def line_pack(cfg: IterConfig, params):
                 'wphi': torch.stack([params['wphi'][ai][ti]
                                      for ti in members]).to(cfg.dtype),
                 'statics': gammaOps.group_statics(ts)})
+    if not groups:
+        return None
     return gammaOps.LineTable(groups, [a.Nlevel for a in cfg.activeAtoms],
                               cfg.Nmu, cfg.Nk)
 
@@ -1102,7 +1142,7 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
         PsiEtaBar = zeros(cfg.Nlam, Nk, dtype=adt)
         for ti, t in enumerate(a.trans if factored else ()):
             sl = slice(t.Nblue, t.Nred)
-            if t.isLine and lt is not None:
+            if t.isLine and lt is not None and ti in lt['line']:
                 PsiEtaBar[sl] += kernel_rows(ti, 'etaPsiBar', t.Nblue,
                                              t.Nred).to(adt)
                 continue
@@ -1116,7 +1156,7 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
         Rij, Rji = [], []
         for ti, t in enumerate(a.trans):
             sl = slice(t.Nblue, t.Nred)
-            if t.isLine and lt is not None:
+            if t.isLine and lt is not None and ti in lt['line']:
                 # the kernel's lambda-block partials, summed here in adt
                 G4 = lt['line'][ti]['G4'].to(adt)
                 Gamma[t.i, t.j] += torch.sum(G4[0], dim=0)
@@ -1185,6 +1225,106 @@ def _sca_j(cfg: IterConfig, params):
     return params['bgSca'] * params['J'].to(cfg.dtype)
 
 
+# ---- the wavelength axis of a mesh ---------------------------------------
+def lambda_block(Nlam: int, index: int, size: int) -> Tuple[int, int]:
+    """Rank ``index``'s contiguous block [lo, hi) of ``size`` blocks of
+    the Nlam rows of the grid."""
+    return index * Nlam // size, (index + 1) * Nlam // size
+
+
+def _window_rows(t: TransStatic, lo: int, hi: int) -> Tuple[int, int]:
+    """(first, count): the rows of transition t's window that lie in the
+    grid rows [lo, hi), as an offset into the window ((0, 0) for none)."""
+    a = min(max(lo - t.Nblue, 0), t.W)
+    b = min(max(hi - t.Nblue, 0), t.W)
+    return (a, b - a) if b > a else (0, 0)
+
+
+def wavelength_block(cfg: IterConfig) -> IterConfig:
+    """cfg on the rows [lamLo, lamHi) alone, with no wavelength group: the
+    grid cut to the block and every transition's window clipped to it and
+    counted from its first row (zero rows for a transition outside it;
+    the clipped windows keep their global integration weights)."""
+    lo, hi = cfg.lamLo, cfg.lamHi
+
+    def clip(t: TransStatic):
+        a, n = _window_rows(t, lo, hi)
+        rows = slice(a, a + n)
+        nb = t.Nblue + a - lo if n else 0
+        return dataclasses.replace(
+            t, Nblue=nb, Nred=nb + n, wavelength=t.wavelength[rows],
+            wlambda=t.wlambda[rows],
+            alpha=None if t.alpha is None else t.alpha[rows])
+
+    def atoms(lst):
+        return [dataclasses.replace(a, trans=[clip(t) for t in a.trans])
+                for a in lst]
+
+    return dataclasses.replace(
+        cfg, activeAtoms=atoms(cfg.activeAtoms),
+        detailedAtoms=atoms(cfg.detailedAtoms), Nlam=hi - lo,
+        wavelength=cfg.wavelength[lo:hi], lamLo=0, lamHi=None, lamGroup=None)
+
+
+def _block_params(cfg: IterConfig, params):
+    """params of the full grid cut to the rows [lamLo, lamHi): J (unless
+    it holds the block already), the background, the z boundaries' data
+    rows and each transition's window of phi and rho."""
+    lo, hi = cfg.lamLo, cfg.lamHi
+    p = dict(params)
+    if p['J'].shape[0] == cfg.Nlam:
+        p['J'] = p['J'][lo:hi]
+    for key in ('bgChi', 'bgEta', 'bgSca', 'upperBcData', 'lowerBcData'):
+        if p.get(key) is not None:
+            p[key] = p[key][lo:hi]
+    for key, dim in (('phi', 1), ('rhoPrd', 0)):
+        if p.get(key) is None:
+            continue
+        p[key] = [[None if x is None else
+                   x.narrow(dim, *_window_rows(t, lo, hi))
+                   for x, t in zip(row, a.trans)]
+                  for row, a in zip(p[key], cfg.allAtoms)]
+    return p
+
+
+def _wavelength_block_fn(cfg: IterConfig):
+    """build_iteration_fn on a rank of a wavelength group: the MALI step of
+    wavelength_block(cfg) over its rows, then ONE all_reduce(SUM) of every
+    Gamma and rate of every active atom over cfg.lamGroup (their lambda
+    sums are over the block alone; the collisional term enters on the rank
+    of the first block only) and an all_reduce(MAX) of dJ.  J and the
+    emergent I stay the block's rows."""
+    from .ops.collectives import all_reduce
+    bcfg = wavelength_block(cfg)
+    inner = build_iteration_fn(bcfg)
+    group = cfg.lamGroup
+
+    def pack(params):
+        return inner.pack(_block_params(cfg, params))
+
+    def iteration(params, lambdaIterate=False, storeDepthData=False):
+        bp = _block_params(cfg, params)
+        if cfg.lamLo > 0:
+            bp['C'] = [c.new_zeros(()).expand_as(c) for c in bp['C']]
+        out = inner(bp, lambdaIterate=lambdaIterate,
+                    storeDepthData=storeDepthData)
+        parts = (list(out['Gamma']) + [r for rs in out['Rij'] for r in rs]
+                 + [r for rs in out['Rji'] for r in rs])
+        flat = all_reduce(torch.cat([x.reshape(-1) for x in parts]), group)
+        it = iter(torch.split(flat, [x.numel() for x in parts]))
+        out['Gamma'] = [next(it).view(x.shape) for x in out['Gamma']]
+        out['Rij'] = [[next(it).view(r.shape) for r in rs]
+                      for rs in out['Rij']]
+        out['Rji'] = [[next(it).view(r.shape) for r in rs]
+                      for rs in out['Rji']]
+        out['dJ'] = all_reduce(out['dJ'], group, 'max')
+        return out
+
+    iteration.pack = pack
+    iteration.blockCfg = bcfg
+    return iteration
+
+
 def build_iteration_fn(cfg: IterConfig):
     """The full MALI step as a function of the params dict.
 
@@ -1216,6 +1356,10 @@ def build_iteration_fn(cfg: IterConfig):
     (_accelerate_scattering) and dJ measures it.  The stages are exposed
     as attributes.
 
+    With cfg.lamGroup (a rank of a mesh's wavelength axis) the step is
+    _wavelength_block_fn's: the same stages on the rows [lamLo, lamHi) and
+    one all_reduce of Gamma and the rates across the group.
+
     cfg.fsIterScheme selects the stages: 'mali_full_precond' runs gather,
     formal_solve and gamma_rates; 'mali_full_precond_pallas' adds the line
     kernel stage before gamma_rates; 'mali_full_precond_fused' replaces
@@ -1223,6 +1367,8 @@ def build_iteration_fn(cfg: IterConfig):
     the step runs without the approximate operator (lambda_operator),
     the JAX package's lambdaIterate.
     """
+    if cfg.lamGroup is not None:
+        return _wavelength_block_fn(cfg)
     scheme = cfg.fsIterScheme
 
     def pack(params):
@@ -1249,7 +1395,7 @@ def build_iteration_fn(cfg: IterConfig):
                                                      srcNum)
         if lambdaIterate:
             I, Psi, IeffBase, moments = lambda_operator(I, Psi, moments)
-        if scheme == SCHEME_PALLAS:
+        if scheme == SCHEME_PALLAS and packed is not None:
             lineTerms = line_kernel_stage(cfg, params, I, Psi, IeffBase,
                                           srcNum, packed)
         # the kernels sum J in float64; accumDtype=float32 keeps it so
@@ -1560,7 +1706,19 @@ class Context:
     (compute_bc returning [Nlam, Nmu, 2, Nz]); I is the emergent top plane
     [Nlam, Nmu, Nx].  A 1D solver name on a 2D atmosphere raises (the JAX
     Context runs it as the linear 2D solver), as do the kernel schemes, a
-    3D atmosphere and ``mesh=`` (the x-sharded sweep is not ported).
+    3D atmosphere and ``mesh=`` on a 1D atmosphere.
+
+    ``mesh`` (a torch DeviceMesh with a dimension named ``meshXAxis``,
+    e.g. parallel/xshard2d.py:make_x_mesh) shards a 2D atmosphere's x
+    axis over that dimension's ranks, each of which constructs the
+    Context with the same arguments: every rank keeps its block of Nx / p
+    columns (_take_x_block) on its card (multihost.rank_device) and the
+    plane sweep exchanges halos with its neighbours (parallel/
+    xshard2d.py); dJ and stat_equil's dPops are reduced across the ranks,
+    and gather_x (and activePops) give the whole grid's arrays.  It takes
+    the CRD MALI iteration, time_dep_update and depthData; charge
+    conservation, hybrid PRD, Ng, prd_redistribute, update_deps,
+    state_dict, compute_rays and Stokes synthesis raise ValueError.
 
     Accessors as in the JAX package: Nthreads (1; setting it does
     nothing), hprd, activePops ({element name: numpy populations}) and
@@ -1580,7 +1738,8 @@ class Context:
                  gammaMode: str = 'factored',
                  fsIterScheme: Optional[str] = None,
                  gammaAccum: Optional[str] = None,
-                 accelerateScattering: bool = False, mesh=None):
+                 accelerateScattering: bool = False, mesh=None,
+                 meshXAxis: str = 'x'):
         from .config import params as cfgParams
         twoD = atmos.Ndim == 2
         if formalSolver is None:
@@ -1602,7 +1761,6 @@ class Context:
                 formalSolver not in (SOLVER_NAMES_2D if twoD
                                      else SOLVER_NAMES_1D),
             f'interpFn2d={interpFn2d!r}': interpFn2d not in INTERP_NAMES_2D,
-            'mesh= (the x-sharded 2D sweep)': mesh is not None,
             f'gammaMode={gammaMode!r}': gammaMode not in GAMMA_MODES,
             f'dtype={dtype}': dtype not in (torch.float64, torch.float32),
             f'accumDtype={accumDtype}':
@@ -1624,6 +1782,23 @@ class Context:
                 "'piecewise_bezier3_1d' formal solver")
         if atmos.muz is None:
             raise ValueError('Atmosphere angular quadrature not set')
+        xShard = None
+        if mesh is not None:
+            if not twoD:
+                raise ValueError('mesh= is only supported for 2D atmospheres '
+                                 '(1.5D column batches shard via '
+                                 'parallel.columns.ColumnBatch)')
+            from .parallel.multihost import rank_device
+            from .parallel.xshard2d import XShard
+            xShard = XShard.from_mesh(mesh, meshXAxis, atmos.Nx)
+            sharded = {'conserveCharge': conserveCharge, 'hprd': hprd,
+                       'ngOptions with Norder > 0':
+                           ngOptions is not None and ngOptions.Norder > 0}
+            bad = [k for k, v in sharded.items() if v]
+            if bad:
+                raise ValueError('the x-sharded Context (mesh=) does not '
+                                 'support ' + ', '.join(bad) + ' yet')
+            device = rank_device(device)
         device = torch.device(device)
         if device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device for the Context (the default "
@@ -1738,6 +1913,8 @@ class Context:
         self.depthData = SimpleNamespace(fill=False, chi=None, eta=None,
                                          I=None)
 
+        if xShard is not None:
+            self._take_x_block(xShard)
         self._iter_fn = build_iteration_fn(self.cfg)
         self._params = None
         self._nrFn = None
@@ -1774,13 +1951,13 @@ class Context:
     @property
     def activePops(self) -> Dict[str, np.ndarray]:
         """The active atoms' populations [Nlevel, Nk] on the host, keyed
-        by element name."""
+        by element name (of the whole grid on an x-sharded Context)."""
         return {a.model.element.name: pops for a, pops in
-                zip(self.cfg.activeAtoms, self._pops_on_host())}
+                zip(self.cfg.activeAtoms, self._global_pops())}
 
     def sync_pops_to_eqPops(self):
         """Copy the active atoms' populations into eqPops' arrays."""
-        for a, pops in zip(self.cfg.activeAtoms, self._pops_on_host()):
+        for a, pops in zip(self.cfg.activeAtoms, self._global_pops()):
             state = self.eqPops.atomicPops[a.model.element]
             if state.pops is not None:
                 state.pops[:] = pops
@@ -1810,6 +1987,80 @@ class Context:
                     periodic=xlP)
         return {'Ndim': 2, 'Nz': atmos.Nz, 'Nx': atmos.Nx, 'zGrid': zGrid,
                 'mux': mux, 'xPeriodic': xlP, 'geom2d': geom}
+
+    # ---- the x-sharded Context (mesh=) ---------------------------------
+    def _take_x_block(self, xs):
+        """Keep this rank's block of x columns of everything that holds
+        the grid on the device (background, thermodynamics, J, I, the
+        populations, the profiles and their weights, rho) and make the
+        iteration config the block's: Nk = Nz Nx / p, Nx = Nx / p.  Every
+        stage but the plane sweep is pointwise in (z, x), so each rank
+        iterates its block; the host-side state (atmos, eqPops, the
+        collisional rates) stays whole and _x_local cuts it."""
+        cfg = self.cfg
+        Nz, Nx, Nxl = cfg.Nz, cfg.Nx, xs.Nxl
+        cols = (np.arange(Nz)[:, None] * Nx + xs.x0
+                + np.arange(Nxl)[None, :]).ravel()
+        self._xCols = cols
+        idx = torch.as_tensor(cols, device=self.device)
+
+        def take(x):
+            return None if x is None else x[..., idx]
+
+        self.bgChi, self.bgEta, self.bgSca = (take(self.bgChi),
+                                              take(self.bgEta),
+                                              take(self.bgSca))
+        self.temperature, self.height = (take(self.temperature),
+                                         take(self.height))
+        self.J = take(self.J)
+        self.I = self.I[..., xs.x0:xs.x0 + Nxl].contiguous()
+        for st in self.popsState + self.detailedPops:
+            st['n'], st['nStar'] = take(st['n']), take(st['nStar'])
+        self.phi = [[take(x) for x in row] for row in self.phi]
+        self.wphi = [[take(x) for x in row] for row in self.wphi]
+        self.rhoPrd = [[take(x) for x in row] for row in self.rhoPrd]
+        self._CDev = None
+        self.ngs = [Ng(ng.Norder, ng.Nperiod, ng.Ndelay, n.ravel())
+                    for ng, n in zip(self.ngs, self._pops_on_host())]
+        self.cfg = dataclasses.replace(cfg, Nk=Nz * Nxl, Nx=Nxl, xShard=xs)
+
+    def _x_local(self, x):
+        """A host array over the whole grid [..., Nz Nx] cut to this rank's
+        block [..., Nz Nx / p] (itself on an unsharded Context)."""
+        if self.cfg.xShard is None:
+            return x
+        return np.asarray(x)[..., self._xCols]
+
+    def gather_x(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor of this rank's block of x columns, with depth
+        [..., Nz Nx / p] or x [..., Nx / p] on its last axis, as the whole
+        grid's [..., Nz Nx] or [..., Nx] on every rank of the x group (an
+        all_gather); on an unsharded Context x itself."""
+        xs = self.cfg.xShard
+        if xs is None:
+            return x
+        from .ops.collectives import all_gather
+        blocks = all_gather(x, xs.group)                    # [p, ..., n]
+        n = x.shape[-1]
+        if n == xs.Nxl:
+            return torch.cat(list(blocks), dim=-1)
+        blocks = blocks.unflatten(-1, (self.cfg.Nz, xs.Nxl))
+        return torch.cat(list(blocks), dim=-1).flatten(-2)
+
+    def _global_pops(self) -> List[np.ndarray]:
+        """_pops_on_host over the whole grid (gathered across the x group
+        of an x-sharded Context)."""
+        if self.cfg.xShard is None:
+            return self._pops_on_host()
+        return [self.gather_x(st['n']).cpu().numpy()
+                for st in self.popsState]
+
+    def _unsharded(self, what: str):
+        """Raise ValueError on an x-sharded Context for what it does not
+        take yet."""
+        if self.cfg.xShard is not None:
+            raise ValueError(f'{what} is not ported to the x-sharded Context '
+                             '(mesh=) yet')
 
     # ------------------------------------------------------------------
     def _build_atom_static(self, model: AtomicModel, detailed: bool) \
@@ -1938,7 +2189,7 @@ class Context:
 
     def _deviceC(self):
         if self._CDev is None:
-            self._CDev = [self.cfg.state(C) for C in self.C]
+            self._CDev = [self.cfg.state(self._x_local(C)) for C in self.C]
         return self._CDev
 
     def _bc_data(self, bc):
@@ -2131,6 +2382,9 @@ class Context:
         p.update(self._boundary_data())
         out = self._iter_fn(p, lambdaIterate=lambdaIterate,
                             storeDepthData=self.depthData.fill)
+        if self.cfg.xShard is not None:
+            from .ops.collectives import all_reduce
+            out['dJ'] = all_reduce(out['dJ'], self.cfg.xShard.group, 'max')
         self._crswVal = crswVal
         self._Gamma = out['Gamma']
         self._Rij = out['Rij']
@@ -2185,8 +2439,8 @@ class Context:
             raise ValueError('Call formal_sol_gamma_matrices first')
         for ai, a in enumerate(self.cfg.activeAtoms):
             st = self.popsState[ai]
-            nTotal = self.cfg.state(
-                self.eqPops.atomicPops[a.model.element].nTotal)
+            nTotal = self.cfg.state(self._x_local(
+                self.eqPops.atomicPops[a.model.element].nTotal))
             st['n'] = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
 
         dNeMax = None
@@ -2223,7 +2477,15 @@ class Context:
                 flags.append(torch.all(torch.isfinite(nNew))
                              .to(torch.float64))
                 st['nLastSE'] = nNew
-            vals = torch.stack(flags).cpu().numpy()
+            vals = torch.stack(flags)
+            if self.cfg.xShard is not None:
+                # the largest change and the least finite flag of the grid
+                from .ops.collectives import all_reduce
+                sgn = torch.tensor([1.0, -1.0], dtype=torch.float64,
+                                   device=self.device).repeat(len(flags) // 2)
+                vals = sgn * all_reduce(sgn * vals, self.cfg.xShard.group,
+                                        'max')
+            vals = vals.cpu().numpy()
             for ai in range(len(self.popsState)):
                 if vals[2 * ai + 1] == 0.0:
                     self._raise_non_finite(ai)
@@ -2283,6 +2545,7 @@ class Context:
         statistical equilibrium; stepLimit=False takes the reference's raw
         Newton step.  Returns the max relative change in ne.
         ref: lightweaver/nr_update.py:7-106"""
+        self._unsharded('charge conservation (nr_post_update)')
         if self._Gamma is None:
             raise ValueError('Call formal_sol_gamma_matrices first')
         if (not self.cfg.activeAtoms or self.cfg.activeAtoms[0].model.element
@@ -2384,6 +2647,10 @@ class Context:
                                    prevTimePops[ai], dt)
             changes.append(torch.max(torch.abs(1.0 - st['n'] / nNew)))
             st['n'] = nNew
+        if changes and self.cfg.xShard is not None:
+            from .ops.collectives import all_reduce
+            changes = list(all_reduce(torch.stack(changes),
+                                      self.cfg.xShard.group, 'max'))
         dPops = ([float(x) for x in torch.stack(changes).cpu().numpy()]
                  if changes else [])
         upd = IterationUpdate(self, updatedPops=True, dPops=dPops)
@@ -2562,6 +2829,7 @@ class Context:
         host pull per line and sub-iteration is the flattened rho that
         the numpy Ng tracks (the reference's Ng semantics).
         ref: Source/PrdTemplates.hpp:176-351, Source/Prd.cpp:9-30, 468-645"""
+        self._unsharded('PRD (prd_redistribute)')
         prdLines = self._prd_lines()
         if not prdLines:
             return IterationUpdate(self)
@@ -2641,6 +2909,7 @@ class Context:
         comoving-frame coefficients.  The cached params, with the schemes'
         packed profiles, are rebuilt on the next MALI step.
         ref: Source/LwMiddleLayer.pyx:3244-3288"""
+        self._unsharded('update_deps')
         atmos = self.atmos
         t_ = self.cfg.state
         if temperature:
@@ -2679,6 +2948,7 @@ class Context:
         backgroundProvider are not kept, so a float32 Context comes back
         float64.
         ref: Source/LwMiddleLayer.pyx:2977-3037"""
+        self._unsharded('state_dict and pickling')
         return {
             'atmos': self.atmos,
             'spect': self.spect,
@@ -2772,6 +3042,7 @@ class Context:
         (maxIter=100).  Returns I [Nlam, Nmu], or with ``stokes`` [4, Nlam,
         Nmu] (I, Q, U, V), as numpy.
         ref: Source/LwMiddleLayer.pyx:3898-4003"""
+        self._unsharded('compute_rays')
         state = self.state_dict()
         spect2 = self.spect.subset_configuration(
             self.spect.wavelength if wavelengths is None else wavelengths)
@@ -2801,6 +3072,7 @@ class Context:
         pair (H, F) of the Faddeeva function (ops/faddeeva.py:voigt_HF).
         Without a field every entry is None.
         ref: Source/FormalStokes.cpp:9-117"""
+        self._unsharded('full Stokes synthesis')
         atmos = self.atmos
         allAtoms = self.cfg.allAtoms
         if atmos.B is None:
@@ -2885,6 +3157,7 @@ class Context:
         the JAX package.
         ref: Source/LwMiddleLayer.pyx:3605,
              Source/FormalStokes.cpp:418-728"""
+        self._unsharded('full Stokes synthesis')
         if self.cfg.Ndim == 2 and (updateJ or J20):
             raise ValueError('2D Stokes synthesis does not support '
                              'updateJ/J20 (synthesis only)')

@@ -159,6 +159,14 @@ def _ring_affine_solve(A, b):
     with I_last = b_tot / (1 - A_tot) and I = A_cum I_last + b_cum, the
     JAX package's closure (its associative_scan composes in another order,
     so the two agree to rounding, not bit for bit)."""
+    A, b = affine_scan(A, b)
+    Ilast = b[..., -1:] / (1.0 - A[..., -1:])
+    return A * Ilast + b
+
+
+def affine_scan(A, b):
+    """The inclusive log-step scan of _ring_affine_solve: lane i's map
+    composed of the maps of lanes 0..i, (A_cum, b_cum) [..., N]."""
     N = A.shape[-1]
     s = 1
     while s < N:
@@ -166,8 +174,7 @@ def _ring_affine_solve(A, b):
                 torch.cat([b[..., :s], torch.addcmul(b[..., s:], A[..., s:],
                                                      b[..., :-s])], dim=-1))
         s *= 2
-    Ilast = b[..., -1:] / (1.0 - A[..., -1:])
-    return A * Ilast + b
+    return A, b
 
 
 def ray_group(geoms, periodic, device, dtype):
@@ -229,36 +236,44 @@ def ray_group(geoms, periodic, device, dtype):
 
 
 def _take_x(x, idx):
-    """x [..., R, Nx] with each ray's columns taken at idx [R, Nx]."""
-    return torch.gather(x, -1, idx.expand(x.shape))
+    """x [..., R, Nx] with each ray's columns taken at idx [R, n]."""
+    return torch.gather(x, -1, idx.expand(*x.shape[:-1], idx.shape[-1]))
 
 
-def thermalised_start_2d(chi0, chi1, T0, T1, lam, group):
+def thermalised_start_2d(chi0, chi1, T0, T1, lam, group, own=None):
     """The thermalised start plane of every ray of a group, from each
     ray's DOWNWIND intersection with fractional-x interpolation of chi and
     T, as the reference (ref: FormalScalar2d.cpp:567-612):
     I = B(T0) - (B(T_dw) - B(T0)) / dtau.  chi0, chi1 [NL, R, Nx] the
     start plane and the next one, T0, T1 [Nx] their temperatures, lam
-    [NL]; natural x frame.  Returns [NL, R, Nx]."""
+    [NL]; natural x frame.  Returns [NL, R, Nx]; with ``own`` (a slice of
+    the columns, parallel/xshard2d.py's block between its halos) the
+    group's per-column arrays are those columns' and the result is
+    [NL, R, own]."""
     sA, sW, sDs = group['sAxisZ'], group['sW'], group['sDs']
     sJ, sJn = group['sJ'], group['sJn']
     chiDw = torch.where(
         sA, (1.0 - sW) * _take_x(chi0, sJn) + sW * _take_x(chi1, sJn),
         (1.0 - sW) * _take_x(chi1, sJ) + sW * _take_x(chi1, sJn))
-    dtau = 0.5 * (chi0 + chiDw) * sDs
     TDw = torch.where(sA, (1.0 - sW) * T0[sJn] + sW * T1[sJn],
                       (1.0 - sW) * T1[sJ] + sW * T1[sJn])      # [R, Nx]
+    if own is not None:
+        chi0, T0 = chi0[..., own], T0[own]
+    dtau = 0.5 * (chi0 + chiDw) * sDs
     Bn = planck_nu(T0[None, None, :], lam[:, None, None])
     BnDw = planck_nu(TDw[None], lam[:, None, None])
     return Bn - (BnDw - Bn) / dtau
 
 
-def _plane_step(planes, Iprev, Iprev2, m, group, IbcP, interp, alongRay):
+def _plane_step(planes, Iprev, Iprev2, m, group, IbcP, interp, alongRay,
+                ring=_ring_affine_solve):
     """One computed plane (sweep index m >= 1) of a group in the dj = +1
     frame.  planes = (chiP2, chiP, chiC, chiN, SP2, SP, SC, SN), each
     [NL, R, Nx] (chiN/SN: the next plane, for the BESSER along-ray
     scheme); Iprev, Iprev2 the intensities of planes m-1, m-2; IbcP
-    [NL, R] the fixed column's intensity on this plane or None.
+    [NL, R] the fixed column's intensity on this plane or None; ``ring``
+    solves the in-plane recurrence (parallel/xshard2d.py passes its
+    distributed solve, over a rank's block of columns between halos).
     Returns (I, Psi undivided, IeffBase) of the plane, the JAX package's
     _sweep_2d.plane_step."""
     chiP2, chiP, chiC, chiN, SP2, SP, SC, SN = planes
@@ -328,7 +343,7 @@ def _plane_step(planes, Iprev, Iprev2, m, group, IbcP, interp, alongRay):
         # fixed boundary column: breaks the ring into a plain chain
         A = torch.where(fixed, 0.0, A)
         bKnown = torch.where(fixed, IbcP[..., None], bKnown)
-    Icur = _ring_affine_solve(A, bKnown)
+    Icur = ring(A, bKnown)
     Iuw = torch.where(axisZ, omw * prev(Icur) + w * IPP, IuwX)
 
     if interp == 'besser':
@@ -343,7 +358,7 @@ def _plane_step(planes, Iprev, Iprev2, m, group, IbcP, interp, alongRay):
         if fixed is not None:
             A2 = torch.where(fixed, 0.0, A2)
             bKnown2 = torch.where(fixed, IbcP[..., None], bKnown2)
-        Icur = _ring_affine_solve(A2, bKnown2)
+        Icur = ring(A2, bKnown2)
         Iuw = torch.where(axisZ, omw ** 2 * prev(Icur) + knownZ, IuwXb)
 
     # compensated split: I - Psi*S from non-cancelling terms

@@ -1,11 +1,12 @@
-"""1.5D synthesis: a batch of independent 1D columns iterated in lockstep.
+"""1.5D synthesis: a batch of independent 1D columns iterated in lockstep,
+on one device or over a ('columns', 'wavelength') mesh of ranks.
 
-Port of lightweaver_tpu/parallel/columns.py on one device.  The JAX
-package flattens the C stacked [C, Nk] atmospheres into one C*Nk-point
-Context for the pointwise set-up and the host-side updates, then vmaps
-the single-column MALI step over the batched params.  Here the batch
-iterates that flat Context itself, with the columns laid end to end
-along depth (IterConfig.Ncol = C, NkCol depths each):
+Port of lightweaver_tpu/parallel/columns.py.  The JAX package flattens
+the C stacked [C, Nk] atmospheres into one C*Nk-point Context for the
+pointwise set-up and the host-side updates, then vmaps the single-column
+MALI step over the batched params.  Here the batch iterates that flat
+Context itself, with the columns laid end to end along depth
+(IterConfig.Ncol = C, NkCol depths each):
 
 - every pointwise stage (the gather, the line Gamma kernel, gamma_rates,
   the statistical-equilibrium solve, Newton-Raphson charge conservation,
@@ -20,23 +21,101 @@ and pays the host cost of a step once for C columns.  Per-column Ng
 (BatchedNg) and per-column convergence freezing ride on top, as in the
 JAX package.
 
+Over a mesh (make_mesh, one process per rank): each rank takes its
+contiguous block of C / pColumns columns (its coordinate on 'columns')
+and builds its flat Context on those alone; with pWavelength > 1 ranks on
+'wavelength' each iterates its block of wavelength rows (IterConfig.
+lamLo/lamHi: context.py:wavelength_block), and one all_reduce over the
+'wavelength' group per MALI step completes Gamma and the rates.  The
+collectives on 'columns' are the reductions that keep every rank in
+lockstep: MAX of dJ, of the masked dPops and of drho, MIN of the
+convergence flag (every rank leaves iterate in the same step), and the
+all_gathers that the properties read.
+
 Layouts: the flat tensors put column c at depths [c NkCol, (c+1) NkCol);
-the properties (pops, ne, J, I) return per-column numpy arrays [C, ...].
+the properties (pops, ne, J, I, nIterCol) return per-column numpy arrays
+[C, ...] of all C columns, on every rank.
 """
 import dataclasses
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..atmosphere import Atmosphere
 from ..atomic_set import RadiativeSet
-from ..context import Context, _stat_eq_solve, build_iteration_fn
+from ..context import (Context, _stat_eq_solve, build_iteration_fn,
+                       lambda_block)
 from ..iteration_update import IterationUpdate
+from ..ops.collectives import all_gather_cat, all_reduce
 from ..ops.ng import BatchedNg, NgOptions
+from .multihost import rank_device
 
-_NO_MESH = ('distributing a ColumnBatch over devices (mesh=) is not ported '
-            'to lightweaver_tpu_torch yet: the batch runs on one device')
+MESH_DIMS = ('columns', 'wavelength')
+
+
+def make_mesh(nColumns: Optional[int] = None, nWavelength: int = 1,
+              devices=None, device='cuda'):
+    """A ('columns', 'wavelength') torch DeviceMesh over the ranks
+    ``devices`` (default: every rank of the default process group, which
+    initialize_multihost starts), on each rank's card unless
+    device='cpu'.  nColumns defaults to every rank the wavelength axis
+    does not take; nColumns x nWavelength != the rank count raises
+    ValueError, as in the JAX package."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise ValueError('make_mesh needs a torch.distributed process group '
+                         '(parallel.multihost.initialize_multihost)')
+    ranks = (list(range(dist.get_world_size())) if devices is None
+             else list(devices))
+    n = len(ranks)
+    if nColumns is None:
+        nColumns = n // nWavelength
+    if nColumns * nWavelength != n:
+        raise ValueError(f'{nColumns} x {nWavelength} != {n} ranks')
+    device = rank_device(device)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    return DeviceMesh(device.type,
+                      torch.tensor(ranks).reshape(nColumns, nWavelength),
+                      mesh_dim_names=MESH_DIMS)
+
+
+class _MeshPlace:
+    """This rank's place on a ('columns', 'wavelength') mesh: its
+    coordinate, the axis size and the group of each axis."""
+
+    def __init__(self, mesh):
+        names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+        if names != MESH_DIMS:
+            raise ValueError(f'mesh= takes a DeviceMesh with dimensions '
+                             f'{MESH_DIMS} (make_mesh), got {mesh!r}')
+        self.col, self.lam = (mesh.get_local_rank(d) for d in MESH_DIMS)
+        self.nCol, self.nLam = mesh.size(0), mesh.size(1)
+        self.colGroup, self.lamGroup = (mesh.get_group(d) for d in MESH_DIMS)
+
+    def columns(self, C: int) -> slice:
+        """This rank's block of C columns."""
+        if C % self.nCol:
+            raise ValueError(f'{C} columns do not split evenly over the '
+                             f'{self.nCol} ranks of the columns axis')
+        per = C // self.nCol
+        return slice(self.col * per, (self.col + 1) * per)
+
+    def lam_fields(self, Nlam: int):
+        """The IterConfig fields of this rank's wavelength block (none
+        with a single rank on the axis)."""
+        if self.nLam == 1:
+            return {}
+        lo, hi = lambda_block(Nlam, self.lam, self.nLam)
+        return {'lamLo': lo, 'lamHi': hi, 'lamGroup': self.lamGroup}
+
+    def lam_sizes(self, Nlam: int):
+        """Every rank's count of wavelength rows on the axis."""
+        return [hi - lo for lo, hi in (lambda_block(Nlam, r, self.nLam)
+                                       for r in range(self.nLam))]
+
 
 # params leaves that carry depth on their last axis (nested lists too)
 _DEPTH_KEYS = ('J', 'bgChi', 'bgEta', 'bgSca', 'temperature', 'height',
@@ -56,20 +135,24 @@ def _cat_depth(xs):
 
 class ColumnBatch:
     """A batch of independent 1D problems sharing the same models and
-    wavelength grid, iterated in lockstep on one device.
+    wavelength grid, iterated in lockstep on one device, or over the
+    ranks of ``mesh`` (a ('columns', 'wavelength') DeviceMesh, make_mesh).
 
     Construct from stacked atmosphere arrays (:meth:`from_stacked`,
     array-native; Ng acceleration, charge conservation, PRD and hybrid
     PRD, and per-column convergence freezing) or from a list of prebuilt
-    Contexts (``contexts=``; lockstep only).  ``mesh`` (distribution over
-    devices) is not ported and raises ValueError.
+    Contexts (``contexts=``; lockstep only).  Over a mesh each rank keeps
+    its block of the columns (of the stacked arrays, or of the contexts
+    list); the 'wavelength' axis takes complete redistribution only
+    (prd_redistribute and hybrid PRD raise there).  ``converged``,
+    ``dJCol`` and ``dPopsCol`` are the rank's columns'.
     """
 
     def __init__(self, contexts: Optional[List[Context]] = None,
                  mesh=None, *, flatCtx: Optional[Context] = None,
                  Ncol: int = 0, ngOptions: Optional[NgOptions] = None):
-        if mesh is not None:
-            raise ValueError(_NO_MESH)
+        self.mesh = mesh
+        self._place = None if mesh is None else _MeshPlace(mesh)
         self.flatCtx = None
         if flatCtx is not None:
             fc = flatCtx
@@ -79,7 +162,7 @@ class ColumnBatch:
             self.flatCtx = fc
             self.Ncol = Ncol
             self.NkCol = fc.atmos.Nspace // Ncol
-            fc._swap_cfg(Ncol=Ncol)
+            fc._swap_cfg(Ncol=Ncol, **self._lam_fields(fc.cfg))
             fc._normalise_profiles()
             self.cfg = fc.cfg
             self._iter_fn = fc._iter_fn
@@ -89,8 +172,10 @@ class ColumnBatch:
                                   ngOptions.Ndelay, self._by_column(n))
                         for n in fc._pops_on_host()]
             self.converged = np.zeros(Ncol, bool)
-            self.nIterCol = np.zeros(Ncol, np.int64)
+            self._nIterCol = np.zeros(Ncol, np.int64)
         elif contexts:
+            if self._place is not None:
+                contexts = contexts[self._place.columns(len(contexts))]
             self.contexts = contexts
             c0 = contexts[0].cfg
             for c in contexts[1:]:
@@ -101,7 +186,8 @@ class ColumnBatch:
             self.Ncol = len(contexts)
             self.NkCol = c0.Nk
             self.cfg = dataclasses.replace(c0, Nk=self.Ncol * c0.Nk,
-                                           Ncol=self.Ncol)
+                                           Ncol=self.Ncol,
+                                           **self._lam_fields(c0))
             self._iter_fn = build_iteration_fn(self.cfg)
             paramsList = [c.build_params(pack=False) for c in contexts]
             self.params = dict(paramsList[0])
@@ -118,12 +204,27 @@ class ColumnBatch:
                 for c in contexts]) for a in self.cfg.activeAtoms]
         else:
             raise ValueError('Need contexts or a flat context')
+        if self.cfg.lamGroup is not None:
+            # J is carried on this rank's wavelength rows
+            self.params['J'] = self.params['J'][self.cfg.lamLo:
+                                                self.cfg.lamHi]
         self._Gamma = None
         self._Rij = None
         self._Rji = None
         self._I = None
         self._prd_fs = None
         self.JRest = None
+
+    def _lam_fields(self, cfg):
+        """The IterConfig fields of this rank's wavelength block."""
+        if self._place is None:
+            return {}
+        fields = self._place.lam_fields(cfg.Nlam)
+        if fields and cfg.hprd:
+            raise ValueError("hybrid PRD on the mesh's 'wavelength' axis is "
+                             'not ported (it needs J over whole line '
+                             'windows): use a mesh with nWavelength=1')
+        return fields
 
     # ------------------------------------------------------------------
     @classmethod
@@ -137,17 +238,24 @@ class ColumnBatch:
         factory returning the list of AtomicModels (fresh per call);
         ``activeSpecies`` the names to set active.  ``ctxKwargs`` go to
         the flat Context (``device``, the card unless 'cpu'; ``dtype``,
-        ``fsIterScheme``, ``hprd``, ``accelerateScattering``, ...)."""
-        if mesh is not None:
-            raise ValueError(_NO_MESH)
+        ``fsIterScheme``, ``hprd``, ``accelerateScattering``, ...).  With
+        ``mesh`` the arrays are the global ones: each rank builds its
+        flat Context on its block of the columns alone, on its card
+        (multihost.rank_device) unless device='cpu'."""
         temperature = np.asarray(temperature, np.float64)
         C, Nk = temperature.shape
         height = np.asarray(height, np.float64)
         if height.ndim == 1:
             height = np.broadcast_to(height[None, :], (C, Nk))
+        cols = slice(0, C)
+        if mesh is not None:
+            cols = _MeshPlace(mesh).columns(C)
+            ctxKwargs['device'] = rank_device(ctxKwargs.get('device', 'cuda'))
+        C = cols.stop - cols.start
 
         def flat(a):
-            return np.asarray(a, np.float64).reshape(C * Nk).copy()
+            a = np.broadcast_to(np.asarray(a, np.float64), temperature.shape)
+            return a[cols].reshape(C * Nk).copy()
 
         atmos = Atmosphere(height=flat(height), temperature=flat(temperature),
                            vlos=flat(vlos), vturb=flat(vturb),
@@ -160,7 +268,7 @@ class ColumnBatch:
         # Ng runs per column in the batch, not in the flat context
         flatCtx = Context(atmos, spect, eqPops,
                           conserveCharge=conserveCharge, **ctxKwargs)
-        return cls(flatCtx=flatCtx, Ncol=C, ngOptions=ngOptions)
+        return cls(mesh=mesh, flatCtx=flatCtx, Ncol=C, ngOptions=ngOptions)
 
     # ------------------------------------------------------------------
     def _by_column(self, x):
@@ -178,9 +286,9 @@ class ColumnBatch:
                                              + (self.Ncol * self.NkCol,))
 
     def _per_column(self, x):
-        """A flat tensor [..., Ncol NkCol] as numpy [Ncol, ..., NkCol]."""
+        """A flat tensor [..., Ncol NkCol] as [Ncol, ..., NkCol]."""
         y = x.reshape(x.shape[:-1] + (self.Ncol, self.NkCol))
-        return torch.movedim(y, -2, 0).cpu().numpy()
+        return torch.movedim(y, -2, 0)
 
     def _frozen_depths(self):
         """[Ncol NkCol] bool tensor, True on the converged columns."""
@@ -214,7 +322,8 @@ class ColumnBatch:
             dJ = float(np.max(np.where(self.converged, 0.0, self.dJCol)))
         else:
             dJ = float(self.dJCol.max())
-        return IterationUpdate(self, updatedJ=True, dJMax=dJ)
+        return IterationUpdate(self, updatedJ=True,
+                               dJMax=self._col_reduce(dJ, 'max'))
 
     def stat_equil(self) -> IterationUpdate:
         """Statistical equilibrium of every column (the flat Context's,
@@ -227,7 +336,8 @@ class ColumnBatch:
         for ai in range(len(self.cfg.activeAtoms)):
             n = self.params['pops'][ai]
             nNew = _stat_eq_solve(self._Gamma[ai], n, self._nTotal[ai])
-            dPops.append(float(torch.max(torch.abs(1.0 - n / nNew))))
+            dPops.append(self._col_reduce(
+                float(torch.max(torch.abs(1.0 - n / nNew))), 'max'))
             self.params['pops'][ai] = nNew
         return IterationUpdate(self, updatedPops=True, dPops=dPops)
 
@@ -282,8 +392,8 @@ class ColumnBatch:
 
         self.dPopsCol = np.max(np.stack(dPops, axis=0), axis=0)     # [C]
         dPopsMasked = np.where(frozen, 0.0, self.dPopsCol)
-        return IterationUpdate(self, updatedPops=True,
-                               dPops=[float(dPopsMasked.max())])
+        return IterationUpdate(self, updatedPops=True, dPops=[
+            self._col_reduce(float(dPopsMasked.max()), 'max')])
 
     @property
     def crswDone(self):
@@ -305,6 +415,10 @@ class ColumnBatch:
         fc = self.flatCtx
         if fc is None:
             raise ValueError('PRD needs from_stacked batches')
+        if self.cfg.lamGroup is not None:
+            raise ValueError("PRD on the mesh's 'wavelength' axis is not "
+                             'ported (rho needs J over whole line windows): '
+                             'use a mesh with nWavelength=1')
         prdLines = fc._prd_lines()
         if not prdLines:
             return IterationUpdate(self)
@@ -359,13 +473,13 @@ class ColumnBatch:
                 self._Rji[ai][ti] = torch.where(frozenK, self._Rji[ai][ti],
                                                 out['Rji'][li])
             dRhoCol = dRho.cpu().numpy()
-            if np.max(np.where(self.converged, 0.0, dRhoCol)) < tol:
+            dRhoMax = self._col_reduce(
+                float(np.max(np.where(self.converged, 0.0, dRhoCol))), 'max')
+            if dRhoMax < tol:
                 break
 
         self.dRhoCol = dRhoCol
-        upd = IterationUpdate(self, updatedRho=True,
-                              dRho=[float(np.max(np.where(
-                                  self.converged, 0.0, dRhoCol)))],
+        upd = IterationUpdate(self, updatedRho=True, dRho=[dRhoMax],
                               NprdSubIter=nSub)
         upd.updatedJ = True
         return upd
@@ -388,13 +502,14 @@ class ColumnBatch:
             if self.flatCtx is not None:
                 newConv = ((self.dJCol < JTol) & (self.dPopsCol < popsTol)
                            & ~self.converged)
-                self.nIterCol[newConv] = it + 1
+                self._nIterCol[newConv] = it + 1
                 self.converged |= newConv
                 if not quiet:
                     print(f'-- it {it}: dJ={ju.dJMax:.2e} '
                           f'dPops={pu.dPopsMax:.2e} '
                           f'converged {int(self.converged.sum())}/{self.Ncol}')
-                if self.converged.all():
+                # every rank leaves in the same step
+                if self._col_reduce(float(self.converged.all()), 'min'):
                     return it + 1
             else:
                 if not quiet:
@@ -405,25 +520,66 @@ class ColumnBatch:
         return NmaxIter
 
     # ------------------------------------------------------------------
+    def _col_reduce(self, x: float, op: str) -> float:
+        """x reduced over the 'columns' axis of the mesh (x itself on one
+        device)."""
+        if self._place is None:
+            return x
+        t = torch.tensor([x], dtype=torch.float64, device=self.cfg.device)
+        return float(all_reduce(t, self._place.colGroup, op)[0])
+
+    def _columns_numpy(self, x: torch.Tensor) -> np.ndarray:
+        """[Ncol, ...] of this rank's columns as numpy [C, ...] of all C
+        columns (an all_gather over the 'columns' axis)."""
+        if self._place is not None:
+            x = all_gather_cat(x.to(self.cfg.device), self._place.colGroup)
+        return x.cpu().numpy()
+
+    def _lam_rows(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """x with this rank's wavelength rows on ``dim`` as the whole grid's
+        (an all_gather over the 'wavelength' axis)."""
+        if self.cfg.lamGroup is None:
+            return x
+        return all_gather_cat(x, self.cfg.lamGroup, dim,
+                              self._place.lam_sizes(self.cfg.Nlam))
+
+    @property
+    def nIterCol(self) -> np.ndarray:
+        """The step in which each column converged (0: not yet) [C]."""
+        if self._place is None:
+            return self._nIterCol
+        return self._columns_numpy(torch.as_tensor(self._nIterCol))
+
     @property
     def pops(self) -> List[np.ndarray]:
         """Per active atom: populations [C, Nlevel, NkCol]."""
-        return [self._per_column(p) for p in self.params['pops']]
+        return [self._columns_numpy(self._per_column(p))
+                for p in self.params['pops']]
 
     @property
     def J(self) -> np.ndarray:
         """Mean intensity [C, Nlam, NkCol]."""
-        return self._per_column(self.params['J'])
+        return self._columns_numpy(
+            self._per_column(self._lam_rows(self.params['J'], 0)))
 
     @property
     def I(self) -> np.ndarray:
         """Emergent intensity of the last MALI step (and PRD subset
-        solves) [C, Nlam, Nmu]."""
-        return self._I.cpu().numpy()
+        solves): [C, Nlam, Nmu] ([Nlam, Nmu] for one column on one
+        device)."""
+        I = self._I
+        if self._place is None:
+            return I.cpu().numpy()
+        if self.cfg.Ncol == 1:
+            I = I[None]
+        return self._columns_numpy(self._lam_rows(I, 1))
 
     @property
     def ne(self) -> np.ndarray:
         """Electron density [C, NkCol] (updated when conserveCharge)."""
         if self.flatCtx is None:
             raise ValueError('per-column ne needs from_stacked batches')
-        return np.asarray(self.flatCtx.atmos.ne).reshape(self.Ncol, -1)
+        ne = np.asarray(self.flatCtx.atmos.ne).reshape(self.Ncol, -1)
+        if self._place is None:
+            return ne
+        return self._columns_numpy(torch.as_tensor(ne))

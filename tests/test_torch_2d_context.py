@@ -30,7 +30,8 @@ shear flow, callable x boundaries, 6 rays, Ca II active, Nlam = 546.
   with the full-grid MALI step in each rho sub-iteration, and so does the
   port: rho and J after prd_redistribute within 1e-10.
 - What raises, as in the JAX package: the kernel schemes, mixed x
-  boundaries, a 3D atmosphere, mesh=, a callable x boundary of the wrong
+  boundaries, a 3D atmosphere, a mesh= that is not a DeviceMesh with an
+  x dimension, a callable x boundary of the wrong
   shape; and, unlike the JAX Context which runs a 1D solver name as the
   linear 2D solver, a 1D solver name on a 2D atmosphere.
 """
@@ -300,9 +301,11 @@ def _golden_atmos_inputs():
     {'interpFn2d': 'interp_cubic_2d'},
 ], ids=['pallas', 'fused', 'mesh', 'solver_1d', 'interp'])
 def test_options_outside_2d_raise(change):
-    """The kernel schemes (the JAX package's _pallas/_fused need 1D), mesh=
-    (the x-sharded sweep is not ported), a 1D solver name and an unknown
-    interpolation on a 2D atmosphere raise ValueError at construction."""
+    """The kernel schemes (the JAX package's _pallas/_fused need 1D), a
+    mesh= that is not a DeviceMesh with an x dimension (the x-sharded
+    Context: tests/test_torch_xshard2d.py), a 1D solver name and an
+    unknown interpolation on a 2D atmosphere raise ValueError at
+    construction."""
     with pytest.raises(ValueError):
         Context(*_golden_atmos_inputs(), device='cpu', **change)
 

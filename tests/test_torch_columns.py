@@ -443,13 +443,17 @@ def test_contexts_constructor_matches_jax():
 
 
 def test_mesh_raises():
-    """Distribution over devices is not ported: mesh= raises in both
-    constructors, and the package exports no make_mesh."""
+    """mesh= takes a ('columns', 'wavelength') DeviceMesh (make_mesh;
+    the sharded batches: tests/test_torch_distributed.py): anything else
+    raises in both constructors, and the package exports make_mesh and
+    the multihost helpers as the JAX package does."""
     h, T, v, vt, ne, nH = stacked_falc(2, 8)
-    with pytest.raises(ValueError, match='not ported'):
+    with pytest.raises(ValueError, match='DeviceMesh'):
         ColumnBatch.from_stacked(h, T, v, vt, ne, nH, _models, ('Ca',),
                                  Nrays=2, mesh=object(), device='cpu')
-    with pytest.raises(ValueError, match='not ported'):
+    with pytest.raises(ValueError, match='DeviceMesh'):
         ColumnBatch(contexts=[object()], mesh=object())
-    assert hasattr(jparallel, 'make_mesh')
-    assert not hasattr(tparallel, 'make_mesh')
+    for name in ('ColumnBatch', 'make_mesh', 'initialize_multihost',
+                 'global_mesh', 'local_column_slice', 'make_global_array',
+                 'formal_sol_2d_xsharded'):
+        assert hasattr(jparallel, name) and hasattr(tparallel, name), name
