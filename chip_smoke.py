@@ -30,9 +30,10 @@ result):
    reference's golden run (tests/golden/falc_h6ca_ref.npz); the sweep
    kernel's launch count over that run.
 6. The same under each iteration scheme, 'mali_full_precond_pallas' and
-   'mali_full_precond_fused', for SCHEME_STEPS = 40 MALI steps against
+   'mali_full_precond_fused', for SCHEME_STEPS = 20 MALI steps against
    the default scheme's state after as many (GOLDEN_RTOL; converged
-   against golden until phase 16 needed the time), with the launch
+   against golden until phase 16 needed the time, 40 steps until phase
+   17 did), with the launch
    counts of their kernels.
    Then a callable upper boundary whose data grow 100x between two MALI
    steps of the mixed-precision problem (f64), under the default and
@@ -48,9 +49,10 @@ result):
    outflow), against their golden runs
    (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
    sub-iterations, wall time and launch counts; the kernel schemes for
-   PRD_SCHEME_STEPS = 40 MALI steps against the default scheme's state
+   PRD_SCHEME_STEPS = 20 MALI steps against the default scheme's state
    after as many (populations and rho within GOLDEN_RTOL; converged
-   against golden until phase 13 needed the time), and they must refuse
+   against golden until phase 13 needed the time, 40 steps until phase
+   17 did), and they must refuse
    hybrid PRD.  Then a stage breakdown of one PRD iteration.
 9. The population-update options, in float64.  (a) falc_multi_ng
    (BASELINE config 2: FAL-C, H 6-level + Ca II + Na I active, Mg II
@@ -75,7 +77,7 @@ result):
    against the golden run (populations per step within 1e-6, J within
    1e-7).  (d) The escape-probability start of the 30-depth Ca II problem
    on the card against the CPU (1e-10), and the iterations to converge
-   from it and from LTE.
+   from it (and from LTE until phase 17 needed the time).
 10. The float32 state (dtype=torch.float32, J/Gamma/rates in float64):
    (a) the float32 instances against their plain versions, every output
    held to err(kernel f32, plain f64) <= 2 err(plain f32, plain f64) +
@@ -86,19 +88,20 @@ result):
    groups, falc_h6mg's (K = 4, rho != 1) and FALC-500's, fused with C = 2
    (falc_h6ca, FALC-500) and C = 3 (falc_h6mg); float32 and float64
    instance times side by side.  (b) The mixed-precision problem (FAL-C decimated
-   to 40 depths, 3 rays, Ca II active) converged under each scheme in
-   fewer than 600 iterations.  (c) falc_h6ca at full width under each
-   scheme, 230 iterations (the float32 state does not converge there, in
-   the JAX package either; the f64 state converges in 211): the last dJ
+   to 40 depths, 3 rays, Ca II active) converged under the default
+   scheme in fewer than 600 iterations, and 40 MALI steps of it under
+   each kernel scheme, finite and contracting (converged under each
+   until phase 17 needed the time).  (c) falc_h6ca at full width under
+   each scheme, F32_FULL_ITERS = 60 iterations (230 until phase 17
+   needed the time; the float32 state does not converge in 500, in the
+   JAX package either; the f64 state converges in 211): the last dJ
    and dPops, the emergent spectrum
    against the golden file (rows brighter than 1e-3 of the peak within
    6.5e-2, median within 5e-3), the populations' largest error, and the
    float32 instances' launches.
-11. FALC-500 (the same setup as falc_h6ca interpolated to 500 depths,
-   bench.py's problem) under each scheme, float64 then float32: best of 2
-   blocks of formal_sol_gamma_matrices iterations (30 for the default
-   scheme, 15 for the others; 50 and 20 until phase 16 needed the time)
-   and a per-stage breakdown.
+11. (Until phase 17 needed the time: FALC-500 under each scheme and
+   precision with stage breakdowns; its ms/iter now comes from phase 17
+   (g)'s benchmark.)
 12. Spectrum synthesis, in float64 unless stated.  (a) Right after phase
    5, the README program's last call on its converged falc_h6ca:
    compute_rays(np.linspace(392.5, 394.5, 1001), mus=[1.0]) on the card
@@ -108,9 +111,11 @@ result):
    in each precision against its plain version, on one falc_h6ca
    iteration's inputs and (linear, BESSER) on FALC-500 random rays:
    float64 within 1e-9, float32 by phase 10's rule, with times and
-   bounds.  (c) falc_h6ca converged on the card under the linear and
-   BESSER solvers, iterations within 2 of the JAX package's on the CPU
-   (349 and 214: scripts/jax_solver_iterations.py), and 40 MALI steps of
+   bounds.  (c) falc_h6ca converged on the card under the BESSER
+   solver, iterations within 2 of the JAX package's on the CPU (214:
+   scripts/jax_solver_iterations.py), and LINEAR_STEPS = 60 MALI steps
+   under the linear one, finite and contracting (converged in the JAX
+   package's 349 until phase 17 needed the time), and 40 MALI steps of
    the mixed-precision problem in float32 under each (finite,
    contracting); each run launches its solver's instance only.  (d)
    BASELINE config 4 (falc_h6ca in a 0.1 T field, gamma = pi/3, chi =
@@ -129,16 +134,17 @@ result):
    one launch against their plain versions (KERNEL_TOL / GAMMA_TOL, the
    float32 rule), with times and bounds, and the first, middle and last
    columns of each sweep and fused launch bit for bit their own
-   single-column launches.  (b) BASELINE config 5's 1.5D leg: 512
-   columns (halved while the card's memory refuses them) through
+   single-column launches.  (b) BASELINE config 5's 1.5D leg: BATCH_C =
+   256 columns (512 until phase 17 needed the time) through
    ColumnBatch.iterate(NmaxIter=400); every column converges; the
    slowest column re-run as a single card Context for 60 iterations
    against the batch's state after as many (populations 1e-9; three
    columns for their nIterCol iterations until phase 16 needed the
    time); ms per batch step, column-iterations per second against
    the single Context's, peak memory, one sweep launch per MALI step and the
-   sweep's time at the batch shape.  (c) 20 steps of that batch (from
-   LTE) under each scheme, populations within 1e-9 of the default's,
+   sweep's time at the batch shape.  (c) BATCH_SCHEME_STEPS = 10 steps
+   of that batch (from LTE; 20 until phase 17 needed the time) under
+   each scheme, populations within 1e-9 of the default's,
    one launch per stage per step, a stage breakdown and the line Gamma
    and fused kernels' times at the batch shape; then 10 float32 steps,
    finite and contracting, and the three kernels' float32 instances'
@@ -154,9 +160,10 @@ result):
    (a) The golden 2D problem (30 x 8, callable x boundaries, 6 rays)
    converged through iterate_ctx_se under piecewise_linear_2d with the
    compat x-lower boundary (tests/golden/falc2d_ca_ref.npz: 154
-   iterations, populations, J and I within 1e-8) and under
-   piecewise_besser_2d (falc2d_ca_besser_ref.npz: 218, 1e-9); ms per
-   iteration.  (b) BASELINE config 5's 2D leg: 82 x 256 periodic (40 km
+   iterations, populations, J and I within 1e-8), and 40 MALI steps
+   under piecewise_besser_2d, finite and contracting (converged against
+   falc2d_ca_besser_ref.npz, 218 iterations, 1e-9, until phase 17 needed
+   the time); ms per iteration.  (b) BASELINE config 5's 2D leg: 82 x 256 periodic (40 km
    columns), 12 rays, BESSER, 6 MALI steps from LTE with stat_equil after
    each (20 until phase 16 needed the time): finite, dJ contracting; ms per step, peak memory, the stage
    breakdown and the profile (kernels per step, idle share:
@@ -187,8 +194,8 @@ result):
    (multiprocessing's spawn), every rank on this card, joined by gloo
    (NCCL refuses two ranks on one device); a rank that fails or outlives
    DIST_DEADLINE fails the phase, and the ranks end before the parent
-   prints its last lines.  (a) Phase 13's 512 columns on a (2, 1) mesh,
-   256 per rank, 20 steps from LTE: populations and J within 1e-9 of
+   prints its last lines.  (a) Phase 13's 256 columns on a (2, 1) mesh,
+   128 per rank, 10 steps from LTE: populations and J within 1e-9 of
    phase 13 (c)'s default scheme after as many steps, ms per batch step
    beside it, one sweep launch per rank and step.  (b) Phase 14's 82 x
    256 slab x-sharded over the two ranks (Context(mesh=)), 3 BESSER MALI
@@ -201,6 +208,28 @@ result):
    (initialize_multihost(num_processes=1, backend='nccl')): its
    all_reduce, all_gather and broadcast on CUDA tensors, and a 64-column
    batch on the (1, 1) mesh equal to the unmeshed one.
+17. The MALI loop on the device (Context.iterate_on_device), float64.
+   (a) falc_h6ca at full width under the default scheme to convergence:
+   the JAX package's iterate_on_device count on the CPU (211:
+   scripts/jax_on_device_iterations.py) and, at the golden run's count,
+   the populations within 1e-7 of golden; ms per MALI step, host reads
+   (at most one per iteration) and launches.  (b) tests/
+   test_on_device_loop.py's 25-depth H 6 + Ca II problem with Ng(2, 5, 8):
+   the host Ng loop's count and populations (1e-7), fewer iterations than
+   without Ng.  (c) Its H 6 PRD (30 depths, 10 sub-iterations to 2e-4)
+   and hybrid-PRD (24 depths, 8 km/s outflow, 6 to 1e-3) setups with
+   accelerateScattering against iterate_ctx_se(prd=True): iterations
+   within 2, populations 5e-3, rho 1e-3.  (d) falc_h6ca under each
+   scheme, 20 steps of the host loop and of iterate_on_device with zero
+   tolerances: populations within 1e-9.  (e) One on-device body per
+   scheme with Ng (falc_h6ca) and with PRD (falc_h6mg), and hybrid PRD
+   under the default scheme, under torch.cuda.set_sync_debug_mode(
+   'error').  (f) For (d)'s runs: ms per MALI step, host reads and
+   kernel launches per step of each loop, the synchronising operations
+   per step (sync-warn mode), and under the default scheme
+   scripts/torch_profile.py's kernels and idle share over 5 steps of
+   each.  (g) benchmark(Niter=10) on FALC-500
+   (precisions, Gamma accumulation, schemes): the FALC-500 ms/iter.
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
@@ -209,8 +238,9 @@ plain versions' are CUDA events around their calls.  The kernels' JSON record ho
 instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
 and times and (c)'s launch counts for the sweep's linear and BESSER
-instances, and the probes'; phase 15's launches are added to each
-instance's count; each with the
+instances, and the probes'; phase 15's and phase 17's ((a), (c) and
+(d)'s on-device runs) launches are added to each instance's count; each
+with the
 least time the card could take for its inputs (bound_ms) and, where one
 PyTorch call computes the same function, that call's time.  The last four
 lines are the total wall time, the card's name and power limit as
@@ -943,7 +973,7 @@ def converge_falc_h6ca(scheme, nSteps=None, ref=None, snap=None):
 # the kernel schemes' falc_h6ca runs: this many MALI steps against the
 # default scheme's state after as many (converged against golden until
 # phase 16 needed the time)
-SCHEME_STEPS = 40
+SCHEME_STEPS = 20
 
 
 def main_path():
@@ -1045,7 +1075,7 @@ def callable_bc_check():
 # MALI steps against the default scheme's state after as many (its run
 # converges against the golden file), to the golden bars; converged runs
 # under each scheme until the column batch's phase needed the time
-PRD_SCHEME_STEPS, NG_SCHEME_STEPS = 40, 60
+PRD_SCHEME_STEPS, NG_SCHEME_STEPS = 20, 60
 
 
 def snapshot(ctx):
@@ -1248,49 +1278,6 @@ def prd_breakdown(ctx, reps=5):
     print(f'stage breakdown (ms, mean of {reps}; {nLines} PRD lines, '
           f'{len(ctx._prdSubIdxs)} subset rows): '
           + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in stages.items()))
-
-
-# FALC-500's timed blocks per configuration (3 until the column batch's
-# phase needed the time)
-FALC500_BLOCKS = 2
-# iterations per block under the default, _pallas and _fused schemes
-# ((50, 20, 20) until phase 16 needed the time)
-FALC500_ITERS = (30, 15, 15)
-
-
-def falc500(scheme, dtype, nIter):
-    """FALC-500 under ``scheme`` in the working ``dtype``: best of
-    FALC500_BLOCKS blocks of ``nIter`` formal_sol_gamma_matrices
-    iterations, then the stage breakdown (host clock, synchronised after
-    each stage, mean of 5)."""
-    from lightweaver_tpu_torch.problems import falc_interpolated, h6ca_context
-    name = {torch.float64: 'float64', F32: 'float32'}[dtype]
-    phase(f'FALC-500 under {scheme}, {name}: {nIter} iterations, best of '
-          f'{FALC500_BLOCKS}')
-    ctx = h6ca_context(falc_interpolated(500), 5, device='cuda', dtype=dtype)
-    ctx.set_fs_iter_scheme(scheme)
-    for _ in range(2):
-        ctx.formal_sol_gamma_matrices()
-    torch.cuda.synchronize()
-    best = np.inf
-    for _ in range(FALC500_BLOCKS):
-        t0 = time.perf_counter()
-        for _ in range(nIter):
-            u = ctx.formal_sol_gamma_matrices()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    if not (np.isfinite(float(u.dJMax)) and torch.isfinite(ctx.J).all()):
-        raise AssertionError(f'non-finite J on FALC-500 ({scheme}, {name})')
-    cfg = ctx.cfg
-    gridPoints = cfg.Nlam * cfg.Nmu * 2 * cfg.Nk
-    print(f'Nlam={cfg.Nlam} Nmu={cfg.Nmu} Nk={cfg.Nk}, {name}: '
-          f'{best / nIter * 1e3:.3f} ms/iter, '
-          f'{gridPoints * nIter / best:.4e} gridpoint-updates/s '
-          '(host clock, synchronised per block)')
-
-    stage_breakdown(ctx._iter_fn, ctx._params, scheme)
-    del ctx
-    torch.cuda.empty_cache()
 
 
 def stage_breakdown(it, params, scheme, reps=5):
@@ -1662,12 +1649,13 @@ def escape_inputs():
 
 def escape_check():
     """(d) The escape-probability start on the card against the CPU's
-    (ESCAPE_TOL), then iterate_ctx_se on the card from it and from the
-    LTE start: the iteration counts, and the sweep launched once per MALI
-    step."""
+    (ESCAPE_TOL), then iterate_ctx_se on the card from it: the iteration
+    count, and the sweep launched once per MALI step (the LTE start's
+    convergence beside it until phase 17 needed the time: 203
+    iterations against 202, PERF.md section 5)."""
     from lightweaver_tpu_torch import Context, InitialSolution
     phase('escape-probability start (30 depths, Ca II active, f64): card '
-          'vs CPU, then converged from it and from LTE')
+          'vs CPU, then converged from it')
     t0 = time.perf_counter()
     starts = [Context(*escape_inputs(), device=d,
                       initSol=InitialSolution.EscapeProbability)
@@ -1685,7 +1673,7 @@ def escape_check():
         raise AssertionError(f'escape start: card vs CPU {err:.3e}, '
                              f'departure from LTE {depart:.3e}')
     iters = {}
-    for name, ctx in (('escape', starts[1]), ('LTE', lte)):
+    for name, ctx in (('escape', starts[1]),):
         nIter, updates, wall, counts = run_counted(ctx, 400)
         iters[name] = nIter
         print(f'  from the {name} start: {nIter} iterations, last dJ '
@@ -1926,21 +1914,36 @@ def f32_kernel_check():
     return records
 
 
-def converge_mixed(scheme):
+def converge_mixed(scheme, nSteps=None):
     """(b) The mixed-precision problem (tests/test_mixed_precision.py's) in
     float32 under ``scheme`` through iterate_ctx_se; fewer than 600
-    iterations required (the JAX float32 state: 408 on the CPU)."""
+    iterations required (the JAX float32 state: 408 on the CPU).  With
+    ``nSteps`` (the kernel schemes, since phase 17 needed the time) that
+    many MALI steps, finite and contracting (the last dJ below the fifth
+    step's)."""
     from lightweaver_tpu_torch.problems import mixed_precision_context
     ctx = mixed_precision_context(device='cuda', dtype=F32)
     ctx.set_fs_iter_scheme(scheme)
-    nIter, updates, wall, counts = run_counted(ctx, 600)
+    if nSteps is not None:
+        dJ, fsgm = [], ctx.formal_sol_gamma_matrices
+
+        def tracked():
+            u = fsgm()
+            dJ.append(float(u.dJMax))
+            return u
+        ctx.formal_sol_gamma_matrices = tracked
+    nIter, updates, wall, counts = run_counted(ctx, nSteps or 600)
     print(f'  mixed-precision problem under {scheme}: {nIter} iterations '
-          f'(bar < 600), last dJ {float(updates[0].dJMax):.3e}, dPops '
+          f'(bar {"< 600" if nSteps is None else "contracting"}), last dJ '
+          f'{float(updates[0].dJMax):.3e}, dPops '
           f'{updates[1].dPopsMax:.3e}, {wall:.2f} s; float32 launches '
           + ', '.join(f'{k} {counts[k]}' for k in F32_NAMES))
-    if not nIter < 600:
+    if nSteps is None and not nIter < 600:
         raise AssertionError(f'the mixed-precision problem did not converge '
                              f'under {scheme} in {nIter} iterations')
+    if nSteps is not None and not (np.isfinite(dJ).all()
+                                   and dJ[-1] < dJ[4]):
+        raise AssertionError(f'{scheme} float32: dJ {dJ}')
     if not torch.isfinite(ctx.I).all():
         raise AssertionError('non-finite emergent intensity')
 
@@ -1975,9 +1978,10 @@ def run_counted(ctx, NmaxIter):
 # than 1e-3 of the peak, median 2.46e-3: scripts/precision_floors.py's
 # measure)
 F32_BRIGHT_BAR, F32_MEDIAN_BAR = 6.5e-2, 5e-3
-# (c)'s iterations: past the 211 in which the float64 state converges, so
-# the float32 state sits at its noise floor
-F32_FULL_ITERS = 230
+# (c)'s iterations (230, past the 211 in which the float64 state
+# converges, until phase 17 needed the time; the emergent spectrum is
+# inside its envelope long before either)
+F32_FULL_ITERS = 60
 
 
 def falc_h6ca_f32(scheme):
@@ -2167,22 +2171,33 @@ def solver_kernel_check():
     return records
 
 
-def converge_solver(solver):
+def converge_solver(solver, nSteps=None):
     """(c) falc_h6ca converged on the card under ``solver`` (default
     scheme, float64): its iterations within NITER_REF_SLACK of the JAX
     package's (JAX_SOLVER_ITERS) and the emergent spectrum beside the
     golden (Bezier-3) one; every launch the solver's float64 instance.
+    With ``nSteps``, that many MALI steps (stat_equil from the fourth),
+    finite and contracting (the last dJ below the fifth step's).
     Returns the run's launches of it."""
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.fal import Falc82
     from lightweaver_tpu_torch.problems import h6ca_context
     phase(f'synthesis (c): falc_h6ca under {solver} (default scheme, f64): '
-          'converged on the card')
+          + ('converged on the card' if nSteps is None
+             else f'{nSteps} MALI steps on the card'))
     ctx = h6ca_context(Falc82(), 5, device='cuda')
     ctx.set_formal_solver(solver)
     reset_counts()
     t0 = time.perf_counter()
-    nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    dJ = []
+    if nSteps is None:
+        nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
+    else:
+        for it in range(nSteps):
+            dJ.append(float(ctx.formal_sol_gamma_matrices().dJMax))
+            if it >= 3:
+                ctx.stat_equil()
+        nIter = nSteps
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -2193,10 +2208,16 @@ def converge_solver(solver):
           f'{JAX_SOLVER_ITERS[solver]}; Bezier-3: 211); {wall:.2f} s, '
           f'{wall / nIter * 1e3:.3f} ms/iter; emergent I vs the golden '
           f'Bezier-3 spectrum: max relative {dI:.3e}; launches '
-          + ', '.join(f'{k} {v}' for k, v in counts.items() if v))
-    if abs(nIter - JAX_SOLVER_ITERS[solver]) > NITER_REF_SLACK:
+          + ', '.join(f'{k} {v}' for k, v in counts.items() if v)
+          + (f'; dJ {dJ[4]:.3e} at step 5, {dJ[-1]:.3e} at the last'
+             if dJ else ''))
+    if nSteps is None and abs(nIter - JAX_SOLVER_ITERS[solver]) \
+            > NITER_REF_SLACK:
         raise AssertionError(f'{solver}: {nIter} iterations vs the JAX '
                              f'package\'s {JAX_SOLVER_ITERS[solver]}')
+    if nSteps is not None and not (np.isfinite(dJ).all()
+                                   and dJ[-1] < dJ[4]):
+        raise AssertionError(f'{solver}: dJ {dJ}')
     others = {k: v for k, v in counts.items() if v and k != name}
     if counts[name] < nIter or others:
         raise AssertionError(f'{solver}: launches {counts}')
@@ -2207,6 +2228,9 @@ def converge_solver(solver):
 
 # (c)'s float32 runs: MALI steps of the mixed-precision problem
 F32_SOLVER_STEPS = 40
+# (c)'s linear falc_h6ca run: MALI steps (converged in the JAX package's
+# 349 iterations until phase 17 needed the time)
+LINEAR_STEPS = 60
 
 
 def solver_steps_f32(solver):
@@ -2384,7 +2408,8 @@ def pickle_check():
 # ---- the 1.5D column batch (phase 13) ----------------------------------
 # BASELINE config 5's 1.5D leg: FAL-C columns, H 6-level + Ca II active,
 # 5 rays, 1046 wavelengths, float64, the default scheme
-BATCH_C = 512
+# (512 until phase 17 needed the time)
+BATCH_C = 256
 # (a)'s batch: one iteration's inputs of this many of (b)'s columns
 BATCH_KERNEL_C = 64
 BATCH_SEED = 1
@@ -2402,7 +2427,7 @@ BATCH_SINGLE_TOL = 1e-9
 BATCH_SINGLE_COLUMNS = 1
 BATCH_SINGLE_STEPS = 60
 BATCH_SCHEME_TOL = 1e-9
-BATCH_SCHEME_STEPS, BATCH_F32_STEPS = 20, 10
+BATCH_SCHEME_STEPS, BATCH_F32_STEPS = 10, 10
 BATCH_PRD_C, BATCH_PRD_STEPS, BATCH_PRD_TOL = 32, 20, 1e-8
 
 
@@ -2892,8 +2917,11 @@ def batch_prd():
 # (a) the golden 2D problem (problems.slab_2d(30, 8, periodic=False)):
 # solver, golden file, the compat x-lower boundary, the bar of
 # tests/test_vs_reference_golden.py
-GOLDEN_2D = (('piecewise_linear_2d', 'falc2d_ca_ref', True, 1e-8),
-             ('piecewise_besser_2d', 'falc2d_ca_besser_ref', False, 1e-9))
+# (solver, golden file, compat x BC, bar, MALI steps: None to converge);
+# BESSER converged against its golden run (218 iterations) until phase 17
+# needed the time
+GOLDEN_2D = (('piecewise_linear_2d', 'falc2d_ca_ref', True, 1e-8, None),
+             ('piecewise_besser_2d', 'falc2d_ca_besser_ref', False, 1e-9, 40))
 # (b) BASELINE config 5's 2D leg: Nz, Nx, rays per half-plane, MALI steps
 # from LTE, and the roll check (columns, steps, bar on J pointwise and on
 # the populations of each level relative to its maximum: the stat-eq solve
@@ -2920,20 +2948,38 @@ def no_kernel_launched(label, counts):
                              f'{ {k: v for k, v in counts.items() if v} }')
 
 
-def golden_2d(solver, refName, compat, bar):
+def golden_2d(solver, refName, compat, bar, nSteps=None):
     """(a) The golden 2D problem converged on the card through
     iterate_ctx_se: iterations within NITER_REF_SLACK of the reference's,
-    populations, J and I within ``bar`` of its run; ms per iteration."""
+    populations, J and I within ``bar`` of its run; ms per iteration.
+    With ``nSteps``, that many MALI steps (stat_equil from the fourth),
+    finite and contracting (the last dJ below the fifth step's)."""
     from lightweaver_tpu_torch import iterate_ctx_se
     from lightweaver_tpu_torch.problems import slab_2d
     phase(f'2D (a): falc2d_ca under {solver}'
           + (' with the compat x-lower boundary' if compat else '')
-          + ' converged on the card vs the golden run')
+          + (' converged on the card vs the golden run' if nSteps is None
+             else f', {nSteps} MALI steps on the card'))
     ref = golden(refName)
     ctx = slab_2d(30, 8, periodic=False, device='cuda', formalSolver=solver,
                   refBugCompat=compat)
     reset_counts()
     t0 = time.perf_counter()
+    if nSteps is not None:
+        dJ = []
+        for it in range(nSteps):
+            dJ.append(float(ctx.formal_sol_gamma_matrices().dJMax))
+            if it >= 3:
+                ctx.stat_equil()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        no_kernel_launched(solver, read_counts())
+        print(f'  {nSteps} MALI steps, {wall / nSteps * 1e3:.3f} ms/iter; dJ '
+              f'{dJ[4]:.3e} at step 5, {dJ[-1]:.3e} at the last')
+        if not (np.isfinite(dJ).all() and dJ[-1] < dJ[4]
+                and torch.isfinite(ctx.I).all()):
+            raise AssertionError(f'{solver}: dJ {dJ}')
+        return wall / nSteps * 1e3
     nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3582,7 +3628,7 @@ def dist_rank(rank, world, workdir):
                          backend='gloo')
     out = {}
 
-    # (a) the 512-column batch, each rank its block of columns
+    # (a) phase 13's batch, each rank its block of columns
     torch.cuda.reset_peak_memory_stats()
     mesh = make_mesh(world, 1)
     t0 = time.perf_counter()
@@ -3702,8 +3748,8 @@ def nccl_rank(rank, world, workdir):
 
 def distribution(batchRef, slabRef):
     """Phase 16: the port's distribution (parallel/) on the card.  (a)
-    BASELINE config 5's 1.5D leg, 512 columns, on a (2, 1) mesh of two
-    gloo ranks (256 columns each), BATCH_SCHEME_STEPS steps from LTE
+    BASELINE config 5's 1.5D leg, BATCH_C columns, on a (2, 1) mesh of
+    two gloo ranks (half each), BATCH_SCHEME_STEPS steps from LTE
     (ColumnBatch.iterate): populations and J within DIST_BATCH_TOL of
     phase 13 (c)'s default scheme after as many steps, ms per batch step
     beside its.  (b) The 82 x 256 slab x-sharded over the two ranks
@@ -3788,6 +3834,403 @@ def distribution(batchRef, slabRef):
     if not (all(v for k, v in d['checks'].items() if k != 'backend')
             and d['checks']['backend'] == 'nccl' and d['err'] < 1e-12):
         raise AssertionError(f'NCCL at world size 1: {d}')
+
+
+# ---- phase 17: the MALI loop on the device --------------------------------
+# JAX's iterate_on_device on falc_h6ca on the CPU (scripts/
+# jax_on_device_iterations.py): 211 iterations, the host loop's count, with
+# populations within 2.0e-10 of golden
+OD_JAX_ITERS = 211
+# the JAX package's tests/test_on_device_loop.py bars: populations against
+# the host loop at another count; with Ng (same count); PRD (+- 2
+# iterations, populations, rho)
+OD_HOST_RTOL, OD_NG_RTOL = 5e-3, 1e-7
+OD_PRD_SLACK, OD_PRD_POPS, OD_PRD_RHO = 2, 5e-3, 1e-3
+# (d): falc_h6ca steps of both loops under each scheme, populations apart
+OD_LOCKSTEP_STEPS, OD_LOCKSTEP_TOL = 20, 1e-9
+# (f): iterations of each loop under torch.profiler and in sync-warn mode
+OD_PROFILED = 5
+
+
+def od_atmos(Nspace, vlos=None):
+    """FAL-C at np.unique(np.linspace(0, 81, Nspace).astype(int)) of its
+    depths, 3 rays (tests/test_on_device_loop.py's setups)."""
+    from lightweaver_tpu_torch import Atmosphere
+    from lightweaver_tpu_torch.fal import Falc82
+    full = Falc82()
+    idx = np.unique(np.linspace(0, 81, Nspace).astype(int))
+    atmos = Atmosphere(height=full.height[idx],
+                       temperature=full.temperature[idx],
+                       vlos=full.vlos[idx] if vlos is None else vlos,
+                       vturb=full.vturb[idx], ne=full.ne[idx],
+                       nHTot=full.nHTot[idx])
+    atmos.quadrature(3)
+    return atmos
+
+
+def od_context(atoms, active, atmos, **kwargs):
+    from lightweaver_tpu_torch import RadiativeSet
+    from lightweaver_tpu_torch.context import Context
+    rs = RadiativeSet([a() for a in atoms])
+    rs.set_active(*active)
+    return Context(atmos, rs.compute_wavelength_grid(),
+                   rs.compute_eq_pops(atmos), device='cuda', **kwargs)
+
+
+def host_loop(ctx, NmaxIter, Nscatter=3, JTol=5e-3, popsTol=1e-3):
+    """The host-driven MALI loop of tests/test_on_device_loop.py (and of
+    iterate_ctx_se without PRD): formal_sol_gamma_matrices, stat_equil
+    past the Nscatter warm-up, dJ read each step; returns the steps."""
+    for it in range(NmaxIter):
+        ju = ctx.formal_sol_gamma_matrices()
+        dJ = float(ju.dJMax)
+        if it < Nscatter:
+            continue
+        pu = ctx.stat_equil()
+        if dJ < JTol and pu.dPopsMax < popsTol:
+            break
+    return it + 1
+
+
+def count_syncs(fn):
+    """The synchronising CUDA operations ``fn`` issues: the warnings of
+    torch.cuda.set_sync_debug_mode('warn')."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def od_falc_h6ca():
+    """(a) falc_h6ca at full width (82 depths, H 6 + Ca II, 5 rays, f64,
+    default scheme) through iterate_on_device to convergence: the JAX
+    package's count (OD_JAX_ITERS) and, at the golden run's count, the
+    populations within GOLDEN_RTOL of golden, else within OD_HOST_RTOL.
+    The counts are set to 0 just before and read just after."""
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    phase('on-device loop (a): falc_h6ca through iterate_on_device to '
+          'convergence (default scheme, f64)')
+    ctx = h6ca_context(Falc82(), 5, device='cuda')
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter, dJ, dPops = ctx.iterate_on_device(NmaxIter=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    reads = ctx._odRunnerCache[1].reads
+    ref = golden('falc_h6ca_ref')
+    nRef = int(ref['out_niter'][0])
+    bar = GOLDEN_RTOL if nIter == nRef else OD_HOST_RTOL
+    errs = {f'pops_a{ia}': relerr(st['n'].cpu(), ref[f'out_pops_a{ia}'])
+            for ia, st in enumerate(ctx.popsState)}
+    print(f'converged in {nIter} iterations (JAX iterate_on_device '
+          f'{OD_JAX_ITERS}, golden {nRef}), dJ {dJ:.3e}, dPops {dPops:.3e}; '
+          f'{wall:.2f} s, {wall / (nIter + 1) * 1e3:.3f} ms per MALI step '
+          f'(the final formal_sol_gamma_matrices counted); {reads} host '
+          f'reads ({reads / nIter:.3f} per iteration); launches '
+          + ', '.join(f'{k} {v}' for k, v in counts.items() if v))
+    print('populations against golden: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bar {bar})')
+    if nIter != OD_JAX_ITERS:
+        raise AssertionError(f'{nIter} iterations, JAX {OD_JAX_ITERS}')
+    if counts['sweep'] < nIter:
+        raise AssertionError(f'sweep launched {counts["sweep"]} times in '
+                             f'{nIter} iterations')
+    if reads > nIter:
+        raise AssertionError(f'{reads} host reads in {nIter} iterations')
+    bad = {k: v for k, v in errs.items() if not v < bar}
+    if bad:
+        raise AssertionError(f'on-device falc_h6ca off golden: {bad}')
+    return counts
+
+
+def od_ng():
+    """(b) tests/test_on_device_loop.py's 25-depth H 6 + Ca II (Ca
+    active) problem with Ng(2, 5, 8): iterate_on_device against the host
+    Ng loop, the same count and populations within OD_NG_RTOL."""
+    from lightweaver_tpu_torch import CaII_atom, H_6_atom, NgOptions
+    phase('on-device loop (b): 25 depths, Ca II active, Ng(2, 5, 8) '
+          'against the host Ng loop')
+    ng = NgOptions(2, 5, 8)
+    atoms, active = (H_6_atom, CaII_atom), ('Ca',)
+    ctxD = od_context(atoms, active, od_atmos(25))
+    t0 = time.perf_counter()
+    nDev, dJ, dPops = ctxD.iterate_on_device(NmaxIter=400, ngOptions=ng)
+    torch.cuda.synchronize()
+    tDev = time.perf_counter() - t0
+    ctxH = od_context(atoms, active, od_atmos(25), ngOptions=ng)
+    t0 = time.perf_counter()
+    nHost = host_loop(ctxH, 400)
+    torch.cuda.synchronize()
+    tHost = time.perf_counter() - t0
+    err = relerr(ctxD.popsState[0]['n'].cpu(), ctxH.popsState[0]['n'].cpu())
+    print(f'on-device {nDev} iterations ({tDev:.2f} s), host Ng loop '
+          f'{nHost} ({tHost:.2f} s); populations {err:.3e} apart (bar '
+          f'{OD_NG_RTOL})')
+    if nDev != nHost or not err < OD_NG_RTOL:
+        raise AssertionError('on-device Ng differs from the host Ng loop')
+
+
+def od_prd(hprd):
+    """(c) tests/test_on_device_loop.py's H 6 PRD setup (30 depths,
+    accelerateScattering, 10 sub-iterations to 2e-4) or its hybrid-PRD one
+    (24 depths under an 8 km/s outflow, 6 to 1e-3): iterate_on_device
+    (prd=True) against iterate_ctx_se(prd=True): iterations within
+    OD_PRD_SLACK, populations OD_PRD_POPS, rho OD_PRD_RHO.  Returns the
+    on-device run's launch counts."""
+    from lightweaver_tpu_torch import H_6_atom, iterate_ctx_se
+    name = 'hybrid PRD' if hprd else 'PRD'
+    if hprd:
+        Nspace, sub, tol = 24, 6, 1e-3
+        vlos = 8e3 * np.linspace(0.0, 1.0, Nspace)[::-1]
+    else:
+        Nspace, sub, tol, vlos = 30, 10, 2e-4, None
+    phase(f'on-device loop (c): H 6 {name}, {Nspace} depths, '
+          f'{sub} sub-iterations to {tol}, against iterate_ctx_se(prd=True)')
+
+    def setup():
+        return od_context((H_6_atom,), ('H',), od_atmos(Nspace, vlos),
+                          accelerateScattering=True, hprd=hprd)
+    ctxD = setup()
+    reset_counts()
+    t0 = time.perf_counter()
+    nDev, dJ, dPops = ctxD.iterate_on_device(
+        NmaxIter=300, prd=True, maxPrdSubIter=sub, prdTol=tol)
+    torch.cuda.synchronize()
+    tDev = time.perf_counter() - t0
+    counts = read_counts()
+    reads = ctxD._odRunnerCache[1].reads
+    ctxH = setup()
+    t0 = time.perf_counter()
+    nHost = iterate_ctx_se(ctxH, prd=True, NmaxIter=300, quiet=True,
+                           maxPrdSubIter=sub, prdIterTol=tol)
+    torch.cuda.synchronize()
+    tHost = time.perf_counter() - t0
+    ai, ti, _, _ = ctxD._prd_lines()[0]
+    rhoDev = ctxD.rhoPrd[ai][ti].cpu().numpy()
+    popsErr = float(np.abs(ctxD.popsState[0]['n'].cpu().numpy()
+                           / ctxH.popsState[0]['n'].cpu().numpy()
+                           - 1.0).max())
+    rhoErr = float(np.abs(rhoDev - ctxH.rhoPrd[ai][ti].cpu().numpy()).max())
+    print(f'on-device {nDev} iterations, {reads} host reads ({tDev:.2f} s, '
+          f'{tDev / nDev * 1e3:.2f} ms/iter), host loop {nHost} '
+          f'({tHost:.2f} s, {tHost / nHost * 1e3:.2f} ms/iter); populations '
+          f'{popsErr:.3e} apart, rho {rhoErr:.3e} (max |rho - 1| '
+          f'{np.abs(rhoDev - 1.0).max():.3f}); launches '
+          + ', '.join(f'{k} {v}' for k, v in counts.items() if v))
+    if not (dJ < 5e-3 and dPops < 1e-3 and np.isfinite(rhoDev).all()
+            and (rhoDev > 0).all()):
+        raise AssertionError(f'on-device {name} did not converge')
+    if (abs(nDev - nHost) > OD_PRD_SLACK or not popsErr < OD_PRD_POPS
+            or not rhoErr < OD_PRD_RHO):
+        raise AssertionError(f'on-device {name} off the host loop')
+    if hprd and not torch.isfinite(ctxD.JRest).all():
+        raise AssertionError('non-finite JRest')
+    if counts['sweep'] < 2 * nDev:
+        raise AssertionError(f'sweep launched {counts["sweep"]} times')
+    return counts
+
+
+def device_stepper(ctx):
+    """One step of ctx's cached on-device loop with its stopping read, as
+    iterate_on_device takes it, past the Lambda warm-up (for the
+    profiler and the sync count)."""
+    loop = ctx._odRunnerCache[1]
+    state = [dict(loop.start(), it=loop.Nscatter)]
+
+    def step(_ctx):
+        state[0] = loop.step(state[0])
+        loop.read_flag((state[0]['dJ'] >= 0.0) | (state[0]['dPops'] >= 0.0))
+    return step
+
+
+def od_lockstep(scheme):
+    """(d) and (f): falc_h6ca under ``scheme``, OD_LOCKSTEP_STEPS steps of
+    the host loop and of iterate_on_device (zero tolerances; the Lambda
+    warm-up of 3 in both): populations within OD_LOCKSTEP_TOL; ms per
+    MALI step, host reads (the loop's flags) and kernel launches per
+    step, the synchronising operations per step (sync-warn mode) and
+    scripts/torch_profile.py's kernels and idle share over OD_PROFILED
+    steps of each loop under the default scheme (profiling the other
+    schemes too took 40 s).  Returns (the on-device run's counts, the
+    numbers)."""
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.problems import h6ca_context
+    sys.path.insert(0, str(ROOT / 'scripts'))
+    from torch_profile import profile_problem
+    n = OD_LOCKSTEP_STEPS
+    phase(f'on-device loop (d, f): falc_h6ca under {scheme}, {n} MALI steps '
+          'of the host loop and of iterate_on_device')
+    ctxs = []
+    for _ in range(2):
+        ctx = h6ca_context(Falc82(), 5, device='cuda')
+        ctx.set_fs_iter_scheme(scheme)
+        ctxs.append(ctx)
+    ctxH, ctxD = ctxs
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    host_loop(ctxH, n, JTol=0.0, popsTol=0.0)
+    torch.cuda.synchronize()
+    tHost = time.perf_counter() - t0
+    cHost = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    nIter, _, _ = ctxD.iterate_on_device(NmaxIter=n, JTol=0.0, popsTol=0.0)
+    torch.cuda.synchronize()
+    tDev = time.perf_counter() - t0
+    cDev = read_counts()
+    reads = ctxD._odRunnerCache[1].reads
+    errs = {f'pops_a{ia}': relerr(d['n'].cpu(), h['n'].cpu())
+            for ia, (d, h) in enumerate(zip(ctxD.popsState, ctxH.popsState))}
+    # the device loop's final formal_sol_gamma_matrices is a step too
+    out = {'host_ms': tHost / n * 1e3, 'device_ms': tDev / (n + 1) * 1e3,
+           'reads': reads / nIter,
+           'host_launches': {k: v / n for k, v in cHost.items() if v},
+           'device_launches': {k: v / (n + 1) for k, v in cDev.items() if v}}
+
+    def host_step(ctx):
+        u = ctx.formal_sol_gamma_matrices()
+        float(u.dJMax)
+        ctx.stat_equil()
+    devStep = device_stepper(ctxD)
+    out['host_syncs'] = count_syncs(
+        lambda: [host_step(ctxH) for _ in range(OD_PROFILED)]) / OD_PROFILED
+    out['device_syncs'] = count_syncs(
+        lambda: [devStep(ctxD) for _ in range(OD_PROFILED)]) / OD_PROFILED
+    idle = ''
+    if scheme == SCHEMES[0]:
+        out['host_profile'] = profile_problem(
+            f'falc_h6ca host loop, {scheme}', ctxH, host_step,
+            iters=OD_PROFILED)
+        out['device_profile'] = profile_problem(
+            f'falc_h6ca on-device loop, {scheme}', ctxD, devStep,
+            iters=OD_PROFILED)
+        idle = (f'; idle share host {out["host_profile"]["idle"]:.3f}, '
+                f'on-device {out["device_profile"]["idle"]:.3f}')
+    print(f'{scheme}: populations apart after {n} steps: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bar {OD_LOCKSTEP_TOL}); ms per MALI step host '
+          f'{out["host_ms"]:.3f}, on-device {out["device_ms"]:.3f}; host '
+          f'reads per iteration {out["reads"]:.3f} (on-device); '
+          f'synchronising operations per step host {out["host_syncs"]:.1f}, '
+          f'on-device {out["device_syncs"]:.1f}; launches per step host '
+          + ', '.join(f'{k} {v:.2f}' for k, v in out['host_launches'].items())
+          + '; on-device '
+          + ', '.join(f'{k} {v:.2f}'
+                      for k, v in out['device_launches'].items())
+          + idle)
+    if nIter != n:
+        raise AssertionError(f'{nIter} on-device steps of {n}')
+    bad = {k: v for k, v in errs.items() if not v < OD_LOCKSTEP_TOL}
+    if bad:
+        raise AssertionError(f'{scheme}: on-device loop off the host loop '
+                             f'in lockstep: {bad}')
+    kernel = {'mali_full_precond': 'sweep', PALLAS: 'gamma',
+              FUSED: 'fused'}[scheme]
+    if cDev[kernel] < nIter:
+        raise AssertionError(f'{scheme}: {kernel} launched {cDev[kernel]} '
+                             f'times in {nIter} on-device steps')
+    if reads > nIter:
+        raise AssertionError(f'{reads} host reads in {nIter} iterations')
+    return cDev, out
+
+
+def od_sync_free():
+    """(e) One on-device body (DeviceLoop.step: the MALI step, the
+    statistical-equilibrium solve, Ng's extrapolation, the PRD
+    sub-iterations with their flag taken as 'go on' rather than read)
+    per scheme with Ng(2, 3, 4) on falc_h6ca and with PRD (3
+    sub-iterations) on falc_h6mg, and hybrid PRD under the default scheme
+    on falc_h6mg with the outflow, each after an unchecked warm-up body,
+    under torch.cuda.set_sync_debug_mode('error'): any synchronising CUDA
+    operation raises."""
+    from lightweaver_tpu_torch.context import DeviceLoop
+    from lightweaver_tpu_torch.fal import Falc82
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.problems import h6ca_context, h6mg_context
+    phase("on-device loop (e): one body per scheme under "
+          "torch.cuda.set_sync_debug_mode('error')")
+    cases = [('falc_h6ca', 'Ng(2, 3, 4)', lambda: h6ca_context(
+                 Falc82(), 5, device='cuda'), SCHEMES, (2, 3, 4), False),
+             ('falc_h6mg', 'PRD', lambda: h6mg_context(device='cuda'),
+              SCHEMES, (0, 0, 0), True),
+             ('falc_h6mg', 'hybrid PRD', lambda: h6mg_context(
+                 hprd=True, device='cuda'), SCHEMES[:1], (0, 0, 0), True)]
+    for problem, what, build, schemes, ng, prd in cases:
+        ctx = build()
+        for scheme in schemes:
+            ctx.set_fs_iter_scheme(scheme)
+            loop = DeviceLoop(ctx, 0, NgOptions(*ng), prd, 3, 0.0)
+            s = loop.start()
+            for checked in (False, True):
+                # Ng's count at its first extrapolation (Ndelay 5)
+                s['cnt'] = 4
+                if checked:
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode('error')
+                try:
+                    s = loop.step(s, more=lambda flag: True)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ok = all(bool(torch.isfinite(n).all()) for n in s['pops'])
+            print(f'{problem} {what} under {scheme}: one body, no '
+                  f'synchronising operation, {loop.reads} host reads, '
+                  f'populations finite {ok}')
+            if not ok or loop.reads:
+                raise AssertionError(f'{problem} {what} {scheme}: body')
+
+
+def od_benchmark():
+    """(g) benchmark(Niter=10) on FALC-500 (lightweaver_tpu_torch's
+    export): the precisions, the Gamma accumulation and the schemes, on
+    the card; it supplies the FALC-500 ms/iter that phase 11 measured
+    until phase 17 needed the time (with stage breakdowns, now
+    dropped)."""
+    from lightweaver_tpu_torch import benchmark
+    phase('on-device loop (g): benchmark(Niter=10) on FALC-500')
+    t0 = time.perf_counter()
+    res = benchmark(Niter=10, verbose=True)
+    print(f'benchmark: {time.perf_counter() - t0:.1f} s; timings (ms/iter) '
+          + ', '.join(f'{m}/{p} {v * 1e3:.3f}'
+                      for (m, p), v in res['timings'].items())
+          + '; schemes at ' + '/'.join(res['best']) + ' '
+          + ', '.join(f'{k} {v * 1e3:.3f}'
+                      for k, v in res['schemeTimings'].items()))
+    if not all(np.isfinite(v) and v > 0 for v in res['timings'].values()):
+        raise AssertionError('benchmark timings')
+    if set(res['schemeTimings']) != set(SCHEMES):
+        raise AssertionError(f'benchmark raced {set(res["schemeTimings"])}')
+    return res
+
+
+def on_device_loop():
+    """Phase 17: Context.iterate_on_device (a)-(g).  Returns the kernels'
+    launches on the phase's main paths ((a), (c), the on-device runs of
+    (d)) and (d, f)'s numbers per scheme."""
+    launches = od_falc_h6ca()
+    od_ng()
+    for hprd in (False, True):
+        for k, v in od_prd(hprd).items():
+            launches[k] += v
+    numbers = {}
+    for scheme in SCHEMES:
+        counts, numbers[scheme] = od_lockstep(scheme)
+        for k, v in counts.items():
+            launches[k] += v
+    od_sync_free()
+    bench = od_benchmark()
+    return launches, numbers, bench
 
 
 # ---- the least time the card could take for a kernel's work -----------
@@ -3931,8 +4374,8 @@ def main():
     solverKern = solver_kernel_check()
     solverLaunches = {}
     for solver in SOLVERS[::2]:
-        solverLaunches[sweep_name(solver, torch.float64)] = \
-            converge_solver(solver)
+        solverLaunches[sweep_name(solver, torch.float64)] = converge_solver(
+            solver, LINEAR_STEPS if solver == SOLVERS[0] else None)
     phase('synthesis (c): the mixed-precision problem (40 depths, 3 rays, '
           'Ca II active) in float32 under the linear and BESSER solvers')
     for solver in SOLVERS[::2]:
@@ -3942,8 +4385,9 @@ def main():
     f32Kern = f32_kernel_check()
     phase('mixed-precision problem (40 depths, 3 rays, Ca II active) in '
           'float32 under each scheme')
-    for scheme in SCHEMES:
-        converge_mixed(scheme)
+    converge_mixed(SCHEMES[0])
+    for scheme in SCHEMES[1:]:
+        converge_mixed(scheme, F32_SOLVER_STEPS)
     phase('falc_h6ca at full width in float32 under each scheme, '
           f'NmaxIter = {F32_FULL_ITERS}')
     f32Launches = dict.fromkeys(F32_NAMES, 0)
@@ -3951,9 +4395,6 @@ def main():
         counts = falc_h6ca_f32(scheme)
         for k in F32_NAMES:
             f32Launches[k] += counts[k]
-    for scheme, nIter in zip(SCHEMES, FALC500_ITERS):
-        for dtype in (torch.float64, F32):
-            falc500(scheme, dtype, nIter)
     batch_kernel_check()
     batchRef = batch_schemes(batch_converged())
     batch_prd()
@@ -3969,6 +4410,9 @@ def main():
     # phases 13 and 14
     distribution(batchRef, slab)
     del batchRef
+    # phase 17, the MALI loop on the device; its benchmark gives the
+    # FALC-500 ms/iter
+    odLaunches, odNumbers, bench = on_device_loop()
     # the kernels' record: the float64 instances on the PRD path (phase 8's
     # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
     # path (phase (c)'s launches, phase (a)'s inputs), the probes; phase
@@ -3980,7 +4424,8 @@ def main():
     records.update({name: dict(solverKern[name], launches=n)
                     for name, n in solverLaunches.items()})
     records.update(probes)
-    for name, n in options['launches'].items():
+    for name, n in list(options['launches'].items()) + list(
+            odLaunches.items()):
         if name in records:
             records[name]['launches'] += n
     print(f'synthesis: compute_rays (the README program, 1001 wavelengths, '
@@ -3999,6 +4444,20 @@ def main():
           f'{options["hprd_ms"]:.1f} ms per outer iteration; launches '
           + ', '.join(f'{k} {v}' for k, v in options['launches'].items()
                       if v))
+    prof = odNumbers[SCHEMES[0]]
+    print('on-device loop: ' + '; '.join(
+        f'{s}: {v["device_ms"]:.1f} ms per MALI step against the host '
+        f'loop\'s {v["host_ms"]:.1f}, {v["reads"]:.2f} host reads per '
+        f'iteration' for s, v in odNumbers.items())
+        + f'; idle share {prof["device_profile"]["idle"]:.3f} against '
+        f'{prof["host_profile"]["idle"]:.3f} ({SCHEMES[0]})'
+        + '; launches ' + ', '.join(f'{k} {v}' for k, v in odLaunches.items()
+                                    if v))
+    print('FALC-500 (benchmark): ' + ', '.join(
+        f'{m}/{p} {v * 1e3:.3f}' for (m, p), v in bench['timings'].items())
+        + ' ms/iter; ' + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in
+                                   bench['schemeTimings'].items())
+        + f' ms/iter at {"/".join(bench["best"])}')
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')
     print(smi)

@@ -29,8 +29,15 @@ postprocessing give the depth-resolved diagnostics.  The 1.5D column
 batch (parallel.ColumnBatch) runs on one device or over a ('columns',
 'wavelength') mesh of ranks (parallel.make_mesh, parallel.multihost),
 and a 2D atmosphere's x axis shards over ranks (Context(mesh=),
-parallel.xshard2d), one process per rank through torch.distributed.  The
-exports are the JAX package's, but ``benchmark``.
+parallel.xshard2d), one process per rank through torch.distributed.
+Context.iterate_on_device runs the whole MALI loop (Ng and the PRD
+sub-iterations included) with its state on the device, and benchmark
+races the precisions, the Gamma accumulation and the iteration schemes on
+FALC-500 and can persist the winners to lightweaverrc, whose
+IterationScheme the Context then takes.  The model layer is the JAX
+package's whole, the Saha EOS (eos.py with its native core, nativert/),
+the CRTAF and RH atom readers (crtaf.py, rh_format.py) included, and the
+exports are the JAX package's.
 
 ``ref:`` comments name files of the upstream Lightweaver source tree
 (``lightweaver/`` for its Python layer, ``Source/`` for its C++ core).
@@ -42,7 +49,7 @@ from .ops.planck import planck_nu
 __version__ = '0.1.0'
 
 # the user-facing API surface: the JAX package's exports (the reference's
-# package exports), but benchmark
+# package exports)
 from .atmosphere import (Atmosphere, BoundaryCondition, Layout, NoBc,
                          PeriodicRadiation, ScaleType, Stratifications,
                          ThermalisedRadiation, ZeroRadiation)
@@ -58,6 +65,7 @@ from .molecule import MolecularTable
 from .multi import read_multi_atmos
 from .atomic_table import (AtomicAbundance, DefaultAtomicAbundance, Element,
                            Isotope, KuruczPfTable, PeriodicTable)
+from .benchmark import benchmark
 from .config import params as configParams
 from .config import params as ConfigDict
 from .context import DEFAULT_DTYPE, Context

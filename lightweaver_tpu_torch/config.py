@@ -14,6 +14,7 @@ _DEFAULTS = {
     'FormalSolver1d': 'piecewise_bezier3_1d',
     'FormalSolver2d': 'piecewise_linear_2d',
     'IterationScheme': 'mali_full_precond',
+    'GammaAccum': 'exact',             # 'exact' | 'blocked' (f32 Gamma sums)
     'RecurrenceMode': 'scan',          # 'scan' | 'parallel' (assoc. scan)
     'Precision': 'f64',                # 'f64' | 'mixed' (f32 + f64 accum)
 }

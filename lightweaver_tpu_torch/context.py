@@ -8,7 +8,9 @@ stat_equil: Ng acceleration of the populations (ngOptions),
 Newton-Raphson charge conservation (conserveCharge, nr_post_update),
 backward-Euler time-dependent updates (time_dep_update, with update_deps
 after the atmosphere changes) and the escape-probability start (initSol);
-and spectrum synthesis from a converged state: the Lambda step formal_sol,
+the whole MALI loop on the device (iterate_on_device, with Ng and the PRD
+sub-iterations: DeviceLoop); and spectrum synthesis from a converged
+state: the Lambda step formal_sol,
 state_dict / pickling / construct_from_state_dict_with, compute_rays, and
 full-Stokes Zeeman synthesis (compute_polarised_profiles,
 single_stokes_fs, ops/stokes.py).  2D (x, z) atmospheres take the same
@@ -99,7 +101,7 @@ from .ops import gamma as gammaOps
 from .ops.faddeeva import voigt_H, voigt_HF
 from .ops.formal_solver import SOLVER_NAMES_1D
 from .ops.linalg import solve_KxK_over_depth
-from .ops.ng import Ng, NgOptions
+from .ops.ng import Ng, NgOptions, device_ng_accelerate, device_ng_init
 from .ops.planck import planck_nu
 from .ops.prd import interp, prd_scatter_rho
 from .ops.stokes import delo_bezier_stokes
@@ -1478,8 +1480,8 @@ def rest_frame_J(cfg: IterConfig, params, lam, I):
     working dtype; the mu sum in the wider of the working dtype and
     accumDtype (in the f32 state JRest is summed from float32 products
     into float64, where the JAX float32 Context sums in float32)."""
-    lamPrd = cfg.wavelengthT[torch.as_tensor(cfg.prdIdxs, device=cfg.device)]
-    sgn = cfg.tensor([-1.0, 1.0])
+    rows, sgn = _hprd_rows(cfg)
+    lamPrd = cfg.wavelengthT[rows]
     fac = 1.0 + (sgn[:, None, None] * params['vlosMu'][None]
                  / Const.CLight)                         # [2, Nmu, Nk]
     IRest = interp(lamPrd, lam * fac[..., None],
@@ -1487,6 +1489,18 @@ def rest_frame_J(cfg: IterConfig, params, lam, I):
     acc = torch.promote_types(cfg.dtype, cfg.accumDtype)
     return torch.sum((IRest * (0.5 * cfg.wmuT)[None, :, None, None])
                      .to(acc), dim=(0, 1)).T
+
+
+def _hprd_rows(cfg: IterConfig):
+    """cfg.prdIdxs on the device and the (down, up) signs of the Doppler
+    shift, made at the first call for each prdIdxs array and kept on cfg,
+    so that a MALI step copies nothing from the host after its first."""
+    kept = cfg.__dict__.get('_hprdRows')
+    if kept is None or kept[0] is not cfg.prdIdxs:
+        kept = (cfg.prdIdxs, torch.as_tensor(cfg.prdIdxs, device=cfg.device),
+                cfg.tensor([-1.0, 1.0]))
+        cfg._hprdRows = kept
+    return kept[1], kept[2]
 
 
 def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
@@ -1590,6 +1604,35 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
     return prd_subset_stage
 
 
+def prd_window_J(cfg: IterConfig, t: TransStatic, prd0, J, JRest):
+    """The mean intensity [W, Nk] that PRD line t's scattering integral
+    reads: its rows of JRest (prd0 its first row there) under hybrid PRD
+    once JRest exists, else its window of J."""
+    if cfg.hprd and JRest is not None:
+        return JRest[prd0:prd0 + t.W]
+    return J[t.Nblue:t.Nred]
+
+
+def scatter_rho(a: AtomStatic, ti: int, statics, C, Rij, Rji, n, Jw):
+    """The new rho [W, Nk] of PRD line ti of active atom a from explicit
+    tensors: its constants ``statics`` (qWave, aDamp, Qelast, ...:
+    Context._prd_line_statics), the atom's collisional matrix C, rates
+    Rij/Rji (per transition) and populations n, and Jw (prd_window_J).
+    Pj + Qj is the upper level's total depopulation plus the elastic rate
+    (ref: Source/Prd.cpp:9-30, 468-645)."""
+    t = a.trans[ti]
+    qWave, aDamp, Qelast = statics[:3]
+    PjQj = Qelast + C[:, t.j, :].sum(dim=0)
+    for t2i, t2 in enumerate(a.trans):
+        if t2.j == t.j:
+            PjQj = PjQj + Rji[t2i]
+        if t2.i == t.j:
+            PjQj = PjQj + Rij[t2i]
+    gammaPre = n[t.i] / n[t.j] * t.Bij / PjQj
+    Jbar = Rij[ti] / t.Bij
+    return prd_scatter_rho(qWave, aDamp, Jw, gammaPre, Jbar)
+
+
 def _stat_eq_solve(Gamma, n, nTotal):
     """Batched-over-depth statistical equilibrium: replace the row of the
     largest population with particle conservation and solve.
@@ -1644,6 +1687,169 @@ def phi_direction_major(phi):
     """[W, Nmu, 2, Nk] profile (the JAX package's layout) -> contiguous
     [2, W, Nmu, Nk], the iteration's layout."""
     return torch.movedim(phi, 2, 0).contiguous()
+
+
+class DeviceLoop:
+    """The prepared state of Context.iterate_on_device for one option set,
+    the counterpart of the JAX package's compiled while_loop
+    (lightweaver_tpu/context.py:2451-2682).
+
+    Made once and cached on the Context (_odRunnerCache, dropped with the
+    cached params): the params of the MALI step, built once (the scheme's
+    packed kernel input, the profiles, the boundary rows: a callable BC
+    is read here, as the JAX package bakes it), the active atoms' nTotal,
+    and with PRD each PRD line's scattering constants and the subset
+    solve (build_prd_subset_fn) with its rows.  step() is one MALI
+    iteration with its statistical-equilibrium solve, Ng and PRD
+    sub-iterations on tensors that stay on the device: it copies nothing
+    from the host and reads nothing back.  Where a loop needs a decision
+    (more PRD sub-iterations?) it hands a 0-d bool tensor to ``more``,
+    read_flag by default, the loops' one read back each, counted in
+    ``reads``.  The iteration counter and Ng's count are host ints, so
+    the Lambda warm-up and Ng's schedule are decided on the host."""
+
+    def __init__(self, ctx, Nscatter: int, ngOptions, prd: bool,
+                 maxPrdSubIter: int, prdTol: float):
+        cfg = ctx.cfg
+        self.ctx, self.cfg = ctx, cfg
+        self.Nscatter = Nscatter
+        ng = ngOptions if ngOptions is not None else NgOptions(0, 0, 0)
+        self.ng = (ng.Norder, ng.Nperiod, ng.Ndelay)
+        self.maxPrdSubIter, self.prdTol = maxPrdSubIter, prdTol
+        self.iterFn = ctx._iter_fn
+        self.base = ctx.build_params()
+        self.nTotals = [cfg.state(ctx.eqPops.atomicPops[a.model.element]
+                                  .nTotal) for a in cfg.activeAtoms]
+        self.prdLines = ctx._prd_lines() if prd else []
+        if self.prdLines:
+            if cfg.Ndim != 1:
+                raise ValueError('on-device PRD needs a 1D atmosphere')
+            self.subsetFn = ctx._prd_subset_fn()
+            self.subT = ctx._prdSubIdxsT
+            self.statics = ctx._prd_line_statics()
+        if cfg.hprd:
+            # rest_frame_J's constants, before the first step
+            _hprd_rows(cfg)
+        self.zero = torch.zeros((), dtype=STATE_DTYPE, device=ctx.device)
+        self.one = torch.ones((), dtype=STATE_DTYPE, device=ctx.device)
+        self.reads = 0
+
+    def read_flag(self, flag) -> bool:
+        """A 0-d bool tensor as a Python bool: the one read back to the
+        host of a loop's stopping test, counted in ``reads``."""
+        self.reads += 1
+        return bool(flag)
+
+    def start(self) -> Dict:
+        """The loop state from the Context's J, populations, rho and
+        JRest: Ng's ring buffers hold the populations (device_ng_init),
+        dJ = dPops = 1."""
+        ctx = self.ctx
+        # what a charge-conservation step moves between calls
+        self.base['nStar'] = [st['nStar'] for st in ctx.popsState]
+        self.base['detNStar'] = [st['nStar'] for st in ctx.detailedPops]
+        self.base['C'] = ctx._deviceC()
+        JRest = ctx.JRest
+        if self.prdLines and self.cfg.hprd and JRest is None:
+            JRest = torch.zeros((len(self.cfg.prdIdxs), self.cfg.Nk),
+                                dtype=ctx.J.dtype, device=ctx.device)
+        return {'it': 0, 'J': ctx.J, 'pops': [st['n'] for st in ctx.popsState],
+                'dJ': self.one, 'dPops': self.one,
+                'hists': [device_ng_init(st['n'], self.ng[0])[0]
+                          for st in ctx.popsState],
+                'cnt': 1, 'rho': ctx.rhoPrd, 'JRest': JRest}
+
+    def step(self, s: Dict, more=None) -> Dict:
+        """One MALI iteration from state ``s``: the formal solution with
+        Gamma (the scheme's kernels), then, past the Lambda warm-up of
+        Nscatter iterations, the statistical-equilibrium solve per atom,
+        Ng (device_ng_accelerate) and with PRD the sub-iterations
+        (prd_subloop).  dPops is Ng's max change (against the starting
+        populations at the first solve), 1 during the warm-up."""
+        p = dict(self.base, J=s['J'], pops=s['pops'], rhoPrd=s['rho'])
+        out = self.iterFn(p)
+        it = s['it']
+        s = dict(s, it=it + 1, J=out['J'], dJ=out['dJ'],
+                 JRest=out.get('JRest', s['JRest']))
+        if it < self.Nscatter:
+            # the Lambda warm-up keeps the initial populations
+            s['dPops'] = self.one
+            return s
+        No, Np, Nd = self.ng
+        pops, hists, dPops = [], [], self.zero
+        for ai, (n, hist) in enumerate(zip(s['pops'], s['hists'])):
+            nNew = _stat_eq_solve(out['Gamma'][ai], n, self.nTotals[ai])
+            hist, _, sol, dMax = device_ng_accelerate(
+                hist, s['cnt'], nNew.reshape(-1), No, Np, Nd)
+            pops.append(sol.view(nNew.shape))
+            hists.append(hist)
+            dPops = torch.maximum(dPops, dMax)
+        s.update(pops=pops, hists=hists, cnt=s['cnt'] + 1, dPops=dPops)
+        if self.prdLines:
+            s['rho'], s['J'], s['JRest'] = self.prd_subloop(
+                s['rho'], s['J'], s['JRest'], out['Rij'], out['Rji'], pops,
+                self.read_flag if more is None else more)
+        return s
+
+    def prd_subloop(self, rho, J, JRest, Rij, Rji, pops, more):
+        """Up to maxPrdSubIter PRD sub-iterations while drho >= prdTol
+        (the first always runs), on the step's own rates and the
+        post-solve populations; returns (rho, J, JRest)."""
+        for si in range(self.maxPrdSubIter):
+            rho, J, JRest, Rij, Rji, drho = self.prd_substep(
+                rho, J, JRest, Rij, Rji, pops)
+            if si + 1 < self.maxPrdSubIter and not more(drho >= self.prdTol):
+                break
+        return rho, J, JRest
+
+    def prd_substep(self, rho, J, JRest, Rij, Rji, pops):
+        """rho of every PRD line (scatter_rho), then the subset solve with
+        it: J's subset rows (not I) and the PRD lines' rates are replaced,
+        and JRest under hybrid PRD.  drho is the largest |(rNew - rOld) /
+        rNew| over rNew != 0, the tracking-only Ng's max change of the
+        host prd_redistribute."""
+        cfg = self.cfg
+        drho = self.zero
+        rhoNew = [list(r) for r in rho]
+        for (ai, ti, a, t), statics in zip(self.prdLines, self.statics):
+            rNew = scatter_rho(a, ti, statics, self.base['C'][ai], Rij[ai],
+                               Rji[ai], pops[ai],
+                               prd_window_J(cfg, t, statics[3], J, JRest))
+            nz = rNew != 0.0
+            rel = torch.where(nz, (rNew - rho[ai][ti]) / rNew, 0.0)
+            drho = torch.maximum(drho, torch.max(torch.abs(rel)))
+            rhoNew[ai][ti] = rNew
+        out = self.subsetFn(dict(self.base, J=J, pops=pops, rhoPrd=rhoNew))
+        J = J.index_copy(0, self.subT, out['J'].to(J.dtype))
+        Rij, Rji = [list(r) for r in Rij], [list(r) for r in Rji]
+        for li, (ai, ti, a, t) in enumerate(self.prdLines):
+            Rij[ai][ti] = out['Rij'][li]
+            Rji[ai][ti] = out['Rji'][li]
+        return rhoNew, J, out.get('JRest', JRest), Rij, Rji, drho
+
+    def finish(self, s: Dict):
+        """Write the loop's state back to the Context, after one read of
+        the populations' finite flags: a non-finite population raises
+        ExplodingMatrixError and writes nothing."""
+        ctx = self.ctx
+        if s['pops']:
+            finite = torch.stack([torch.isfinite(n).all()
+                                  for n in s['pops']]).cpu()
+            for ai, ok in enumerate(finite.tolist()):
+                if not ok:
+                    name = self.cfg.activeAtoms[ai].model.element.name
+                    raise ExplodingMatrixError(
+                        f'Non-finite populations for atom {name} in '
+                        f'iterate_on_device after {s["it"]} iterations '
+                        '(singular Gamma matrix or diverging Ng '
+                        'extrapolation)')
+        ctx.J = s['J']
+        for st, n in zip(ctx.popsState, s['pops']):
+            st['n'] = n
+        if self.prdLines:
+            ctx.rhoPrd = s['rho']
+            if self.cfg.hprd:
+                ctx.JRest = s['JRest']
 
 
 class Context:
@@ -1718,7 +1924,16 @@ class Context:
     and gather_x (and activePops) give the whole grid's arrays.  It takes
     the CRD MALI iteration, time_dep_update and depthData; charge
     conservation, hybrid PRD, Ng, prd_redistribute, update_deps,
-    state_dict, compute_rays and Stokes synthesis raise ValueError.
+    state_dict, compute_rays, Stokes synthesis and iterate_on_device
+    raise ValueError.
+
+    iterate_on_device runs the whole MALI loop with its state on the
+    device (DeviceLoop: Ng and the PRD sub-iterations too), reading back
+    only its stopping tests.  Without ``fsIterScheme`` the Context takes
+    lightweaverrc's ``IterationScheme`` (what benchmark(writeConfig=True)
+    writes) where that scheme's kernel covers the configuration, else the
+    default scheme, as the JAX Context does; an ``fsIterScheme`` it does
+    not cover raises.
 
     Accessors as in the JAX package: Nthreads (1; setting it does
     nothing), hprd, activePops ({element name: numpy populations}) and
@@ -1916,7 +2131,7 @@ class Context:
         if xShard is not None:
             self._take_x_block(xShard)
         self._iter_fn = build_iteration_fn(self.cfg)
-        self._params = None
+        self._drop_params()
         self._nrFn = None
         self._nrFnKey = None
         self._Gamma = None
@@ -1924,6 +2139,17 @@ class Context:
         self._Rji = None
         if fsIterScheme is not None:
             self.set_fs_iter_scheme(fsIterScheme)
+        else:
+            # lightweaverrc's scheme, best-effort as in the JAX package: a
+            # scheme whose kernel does not cover this configuration leaves
+            # the default scheme (a choice between the port's schemes,
+            # each on the card)
+            rcScheme = cfgParams.get('IterationScheme', SCHEME_DEFAULT)
+            if rcScheme != SCHEME_DEFAULT:
+                try:
+                    self.set_fs_iter_scheme(rcScheme)
+                except ValueError:
+                    pass
 
     @property
     def activeAtoms(self):
@@ -2158,7 +2384,7 @@ class Context:
             self.Qelast.append(QelastA)
         # the params (and the schemes' packed profiles) hold the profiles,
         # the PRD statics the damping
-        self._params = None
+        self._drop_params()
         self._prdStatics = None
 
     def _normalise_profiles(self):
@@ -2171,7 +2397,7 @@ class Context:
                     self.wphi[ai][ti] = profile_weights(
                         self.phi[ai][ti], t.wlambdaT, self.cfg.wmuT,
                         self.cfg.Ncol)
-        self._params = None
+        self._drop_params()
 
     # ------------------------------------------------------------------
     def compute_collisions(self, force: bool = False):
@@ -2286,6 +2512,13 @@ class Context:
             out.append(row)
         return out
 
+    def _drop_params(self):
+        """Drop the cached params of the MALI step and the on-device
+        loop's prepared state built from them (lightweaver_tpu/
+        context.py:3237, 3373)."""
+        self._params = None
+        self._odRunnerCache = None
+
     # ------------------------------------------------------------------
     def set_fs_iter_scheme(self, name: str):
         """Select the iteration scheme (the reference's per-SIMD plugin
@@ -2314,7 +2547,7 @@ class Context:
         subset function (lightweaver_tpu/context.py:3364-3373)."""
         self.cfg = dataclasses.replace(self.cfg, **replacements)
         self._iter_fn = build_iteration_fn(self.cfg)
-        self._params = None
+        self._drop_params()
         self._prd_fs_fn = None
 
     def set_formal_solver(self, name: str):
@@ -2405,6 +2638,72 @@ class Context:
         the operator (lambdaIterate), as in the JAX package (which also
         ignores upOnly)."""
         return self.formal_sol_gamma_matrices(lambdaIterate=True)
+
+    # ------------------------------------------------------------------
+    def iterate_on_device(self, NmaxIter: int = 500, Nscatter: int = 3,
+                          JTol: float = 5e-3, popsTol: float = 1e-3,
+                          ngOptions=None, prd: bool = False,
+                          maxPrdSubIter: int = 3, prdTol: float = 1e-2):
+        """Run the full MALI loop (formal solution + Gamma + statistical
+        equilibrium + convergence test) with its state on the device, as
+        the JAX package's iterate_on_device does in one lax.while_loop:
+        the MALI step under the Context's scheme (its kernels), the
+        statistical-equilibrium solve, Ng on the populations when
+        ``ngOptions`` (an NgOptions) is given (ops/ng.py:
+        device_ng_accelerate: the ring buffer and the least-squares
+        extrapolation on the device) and with ``prd=True`` the PRD (and
+        hybrid PRD) sub-iterations: per PRD line the scattering integral,
+        then the PRD-subset formal solution, up to ``maxPrdSubIter`` per
+        MALI iteration or until drho < ``prdTol`` (the host
+        prd_redistribute's schedule with the reference's tracking-only
+        Ng).  The first ``Nscatter`` iterations are a Lambda warm-up that
+        keeps the initial populations; dPops is 1 until the first
+        statistical-equilibrium solve, then Ng's max change (against the
+        starting populations at the first).  The loop stops when it
+        reaches ``NmaxIter`` or, past the warm-up, when dJ < JTol and
+        dPops < popsTol (a NaN stops it).
+
+        Nothing in an iteration copies from the host or reads back but
+        the stopping tests: one 0-d flag per MALI iteration (none during
+        the warm-up) and one per PRD sub-iteration but the last
+        (DeviceLoop).  The prepared state (the params of the MALI step,
+        with a callable BC's rows read once, and the PRD constants) is
+        cached per option set and dropped with the cached params
+        (update_deps, set_fs_iter_scheme, set_formal_solver, ...).
+        Collisions and CRSW are fixed (crsw = 1, as in the JAX package).
+        The populations stay float64 in either precision (the port's
+        state).  Updates J, the populations, rho and JRest in place,
+        after checking the populations are finite (else
+        ExplodingMatrixError, nothing written), then runs one
+        formal_sol_gamma_matrices for I, Gamma and the rates; returns
+        (nIter, dJ, dPops).  PRD on a 2D atmosphere and the x-sharded
+        Context raise ValueError.
+        ref: SURVEY.md par. 7.3; PRD schedule: Source/PrdTemplates.hpp:
+        176-351"""
+        self._unsharded('iterate_on_device')
+        self.compute_collisions()
+        ng = ngOptions if ngOptions is not None else NgOptions(0, 0, 0)
+        key = (Nscatter, ng.Norder, ng.Nperiod, ng.Ndelay,
+               bool(prd and self._prd_lines()), maxPrdSubIter, prdTol)
+        if self._odRunnerCache is None or self._odRunnerCache[0] != key:
+            self._odRunnerCache = (key, DeviceLoop(
+                self, Nscatter, ngOptions, prd, maxPrdSubIter, prdTol))
+        loop = self._odRunnerCache[1]
+
+        def go_on(s):
+            if s['it'] >= NmaxIter:
+                return False
+            if s['it'] <= Nscatter:
+                return True
+            return loop.read_flag((s['dJ'] >= JTol) | (s['dPops'] >= popsTol))
+
+        s = loop.start()
+        while go_on(s):
+            s = loop.step(s)
+        loop.finish(s)
+        # refresh I (and Gamma/rates) consistently with the final state
+        self.formal_sol_gamma_matrices()
+        return s['it'], float(s['dJ']), float(s['dPops'])
 
     # ------------------------------------------------------------------
     def _pops_on_host(self) -> List[np.ndarray]:
@@ -2739,12 +3038,10 @@ class Context:
             prdActive |= scatters.any(axis=1)
         return np.nonzero(prdActive)[0]
 
-    def _prd_subset_fs(self):
-        """Subset formal solution for PRD sub-iterations: refresh J (and
-        JRest) and the PRD lines' radiative rates at the PRD-active
-        wavelengths only, leaving Gamma and every other rate untouched
-        (ref: FsMode::PrdOnly, PrdTemplates.hpp:19-113).  Returns dJ on
-        the subset (0-d tensor)."""
+    def _prd_subset_fn(self):
+        """The PRD subset solve (build_prd_subset_fn over
+        _prd_subset_idxs), built once per configuration, with its global
+        rows on the device in _prdSubIdxsT."""
         if self._prd_fs_fn is None:
             prdLines = [(ai, ti) for ai, ti, a, t in self._prd_lines()]
             self._prdSubIdxs = self._prd_subset_idxs()
@@ -2752,11 +3049,19 @@ class Context:
                                                 device=self.device)
             self._prd_fs_fn = build_prd_subset_fn(
                 self.cfg, self._prdSubIdxs, prdLines)
+        return self._prd_fs_fn
+
+    def _prd_subset_fs(self):
+        """Subset formal solution for PRD sub-iterations: refresh J (and
+        JRest) and the PRD lines' radiative rates at the PRD-active
+        wavelengths only, leaving Gamma and every other rate untouched
+        (ref: FsMode::PrdOnly, PrdTemplates.hpp:19-113).  Returns dJ on
+        the subset (0-d tensor)."""
         p = self._params
         p['J'] = self.J
         p['pops'] = [st['n'] for st in self.popsState]
         p['rhoPrd'] = self.rhoPrd
-        out = self._prd_fs_fn(p)
+        out = self._prd_subset_fn()(p)
         sub = self._prdSubIdxsT
         self.J = self.J.index_copy(0, sub, out['J'])
         self.I = self.I.index_copy(0, sub, out['I'])
@@ -2798,25 +3103,13 @@ class Context:
     def _scatter_rho(self, li: int) -> torch.Tensor:
         """The new rho [W, Nk] of PRD line ``li`` of _prd_lines() from the
         current J (JRest under hybrid PRD), rates and populations, formed
-        on the device (ref: Source/Prd.cpp:9-30, 468-645)."""
+        on the device (scatter_rho)."""
         ai, ti, a, t = self._prd_lines()[li]
-        qWave, aDamp, Qelast, prd0 = self._prd_line_statics()[li]
-        # Pj + Qj: total upper-level depopulation + elastic rate
-        PjQj = Qelast + self._deviceC()[ai][:, t.j, :].sum(dim=0)
-        for t2i, t2 in enumerate(a.trans):
-            if t2.j == t.j:
-                PjQj = PjQj + self._Rji[ai][t2i]
-            if t2.i == t.j:
-                PjQj = PjQj + self._Rij[ai][t2i]
-
-        n = self.popsState[ai]['n']
-        gammaPre = n[t.i] / n[t.j] * t.Bij / PjQj
-        Jbar = self._Rij[ai][ti] / t.Bij
-        if self.cfg.hprd and self.JRest is not None:
-            Jw = self.JRest[prd0:prd0 + t.W]
-        else:
-            Jw = self.J[t.Nblue:t.Nred]
-        return prd_scatter_rho(qWave, aDamp, Jw, gammaPre, Jbar)
+        statics = self._prd_line_statics()[li]
+        return scatter_rho(a, ti, statics, self._deviceC()[ai], self._Rij[ai],
+                           self._Rji[ai], self.popsState[ai]['n'],
+                           prd_window_J(self.cfg, t, statics[3], self.J,
+                                        self.JRest))
 
     def prd_redistribute(self, maxIter: int = 3,
                          tol: float = 1e-2) -> IterationUpdate:
@@ -2934,7 +3227,7 @@ class Context:
             # the PRD subset
             self._configure_hprd_coeffs()
             self._prd_fs_fn = None
-        self._params = None
+        self._drop_params()
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict:

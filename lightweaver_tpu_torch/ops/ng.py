@@ -1,7 +1,7 @@
-"""Ng (1974) acceleration of fixed-point iterates, on the host.
+"""Ng (1974) acceleration of fixed-point iterates.
 
 A copy of lightweaver_tpu/ops/ng.py's NgOptions, Ng and BatchedNg (numpy
-only; the drift guards in tests/test_torch_model_layer.py and
+on the host; the drift guards in tests/test_torch_model_layer.py and
 tests/test_torch_columns.py hold the classes to their originals' source
 text, BatchedNg's docstring aside).  The ring-buffer formulation with 1/|sol|
 weights of the reference (ref: Source/Ng.hpp:16-163); the small
@@ -9,11 +9,17 @@ Norder x Norder least-squares system is solved with numpy.  The port uses
 it to track (and optionally extrapolate) the PRD emission-profile ratios
 in Context.prd_redistribute, on the populations in Context.stat_equil, and
 per column (BatchedNg) in parallel/columns.py:ColumnBatch.
+device_ng_init and device_ng_accelerate are the JAX package's device
+variants on tensors, for Context.iterate_on_device: the ring buffer
+stays on the device and nothing is read back to the host.
 """
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
+
+from .linalg import solve_KxK_over_depth
 
 
 @dataclass
@@ -114,6 +120,62 @@ class Ng:
         if self.previous is not None:
             self.previous.fill(0.0)
         self.count = 0
+
+
+def device_ng_init(sol, Norder: int):
+    """Ring-buffer Ng state on the device: (hist [R, L], count), matching
+    ``Ng(Norder, ..., sol=sol)`` (previous[0] = sol, count = 1).  count is
+    a host int: the caller's loop knows it, so Ng's schedule is decided on
+    the host and nothing is read back."""
+    R = max(Norder + 2, 2)
+    flat = sol.reshape(-1)
+    hist = flat.new_zeros((R, flat.shape[0]))
+    hist[0] = flat
+    return hist, 1
+
+
+def device_ng_accelerate(hist, count: int, sol, Norder: int, Nperiod: int,
+                         Ndelay: int):
+    """Equivalent of :meth:`Ng.accelerate` on the device, as the JAX
+    package's device_ng_accelerate: store sol [L] into a copy of the ring
+    buffer; every Nperiod steps after Ndelay solve the weighted Norder x
+    Norder least-squares extrapolation (ops/linalg.py).  Returns (hist,
+    count, solOut, dMax), dMax the max relative change between the last
+    two stored iterates (:meth:`Ng.max_change`; a 0-d tensor).  A
+    non-finite extrapolation keeps the plain iterate, like the host
+    class; the choice is a select on the device, not a read back."""
+    Nperiod = max(Nperiod, 1)
+    Ndelay = max(Ndelay, Nperiod + 2)
+    R = hist.shape[0]
+    No = Norder
+
+    hist = hist.clone()
+    hist[count % R] = sol
+    count += 1
+
+    solOut = sol
+    if No > 0 and count >= Ndelay and (count - Ndelay) % Nperiod == 0:
+        # prev[i] = previous[(count - 1 - i) % R], i = 0..No+1
+        prev = torch.stack([hist[(count - 1 - i) % R]
+                            for i in range(No + 2)])    # [No+2, L]
+        Delta = prev[:-1] - prev[1:]                    # [No+1, L]
+        weight = 1.0 / torch.abs(sol)                   # [L]
+        d0 = Delta[0]
+        diff = Delta[1:] - d0[None, :]                  # [No, L]
+        b = torch.sum(weight * d0 * (-diff), dim=1)     # [No]
+        A = torch.einsum('l,il,jl->ij', weight, diff, diff)
+        coeffs = solve_KxK_over_depth(A[:, :, None], b[:, None])[:, 0]
+        accel = sol + torch.sum(
+            coeffs[:, None] * (prev[1:No + 1] - prev[0][None, :]), dim=0)
+        solOut = torch.where(torch.all(torch.isfinite(accel)), accel, sol)
+        hist[(count - 1) % R] = solOut
+
+    old = hist[(count - 2) % R]
+    cur = hist[(count - 1) % R]
+    nz = cur != 0.0
+    dMax = torch.max(torch.abs(torch.where(
+        nz, (cur - old) / torch.where(nz, cur, 1.0), 0.0)))
+    return hist, count, solOut, dMax
 
 
 class BatchedNg:

@@ -136,7 +136,8 @@ def prd_scatter_rho(qWave, aDamp, Jw, gammaPrefactor, Jbar):
     NpB = Np[..., None]
 
     def const(v):
-        return torch.tensor(v, dtype=dt, device=dev)
+        # a fill on the device: no copy from the host
+        return torch.full((), v, dtype=dt, device=dev)
     wq = torch.where((idx == 0) | (idx == NpB - 1), const(5.0 / 12.0),
                      torch.where((idx == 1) | (idx == NpB - 2),
                                  const(13.0 / 12.0), const(1.0))) * PrdDQ

@@ -377,9 +377,9 @@ def test_gaussian_profile_is_zero_damping():
 
 
 # ---- the surface ---------------------------------------------------------
-def test_exports_are_the_reference_ones_but_benchmark():
+def test_exports_are_the_reference_ones():
     missing = [n for n in REFERENCE_EXPORTS if not hasattr(tlw, n)]
-    assert missing == ['benchmark']
+    assert missing == []
     assert tlw.nr_post_update is Context.nr_post_update
     assert (tlw.Layout, tlw.read_multi_atmos, tlw.voigt_H) is not None
     from pathlib import Path

@@ -34,7 +34,7 @@ COPIED = ['constants', 'config', 'atomic_table', 'atmosphere', 'fal',
           'zeeman', 'broadening', 'ops/weno', 'collisional_rates',
           'atomic_model', 'rh_atoms', 'molecule', 'atomic_set', 'background',
           'iteration_update', 'iterate_ctx', 'wittmann_eos', 'multi',
-          'utils/wavelength']
+          'utils/wavelength', 'eos', 'crtaf', 'rh_format']
 
 # the only edits the copies may carry: data tables are read from the JAX
 # package's data directory through one helper
@@ -46,6 +46,16 @@ _ALLOWED = [
     ("np.load(Path(__file__).resolve().parent / 'data'\n"
      "                / 'wittmann_tables.npz')",
      "np.load(DATA_DIR / 'wittmann_tables.npz')"),
+    # the JAX package's config refuses its own GammaAccum key (its
+    # Context reads it and its benchmark writes it, and ConfigDict
+    # refuses unknown keys); the port's config has it
+    ("    'IterationScheme': 'mali_full_precond',\n",
+     "    'IterationScheme': 'mali_full_precond',\n"
+     "    'GammaAccum': 'exact',             # 'exact' | 'blocked' (f32 "
+     "Gamma sums)\n"),
+    # rh_format's usage example names the package it is read from
+    ("    from lightweaver_tpu.rh_format import parse_rh_atom\n",
+     "    from lightweaver_tpu_torch.rh_format import parse_rh_atom\n"),
 ]
 # and their ``ref:`` comments name upstream Lightweaver files relative to
 # its source tree, without the originals' checkout prefix
@@ -162,3 +172,83 @@ def test_falc_h6mg_inputs_match_jax():
             _close(tctx.aDamp[ia][it], jctx.aDamp[ia][it])
             _close(tctx.Qelast[ia][it], jctx.Qelast[ia][it])
     assert nPrd == 4
+
+
+# ---- eos with its native core, crtaf, rh_format ---------------------------
+def test_saha_source_is_the_original():
+    """nativert/saha_eos.cpp is the original byte for byte, but for the
+    reference-path prefix of its ``ref`` comment, as every copy."""
+    orig = ROOT / 'lightweaver_tpu' / 'nativert' / 'saha_eos.cpp'
+    copy = ROOT / 'lightweaver_tpu_torch' / 'nativert' / 'saha_eos.cpp'
+    assert copy.read_bytes() == _REF_PREFIX.sub(
+        '', orig.read_text()).encode()
+
+
+def test_saha_eos_matches_jax():
+    """SahaEos.solve on FAL-C (tests/test_native_eos.py's points): the
+    port's numpy path equals the JAX package's, its native core (built by
+    g++ at first use into build/, not beside the sources) equals the JAX
+    package's native core, and agrees with the numpy path as the JAX test
+    holds them (ne 1e-6, nHTot and rho 1e-10)."""
+    from lightweaver_tpu import constants as JConst
+    from lightweaver_tpu.eos import SahaEos as JSahaEos
+    from lightweaver_tpu_torch.eos import SahaEos
+    from lightweaver_tpu_torch.nativert import _LIB_PATH
+    full = JFalc82()
+    T = full.temperature[::6]
+    jeos, eos = JSahaEos(), SahaEos()
+    nTot = full.nHTot[::6] * jeos.totalAbund + full.ne[::6]
+    pgas = nTot * JConst.KBoltzmann * T
+    ref = jeos.solve(T, pgas, native=False)
+    ours = eos.solve(T, pgas, native=False)
+    assert ours['iterations'] == ref['iterations']
+    for key in ('ne', 'nHTot', 'rho'):
+        np.testing.assert_array_equal(ours[key], ref[key])
+    native = eos.solve_native(T, pgas)
+    jnative = jeos.solve_native(T, pgas)
+    if native is None or jnative is None:
+        pytest.skip('no C++ toolchain available')
+    assert _LIB_PATH.is_file() and (ROOT / 'build') in _LIB_PATH.parents
+    for key in ('ne', 'nHTot', 'rho'):
+        np.testing.assert_array_equal(native[key], jnative[key])
+    assert np.allclose(native['ne'], ours['ne'], rtol=1e-6)
+    assert np.allclose(native['nHTot'], ours['nHTot'], rtol=1e-10)
+    assert np.allclose(native['rho'], ours['rho'], rtol=1e-10)
+
+
+def _same_model(ours, ref):
+    """Two AtomicModels, one per package, alike: the same dataclass text
+    (levels, lines with their broadening and quadrature, continua,
+    collisions) and the same wavelength grid per transition."""
+    assert repr(ours) == repr(ref)
+    for t, j in zip(ours.lines + ours.continua, ref.lines + ref.continua):
+        np.testing.assert_array_equal(t.wavelength(), j.wavelength())
+
+
+def test_from_crtaf_matches_jax():
+    """tests/test_model_io.py's CRTAF YAML, as text and as a dict."""
+    import yaml
+    from lightweaver_tpu.crtaf import from_crtaf as jfrom_crtaf
+    from lightweaver_tpu_torch.crtaf import from_crtaf, from_crtaf_dict
+
+    from tests.test_model_io import CRTAF_YAML
+    ref = jfrom_crtaf(CRTAF_YAML)
+    _same_model(from_crtaf(CRTAF_YAML), ref)
+    _same_model(from_crtaf_dict(yaml.safe_load(CRTAF_YAML)), ref)
+
+
+def test_parse_rh_atom_matches_jax():
+    """tests/test_rh_format.py's Ca II atom; a bad one raises the port's
+    RhAtomParseError."""
+    from lightweaver_tpu.rh_format import parse_rh_atom as jparse
+    from lightweaver_tpu_torch.rh_format import (RhAtomParseError,
+                                                 parse_rh_atom)
+
+    from tests.test_rh_format import CA_ATOM
+    with pytest.warns(UserWarning):
+        ref = jparse(CA_ATOM)
+    with pytest.warns(UserWarning):
+        _same_model(parse_rh_atom(CA_ATOM), ref)
+    with pytest.raises(RhAtomParseError):
+        parse_rh_atom(CA_ATOM.replace('5       5       0',
+                                      '5       5       1'))

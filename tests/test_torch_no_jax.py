@@ -1,8 +1,10 @@
 """lightweaver_tpu_torch never imports jax, directly or through
 lightweaver_tpu: the machine with the GPU has no jax.
 
-A fresh interpreter imports the port, builds the falc_h6ca Context on the
-CPU, runs one iteration and checks sys.modules.
+A fresh interpreter imports the port (the model layer's eos, crtaf,
+rh_format and the benchmark module too), builds the falc_h6ca Context on
+the CPU, runs one iteration of each loop, solves the Saha EOS (its
+native core) and checks sys.modules.
 """
 import os
 import re
@@ -14,12 +16,19 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _SCRIPT = """
 import sys
+import numpy as np
 from lightweaver_tpu_torch.fal import Falc82
 from lightweaver_tpu_torch.problems import h6ca_context
 import lightweaver_tpu_torch.convert
+import lightweaver_tpu_torch.crtaf
+import lightweaver_tpu_torch.rh_format
+from lightweaver_tpu_torch import benchmark
+from lightweaver_tpu_torch.eos import SahaEos
 ctx = h6ca_context(Falc82(), 5, device='cpu')
 ctx.formal_sol_gamma_matrices()
 ctx.stat_equil()
+ctx.iterate_on_device(NmaxIter=1)
+SahaEos().solve(np.array([6000.0]), np.array([1e4]))
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib'))
              or m == 'lightweaver_tpu' or m.startswith('lightweaver_tpu.'))

@@ -485,8 +485,8 @@ def context_converge(ctx, maxIter=400):
 def context_2d_case(rank, world, xBcData, converge=False, device='cpu'):
     """The x-sharded 2D Context on a 4-rank x mesh: CTX_STEPS MALI steps
     (converge: to convergence) of each CTX_CASES entry, with the gathered
-    pops, J and I; and the refusals of a 1D atmosphere and of an Nx the
-    ranks do not divide."""
+    pops, J and I; and the refusals of a 1D atmosphere, of an Nx the
+    ranks do not divide and of iterate_on_device."""
     from lightweaver_tpu_torch.parallel.xshard2d import make_x_mesh
     mesh = make_x_mesh(device=device)
     out = {}
@@ -531,7 +531,10 @@ def context_2d_case(rank, world, xBcData, converge=False, device='cpu'):
         out['raises'] = {
             'one_d': _raises(one_d, 'only supported for 2D'),
             'divisible': _raises(lambda: context_2d(Nx=6, mesh=mesh),
-                                 'divisible')}
+                                 'divisible'),
+            'iterate_on_device': _raises(
+                lambda: ctx.iterate_on_device(NmaxIter=1),
+                'iterate_on_device is not ported to the x-sharded')}
     return out
 
 
