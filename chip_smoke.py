@@ -49,10 +49,10 @@ result):
    outflow), against their golden runs
    (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
    sub-iterations, wall time and launch counts; the kernel schemes for
-   PRD_SCHEME_STEPS = 20 MALI steps against the default scheme's state
+   PRD_SCHEME_STEPS = 10 MALI steps against the default scheme's state
    after as many (populations and rho within GOLDEN_RTOL; converged
    against golden until phase 13 needed the time, 40 steps until phase
-   17 did), and they must refuse
+   17 did, 20 until phase 18), and they must refuse
    hybrid PRD.  Then a stage breakdown of one PRD iteration.
 9. The population-update options, in float64.  (a) falc_multi_ng
    (BASELINE config 2: FAL-C, H 6-level + Ca II + Na I active, Mg II
@@ -111,11 +111,11 @@ result):
    in each precision against its plain version, on one falc_h6ca
    iteration's inputs and (linear, BESSER) on FALC-500 random rays:
    float64 within 1e-9, float32 by phase 10's rule, with times and
-   bounds.  (c) falc_h6ca converged on the card under the BESSER
-   solver, iterations within 2 of the JAX package's on the CPU (214:
-   scripts/jax_solver_iterations.py), and LINEAR_STEPS = 60 MALI steps
-   under the linear one, finite and contracting (converged in the JAX
-   package's 349 until phase 17 needed the time), and 40 MALI steps of
+   bounds.  (c) falc_h6ca under the BESSER and the linear solver,
+   LINEAR_STEPS = 60 MALI steps each, finite and contracting (converged
+   in the JAX package's 214 and 349 iterations, scripts/
+   jax_solver_iterations.py, until phases 18 and 17 needed the time),
+   and 40 MALI steps of
    the mixed-precision problem in float32 under each (finite,
    contracting); each run launches its solver's instance only.  (d)
    BASELINE config 4 (falc_h6ca in a 0.1 T field, gamma = pi/3, chi =
@@ -135,7 +135,8 @@ result):
    float32 rule), with times and bounds, and the first, middle and last
    columns of each sweep and fused launch bit for bit their own
    single-column launches.  (b) BASELINE config 5's 1.5D leg: BATCH_C =
-   256 columns (512 until phase 17 needed the time) through
+   128 columns (512 until phase 17 needed the time, 256 until phase 18)
+   through
    ColumnBatch.iterate(NmaxIter=400); every column converges; the
    slowest column re-run as a single card Context for 60 iterations
    against the batch's state after as many (populations 1e-9; three
@@ -166,8 +167,9 @@ result):
    the time); ms per iteration.  (b) BASELINE config 5's 2D leg: 82 x 256 periodic (40 km
    columns), 12 rays, BESSER, 6 MALI steps from LTE with stat_equil after
    each (20 until phase 16 needed the time): finite, dJ contracting; ms per step, peak memory, the stage
-   breakdown and the profile (kernels per step, idle share:
-   scripts/torch_profile.py); the same slab rolled by 64 columns: J and
+   breakdown and the profile of one step (kernels per step, idle share:
+   scripts/torch_profile.py; two steps until phase 18 needed the time);
+   the same slab rolled by 64 columns: J and
    the populations after 3 steps equal the unrolled ones, rolled (1e-10;
    populations relative to each level's maximum).  (c) On the golden
    atmosphere: 3 float32 MALI steps, card against CPU by phase 10's rule;
@@ -202,7 +204,9 @@ result):
    steps with stat_equil: J within 1e-10 of each wavelength's maximum
    against phase 14's after as many, ms per step, the all_gathers per
    step, no csrc/ kernel.  (c) 8 falc_h6ca columns on a (1, 2)
-   wavelength mesh under each scheme, 5 steps (stat_equil from the
+   wavelength mesh under the default scheme (each scheme until phase 18,
+   which runs them all on a wavelength mesh, needed the time), 5 steps
+   (stat_equil from the
    fourth): the Gamma of each step within 1e-10 of the unsharded batch's
    step from the same state (J and populations).  (d) NCCL at world size 1
    (initialize_multihost(num_processes=1, backend='nccl')): its
@@ -220,16 +224,38 @@ result):
    and hybrid-PRD (24 depths, 8 km/s outflow, 6 to 1e-3) setups with
    accelerateScattering against iterate_ctx_se(prd=True): iterations
    within 2, populations 5e-3, rho 1e-3.  (d) falc_h6ca under each
-   scheme, 20 steps of the host loop and of iterate_on_device with zero
-   tolerances: populations within 1e-9.  (e) One on-device body per
+   scheme, 10 steps of the host loop and of iterate_on_device with zero
+   tolerances (20 until phase 18 needed the time): populations within
+   1e-9.  (e) One on-device body per
    scheme with Ng (falc_h6ca) and with PRD (falc_h6mg), and hybrid PRD
    under the default scheme, under torch.cuda.set_sync_debug_mode(
    'error').  (f) For (d)'s runs: ms per MALI step, host reads and
    kernel launches per step of each loop, the synchronising operations
    per step (sync-warn mode), and under the default scheme
-   scripts/torch_profile.py's kernels and idle share over 5 steps of
-   each.  (g) benchmark(Niter=10) on FALC-500
-   (precisions, Gamma accumulation, schemes): the FALC-500 ms/iter.
+   scripts/torch_profile.py's kernels and idle share over 2 steps of
+   each (5 until phase 18 needed the time).  (g) benchmark(Niter=10) on
+   FALC-500 (precisions, Gamma accumulation, schemes): the FALC-500
+   ms/iter.
+18. The rest of the distribution, two gloo ranks on this card as in
+   phase 16.  (a) falc_h6mg's atoms (H 6 and Mg II active) on 8 FAL-C
+   columns on a (1, 2) wavelength mesh: 5 rounds of a MALI step,
+   stat_equil and prd_redistribute(maxIter=3) under each scheme and
+   hybrid PRD under the default one, each round in lockstep with one
+   rank's batch from the same state (rho per row, J per wavelength, the
+   populations per level: 1e-9); kernel 1 on the largest block's PRD rows
+   against its plain version, with its time, bound and launches per
+   block.  (b) The 82 x 256 slab (linear 2D solver) x-sharded: 8 MALI
+   steps with Ng(2, 5, 8), update_deps after T x 1.01 and a MALI step,
+   state_dict, compute_rays on a Ca II K window at mu = 1 and
+   single_stokes_fs in a field, against the same calls on one rank
+   (the populations 1e-9 per level; the radiation of the seventh step,
+   the last before Ng's extrapolation, 1e-9 per wavelength, and after it
+   1e-7), ms of each and the Stokes sweep's peak memory per rank.
+   (c) An 82 x 32 slab with H 6 active: charge conservation, PRD and
+   hybrid PRD, 2 rounds each, against one rank (1e-9).  (d)
+   iterate_on_device on the 82 x 32 slab in lockstep with the host loop
+   (5 steps, 1e-9), and one on-device body under NCCL at world size 1
+   with set_sync_debug_mode('error').
 
 Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
@@ -238,8 +264,9 @@ plain versions' are CUDA events around their calls.  The kernels' JSON record ho
 instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
 and times and (c)'s launch counts for the sweep's linear and BESSER
-instances, and the probes'; phase 15's and phase 17's ((a), (c) and
-(d)'s on-device runs) launches are added to each instance's count; each
+instances, and the probes'; phase 15's, phase 17's ((a), (c) and
+(d)'s on-device runs) and phase 18 (a)'s sweep launches on the
+wavelength blocks are added to each instance's count; each
 with the
 least time the card could take for its inputs (bound_ms) and, where one
 PyTorch call computes the same function, that call's time.  The last four
@@ -907,7 +934,15 @@ def prd_kernel_check():
                              SYMBOLS['sweep'], bnd=bnd)
     result['sweep'] = dict(max_abs_err=absErr, max_rel_err=rel, ms=ms,
                            plain_ms=plainMs, **bnd)
-    del ctx, params, rays, args, plain, kern
+    # the float32 instance on the same rows: its time and bound
+    args32 = [a.float() if torch.is_tensor(a) and a.is_floating_point()
+              else a for a in args]
+    bnd32 = sweep_bound(args32, sweep.formal_solve_sweep(*args32))
+    ms32 = min(kernel_device_ms(lambda: sweep.formal_solve_sweep(*args32),
+                                SYMBOLS['sweep']))
+    print(f'  PRD subset sweep, float32 instance: kernel {ms32:.4f} ms'
+          f'{bound_text(bnd32)}')
+    del ctx, params, rays, args, args32, plain, kern
     torch.cuda.empty_cache()
     return result
 
@@ -1074,8 +1109,10 @@ def callable_bc_check():
 # the kernel schemes' falc_h6mg PRD and falc_multi_ng runs: this many
 # MALI steps against the default scheme's state after as many (its run
 # converges against the golden file), to the golden bars; converged runs
-# under each scheme until the column batch's phase needed the time
-PRD_SCHEME_STEPS, NG_SCHEME_STEPS = 20, 60
+# under each scheme until the column batch's phase needed the time (PRD:
+# 40 steps until phase 17 did, 20 until phase 18); falc_multi_ng's steps
+# hold its two Ng extrapolations
+PRD_SCHEME_STEPS, NG_SCHEME_STEPS = 10, 60
 
 
 def snapshot(ctx):
@@ -2228,8 +2265,9 @@ def converge_solver(solver, nSteps=None):
 
 # (c)'s float32 runs: MALI steps of the mixed-precision problem
 F32_SOLVER_STEPS = 40
-# (c)'s linear falc_h6ca run: MALI steps (converged in the JAX package's
-# 349 iterations until phase 17 needed the time)
+# (c)'s linear and BESSER falc_h6ca runs: MALI steps (converged in the
+# JAX package's 349 and 214 iterations until phases 17 and 18 needed the
+# time)
 LINEAR_STEPS = 60
 
 
@@ -2408,8 +2446,8 @@ def pickle_check():
 # ---- the 1.5D column batch (phase 13) ----------------------------------
 # BASELINE config 5's 1.5D leg: FAL-C columns, H 6-level + Ca II active,
 # 5 rays, 1046 wavelengths, float64, the default scheme
-# (512 until phase 17 needed the time)
-BATCH_C = 256
+# (512 until phase 17 needed the time, 256 until phase 18)
+BATCH_C = 128
 # (a)'s batch: one iteration's inputs of this many of (b)'s columns
 BATCH_KERNEL_C = 64
 BATCH_SEED = 1
@@ -2933,8 +2971,9 @@ SLAB_2D_STEPS = 6
 SLAB_2D_ROLL = 64
 SLAB_2D_ROLL_STEPS = 3
 SLAB_2D_ROLL_TOL = 1e-10
-# MALI steps under the profiler (each records ~56k kernels)
-SLAB_2D_PROFILED = 2
+# MALI steps under the profiler (each records ~56k kernels; 1 since
+# phase 18 needed the time, were 2)
+SLAB_2D_PROFILED = 1
 # (c) card against CPU: float32 MALI steps; the synthesis calls' bar
 F32_2D_STEPS = 3
 CARD_CPU_2D_TOL = 1e-9
@@ -3538,6 +3577,9 @@ DIST_SLAB_TOL = 1e-10
 # step from the same state (the lambda sums split in two; free-running,
 # the first stat_equil takes their ~1e-16 to ~4e-10 of Gamma)
 DIST_LAMBDA_C, DIST_LAMBDA_STEPS, DIST_LAMBDA_TOL = 8, 5, 1e-10
+# under the default scheme (each scheme until phase 18, whose (a) runs
+# every scheme on a wavelength mesh, needed the time)
+DIST_LAMBDA_SCHEMES = ('mali_full_precond',)
 # (d) a batch on a (1, 1) NCCL mesh against the same batch without one
 DIST_NCCL_C, DIST_NCCL_STEPS = 64, 5
 
@@ -3680,7 +3722,7 @@ def dist_rank(rank, world, workdir):
     # each step of the unsharded batch from the sharded batch's state
     lamMesh = make_mesh(1, world)
     out['lambda'] = {}
-    for scheme in SCHEMES:
+    for scheme in DIST_LAMBDA_SCHEMES:
         b = column_batch(DIST_LAMBDA_C, seed=BATCH_SEED, mesh=lamMesh,
                          fsIterScheme=scheme)
         u = (column_batch(DIST_LAMBDA_C, seed=BATCH_SEED,
@@ -3847,9 +3889,11 @@ OD_JAX_ITERS = 211
 OD_HOST_RTOL, OD_NG_RTOL = 5e-3, 1e-7
 OD_PRD_SLACK, OD_PRD_POPS, OD_PRD_RHO = 2, 5e-3, 1e-3
 # (d): falc_h6ca steps of both loops under each scheme, populations apart
-OD_LOCKSTEP_STEPS, OD_LOCKSTEP_TOL = 20, 1e-9
+# (10 since phase 18 needed the time; were 20)
+OD_LOCKSTEP_STEPS, OD_LOCKSTEP_TOL = 10, 1e-9
 # (f): iterations of each loop under torch.profiler and in sync-warn mode
-OD_PROFILED = 5
+# (2 since phase 18; were 5)
+OD_PROFILED = 2
 
 
 def od_atmos(Nspace, vlos=None):
@@ -4233,6 +4277,542 @@ def on_device_loop():
     return launches, numbers, bench
 
 
+# ---- phase 18: distribution, the rest ------------------------------------
+# (a) falc_h6mg's atoms (H 6 and Mg II active, PRD h&k, Ly-alpha and
+# Ly-beta) on DIST_PRD_C FAL-C columns, a (1, 2) wavelength mesh, each of
+# DIST_PRD_ROUNDS rounds (a MALI step, stat_equil, prd_redistribute(
+# maxIter=3)) in lockstep with one rank's batch from the same state: rho
+# per row of its window, J per wavelength, the populations per level
+# (the lambda split reassociates Gamma's sums, which stat_equil and the
+# rho sub-iterations amplify in the smallest values: elementwise 3.4e-9
+# on the CPU rehearsal; tests/test_torch_distributed.py measured the
+# rounds' own sensitivity)
+DIST_PRD_C, DIST_PRD_ROUNDS, DIST_PRD_TOL = 8, 5, 1e-9
+# (b) the 82 x 256 slab x-sharded: Ng on the populations for
+# DIST_NG_STEPS MALI steps with stat_equil, then update_deps after T x
+# 1.01 and one step, state_dict, compute_rays on a Ca II K window at mu =
+# 1 and single_stokes_fs in problems.magnetise's field, each against the
+# same calls on one rank.  Ng(2, 5, 8): one extrapolation in the 8 steps
+# (the seventh); Ng(2, 3, 3) from LTE takes the slab's populations
+# negative at its first extrapolation (-1.9e9 on an 82 x 8 slab on the
+# CPU), which no comparison can use
+DIST_NG, DIST_NG_STEPS = (2, 5, 8), 8
+DIST_REST_TOL = 1e-9
+# (b) the step whose radiation is the last before the extrapolation (the
+# seventh MALI step, from populations of six plain solves: the seventh
+# stat_equil extrapolates), held with the populations to DIST_REST_TOL;
+# the x-sharded Context's Ng is the one-rank Ng run on the gathered
+# populations, so what differs after it is what the extrapolation makes
+# of the iterates' own differences
+DIST_NG_PRE = 6
+# (b) the radiation after Ng's extrapolation (the next step's J and I, the
+# state's, compute_rays, Stokes), per wavelength: the emergent
+# intensities form where the populations are smallest, whose elementwise
+# differences the extrapolation amplifies most (it divides differences
+# of near-equal iterates).  The bar was 1e-9 and was widened twice on
+# the card: state I 1.05e-8, then state J 1.35e-9 (against the
+# populations' 4.5e-13 per level) on an NVIDIA H100 80GB HBM3 at 700 W.
+# tests/test_torch_xshard2d_options.py holds these calls without Ng to
+# 1e-9.
+DIST_NG_TOL = 1e-7
+# (c) an 82 x 32 slab with H 6 active: charge conservation, PRD and
+# hybrid PRD, DIST_H6_STEPS rounds each (2, cut from 5 for the phase's
+# time: 3.0-3.7 s per PRD round per rank on an NVIDIA H100 80GB HBM3 at
+# 700 W); (d) the 82 x 32 slab (Ca II active): DIST_OD_STEPS steps of
+# iterate_on_device against the host loop
+DIST_H6_SLAB, DIST_H6_STEPS, DIST_OD_STEPS = (82, 32), 2, 5
+DIST_K_LAMBDA = 393.4     # nm: compute_rays' window about the Ca II K line
+
+
+def rows_rel(a, b):
+    """The largest difference in a row (first axis) over the row's
+    largest value, the worst row."""
+    a, b = np.asarray(a), np.asarray(b)
+    a, b = a.reshape(len(b), -1), b.reshape(len(b), -1)
+    return float((np.abs(a - b).max(axis=1) / np.abs(b).max(axis=1)).max())
+
+
+def count_collectives():
+    """Wrap torch.distributed's all_reduce and all_gather in this process
+    with counters; returns the dict they count into."""
+    import torch.distributed as dist
+    counts = {'all_reduce': 0, 'all_gather': 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    for name in counts:
+        setattr(dist, name, counted(name, getattr(dist, name)))
+    return counts
+
+
+def prd_batch_state(b):
+    """A batch's J of the whole grid, its populations, rho and JRest."""
+    return {'J': b._lam_rows(b.params['J'], 0).clone(),
+            'pops': [p.clone() for p in b.params['pops']],
+            'rho': [[None if r is None else r.clone() for r in rs]
+                    for rs in b.params['rhoPrd']],
+            'JRest': None if b.JRest is None else b.JRest.clone()}
+
+
+def set_prd_batch_state(b, st):
+    b.params['J'] = st['J'].clone()
+    b.params['pops'] = [p.clone() for p in st['pops']]
+    for ai, rs in enumerate(st['rho']):
+        for ti, r in enumerate(rs):
+            if r is not None:
+                b.params['rhoPrd'][ai][ti] = r.clone()
+    b.JRest = None if st['JRest'] is None else st['JRest'].clone()
+
+
+def prd_round(b):
+    b.formal_sol_gamma_matrices()
+    b.stat_equil()
+    return b.prd_redistribute(maxIter=3, tol=0.0).NprdSubIter
+
+
+def dist_rest_rank(rank, world, workdir):
+    """Phase 18 (a)-(d) on two gloo ranks of this card: returns each
+    case's numbers, rank 0's also the gathered states."""
+    import torch.distributed as dist
+    from lightweaver_tpu_torch import H_6_atom
+    from lightweaver_tpu_torch.context import DeviceLoop
+    from lightweaver_tpu_torch.ops import sweep
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.parallel import make_mesh
+    from lightweaver_tpu_torch.parallel.multihost import initialize_multihost
+    from lightweaver_tpu_torch.parallel.xshard2d import make_x_mesh
+    from lightweaver_tpu_torch.problems import (column_batch,
+                                                column_vlos_ramps, magnetise,
+                                                slab_2d, stacked_falc)
+    from lightweaver_tpu_torch.rh_atoms import MgII_atom
+    initialize_multihost(init_method=f'file://{workdir}/rendezvous',
+                         num_processes=world, process_id=rank,
+                         backend='gloo')
+    colls = count_collectives()
+    out = {'t': {}}
+    tRank = time.perf_counter()
+
+    # (a) PRD and hybrid PRD on the wavelength axis
+    lamMesh = make_mesh(1, world)
+    vlos = column_vlos_ramps(stacked_falc(DIST_PRD_C, seed=BATCH_SEED)[0],
+                             DIST_PRD_C)
+
+    def h6mg(scheme, hprd, mesh):
+        return column_batch(DIST_PRD_C, models=lambda: [H_6_atom(),
+                                                        MgII_atom()],
+                            activeSpecies=('H', 'Mg'), seed=BATCH_SEED,
+                            vlos=vlos if hprd else None, mesh=mesh,
+                            fsIterScheme=scheme, hprd=hprd)
+    out['prd'] = {}
+    for scheme, hprd in [(s, False) for s in SCHEMES] + [(SCHEMES[0], True)]:
+        b = h6mg(scheme, hprd, lamMesh)
+        u = h6mg(scheme, hprd, None) if rank == 0 else None
+        lines = b.flatCtx._prd_lines()
+        errs, wall, uWall, nSub = [], 0.0, 0.0, 0
+        c0 = dict(colls)
+        reset_counts()
+        for k in range(DIST_PRD_ROUNDS):
+            st = prd_batch_state(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nSub += prd_round(b)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            J, I = b._lam_rows(b.params['J'], 0), b._lam_rows(b._I, 1)
+            counts = read_counts()
+            if u is not None:
+                set_prd_batch_state(u, st)
+                t0 = time.perf_counter()
+                prd_round(u)
+                torch.cuda.synchronize()
+                uWall += time.perf_counter() - t0
+                e = {'rho': max(rows_rel(b.params['rhoPrd'][ai][ti].cpu(),
+                                         u.params['rhoPrd'][ai][ti].cpu())
+                                for ai, ti, a, t in lines),
+                     'J': rows_rel(J.cpu(), u.params['J'].cpu()),
+                     'pops': max(rows_rel(p.cpu(), q.cpu()) for p, q in
+                                 zip(b.params['pops'], u.params['pops']))}
+                if hprd:
+                    e['JRest'] = rows_rel(b.JRest.cpu(), u.JRest.cpu())
+                errs.append(e)
+                set_counts(counts)
+        res = {'ms': wall / DIST_PRD_ROUNDS * 1e3, 'errs': errs,
+               'one_rank_ms': uWall / DIST_PRD_ROUNDS * 1e3,
+               'rows': (b.cfg.lamLo, b.cfg.lamHi, len(b._prd_fs.rows)),
+               'nSub': nSub,
+               'launches': {k: v for k, v in read_counts().items() if v},
+               'collectives': {k: (v - c0[k]) / DIST_PRD_ROUNDS
+                               for k, v in colls.items()},
+               'rhoDev': max(float((b.params['rhoPrd'][ai][ti] - 1.0).abs()
+                                   .max()) for ai, ti, a, t in lines)}
+        if scheme == SCHEMES[0] and not hprd and len(b._prd_fs.rows):
+            # kernel 1 on this block's PRD rows, against its plain version
+            args = b._prd_fs.sweep_inputs(b.params)
+            kern = sweep.formal_solve_sweep(*args)
+            plain = sweep.formal_solve_sweep_plain(*args)
+            rel, absErr = compare_outputs('block PRD rows', RAY_NAMES,
+                                          ray_outputs(kern),
+                                          ray_outputs(plain), KERNEL_TOL)
+            p1 = cuda_ms(lambda: sweep.formal_solve_sweep_plain(*args), 3)
+            k1, k2 = kernel_device_ms(lambda: sweep.formal_solve_sweep(*args),
+                                      SYMBOLS['sweep'])
+            res['kernel'] = dict(ms=min(k1, k2), plain_ms=p1, rel=rel,
+                                 max_abs_err=absErr, rows=len(args[0][0]),
+                                 **sweep_bound(args, kern))
+        out['prd'][(scheme, hprd)] = res
+        del b, u
+        torch.cuda.empty_cache()
+    out['t']['a'] = time.perf_counter() - tRank
+
+    # (b) the 82 x 256 slab x-sharded: Ng, update_deps, state_dict,
+    # compute_rays, single_stokes_fs
+    Nz, Nx, nq = SLAB_2D
+    xmesh = make_x_mesh(world)
+    ctx = slab_2d(Nz, Nx, periodic=True, quadrature=nq, mesh=xmesh,
+                  ngOptions=NgOptions(*DIST_NG))
+    out['slab'] = slab_rest(ctx, colls)
+    if rank:
+        # rank 0 returns the whole grid's arrays; the others their times
+        out['slab'] = {k: out['slab'][k] for k in ('ms', 'stokes_peak')}
+    del ctx
+    torch.cuda.empty_cache()
+    out['t']['b'] = time.perf_counter() - tRank
+
+    # (c) the 82 x 32 H 6 slab: NR, PRD, hybrid PRD
+    out['h6'] = {}
+    for name, kw in DIST_H6_CASES.items():
+        ctx = slab_2d(*DIST_H6_SLAB, mesh=xmesh, **kw)
+        out['h6'][name] = h6_slab_rounds(ctx, name, colls)
+        del ctx
+    out['t']['c'] = time.perf_counter() - tRank
+
+    # (d) iterate_on_device in lockstep with the host loop
+    dev = slab_2d(*DIST_H6_SLAB, mesh=xmesh)
+    host = slab_2d(*DIST_H6_SLAB, mesh=xmesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    nIt = dev.iterate_on_device(NmaxIter=DIST_OD_STEPS)[0]
+    torch.cuda.synchronize()
+    odMs = (time.perf_counter() - t0) / DIST_OD_STEPS * 1e3
+    t0 = time.perf_counter()
+    for it in range(DIST_OD_STEPS):
+        host.formal_sol_gamma_matrices()
+        if it >= 3:
+            host.stat_equil()
+    host.formal_sol_gamma_matrices()
+    torch.cuda.synchronize()
+    hostMs = (time.perf_counter() - t0) / DIST_OD_STEPS * 1e3
+    out['od'] = {'nIter': nIt, 'ms': odMs, 'host_ms': hostMs,
+                 'pops': relerr(dev.gather_x(dev.popsState[0]['n']).cpu(),
+                                host.gather_x(host.popsState[0]['n']).cpu()),
+                 'J': rows_rel(dev.gather_x(dev.J).cpu(),
+                               host.gather_x(host.J).cpu()),
+                 'launches': {k: v for k, v in read_counts().items() if v}}
+    out['t']['d'] = time.perf_counter() - tRank
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def set_counts(counts):
+    """Put the launch counts back (rank 0's lockstep runs are not the
+    sharded path's)."""
+    for k, (fn, attr) in counters().items():
+        setattr(fn, attr, counts[k])
+
+
+DIST_H6_CASES = {
+    'NR': {'activeSpecies': ('H',), 'conserveCharge': True},
+    'PRD': {'activeSpecies': ('H',)},
+    'hPRD': {'activeSpecies': ('H',), 'hprd': True},
+}
+
+
+def h6_slab_rounds(ctx, name, colls):
+    """DIST_H6_STEPS rounds on an H 6 slab: a MALI step and stat_equil
+    (with NR under 'NR'), prd_redistribute(maxIter=1) under PRD; the
+    whole grid's populations, J, ne and rho, ms per round."""
+    c0 = dict(colls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_H6_STEPS):
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+        if name != 'NR':
+            ctx.prd_redistribute(maxIter=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DIST_H6_STEPS * 1e3
+    return {'ms': ms, 'pops': ctx.gather_x(ctx.popsState[0]['n']).cpu()
+            .numpy(), 'J': ctx.gather_x(ctx.J).cpu().numpy(),
+            'ne': np.asarray(ctx.atmos.ne).copy(),
+            'rho': [ctx.gather_x(ctx.rhoPrd[ai][ti]).cpu().numpy()
+                    for ai, ti, a, t in ctx._prd_lines()],
+            'collectives': {k: (v - c0[k]) / DIST_H6_STEPS
+                            for k, v in colls.items()}}
+
+
+def slab_rest(ctx, colls=None):
+    """Phase 18 (b)'s calls on the 82 x 256 slab (x-sharded or on one
+    rank): DIST_NG_STEPS MALI steps with stat_equil (Ng), update_deps
+    after T x 1.01 and one more MALI step, state_dict, compute_rays on the K
+    window at mu = 1, then single_stokes_fs in problems.magnetise's
+    field; the whole grid's results and ms of each."""
+    from lightweaver_tpu_torch.problems import magnetise
+    out, ms = {}, {}
+    def radiation():
+        return {'J': ctx.gather_x(ctx.J).cpu().numpy(),
+                'I': ctx.gather_x(ctx.I).cpu().numpy(),
+                'pops': ctx.gather_x(ctx.popsState[0]['n']).cpu().numpy()}
+    c0 = dict(colls) if colls is not None else None
+    acc, wall = [], 0.0
+    for k in range(DIST_NG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.formal_sol_gamma_matrices()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        if k in (DIST_NG_PRE, DIST_NG_PRE + 1):
+            # outside the timing and the collectives' count
+            cs = dict(colls) if colls is not None else None
+            out['pre_ng' if k == DIST_NG_PRE else 'post_ng'] = radiation()
+            if cs is not None:
+                colls.update(cs)
+        t0 = time.perf_counter()
+        acc.append(ctx.stat_equil().ngAccelerated)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    ms['step'] = wall / DIST_NG_STEPS * 1e3
+    if c0 is not None:
+        out['collectives'] = {k: (v - c0[k]) / DIST_NG_STEPS
+                              for k, v in colls.items()}
+    out['accelerated'] = acc
+    out['ng_pops'] = ctx.gather_x(ctx.popsState[0]['n']).cpu().numpy()
+    ctx.atmos.temperature *= 1.01
+    t0 = time.perf_counter()
+    ctx.update_deps()
+    torch.cuda.synchronize()
+    ms['update_deps'] = (time.perf_counter() - t0) * 1e3
+    # the MALI step on the new atmosphere; no stat_equil, whose Ng would
+    # extrapolate from iterates of two atmospheres
+    ctx.formal_sol_gamma_matrices()
+    t0 = time.perf_counter()
+    st = ctx.state_dict()
+    ms['state_dict'] = (time.perf_counter() - t0) * 1e3
+    out['state'] = {'J': st['J'], 'I': st['I'], 'pops': st['pops'][0],
+                    'nStar': st['nStar'][0]}
+    lam0 = min((t.lambda0 for a in ctx.cfg.activeAtoms for t in a.trans
+                if t.isLine), key=lambda l0: abs(l0 - DIST_K_LAMBDA))
+    t0 = time.perf_counter()
+    out['rays'] = ctx.compute_rays(np.linspace(lam0 - 0.1, lam0 + 0.1, 41),
+                                   mus=[1.0])
+    torch.cuda.synchronize()
+    ms['compute_rays'] = (time.perf_counter() - t0) * 1e3
+    magnetise(ctx.atmos)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx.single_stokes_fs()
+    torch.cuda.synchronize()
+    ms['stokes'] = (time.perf_counter() - t0) * 1e3
+    out['stokes_peak'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out['I'] = ctx.gather_x(ctx.I).cpu().numpy()
+    out['Quv'] = ctx.gather_x(ctx.Quv).cpu().numpy()
+    out['ms'] = ms
+    return out
+
+
+def od_nccl_rank(rank, world, workdir):
+    """Phase 18 (d), NCCL at world size 1: one on-device body (Ng's first
+    extrapolation) of the x-sharded 82 x 32 slab under
+    torch.cuda.set_sync_debug_mode('error'), after an unchecked one."""
+    import torch.distributed as dist
+    from lightweaver_tpu_torch.context import DeviceLoop
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.parallel import multihost as mh
+    from lightweaver_tpu_torch.parallel.xshard2d import make_x_mesh
+    from lightweaver_tpu_torch.problems import slab_2d
+    mh.initialize_multihost(num_processes=1, backend='nccl')
+    ctx = slab_2d(*DIST_H6_SLAB, mesh=make_x_mesh(1))
+    loop = DeviceLoop(ctx, 0, NgOptions(2, 3, 4), False, 3, 0.0)
+    s = loop.start()
+    for checked in (False, True):
+        s['cnt'] = 4
+        if checked:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            s = loop.step(s, more=lambda flag: True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ok = all(bool(torch.isfinite(n).all()) for n in s['pops'])
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    return {'backend': backend, 'finite': ok, 'reads': loop.reads}
+
+
+def distribution_rest():
+    """Phase 18: the rest of the distribution on the card, two gloo ranks
+    sharing it as in phase 16.  (a) falc_h6mg's atoms on DIST_PRD_C
+    columns on a (1, 2) wavelength mesh, PRD under each scheme and hybrid
+    PRD, in lockstep with one rank (DIST_PRD_TOL), kernel 1 on the PRD
+    rows of its block against its plain version, its launches per block;
+    (b) the 82 x 256 slab x-sharded with Ng, update_deps, state_dict,
+    compute_rays and single_stokes_fs against one rank; (c) NR, PRD and
+    hybrid PRD on an 82 x 32 H 6 slab against one rank; (d)
+    iterate_on_device against the host loop on the 82 x 32 slab, and one
+    body under NCCL at world size 1 with no synchronising operation.
+    Returns kernel 1's record on the block and its launches."""
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.problems import slab_2d
+    Nz, Nx, nq = SLAB_2D
+    phase(f'distribution, the rest (a)-(c): one-rank references (the '
+          f'{Nz} x {Nx} slab with Ng{DIST_NG}, the {DIST_H6_SLAB} H 6 '
+          'slabs)')
+    ctx = slab_2d(Nz, Nx, periodic=True, quadrature=nq,
+                  ngOptions=NgOptions(*DIST_NG))
+    slabRef = slab_rest(ctx)
+    del ctx
+    torch.cuda.empty_cache()
+    h6Ref = {}
+    for name, kw in DIST_H6_CASES.items():
+        h6Ref[name] = h6_slab_rounds(slab_2d(*DIST_H6_SLAB, **kw), name,
+                                     {'all_reduce': 0, 'all_gather': 0})
+    torch.cuda.empty_cache()
+    print('  one rank: ' + ', '.join(f'{k} {v:.1f} ms' for k, v in
+                                     slabRef['ms'].items())
+          + f' (slab); ' + ', '.join(f'{k} {v["ms"]:.1f} ms per round'
+                                     for k, v in h6Ref.items())
+          + f'; single_stokes_fs peak {slabRef["stokes_peak"]:.2f} GiB')
+
+    phase(f'distribution, the rest (a)-(d): {DIST_RANKS} gloo ranks on '
+          f'this card: {DIST_PRD_C} falc_h6mg columns on a (1, '
+          f'{DIST_RANKS}) mesh, the slabs x-sharded')
+    ranks = spawn_ranks(dist_rest_rank, DIST_RANKS)
+    r0 = ranks[0]
+    print('  rank 0 reached the end of (a)-(d) at ' + ', '.join(
+        f'{k} {v:.1f} s' for k, v in r0['t'].items()))
+    launches = 0
+    record = None
+    for (scheme, hprd), res in r0['prd'].items():
+        label = f'{scheme}{" hPRD" if hprd else ""}'
+        worst = {k: max(e[k] for e in res['errs']) for k in res['errs'][0]}
+        blocks = [r['prd'][(scheme, hprd)] for r in ranks]
+        print(f'  (a) {label}: rows {[b["rows"] for b in blocks]} (first, '
+              f'end, PRD subset rows) per rank, {res["ms"]:.1f} ms per round '
+              f'(rank 1 {blocks[1]["ms"]:.1f}; one rank '
+              f'{res["one_rank_ms"]:.1f}), {res["nSub"]} sub-iterations, '
+              'collectives per round ' + ', '.join(
+                  f'{k} {v:.1f}' for k, v in res['collectives'].items())
+              + f'; launches per rank {[b["launches"] for b in blocks]}; '
+              f'max |rho - 1| {res["rhoDev"]:.2f}; worst round against one '
+              f'rank ' + ', '.join(f'{k} {v:.2e}' for k, v in worst.items())
+              + f' (bar {DIST_PRD_TOL})')
+        if not all(v < DIST_PRD_TOL for v in worst.values()):
+            raise AssertionError(f'{label} on the wavelength mesh: {worst}')
+        if not res['rhoDev'] > 0.1:
+            raise AssertionError(f'{label}: rho stayed at 1')
+        for b in blocks:
+            launches += b['launches'].get('sweep', 0)
+            if 'kernel' in b and (record is None
+                                  or b['kernel']['rows'] > record['rows']):
+                record = b['kernel']
+        if scheme == SCHEMES[0] and sum(b['launches'].get('sweep', 0)
+                                        for b in blocks) == 0:
+            raise AssertionError(f'{label}: no sweep launched')
+    if record is None:
+        raise AssertionError('no rank timed kernel 1 on its PRD rows')
+    print(f'  (a) kernel 1 on a block\'s {record["rows"]} PRD rows: '
+          f'{record["ms"]:.4f} ms, plain {record["plain_ms"]:.4f} ms, bound '
+          f'{record["bound_ms"]:.4g} ms by {record["bound_by"]}; against '
+          f'plain {record["rel"]:.2e} (bar {KERNEL_TOL})')
+
+    sl = r0['slab']
+    errs = {'pre-Ng pops': rows_rel(sl['pre_ng']['pops'],
+                                    slabRef['pre_ng']['pops']),
+            'pre-Ng J': rows_rel(sl['pre_ng']['J'], slabRef['pre_ng']['J']),
+            'pre-Ng I': rows_rel(sl['pre_ng']['I'], slabRef['pre_ng']['I']),
+            'ng_pops': rows_rel(sl['ng_pops'], slabRef['ng_pops']),
+            'state pops': rows_rel(sl['state']['pops'],
+                                   slabRef['state']['pops']),
+            'state nStar': relerr(sl['state']['nStar'],
+                                  slabRef['state']['nStar'])}
+    emergent = {'post-Ng J': rows_rel(sl['post_ng']['J'],
+                                      slabRef['post_ng']['J']),
+                'post-Ng I': rows_rel(sl['post_ng']['I'],
+                                      slabRef['post_ng']['I']),
+                'state J': rows_rel(sl['state']['J'], slabRef['state']['J']),
+                'state I': rows_rel(sl['state']['I'], slabRef['state']['I']),
+                'rays': rows_rel(sl['rays'], slabRef['rays']),
+                'Stokes I': rows_rel(sl['I'], slabRef['I'])}
+    amp = np.abs(slabRef['I']).max(axis=(1, 2))[None, :, None, None]
+    emergent['Stokes QUV'] = float((np.abs(sl['Quv'] - slabRef['Quv'])
+                                    / amp).max())
+    print(f'  (b) {Nz} x {Nx} slab on {DIST_RANKS} ranks: '
+          + ', '.join(f'{k} {v:.1f} ms' for k, v in sl['ms'].items())
+          + f' (rank 1 step {ranks[1]["slab"]["ms"]["step"]:.1f}); '
+          f'Ng extrapolated at steps {np.flatnonzero(sl["accelerated"])} '
+          f'(one rank {np.flatnonzero(slabRef["accelerated"])}); '
+          'collectives per step '
+          + ', '.join(f'{k} {v:.1f}' for k, v in sl['collectives'].items())
+          + f'; single_stokes_fs peak per rank '
+          + ' / '.join(f'{r["slab"]["stokes_peak"]:.2f}' for r in ranks)
+          + ' GiB; against one rank ' + ', '.join(
+              f'{k} {v:.2e}' for k, v in errs.items())
+          + f' (bar {DIST_REST_TOL}; populations per level, radiation '
+          'per wavelength), '
+          + ', '.join(f'{k} {v:.2e}' for k, v in emergent.items())
+          + f' (bar {DIST_NG_TOL}, per wavelength)')
+    if not (all(v < DIST_REST_TOL for v in errs.values())
+            and all(v < DIST_NG_TOL for v in emergent.values())
+            and sl['accelerated'] == slabRef['accelerated']
+            and np.flatnonzero(sl['accelerated']).tolist()
+            == [DIST_NG_PRE]):
+        raise AssertionError(f'the x-sharded slab differs: {errs}, '
+                             f'{emergent}')
+
+    for name, res in r0['h6'].items():
+        ref = h6Ref[name]
+        e = {'pops': relerr(res['pops'], ref['pops']),
+             'J': rows_rel(res['J'], ref['J']),
+             'ne': relerr(res['ne'], ref['ne'])}
+        if res['rho']:
+            # per row of the window, as in (a)
+            e['rho'] = max(rows_rel(a, b) for a, b in zip(res['rho'],
+                                                           ref['rho']))
+        print(f'  (c) {DIST_H6_SLAB} H 6 slab, {name}: {res["ms"]:.1f} ms '
+              f'per round (rank 1 {ranks[1]["h6"][name]["ms"]:.1f}; one '
+              f'rank {ref["ms"]:.1f}), collectives per round '
+              + ', '.join(f'{k} {v:.1f}' for k, v in
+                          res['collectives'].items())
+              + '; against one rank ' + ', '.join(f'{k} {v:.2e}'
+                                                  for k, v in e.items())
+              + f' (bar {DIST_REST_TOL})')
+        if not all(v < DIST_REST_TOL for v in e.values()):
+            raise AssertionError(f'the x-sharded H 6 slab ({name}): {e}')
+
+    od = r0['od']
+    print(f'  (d) iterate_on_device, {od["nIter"]} steps: {od["ms"]:.1f} '
+          f'ms per step (host loop {od["host_ms"]:.1f}); against the host '
+          f'loop: populations {od["pops"]:.2e}, J {od["J"]:.2e} (bar '
+          f'{DIST_REST_TOL}); launches {od["launches"]}')
+    if not (od['nIter'] == DIST_OD_STEPS and od['pops'] < DIST_REST_TOL
+            and od['J'] < DIST_REST_TOL):
+        raise AssertionError(f'the x-sharded on-device loop: {od}')
+    no_kernel_launched('the x-sharded on-device loop', od['launches'])
+
+    phase('distribution, the rest (d): one on-device body of the x-sharded '
+          "slab under NCCL at world size 1, set_sync_debug_mode('error')")
+    (d,) = spawn_ranks(od_nccl_rank, 1)
+    print(f'  backend {d["backend"]}, populations finite {d["finite"]}, '
+          f'{d["reads"]} host reads, no synchronising operation')
+    if not (d['backend'] == 'nccl' and d['finite'] and d['reads'] == 0):
+        raise AssertionError(f'the NCCL body: {d}')
+    return dict(record, launches=launches)
+
+
 # ---- the least time the card could take for a kernel's work -----------
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # peak rates outside the tensor cores, float32 and float64, from NVIDIA's
@@ -4375,7 +4955,7 @@ def main():
     solverLaunches = {}
     for solver in SOLVERS[::2]:
         solverLaunches[sweep_name(solver, torch.float64)] = converge_solver(
-            solver, LINEAR_STEPS if solver == SOLVERS[0] else None)
+            solver, LINEAR_STEPS)
     phase('synthesis (c): the mixed-precision problem (40 depths, 3 rays, '
           'Ca II active) in float32 under the linear and BESSER solvers')
     for solver in SOLVERS[::2]:
@@ -4413,6 +4993,9 @@ def main():
     # phase 17, the MALI loop on the device; its benchmark gives the
     # FALC-500 ms/iter
     odLaunches, odNumbers, bench = on_device_loop()
+    # phase 18, the rest of the distribution: kernel 1 on a wavelength
+    # block's PRD rows
+    blockPrd = distribution_rest()
     # the kernels' record: the float64 instances on the PRD path (phase 8's
     # launches, phase 7's inputs), the float32 ones on falc_h6ca's float32
     # path (phase (c)'s launches, phase (a)'s inputs), the probes; phase
@@ -4425,7 +5008,7 @@ def main():
                     for name, n in solverLaunches.items()})
     records.update(probes)
     for name, n in list(options['launches'].items()) + list(
-            odLaunches.items()):
+            odLaunches.items()) + [('sweep', blockPrd['launches'])]:
         if name in records:
             records[name]['launches'] += n
     print(f'synthesis: compute_rays (the README program, 1001 wavelengths, '
@@ -4458,6 +5041,11 @@ def main():
         + ' ms/iter; ' + ', '.join(f'{k} {v * 1e3:.3f}' for k, v in
                                    bench['schemeTimings'].items())
         + f' ms/iter at {"/".join(bench["best"])}')
+    print(f'distribution: kernel 1 on a wavelength block\'s '
+          f'{blockPrd["rows"]} PRD rows {blockPrd["ms"]:.4f} ms (plain '
+          f'{blockPrd["plain_ms"]:.4f}, bound {blockPrd["bound_ms"]:.4g} ms '
+          f'by {blockPrd["bound_by"]}), {blockPrd["launches"]} launches on '
+          'the two blocks')
     print(f'chip_smoke wall time: {time.perf_counter() - tStart:.1f} s '
           '(kernel builds included)')
     print(smi)

@@ -23,11 +23,12 @@ recurrenceMode names (each runs the port's sweep) and the full-resolution
 depthData capture.  Over ranks (one process each, torch.distributed):
 Context(mesh=) on a 2D atmosphere block-shards x (parallel/xshard2d.py:
 each rank iterates its block of columns, the plane sweep exchanging
-halos and closing the ring across the ranks), and a wavelength group
-(IterConfig.lamLo/lamHi/lamGroup, parallel/columns.py's 'wavelength'
-axis) runs the MALI step on a block of rows with one all_reduce of
-Gamma and the rates (build_iteration_fn).  Everything outside that (a 3D
-atmosphere, mesh= on 1D, the options the sharded Context does not take)
+halos and closing the ring across the ranks) with every option of the
+unsharded Context, and a wavelength group (IterConfig.lamLo/lamHi/
+lamGroup, parallel/columns.py's 'wavelength' axis) runs the MALI step and
+the PRD subset solve on a block of rows with one all_reduce of Gamma,
+the rates and JRest (build_iteration_fn, build_prd_subset_fn).  What the
+JAX package refuses (a 3D atmosphere, mesh= on 1D, on-device PRD on 2D)
 raises ValueError rather than running something else.
 
 Precision, as in the JAX package: a float64 state, or a float32 working
@@ -101,9 +102,10 @@ from .ops import gamma as gammaOps
 from .ops.faddeeva import voigt_H, voigt_HF
 from .ops.formal_solver import SOLVER_NAMES_1D
 from .ops.linalg import solve_KxK_over_depth
-from .ops.ng import Ng, NgOptions, device_ng_accelerate, device_ng_init
+from .ops.ng import (Ng, NgOptions, device_ng_accelerate,
+                     device_ng_init)
 from .ops.planck import planck_nu
-from .ops.prd import interp, prd_scatter_rho
+from .ops.prd import _DX_EPS, prd_scatter_rho
 from .ops.stokes import delo_bezier_stokes
 from .ops.stokes2d import sweep_stokes_rays_2d
 from .ops.sweep import BEZIER3, angular_moments, formal_solve_sweep
@@ -1271,7 +1273,10 @@ def wavelength_block(cfg: IterConfig) -> IterConfig:
 def _block_params(cfg: IterConfig, params):
     """params of the full grid cut to the rows [lamLo, lamHi): J (unless
     it holds the block already), the background, the z boundaries' data
-    rows and each transition's window of phi and rho."""
+    rows and each transition's window of phi and rho; under hybrid PRD
+    rho stays whole (the comoving-frame interpolation of _uv reads it
+    across the window, by whole-window indices) and the window rows of
+    its coefficients hprdI0/hprdFrac are cut instead."""
     lo, hi = cfg.lamLo, cfg.lamHi
     p = dict(params)
     if p['J'].shape[0] == cfg.Nlam:
@@ -1279,7 +1284,9 @@ def _block_params(cfg: IterConfig, params):
     for key in ('bgChi', 'bgEta', 'bgSca', 'upperBcData', 'lowerBcData'):
         if p.get(key) is not None:
             p[key] = p[key][lo:hi]
-    for key, dim in (('phi', 1), ('rhoPrd', 0)):
+    windows = ((('phi', 1), ('hprdI0', 1), ('hprdFrac', 1)) if cfg.hprd
+               else (('phi', 1), ('rhoPrd', 0)))
+    for key, dim in windows:
         if p.get(key) is None:
             continue
         p[key] = [[None if x is None else
@@ -1289,16 +1296,30 @@ def _block_params(cfg: IterConfig, params):
     return p
 
 
+def _sum_over_group(group, parts):
+    """Every tensor of ``parts`` (a list) summed over the ranks of
+    ``group`` in ONE all_reduce of their concatenation; returns the list
+    of sums in their shapes."""
+    from .ops.collectives import all_reduce
+    flat = all_reduce(torch.cat([x.reshape(-1) for x in parts]), group)
+    return [y.view(x.shape) for x, y in zip(
+        parts, torch.split(flat, [x.numel() for x in parts]))]
+
+
 def _wavelength_block_fn(cfg: IterConfig):
     """build_iteration_fn on a rank of a wavelength group: the MALI step of
     wavelength_block(cfg) over its rows, then ONE all_reduce(SUM) of every
-    Gamma and rate of every active atom over cfg.lamGroup (their lambda
-    sums are over the block alone; the collisional term enters on the rank
-    of the first block only) and an all_reduce(MAX) of dJ.  J and the
-    emergent I stay the block's rows."""
+    Gamma and rate of every active atom (and under hybrid PRD of JRest)
+    over cfg.lamGroup (their lambda sums are over the block alone; the
+    collisional term enters on the rank of the first block only; JRest is
+    the block rows' share of each rest-frame interpolation, rest_frame_J
+    with lo = lamLo) and an all_reduce(MAX) of dJ.  J and the emergent I
+    stay the block's rows."""
     from .ops.collectives import all_reduce
     bcfg = wavelength_block(cfg)
-    inner = build_iteration_fn(bcfg)
+    inner = build_iteration_fn(
+        bcfg, restFrame=lambda params, I: rest_frame_J(
+            cfg, params, cfg.wavelengthT, I, cfg.lamLo))
     group = cfg.lamGroup
 
     def pack(params):
@@ -1310,15 +1331,17 @@ def _wavelength_block_fn(cfg: IterConfig):
             bp['C'] = [c.new_zeros(()).expand_as(c) for c in bp['C']]
         out = inner(bp, lambdaIterate=lambdaIterate,
                     storeDepthData=storeDepthData)
-        parts = (list(out['Gamma']) + [r for rs in out['Rij'] for r in rs]
-                 + [r for rs in out['Rji'] for r in rs])
-        flat = all_reduce(torch.cat([x.reshape(-1) for x in parts]), group)
-        it = iter(torch.split(flat, [x.numel() for x in parts]))
-        out['Gamma'] = [next(it).view(x.shape) for x in out['Gamma']]
-        out['Rij'] = [[next(it).view(r.shape) for r in rs]
-                      for rs in out['Rij']]
-        out['Rji'] = [[next(it).view(r.shape) for r in rs]
-                      for rs in out['Rji']]
+        nA = len(out['Gamma'])
+        sums = iter(_sum_over_group(group, list(out['Gamma'])
+                                    + [r for rs in out['Rij'] for r in rs]
+                                    + [r for rs in out['Rji'] for r in rs]
+                                    + ([out['JRest']] if 'JRest' in out
+                                       else [])))
+        out['Gamma'] = [next(sums) for _ in range(nA)]
+        out['Rij'] = [[next(sums) for _ in rs] for rs in out['Rij']]
+        out['Rji'] = [[next(sums) for _ in rs] for rs in out['Rji']]
+        if 'JRest' in out:
+            out['JRest'] = next(sums)
         out['dJ'] = all_reduce(out['dJ'], group, 'max')
         return out
 
@@ -1327,7 +1350,7 @@ def _wavelength_block_fn(cfg: IterConfig):
     return iteration
 
 
-def build_iteration_fn(cfg: IterConfig):
+def build_iteration_fn(cfg: IterConfig, restFrame=None):
     """The full MALI step as a function of the params dict.
 
     params = {
@@ -1355,8 +1378,10 @@ def build_iteration_fn(cfg: IterConfig):
     Nk] (depth_data); over
     cfg.Ncol > 1 columns 'I' is [Ncol, Nlam, Nmu] and 'dJ' [Ncol].  With
     cfg.accelerateScattering, J is the accelerated one
-    (_accelerate_scattering) and dJ measures it.  The stages are exposed
-    as attributes.
+    (_accelerate_scattering) and dJ measures it.  ``restFrame(params, I)``
+    forms JRest in place of rest_frame_J over cfg's grid (a wavelength
+    block's share: _wavelength_block_fn).  The stages are exposed as
+    attributes.
 
     With cfg.lamGroup (a rank of a mesh's wavelength axis) the step is
     _wavelength_block_fn's: the same stages on the rows [lamLo, lamHi) and
@@ -1413,7 +1438,9 @@ def build_iteration_fn(cfg: IterConfig):
         out = {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
                'I': _emergent(cfg, I), 'dJ': dJ}
         if cfg.hprd:
-            out['JRest'] = rest_frame_J(cfg, params, cfg.wavelengthT, I)
+            out['JRest'] = (restFrame(params, I) if restFrame is not None
+                            else rest_frame_J(cfg, params, cfg.wavelengthT,
+                                              I))
         if storeDepthData:
             out.update(depth_data(cfg, params, scaJ, chiTot, srcNum, I))
         return out
@@ -1469,24 +1496,54 @@ def depth_data(cfg: IterConfig, params, scaJ, chiTot, srcNum, I):
             'depthI': layout(I)}
 
 
-def rest_frame_J(cfg: IterConfig, params, lam, I):
+def rest_frame_J(cfg: IterConfig, params, lam, I, lo: int = 0):
     """Hybrid PRD's rest-frame mean intensity JRest [Nprd, Nk] on the
-    PRD-active rows cfg.prdIdxs: each ray's spectrum I [2, NL, Nmu, Nk] on
-    the wavelengths lam [NL], Doppler-shifted by its vlos mu, resampled
-    linearly at the rest wavelengths, then the mu moment -- the adjoint-
-    tent accumulation of the reference expressed as resampling (ref:
-    Source/Prd.cpp:816-897, SimdFullIterationTemplates.hpp:397-408).  The
-    shift, the resampling and the products with the weights run in the
-    working dtype; the mu sum in the wider of the working dtype and
-    accumDtype (in the f32 state JRest is summed from float32 products
-    into float64, where the JAX float32 Context sums in float32)."""
+    PRD-active rows cfg.prdIdxs: each ray's spectrum on the wavelengths
+    lam [n], Doppler-shifted by its vlos mu, resampled linearly at the
+    rest wavelengths (ops/prd.py:interp's formula, rows and clamps), then
+    the mu moment -- the adjoint-tent accumulation of the reference
+    expressed as resampling (ref: Source/Prd.cpp:816-897,
+    SimdFullIterationTemplates.hpp:397-408).  I [2, NL, Nmu, Nk] holds
+    the rays of the rows [lo, lo + NL) of lam (all of them by default; NL
+    may be 0).  The resampling is linear in I, so the result is those
+    rows' share of JRest: on the ranks of a wavelength group one
+    all_reduce of the shares completes it (_wavelength_block_fn,
+    build_prd_subset_fn).  The shift, the resampling and the products
+    with the weights run in the working dtype; the mu sum in the wider of
+    the working dtype and accumDtype (in the f32 state JRest is summed
+    from float32 products into float64, where the JAX float32 Context
+    sums in float32)."""
     rows, sgn = _hprd_rows(cfg)
-    lamPrd = cfg.wavelengthT[rows]
+    acc = torch.promote_types(cfg.dtype, cfg.accumDtype)
+    NL = I.shape[1]
+    if NL == 0:
+        return torch.zeros((len(rows), I.shape[-1]), dtype=acc,
+                           device=I.device)
     fac = 1.0 + (sgn[:, None, None] * params['vlosMu'][None]
                  / Const.CLight)                         # [2, Nmu, Nk]
-    IRest = interp(lamPrd, lam * fac[..., None],
-                   I.permute(0, 2, 3, 1))                # [2, Nmu, Nk, Nprd]
-    acc = torch.promote_types(cfg.dtype, cfg.accumDtype)
+    xp = (lam * fac[..., None]).contiguous()             # [2, Nmu, Nk, n]
+    x = cfg.wavelengthT[rows].expand(*xp.shape[:-1], -1).contiguous()
+    n = xp.shape[-1]
+    i = torch.searchsorted(xp, x, right=True).clamp(1, n - 1)
+    xl = xp.gather(-1, i - 1)
+    dx = xp.gather(-1, i) - xl
+    dx0 = torch.abs(dx) <= _DX_EPS
+    left, right = x < xp[..., :1], x > xp[..., -1:]
+    # I at a PRD row, ray and depth is fl + t (fr - fl) of the rows il
+    # and i: t = 0 outside the shifted grid and where its step is ~0
+    t = torch.where(dx0 | left | right, 0.0,
+                    (x - xl) / torch.where(dx0, 1.0, dx))
+    il = torch.where(right, n - 1, torch.where(left, 0, i - 1))
+    Ip = I.permute(0, 2, 3, 1)                           # [2, Nmu, Nk, NL]
+
+    def take(idx):
+        # rows outside [lo, lo + NL) are another rank's share
+        loc = idx - lo
+        inside = (loc >= 0) & (loc < NL)
+        return torch.where(inside, Ip.gather(-1, loc.clamp(0, NL - 1)), 0.0)
+    fl = take(il)
+    # one fused multiply-add, as interp (and XLA) forms it
+    IRest = torch.addcmul(fl, t, take(i) - fl)           # [2, Nmu, Nk, Nprd]
     return torch.sum((IRest * (0.5 * cfg.wmuT)[None, :, None, None])
                      .to(acc), dim=(0, 1)).T
 
@@ -1523,47 +1580,71 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
     1 columns each column has its own boundaries, 'I' is [Ncol, Nsub,
     Nmu] and 'dJ' [Ncol].  cfg.accelerateScattering accelerates J as the
     MALI step does, with the subset's PsiBar.
+
+    On a rank of a wavelength group (cfg.lamGroup; params['J'] then holds
+    the rows [lamLo, lamHi)) the stage solves the subset rows of its block
+    alone (Nsub of them, maybe none: no sweep is launched then) and
+    returns J, I and dJ there; each PRD line's rates sum the rows of its
+    window in the block, and JRest the block's share of each rest-frame
+    interpolation over the subset (rest_frame_J from its first row), and ONE
+    all_reduce(SUM) over the group completes both on every rank.
     """
     subIdxs = np.asarray(subIdxs, np.int64)
-    Nsub = len(subIdxs)
     Nmu, Nk = cfg.Nmu, cfg.Nk
-    subT = torch.as_tensor(subIdxs, device=cfg.device)
-    lamSub = cfg.wavelengthT[subT]
-
-    # per transition that meets the subset: the subset positions [p0, p1)
-    # inside its window, the global rows [lo, hi) they span, and the
-    # window rows relative to lo (a slice where they are contiguous)
-    spans = []
-    for ai, a in enumerate(cfg.allAtoms):
-        for ti, t in enumerate(a.trans):
-            p0, p1 = np.searchsorted(subIdxs, [t.Nblue, t.Nred])
-            if p1 <= p0:
-                continue
-            lo, hi = int(subIdxs[p0]), int(subIdxs[p1 - 1]) + 1
-            rows = (slice(None) if hi - lo == p1 - p0 else torch.as_tensor(
-                subIdxs[p0:p1] - lo, device=cfg.device))
-            spans.append((ai, ti, int(p0), int(p1), lo, hi, rows))
-
-    lineStarts = []
+    group = cfg.lamGroup
+    lo, hi = (cfg.lamLo, cfg.lamHi) if group is not None else (0, cfg.Nlam)
     for (ai, ti) in prdLines:
         t = cfg.activeAtoms[ai].trans[ti]
         s0 = int(np.searchsorted(subIdxs, t.Nblue))
         if not np.array_equal(subIdxs[s0:s0 + t.W],
                               np.arange(t.Nblue, t.Nred)):
             raise ValueError('PRD line window not contained in subset')
-        lineStarts.append(s0)
+    # this rank's rows of the subset; their first position in the subset
+    rows = subIdxs[(subIdxs >= lo) & (subIdxs < hi)]
+    pos0 = int(np.searchsorted(subIdxs, lo))
+    Nsub = len(rows)
+    subT = torch.as_tensor(rows, device=cfg.device)
+    # J's rows of the subset rows (J holds the block on a wavelength rank)
+    jRows = torch.as_tensor(rows - (lo if group is not None else 0),
+                            device=cfg.device)
+    lamSub = cfg.wavelengthT[subT]
+    lamSubAll = cfg.wavelengthT[torch.as_tensor(subIdxs, device=cfg.device)]
+
+    # per transition that meets the rows: the positions [p0, p1) among
+    # them inside its window, the global rows [a, b) they span, and the
+    # window rows relative to a (a slice where they are contiguous)
+    spans = []
+    for ai, a in enumerate(cfg.allAtoms):
+        for ti, t in enumerate(a.trans):
+            p0, p1 = np.searchsorted(rows, [t.Nblue, t.Nred])
+            if p1 <= p0:
+                continue
+            r0, r1 = int(rows[p0]), int(rows[p1 - 1]) + 1
+            sel = (slice(None) if r1 - r0 == p1 - p0 else torch.as_tensor(
+                rows[p0:p1] - r0, device=cfg.device))
+            spans.append((ai, ti, int(p0), int(p1), r0, r1, sel))
+
+    # per PRD line the rows [a, b) of its window among this rank's, from
+    # position s0 of them (b == a: none)
+    lineRows = []
+    for (ai, ti) in prdLines:
+        t = cfg.activeAtoms[ai].trans[ti]
+        a, b = max(t.Nblue, lo), min(t.Nred, hi)
+        b = max(a, b)
+        lineRows.append((int(np.searchsorted(rows, a)), a, b))
 
     def sweep_inputs(params):
         """The arguments of formal_solve_sweep on the subset rows."""
         shape = (2, Nsub, Nmu, Nk)
         chiSub = params['bgChi'][subT][None, :, None, :].expand(shape).clone()
         etaSub = params['bgEta'][subT][None, :, None, :].expand(shape).clone()
-        for ai, ti, p0, p1, lo, hi, rows in spans:
-            c, e = chi_eta_w(cfg, params, ai, ti, lo, hi)
-            chiSub[:, p0:p1] += c[:, rows]
-            etaSub[:, p0:p1] += e[:, rows]
+        for ai, ti, p0, p1, r0, r1, sel in spans:
+            c, e = chi_eta_w(cfg, params, ai, ti, r0, r1)
+            chiSub[:, p0:p1] += c[:, sel]
+            etaSub[:, p0:p1] += e[:, sel]
 
-        srcSub = etaSub + _sca_j(cfg, params)[subT][None, :, None, :]
+        scaJ = params['bgSca'][subT] * params['J'][jRows].to(cfg.dtype)
+        srcSub = etaSub + scaJ[None, :, None, :]
         Iupw_d, Iupw_u = _upwind_intensities(cfg, params, chiSub, lamSub,
                                              rows=subT)
         return (chiSub, srcSub, _heights(cfg, params), cfg.muzT, Iupw_d,
@@ -1571,36 +1652,54 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
 
     def prd_subset_stage(params):
         params = _working_params(cfg, params)
-        I, Psi, IeffBase, moments = formal_solve_sweep(
-            *sweep_inputs(params), solver=cfg.formalSolver)
         adt = cfg.accumDtype
-        Jdag = params['J'][subT].to(adt)
-        Jnew = moments['J'].to(adt)
-        if cfg.accelerateScattering:
-            Jnew = _accelerate_scattering(Jnew, Jdag, moments['PsiBar'],
-                                          params['bgSca'][subT], adt)
-        dJ = _dJ(cfg, Jdag, Jnew)
+        Jdag = params['J'][jRows].to(adt)
+        if Nsub:
+            I, Psi, IeffBase, moments = formal_solve_sweep(
+                *sweep_inputs(params), solver=cfg.formalSolver)
+            Jnew = moments['J'].to(adt)
+            if cfg.accelerateScattering:
+                Jnew = _accelerate_scattering(Jnew, Jdag, moments['PsiBar'],
+                                              params['bgSca'][subT], adt)
+        else:
+            I = params['bgChi'].new_zeros((2, 0, Nmu, Nk))
+            Jnew = Jdag
+        dJ = (_dJ(cfg, Jdag, Jnew) if Nsub else
+              Jdag.new_zeros(() if cfg.Ncol == 1 else (cfg.Ncol,)))
 
         wmu2w = 0.5 * cfg.wmuT
         wmu2 = wmu2w.to(adt)
         RijOut, RjiOut = [], []
-        for (ai, ti), s0 in zip(prdLines, lineStarts):
+        for (ai, ti), (s0, a, b) in zip(prdLines, lineRows):
             t = cfg.activeAtoms[ai].trans[ti]
-            I_w = I[:, s0:s0 + t.W]
-            Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
-            wlaA = _wla(cfg, params, ai, ti, t).to(adt)
+            if b == a:
+                RijOut.append(Jdag.new_zeros(Nk))
+                RjiOut.append(Jdag.new_zeros(Nk))
+                continue
+            I_w = I[:, s0:s0 + b - a]
+            Uji, Vij, Vji = _uv(cfg, params, ai, ti, t, a, b)
+            wlaA = _wla(cfg, params, ai, ti, t)[a - t.Nblue:b - t.Nblue] \
+                .to(adt)
             RijOut.append(_sum_lmd_split(I_w * Vij, wlaA, wmu2, wmu2w, adt))
             RjiOut.append(_sum_lmd_split(Uji + I_w * Vji, wlaA, wmu2, wmu2w,
                                          adt))
 
-        out = {'J': Jnew, 'I': _emergent(cfg, I), 'dJ': dJ, 'Rij': RijOut,
-               'Rji': RjiOut}
+        out = {'J': Jnew, 'I': _emergent(cfg, I), 'dJ': dJ}
+        JRest = []
         if cfg.hprd:
-            out['JRest'] = rest_frame_J(cfg, params, lamSub, I)
+            JRest = [rest_frame_J(cfg, params, lamSubAll, I, pos0)]
+        if group is not None:
+            sums = _sum_over_group(group, RijOut + RjiOut + JRest)
+            n = len(RijOut)
+            RijOut, RjiOut, JRest = sums[:n], sums[n:2 * n], sums[2 * n:]
+        out.update(Rij=RijOut, Rji=RjiOut)
+        if JRest:
+            out['JRest'] = JRest[0]
         return out
 
     prd_subset_stage.sweep_inputs = lambda params: sweep_inputs(
         _working_params(cfg, params))
+    prd_subset_stage.rows = rows
     return prd_subset_stage
 
 
@@ -1718,8 +1817,9 @@ class DeviceLoop:
         self.maxPrdSubIter, self.prdTol = maxPrdSubIter, prdTol
         self.iterFn = ctx._iter_fn
         self.base = ctx.build_params()
-        self.nTotals = [cfg.state(ctx.eqPops.atomicPops[a.model.element]
-                                  .nTotal) for a in cfg.activeAtoms]
+        self.nTotals = [cfg.state(ctx._x_local(
+            ctx.eqPops.atomicPops[a.model.element].nTotal))
+            for a in cfg.activeAtoms]
         self.prdLines = ctx._prd_lines() if prd else []
         if self.prdLines:
             if cfg.Ndim != 1:
@@ -1736,9 +1836,13 @@ class DeviceLoop:
 
     def read_flag(self, flag) -> bool:
         """A 0-d bool tensor as a Python bool: the one read back to the
-        host of a loop's stopping test, counted in ``reads``."""
+        host of a loop's stopping test, counted in ``reads``; on an
+        x-sharded Context True where it is on any rank of the x group (one
+        all_reduce before the read), so that every rank goes on or stops
+        together."""
         self.reads += 1
-        return bool(flag)
+        return bool(self.ctx._x_reduce_tensor(flag.to(STATE_DTYPE)[None],
+                                              'max')[0] > 0)
 
     def start(self) -> Dict:
         """The loop state from the Context's J, populations, rho and
@@ -1755,7 +1859,8 @@ class DeviceLoop:
                                 dtype=ctx.J.dtype, device=ctx.device)
         return {'it': 0, 'J': ctx.J, 'pops': [st['n'] for st in ctx.popsState],
                 'dJ': self.one, 'dPops': self.one,
-                'hists': [device_ng_init(st['n'], self.ng[0])[0]
+                'hists': [device_ng_init(ctx.gather_x(st['n']),
+                                         self.ng[0])[0]
                           for st in ctx.popsState],
                 'cnt': 1, 'rho': ctx.rhoPrd, 'JRest': JRest}
 
@@ -1779,9 +1884,12 @@ class DeviceLoop:
         pops, hists, dPops = [], [], self.zero
         for ai, (n, hist) in enumerate(zip(s['pops'], s['hists'])):
             nNew = _stat_eq_solve(out['Gamma'][ai], n, self.nTotals[ai])
+            # Ng on the whole grid's populations (an x-sharded Context's
+            # gathered; each rank keeps its block)
             hist, _, sol, dMax = device_ng_accelerate(
-                hist, s['cnt'], nNew.reshape(-1), No, Np, Nd)
-            pops.append(sol.view(nNew.shape))
+                hist, s['cnt'], self.ctx.gather_x(nNew).reshape(-1), No, Np,
+                Nd)
+            pops.append(self.ctx._x_local(sol.view(nNew.shape[0], -1)))
             hists.append(hist)
             dPops = torch.maximum(dPops, dMax)
         s.update(pops=pops, hists=hists, cnt=s['cnt'] + 1, dPops=dPops)
@@ -1833,8 +1941,9 @@ class DeviceLoop:
         ExplodingMatrixError and writes nothing."""
         ctx = self.ctx
         if s['pops']:
-            finite = torch.stack([torch.isfinite(n).all()
-                                  for n in s['pops']]).cpu()
+            finite = ctx._x_reduce_tensor(torch.stack(
+                [torch.isfinite(n).all() for n in s['pops']])
+                .to(STATE_DTYPE), 'min').cpu()
             for ai, ok in enumerate(finite.tolist()):
                 if not ok:
                     name = self.cfg.activeAtoms[ai].model.element.name
@@ -1917,15 +2026,21 @@ class Context:
     ``mesh`` (a torch DeviceMesh with a dimension named ``meshXAxis``,
     e.g. parallel/xshard2d.py:make_x_mesh) shards a 2D atmosphere's x
     axis over that dimension's ranks, each of which constructs the
-    Context with the same arguments: every rank keeps its block of Nx / p
-    columns (_take_x_block) on its card (multihost.rank_device) and the
-    plane sweep exchanges halos with its neighbours (parallel/
-    xshard2d.py); dJ and stat_equil's dPops are reduced across the ranks,
-    and gather_x (and activePops) give the whole grid's arrays.  It takes
-    the CRD MALI iteration, time_dep_update and depthData; charge
-    conservation, hybrid PRD, Ng, prd_redistribute, update_deps,
-    state_dict, compute_rays, Stokes synthesis and iterate_on_device
-    raise ValueError.
+    Context with the same arguments and makes every call together: every
+    rank keeps its block of Nx / p columns (_take_x_block) on its card
+    (multihost.rank_device) and the plane sweeps (the scalar one and the
+    Stokes one) exchange halos with its neighbours (parallel/
+    xshard2d.py); what the host keeps whole (atmos, eqPops, the
+    collisional rates) is cut by _x_local wherever it is read or
+    recomputed (charge conservation, update_deps, hybrid PRD's
+    coefficients, the PRD and Stokes constants).  The reductions (dJ,
+    dPops, drho, Ng's least-squares sums, the finite checks, the
+    on-device loop's stopping tests) run over the ranks, so every rank
+    takes the same decisions; gather_x (activePops, state_dict and so
+    pickling and compute_rays) gives the whole grid's arrays, and ne after
+    a charge-conservation step is whole on every rank.  The whole API
+    runs there; state_dict's kwargs carry no mesh, so a pickled sharded
+    Context comes back unsharded, as in the JAX package.
 
     iterate_on_device runs the whole MALI loop with its state on the
     device (DeviceLoop: Ng and the PRD sub-iterations too), reading back
@@ -2006,13 +2121,6 @@ class Context:
             from .parallel.multihost import rank_device
             from .parallel.xshard2d import XShard
             xShard = XShard.from_mesh(mesh, meshXAxis, atmos.Nx)
-            sharded = {'conserveCharge': conserveCharge, 'hprd': hprd,
-                       'ngOptions with Norder > 0':
-                           ngOptions is not None and ngOptions.Norder > 0}
-            bad = [k for k, v in sharded.items() if v]
-            if bad:
-                raise ValueError('the x-sharded Context (mesh=) does not '
-                                 'support ' + ', '.join(bad) + ' yet')
             device = rank_device(device)
         device = torch.device(device)
         if device.type == 'cuda' and not torch.cuda.is_available():
@@ -2092,19 +2200,24 @@ class Context:
                         for t in a.trans] for a in activeAtoms]
         self.rhoPrd += [[None] * len(a.trans) for a in detailedAtoms]
         self.JRest = None
-        if hprd and self._prd_lines():
-            self._configure_hprd_coeffs()
 
+        # the start solution over the whole grid (on an x-sharded Context
+        # too: it reads the host's whole-grid rates and atmosphere)
         if initSol == InitialSolution.EscapeProbability:
             set_pops_escape_probability(self)
 
         # Ng on the populations, one accelerator per active atom over its
-        # flattened [Nlevel, Nk] populations (after the start solution)
+        # flattened [Nlevel, Nk] populations of the whole grid (after the
+        # start solution; an x-sharded Context gathers its iterates)
         if ngOptions is None:
             ngOptions = NgOptions(0, 0, 0)
         self.ngs = [Ng(ngOptions.Norder, ngOptions.Nperiod,
                        ngOptions.Ndelay, n.ravel())
                     for n in self._pops_on_host()]
+        if xShard is not None:
+            self._take_x_block(xShard)
+        if hprd and self._prd_lines():
+            self._configure_hprd_coeffs()
         # persistent per-line Ng accelerators on rho.  The reference
         # tracks rho with Ng(0,0,0) (ref: PrdTemplates.hpp:205,263);
         # prdNgOptions opts in to actual extrapolation.
@@ -2128,8 +2241,6 @@ class Context:
         self.depthData = SimpleNamespace(fill=False, chi=None, eta=None,
                                          I=None)
 
-        if xShard is not None:
-            self._take_x_block(xShard)
         self._iter_fn = build_iteration_fn(self.cfg)
         self._drop_params()
         self._nrFn = None
@@ -2179,11 +2290,11 @@ class Context:
         """The active atoms' populations [Nlevel, Nk] on the host, keyed
         by element name (of the whole grid on an x-sharded Context)."""
         return {a.model.element.name: pops for a, pops in
-                zip(self.cfg.activeAtoms, self._global_pops())}
+                zip(self.cfg.activeAtoms, self._pops_on_host())}
 
     def sync_pops_to_eqPops(self):
         """Copy the active atoms' populations into eqPops' arrays."""
-        for a, pops in zip(self.cfg.activeAtoms, self._global_pops()):
+        for a, pops in zip(self.cfg.activeAtoms, self._pops_on_host()):
             state = self.eqPops.atomicPops[a.model.element]
             if state.pops is not None:
                 state.pops[:] = pops
@@ -2216,23 +2327,22 @@ class Context:
 
     # ---- the x-sharded Context (mesh=) ---------------------------------
     def _take_x_block(self, xs):
-        """Keep this rank's block of x columns of everything that holds
-        the grid on the device (background, thermodynamics, J, I, the
-        populations, the profiles and their weights, rho) and make the
-        iteration config the block's: Nk = Nz Nx / p, Nx = Nx / p.  Every
-        stage but the plane sweep is pointwise in (z, x), so each rank
-        iterates its block; the host-side state (atmos, eqPops, the
-        collisional rates) stays whole and _x_local cuts it."""
+        """Make the iteration config this rank's block's (Nk = Nz Nx / p,
+        Nx = Nx / p) and keep the block's columns of everything that
+        holds the grid on the device (background, thermodynamics, J, I,
+        the populations and nStar, the profiles and their weights, rho).
+        Every stage but the plane sweep is pointwise in (z, x), so each
+        rank iterates its block; the host-side state (atmos, eqPops, the
+        collisional rates, the damping) stays whole, and whatever is
+        recomputed from it later (update_deps, charge conservation, the
+        PRD and Stokes constants) is cut by the same _x_local."""
         cfg = self.cfg
         Nz, Nx, Nxl = cfg.Nz, cfg.Nx, xs.Nxl
-        cols = (np.arange(Nz)[:, None] * Nx + xs.x0
-                + np.arange(Nxl)[None, :]).ravel()
-        self._xCols = cols
-        idx = torch.as_tensor(cols, device=self.device)
-
-        def take(x):
-            return None if x is None else x[..., idx]
-
+        self._xCols = (np.arange(Nz)[:, None] * Nx + xs.x0
+                       + np.arange(Nxl)[None, :]).ravel()
+        self._xIdx = torch.as_tensor(self._xCols, device=self.device)
+        self.cfg = dataclasses.replace(cfg, Nk=Nz * Nxl, Nx=Nxl, xShard=xs)
+        take = self._x_local
         self.bgChi, self.bgEta, self.bgSca = (take(self.bgChi),
                                               take(self.bgEta),
                                               take(self.bgSca))
@@ -2246,15 +2356,16 @@ class Context:
         self.wphi = [[take(x) for x in row] for row in self.wphi]
         self.rhoPrd = [[take(x) for x in row] for row in self.rhoPrd]
         self._CDev = None
-        self.ngs = [Ng(ng.Norder, ng.Nperiod, ng.Ndelay, n.ravel())
-                    for ng, n in zip(self.ngs, self._pops_on_host())]
-        self.cfg = dataclasses.replace(cfg, Nk=Nz * Nxl, Nx=Nxl, xShard=xs)
 
     def _x_local(self, x):
-        """A host array over the whole grid [..., Nz Nx] cut to this rank's
-        block [..., Nz Nx / p] (itself on an unsharded Context)."""
-        if self.cfg.xShard is None:
+        """An array over the whole grid with depth [..., Nz Nx] on its last
+        axis (a host array, or a tensor on the Context's device) cut to
+        this rank's block [..., Nz Nx / p]; x itself (None too) on an
+        unsharded Context."""
+        if self.cfg.xShard is None or x is None:
             return x
+        if torch.is_tensor(x):
+            return x[..., self._xIdx]
         return np.asarray(x)[..., self._xCols]
 
     def gather_x(self, x: torch.Tensor) -> torch.Tensor:
@@ -2273,20 +2384,13 @@ class Context:
         blocks = blocks.unflatten(-1, (self.cfg.Nz, xs.Nxl))
         return torch.cat(list(blocks), dim=-1).flatten(-2)
 
-    def _global_pops(self) -> List[np.ndarray]:
-        """_pops_on_host over the whole grid (gathered across the x group
-        of an x-sharded Context)."""
+    def _x_reduce_tensor(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """A tensor reduced elementwise over the x group ('sum', 'max' or
+        'min'), on the device; x itself on an unsharded Context."""
         if self.cfg.xShard is None:
-            return self._pops_on_host()
-        return [self.gather_x(st['n']).cpu().numpy()
-                for st in self.popsState]
-
-    def _unsharded(self, what: str):
-        """Raise ValueError on an x-sharded Context for what it does not
-        take yet."""
-        if self.cfg.xShard is not None:
-            raise ValueError(f'{what} is not ported to the x-sharded Context '
-                             '(mesh=) yet')
+            return x
+        from .ops.collectives import all_reduce
+        return all_reduce(x.clone(), self.cfg.xShard.group, op)
 
     # ------------------------------------------------------------------
     def _build_atom_static(self, model: AtomicModel, detailed: bool) \
@@ -2329,7 +2433,10 @@ class Context:
         on the device, kept in the working dtype) and normalisation wphi
         per line, with each line's damping
         aDamp and elastic collision rate Qelast [Nspace] (numpy; PRD's
-        inputs) (ref: Source/FormalScalar.cpp:28-134)."""
+        inputs).  On an x-sharded Context the profiles are formed over the
+        whole grid (the line profile protocol's inputs) and cut to the
+        block; aDamp and Qelast stay whole.
+        ref: Source/FormalScalar.cpp:28-134"""
         atmos = self.atmos
         t_ = self.cfg.tensor
         vlosMu = t_(atmos.vlos_mu())                    # [Nmu, Nk]
@@ -2373,8 +2480,8 @@ class Context:
                     vBroad=np.asarray(vBroad)))
                 aDampA.append(np.asarray(res.aDamp))
                 QelastA.append(np.asarray(res.Qelast))
-                phi = torch.as_tensor(res.phi, dtype=self.dtype,
-                                      device=self.device)
+                phi = self._x_local(torch.as_tensor(
+                    res.phi, dtype=self.dtype, device=self.device))
                 phiA.append(phi)
                 wphiA.append(profile_weights(phi, t.wlambdaT, wmu,
                                              self.cfg.Ncol))
@@ -2676,11 +2783,14 @@ class Context:
         after checking the populations are finite (else
         ExplodingMatrixError, nothing written), then runs one
         formal_sol_gamma_matrices for I, Gamma and the rates; returns
-        (nIter, dJ, dPops).  PRD on a 2D atmosphere and the x-sharded
-        Context raise ValueError.
+        (nIter, dJ, dPops).  PRD on a 2D atmosphere raises ValueError, as
+        in the JAX package.  On an x-sharded Context every rank of the x
+        group calls it: its stopping tests and the finite check are
+        reduced over the group (every rank stops in the same step), Ng
+        runs on the whole grid's populations (gathered; each rank keeps
+        its block), and dJ and dPops are the whole grid's.
         ref: SURVEY.md par. 7.3; PRD schedule: Source/PrdTemplates.hpp:
         176-351"""
-        self._unsharded('iterate_on_device')
         self.compute_collisions()
         ng = ngOptions if ngOptions is not None else NgOptions(0, 0, 0)
         key = (Nscatter, ng.Norder, ng.Nperiod, ng.Ndelay,
@@ -2703,20 +2813,25 @@ class Context:
         loop.finish(s)
         # refresh I (and Gamma/rates) consistently with the final state
         self.formal_sol_gamma_matrices()
-        return s['it'], float(s['dJ']), float(s['dPops'])
+        dJ, dPops = self._x_reduce_tensor(torch.stack([s['dJ'], s['dPops']]),
+                                          'max').tolist()
+        return s['it'], dJ, dPops
 
     # ------------------------------------------------------------------
     def _pops_on_host(self) -> List[np.ndarray]:
-        """The active atoms' populations [Nlevel, Nk] as numpy arrays, in
-        one device-to-host copy of their concatenation."""
+        """The active atoms' populations [Nlevel, Nk] of the whole grid as
+        numpy arrays, in one device-to-host copy of their concatenation
+        (on an x-sharded Context gathered over the x group first, in one
+        all_gather)."""
         if not self.popsState:
             return []
-        flat = torch.cat([st['n'].reshape(-1) for st in self.popsState])
-        flat = flat.cpu().numpy()
+        flat = self.gather_x(torch.cat([st['n'] for st in self.popsState]))
+        Nk = flat.shape[-1]
+        flat = flat.reshape(-1).cpu().numpy()
         out, off = [], 0
         for st in self.popsState:
-            size = st['n'].numel()
-            out.append(flat[off:off + size].reshape(st['n'].shape))
+            size = st['n'].shape[0] * Nk
+            out.append(flat[off:off + size].reshape(-1, Nk))
             off += size
         return out
 
@@ -2727,7 +2842,9 @@ class Context:
 
         With Ng (any Norder > 0) or charge conservation the populations
         go to the host every iteration, all atoms in one device-to-host
-        copy: a non-finite value raises ExplodingMatrixError, Ng
+        copy (the whole grid's: an x-sharded Context gathers them, so Ng
+        runs on the whole grid on every rank and each keeps its block):
+        a non-finite value raises ExplodingMatrixError, Ng
         extrapolates and dPops is Ng.max_change.  Otherwise the max
         relative population change and the finite flags are formed on the
         device and fetched in ONE device-to-host copy, with
@@ -2749,13 +2866,16 @@ class Context:
         dPops = []
         accelerated = False
         if any(ng.Norder > 0 for ng in self.ngs) or self.conserveCharge:
+            # the whole grid's: every rank of an x group takes the same Ng
+            # step and raises together
             for ai, nHost in enumerate(self._pops_on_host()):
                 if not np.all(np.isfinite(nHost)):
                     self._raise_non_finite(ai)
                 st = self.popsState[ai]
                 accel, sol = self.ngs[ai].accelerate(nHost)
                 if accel:
-                    st['n'] = self.cfg.state(sol.reshape(nHost.shape))
+                    st['n'] = self.cfg.state(self._x_local(
+                        sol.reshape(nHost.shape)))
                     accelerated = True
                 dPops.append(self.ngs[ai].max_change())
         else:
@@ -2808,8 +2928,9 @@ class Context:
         """Finite-difference dC/dne per atom of ``atoms`` (active atoms
         ``atomIdx``): perturb ne by ``pertSize`` relative, refresh the
         atom's LTE populations and recompute its collisional rates (on the
-        host, as compute_collisions does); returned in float64 on the
-        device.
+        host, as compute_collisions does, over the whole grid); returned
+        in float64 on the device (the rank's block on an x-sharded
+        Context).
         ref: lightweaver/nr_update.py:75-92"""
         atmos = self.atmos
         neStart = np.asarray(atmos.ne).copy()
@@ -2828,7 +2949,8 @@ class Context:
             np.clip(Cpert, 0.0, None, out=Cpert)
             atmos.ne[:] = neStart
             state.nStar[:] = nStarPrev
-            dCs.append(self.cfg.state(crswVal * (Cpert - Cprev) / pert))
+            dCs.append(self.cfg.state(self._x_local(
+                crswVal * (Cpert - Cprev) / pert)))
         return dCs
 
     def nr_post_update(self, fdCollisionRates: bool = True,
@@ -2842,9 +2964,13 @@ class Context:
         then count as background electrons); ``timeDependentData`` =
         {'dt', 'nPrev'} couples the backward-Euler residual instead of
         statistical equilibrium; stepLimit=False takes the reference's raw
-        Newton step.  Returns the max relative change in ne.
+        Newton step.  Returns the max relative change in ne.  On an
+        x-sharded Context each rank steps its block (ne, the background
+        electrons, nTotal and the rates cut by _x_local) and the new ne is
+        gathered into the whole atmos.ne on every rank, from which every
+        rank refreshes the whole LTE state and cuts it again: all ranks
+        return the same change.
         ref: lightweaver/nr_update.py:7-106"""
-        self._unsharded('charge conservation (nr_post_update)')
         if self._Gamma is None:
             raise ValueError('Call formal_sol_gamma_matrices first')
         if (not self.cfg.activeAtoms or self.cfg.activeAtoms[0].model.element
@@ -2888,11 +3014,11 @@ class Context:
         t_ = self.cfg.state
         Gammas = [self._Gamma[ai].to(STATE_DTYPE) for ai in atomIdx]
         ns = [self.popsState[ai]['n'] for ai in atomIdx]
-        nTotals = [t_(self.eqPops.atomicPops[a.model.element].nTotal)
-                   for a in atoms]
+        nTotals = [t_(self._x_local(
+            self.eqPops.atomicPops[a.model.element].nTotal)) for a in atoms]
         Cs = [self._deviceC()[ai] for ai in atomIdx]
-        ne = t_(self.atmos.ne)
-        bgNe = t_(backgroundNe)
+        ne = t_(self._x_local(self.atmos.ne))
+        bgNe = t_(self._x_local(backgroundNe))
         if timeDep:
             newNs, newNe = self._nrFn(
                 Gammas, ns, nTotals, Cs, dCs, ne, bgNe, crswVal,
@@ -2906,7 +3032,7 @@ class Context:
         for ai, nNew in zip(atomIdx, newNs):
             self.popsState[ai]['n'] = nNew
         neStart = np.asarray(self.atmos.ne).copy()
-        neNew = newNe.cpu().numpy()
+        neNew = self.gather_x(newNe).cpu().numpy()
         self.atmos.ne[:] = neNew
 
         # refresh the LTE populations and H- for the new ne, and nStar on
@@ -2920,12 +3046,10 @@ class Context:
     def _refresh_nstar(self):
         """nStar of the active and detailed atoms from eqPops, on the
         device (formal_sol_gamma_matrices hands them to each MALI step)."""
-        for a, st in zip(self.cfg.activeAtoms, self.popsState):
-            st['nStar'] = self.cfg.state(
-                self.eqPops.atomicPops[a.model.element].nStar)
-        for a, st in zip(self.cfg.detailedAtoms, self.detailedPops):
-            st['nStar'] = self.cfg.state(
-                self.eqPops.atomicPops[a.model.element].nStar)
+        for a, st in zip(self.cfg.allAtoms,
+                         self.popsState + self.detailedPops):
+            st['nStar'] = self.cfg.state(self._x_local(
+                self.eqPops.atomicPops[a.model.element].nStar))
 
     # ------------------------------------------------------------------
     def time_dep_update(self, dt: float, prevTimePops=None) \
@@ -2971,7 +3095,8 @@ class Context:
         ref: Source/Prd.cpp:697-945"""
         cfg = self.cfg
         cfg.hprd = True
-        vlosMu = np.asarray(self.atmos.vlos_mu())       # [Nmu, Nk]
+        # the whole grid's projections, cut to an x-sharded rank's block
+        vlosMu = np.asarray(self._x_local(self.atmos.vlos_mu()))  # [Nmu, Nk]
         cfg.vlosMu = vlosMu
 
         prdActive = np.zeros(cfg.Nlam, bool)
@@ -3075,8 +3200,8 @@ class Context:
     def _prd_line_statics(self):
         """Per PRD line the device-side constants of its scattering
         integral: qWave [W, Nk] (emission frequency in Doppler units),
-        aDamp [Nk], Qelast [Nk], and under hybrid PRD the first row of its
-        window in JRest."""
+        aDamp [Nk], Qelast [Nk] (the block's on an x-sharded Context), and
+        under hybrid PRD the first row of its window in JRest."""
         if self._prdStatics is None:
             t_ = self.cfg.state
             self._prdStatics = []
@@ -3086,30 +3211,35 @@ class Context:
                          / (t.lambda0 * vBroad[None, :]))
                 prd0 = (int(self.cfg.laToPrdLa[t.Nblue]) if self.cfg.hprd
                         else None)
-                self._prdStatics.append(
-                    (t_(qWave), t_(self.aDamp[ai][ti]),
-                     t_(self.Qelast[ai][ti]), prd0))
+                self._prdStatics.append(tuple(
+                    t_(self._x_local(x)) for x in
+                    (qWave, self.aDamp[ai][ti], self.Qelast[ai][ti]))
+                    + (prd0,))
         return self._prdStatics
 
-    def _rho_on_host(self, ai, ti):
-        """rho of line (ai, ti) as a flat numpy array, for Ng: the copy
-        kept when prd_redistribute last set it, else one device pull."""
-        rho = self.rhoPrd[ai][ti]
-        kept = self._rhoHost.get((ai, ti))
-        if kept is not None and kept[0] is rho:
-            return kept[1]
-        return rho.cpu().numpy().ravel()
+    def _rho_on_host(self, ai, ti, rho=None):
+        """rho of line (ai, ti) (or ``rho``, its new value) of the whole
+        grid as a flat numpy array, for Ng: the copy kept when
+        prd_redistribute last set it, else one device pull (gathered over
+        the x group of an x-sharded Context)."""
+        if rho is None:
+            rho = self.rhoPrd[ai][ti]
+            kept = self._rhoHost.get((ai, ti))
+            if kept is not None and kept[0] is rho:
+                return kept[1]
+        return self.gather_x(rho).cpu().numpy().ravel()
 
-    def _scatter_rho(self, li: int) -> torch.Tensor:
+    def _scatter_rho(self, li: int, Jw=None) -> torch.Tensor:
         """The new rho [W, Nk] of PRD line ``li`` of _prd_lines() from the
-        current J (JRest under hybrid PRD), rates and populations, formed
-        on the device (scatter_rho)."""
+        mean intensity of its window ``Jw`` (default: the current J, or
+        JRest under hybrid PRD: prd_window_J), rates and populations,
+        formed on the device (scatter_rho)."""
         ai, ti, a, t = self._prd_lines()[li]
         statics = self._prd_line_statics()[li]
+        if Jw is None:
+            Jw = prd_window_J(self.cfg, t, statics[3], self.J, self.JRest)
         return scatter_rho(a, ti, statics, self._deviceC()[ai], self._Rij[ai],
-                           self._Rji[ai], self.popsState[ai]['n'],
-                           prd_window_J(self.cfg, t, statics[3], self.J,
-                                        self.JRest))
+                           self._Rji[ai], self.popsState[ai]['n'], Jw)
 
     def prd_redistribute(self, maxIter: int = 3,
                          tol: float = 1e-2) -> IterationUpdate:
@@ -3120,9 +3250,12 @@ class Context:
 
         PjQj, gammaPre, Jbar and rho are formed on the device; the one
         host pull per line and sub-iteration is the flattened rho that
-        the numpy Ng tracks (the reference's Ng semantics).
+        the numpy Ng tracks (the reference's Ng semantics).  On an
+        x-sharded Context each rank forms rho on its block (pointwise in
+        depth) and the Ng runs on the whole grid's rho (gathered), so
+        every rank takes the same sub-iterations; the refresh is the
+        full-grid MALI step, as on every 2D atmosphere.
         ref: Source/PrdTemplates.hpp:176-351, Source/Prd.cpp:9-30, 468-645"""
-        self._unsharded('PRD (prd_redistribute)')
         prdLines = self._prd_lines()
         if not prdLines:
             return IterationUpdate(self)
@@ -3138,7 +3271,7 @@ class Context:
             # spans sub-iterations AND outer MALI iterations
             o = self.prdNgOptions
             if (self._prdNgs is None or len(self._prdNgs) != len(prdLines)
-                    or any(ng.init and ng.len != self.rhoPrd[ai][ti].numel()
+                    or any(ng.init and ng.len != t.W * self.atmos.Nspace
                            for ng, (ai, ti, a, t)
                            in zip(self._prdNgs, prdLines))):
                 self._prdNgs = [
@@ -3154,14 +3287,15 @@ class Context:
             dRhoMax = 0.0
             for li, (ai, ti, a, t) in enumerate(prdLines):
                 rho = self._scatter_rho(li)
-                rhoHost = rho.cpu().numpy().ravel()
+                rhoHost = self._rho_on_host(ai, ti, rho)
                 accelerated, rhoFlat = ngs[li].accelerate(rhoHost,
                                                           trustFactor=2.0)
                 dRho[li] = ngs[li].max_change()
                 dRhoMax = max(dRhoMax, dRho[li])
                 if accelerated:
                     rhoHost = rhoFlat
-                    rho = self.cfg.state(rhoFlat.reshape(rho.shape))
+                    rho = self.cfg.state(self._x_local(
+                        rhoFlat.reshape(t.W, -1)))
                 self.rhoPrd[ai][ti] = rho
                 self._rhoHost[(ai, ti)] = (rho, rhoHost)
 
@@ -3200,11 +3334,14 @@ class Context:
         (``background``); the line profiles (``profiles``); the
         collisional rates (``collisions``); and under hybrid PRD the
         comoving-frame coefficients.  The cached params, with the schemes'
-        packed profiles, are rebuilt on the next MALI step.
+        packed profiles, are rebuilt on the next MALI step.  On an
+        x-sharded Context every rank recomputes from the whole host grid
+        and keeps its block (_x_local, the cut of _take_x_block).
         ref: Source/LwMiddleLayer.pyx:3244-3288"""
-        self._unsharded('update_deps')
         atmos = self.atmos
-        t_ = self.cfg.state
+
+        def t_(x):
+            return self.cfg.state(self._x_local(x))
         if temperature:
             self.eqPops.update_lte_atoms_Hmin_pops(
                 atmos, conserveCharge=self.conserveCharge)
@@ -3239,20 +3376,25 @@ class Context:
         recurrenceMode, accelerateScattering and the device.  As in the
         JAX package the working dtype, gammaMode and the
         backgroundProvider are not kept, so a float32 Context comes back
-        float64.
+        float64.  On an x-sharded Context the arrays are the whole grid's
+        (gather_x: every rank of the x group calls it, and every rank's
+        dict equals the unsharded Context's), and the kwargs carry no
+        mesh, so that the state rebuilds an unsharded Context, as in the
+        JAX package.
         ref: Source/LwMiddleLayer.pyx:2977-3037"""
-        self._unsharded('state_dict and pickling')
+        def host(x):
+            return _host(self.gather_x(x))
         return {
             'atmos': self.atmos,
             'spect': self.spect,
             'eqPops': self.eqPops,
-            'J': _host(self.J),
-            'I': _host(self.I),
-            'pops': [_host(st['n']) for st in self.popsState],
-            'nStar': [_host(st['nStar']) for st in self.popsState],
+            'J': host(self.J),
+            'I': host(self.I),
+            'pops': [host(st['n']) for st in self.popsState],
+            'nStar': [host(st['nStar']) for st in self.popsState],
             'rhoPrd': {
                 (a.model.element, t.i, t.j):
-                    (t.wavelength.copy(), _host(self.rhoPrd[ai][ti]))
+                    (t.wavelength.copy(), host(self.rhoPrd[ai][ti]))
                 for ai, ti, a, t in self._prd_lines()},
             'kwargs': {
                 'conserveCharge': self.conserveCharge,
@@ -3333,9 +3475,10 @@ class Context:
         sweep kernel on the card) or, with ``stokes``, single_stokes_fs.
         ``refinePrd`` first runs a MALI step and prd_redistribute
         (maxIter=100).  Returns I [Nlam, Nmu], or with ``stokes`` [4, Nlam,
-        Nmu] (I, Q, U, V), as numpy.
+        Nmu] (I, Q, U, V), as numpy.  On an x-sharded Context every rank
+        of the x group calls it and builds the unsharded ray Context from
+        the gathered state on its own card.
         ref: Source/LwMiddleLayer.pyx:3898-4003"""
-        self._unsharded('compute_rays')
         state = self.state_dict()
         spect2 = self.spect.subset_configuration(
             self.spect.wavelength if wavelengths is None else wavelengths)
@@ -3363,30 +3506,34 @@ class Context:
         the anomalous-splitting components (zeeman.py), the field's
         projections on each ray (Atmosphere.B_projections) and the real
         pair (H, F) of the Faddeeva function (ops/faddeeva.py:voigt_HF).
-        Without a field every entry is None.
+        Without a field every entry is None.  On an x-sharded Context every
+        per-depth input is cut to the rank's block first (_x_local), so the
+        profiles are the block's.
         ref: Source/FormalStokes.cpp:9-117"""
-        self._unsharded('full Stokes synthesis')
         atmos = self.atmos
         allAtoms = self.cfg.allAtoms
         if atmos.B is None:
             self.phi7 = [[None] * len(a.trans) for a in allAtoms]
             return
-        t_ = self.cfg.tensor
+
+        def t_(x):
+            """A per-depth host array on the device, the rank's block."""
+            return self.cfg.tensor(self._x_local(x))
         vlosMu = t_(atmos.vlos_mu())
-        wmu = t_(atmos.wmu)
+        wmu = self.cfg.tensor(atmos.wmu)
         cosGamma, cos2chi, sin2chi = atmos.B_projections()
         cosG = t_(cosGamma)[None, :, None, :]
         sin2G = 1.0 - cosG * cosG
         c2chi = t_(cos2chi)[None, :, None, :]
         s2chi = t_(sin2chi)[None, :, None, :]
-        s = t_([-1.0, 1.0])[None, None, :, None]
+        s = self.cfg.tensor([-1.0, 1.0])[None, None, :, None]
         vBFac = (Const.QElectron / (4.0 * np.pi * Const.MElectron)
                  * Const.NM_TO_M)
         names = {-1: 'sb', 0: 'pi', 1: 'sr'}
 
         self.phi7 = []
         for ai, a in enumerate(allAtoms):
-            vBroad = a.model.vBroad(atmos)
+            vBroad = np.asarray(a.model.vBroad(atmos))
             lineByIdx = {(l.i, l.j): l for l in a.model.lines}
             phiA = []
             for ti, t in enumerate(a.trans):
@@ -3396,7 +3543,7 @@ class Context:
                     phiA.append(None)
                     continue
                 aDamp = t_(self.aDamp[ai][ti])[None, None, None, :]
-                vB = t_(vBFac * t.lambda0 * atmos.B / vBroad)
+                vB = t_(vBFac * t.lambda0 * np.asarray(atmos.B) / vBroad)
                 sv = t_(1.0 / (Const.SqrtPi * vBroad))
                 vBase = (t.wavelengthT - t.lambda0) * Const.CLight / t.lambda0
                 vk = ((vBase[:, None, None, None]
@@ -3447,10 +3594,12 @@ class Context:
         leaves it to XLA).  On a 2D atmosphere it is synthesis only (self.I
         [Nlam, Nmu, Nx], self.Quv [3, Nlam, Nmu, Nx] of the top plane;
         ops/stokes2d.py) and ``updateJ`` or ``J20`` raise ValueError, as in
-        the JAX package.
+        the JAX package; on an x-sharded Context self.I and self.Quv are
+        the rank's block of x, the plane sweep sharded as the scalar one is
+        (parallel/xshard2d.py:sweep_stokes_rays_2d_xsharded), and
+        gather_x gives every rank the whole grid's.
         ref: Source/LwMiddleLayer.pyx:3605,
              Source/FormalStokes.cpp:418-728"""
-        self._unsharded('full Stokes synthesis')
         if self.cfg.Ndim == 2 and (updateJ or J20):
             raise ValueError('2D Stokes synthesis does not support '
                              'updateJ/J20 (synthesis only)')
@@ -3579,20 +3728,26 @@ class Context:
         the thermalised bottom plane of the scalar 2D path for Stokes I
         (Q = U = V = 0), the non-periodic rays' fixed x column taking the
         x BC's Stokes-I inflow; self.I [Nlam, Nmu, Nx] and self.Quv [3,
-        Nlam, Nmu, Nx] of the top plane."""
+        Nlam, Nmu, Nx] of the top plane.  With cfg.xShard the start plane
+        and the sweep are parallel/xshard2d.py's, on the rank's block (Nx
+        its columns)."""
         cfg = self.cfg
         Nlam, Nmu, Nz, Nx = cfg.Nlam, cfg.Nmu, cfg.Nz, cfg.Nx
         dt = cfg.dtype
-        group = cfg.rays2d[1]
+        xs = cfg.xShard
+        group = cfg.rays2d[1] if xs is None else cfg.rays2dX[1]
+        start, sweep = fs2d.thermalised_start_2d, sweep_stokes_rays_2d
+        if xs is not None:
+            from .parallel import xshard2d
+            start = partial(xshard2d.thermalised_start_xsharded, shard=xs)
+            sweep = partial(xshard2d.sweep_stokes_rays_2d_xsharded, shard=xs)
         chi7m = chi7.view(Nlam, Nmu, 7, Nz, Nx).permute(0, 1, 3, 4, 2)
         S4m = S4.view(Nlam, Nmu, 4, Nz, Nx).permute(0, 1, 3, 4, 2)
         chiIm = chiI.view(Nlam, Nmu, Nz, Nx)
         if cfg.lowerThermalised:
             T2 = self.temperature.to(dt).view(Nz, Nx)
-            I0 = fs2d.thermalised_start_2d(chiIm[:, :, Nz - 1],
-                                           chiIm[:, :, Nz - 2], T2[Nz - 1],
-                                           T2[Nz - 2], cfg.wavelengthT,
-                                           group)
+            I0 = start(chiIm[:, :, Nz - 1], chiIm[:, :, Nz - 2], T2[Nz - 1],
+                       T2[Nz - 2], cfg.wavelengthT, group)
         else:
             I0 = chi7.new_zeros((Nlam, Nmu, Nx))
         Ibc = None
@@ -3601,7 +3756,7 @@ class Context:
             I0 = torch.where(group['fixedNat'], Ibc[:, :, Nz - 1, None], I0)
         Iupw = torch.cat([I0[..., None], I0.new_zeros((Nlam, Nmu, Nx, 3))],
                          dim=-1)
-        Ifull = sweep_stokes_rays_2d(chi7m, S4m, group, Iupw, Ibc)
+        Ifull = sweep(chi7m, S4m, group, Iupw, Ibc=Ibc)
         self.I = Ifull[:, :, 0, :, 0]
         self.Quv = Ifull[:, :, 0, :, 1:].permute(3, 0, 1, 2)
         return IterationUpdate(self, updatedJ=False)

@@ -29,15 +29,11 @@ from .linalg import batched_solve
 from .stokes import stokes_K
 
 
-def _ring_affine_solve_mat(A, b):
-    """Solve the cyclic matrix affine recurrence I_i = A_i I_{i-1} + b_i
-    around a ring (indices in ring order along axis -3 of A).
-    A: [..., N, 4, 4]; b: [..., N, 4] -> I [..., N, 4].
-
-    A log-step (Hillis-Steele) scan composes the maps (lane i takes
-    A_i A_{i-s}, A_i b_{i-s} + b_i), then (1 - A_tot) I_last = b_tot is
-    solved per ring (ops/linalg.py:batched_solve) and I = A_cum I_last +
-    b_cum."""
+def affine_scan_mat(A, b):
+    """The inclusive log-step (Hillis-Steele) scan of the matrix affine
+    maps I_i = A_i I_{i-1} + b_i along axis -3 of A [..., N, 4, 4] (b
+    [..., N, 4]): lane i takes A_i A_{i-s}, A_i b_{i-s} + b_i, so it ends
+    with the composition of lanes 0..i, (A_cum, b_cum)."""
     N = A.shape[-3]
     s = 1
     while s < N:
@@ -47,6 +43,18 @@ def _ring_affine_solve_mat(A, b):
                            (A[..., s:, :, :] @ b[..., :-s, :, None])[..., 0]
                            + b[..., s:, :]], dim=-2))
         s *= 2
+    return A, b
+
+
+def _ring_affine_solve_mat(A, b):
+    """Solve the cyclic matrix affine recurrence I_i = A_i I_{i-1} + b_i
+    around a ring (indices in ring order along axis -3 of A).
+    A: [..., N, 4, 4]; b: [..., N, 4] -> I [..., N, 4].
+
+    affine_scan_mat composes the maps, then (1 - A_tot) I_last = b_tot is
+    solved per ring (ops/linalg.py:batched_solve) and I = A_cum I_last +
+    b_cum."""
+    A, b = affine_scan_mat(A, b)
     eye = torch.eye(4, dtype=A.dtype, device=A.device)
     lead = A.shape[:-3]
     Ilast = batched_solve((eye - A[..., -1, :, :]).reshape(-1, 4, 4),
@@ -54,11 +62,13 @@ def _ring_affine_solve_mat(A, b):
     return (A @ Ilast[..., None, :, None])[..., 0] + b
 
 
-def _plane_step_stokes(chi7P, chi7C, S4P, S4C, Iprev, m, group, IbcP):
+def _plane_step_stokes(chi7P, chi7C, S4P, S4C, Iprev, m, group, IbcP,
+                       ring=_ring_affine_solve_mat):
     """One computed plane (sweep index m >= 1) of the upgoing group in
     the dj = +1 frame: chi7 [NL, R, Nx, 7], S4 and I [NL, R, Nx, 4];
-    IbcP [NL, R] the fixed column's Stokes-I inflow or None.  The JAX
-    package's _sweep_stokes_2d.plane_step."""
+    IbcP [NL, R] the fixed column's Stokes-I inflow or None; ``ring``
+    solves the plane's cyclic recurrence (the x-sharded sweep's closes
+    it across the ranks).  The JAX package's _sweep_stokes_2d.plane_step."""
     g = m - 1
     axisZ, w, ds = group['axisZ'][g], group['w'][g], group['ds'][g]
     aZ = axisZ[..., None]
@@ -110,7 +120,7 @@ def _plane_step_stokes(chi7P, chi7C, S4P, S4C, Iprev, m, group, IbcP):
         bcVec = torch.cat([IbcP[..., None],
                            IbcP.new_zeros((*IbcP.shape, 3))], dim=-1)
         bKnown = torch.where(fixed, bcVec[..., None, :], bKnown)
-    return _ring_affine_solve_mat(Aring, bKnown)
+    return ring(Aring, bKnown)
 
 
 def sweep_stokes_rays_2d(chi7, S4, group, Iupw, Ibc=None):

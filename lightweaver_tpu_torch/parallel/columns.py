@@ -26,7 +26,11 @@ contiguous block of C / pColumns columns (its coordinate on 'columns')
 and builds its flat Context on those alone; with pWavelength > 1 ranks on
 'wavelength' each iterates its block of wavelength rows (IterConfig.
 lamLo/lamHi: context.py:wavelength_block), and one all_reduce over the
-'wavelength' group per MALI step completes Gamma and the rates.  The
+'wavelength' group per MALI step completes Gamma and the rates (and
+hybrid PRD's JRest); prd_redistribute gathers J's rows of the PRD line
+windows over the group (rho of a row reads its line's whole window),
+solves the PRD subset rows of the rank's block and sums their rates in
+one all_reduce (context.py:build_prd_subset_fn).  The
 collectives on 'columns' are the reductions that keep every rank in
 lockstep: MAX of dJ, of the masked dPops and of drho, MIN of the
 convergence flag (every rank leaves iterate in the same step), and the
@@ -143,9 +147,12 @@ class ColumnBatch:
     PRD, and per-column convergence freezing) or from a list of prebuilt
     Contexts (``contexts=``; lockstep only).  Over a mesh each rank keeps
     its block of the columns (of the stacked arrays, or of the contexts
-    list); the 'wavelength' axis takes complete redistribution only
-    (prd_redistribute and hybrid PRD raise there).  ``converged``,
-    ``dJCol`` and ``dPopsCol`` are the rank's columns'.
+    list), and each rank of the 'wavelength' axis its block of the rows:
+    every option runs there too (prd_redistribute: rho from J's window
+    rows gathered over the axis, the subset solve on the block's PRD rows
+    with its rates and JRest summed over the axis; hybrid PRD: JRest
+    summed over the axis).  ``converged``, ``dJCol`` and ``dPopsCol`` are
+    the rank's columns'.
     """
 
     def __init__(self, contexts: Optional[List[Context]] = None,
@@ -213,18 +220,14 @@ class ColumnBatch:
         self._Rji = None
         self._I = None
         self._prd_fs = None
+        self._prdWindows = None
         self.JRest = None
 
     def _lam_fields(self, cfg):
         """The IterConfig fields of this rank's wavelength block."""
         if self._place is None:
             return {}
-        fields = self._place.lam_fields(cfg.Nlam)
-        if fields and cfg.hprd:
-            raise ValueError("hybrid PRD on the mesh's 'wavelength' axis is "
-                             'not ported (it needs J over whole line '
-                             'windows): use a mesh with nWavelength=1')
-        return fields
+        return self._place.lam_fields(cfg.Nlam)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -415,10 +418,6 @@ class ColumnBatch:
         fc = self.flatCtx
         if fc is None:
             raise ValueError('PRD needs from_stacked batches')
-        if self.cfg.lamGroup is not None:
-            raise ValueError("PRD on the mesh's 'wavelength' axis is not "
-                             'ported (rho needs J over whole line windows): '
-                             'use a mesh with nWavelength=1')
         prdLines = fc._prd_lines()
         if not prdLines:
             return IterationUpdate(self)
@@ -430,9 +429,13 @@ class ColumnBatch:
         if self._prd_fs is None:
             prdPairs = [(ai, ti) for ai, ti, a, t in prdLines]
             self._prdSubIdxs = fc._prd_subset_idxs()
-            self._prdSubT = torch.as_tensor(self._prdSubIdxs, device=dev)
             self._prd_fs = build_prd_subset_fn(self.cfg, self._prdSubIdxs,
                                                prdPairs)
+            # the rows of J and I that the subset solve refreshes (its rows
+            # of this rank's wavelength block)
+            self._prdSubT = torch.as_tensor(
+                self._prd_fs.rows - self.cfg.lamLo, device=dev)
+            self._prdWindows = self._prd_window_plan(prdLines)
 
         frozenK = self._frozen_depths()
         frozenC = torch.as_tensor(self.converged, device=dev)
@@ -444,11 +447,12 @@ class ColumnBatch:
         for _ in range(maxIter):
             nSub += 1
             self._push_state()
+            Jw = self._prd_window_J()
             dRho = torch.zeros(C, dtype=torch.float64, device=dev)
             for li, (ai, ti, a, t) in enumerate(prdLines):
                 rOld = self.params['rhoPrd'][ai][ti]
-                rNew = torch.where(frozenK[None, :], rOld,
-                                   fc._scatter_rho(li))
+                rNew = torch.where(frozenK[None, :], rOld, fc._scatter_rho(
+                    li, None if Jw is None else Jw[li]))
                 rel = torch.abs(torch.where(rNew != 0.0,
                                             (rNew - rOld) / rNew, 0.0))
                 dRho = torch.maximum(dRho, torch.amax(
@@ -473,8 +477,9 @@ class ColumnBatch:
                 self._Rji[ai][ti] = torch.where(frozenK, self._Rji[ai][ti],
                                                 out['Rji'][li])
             dRhoCol = dRho.cpu().numpy()
-            dRhoMax = self._col_reduce(
-                float(np.max(np.where(self.converged, 0.0, dRhoCol))), 'max')
+            dRhoMax = self._col_reduce(self._reduce(
+                float(np.max(np.where(self.converged, 0.0, dRhoCol))),
+                'max', self.cfg.lamGroup), 'max')
             if dRhoMax < tol:
                 break
 
@@ -483,6 +488,41 @@ class ColumnBatch:
                               NprdSubIter=nSub)
         upd.updatedJ = True
         return upd
+
+    def _prd_window_plan(self, prdLines):
+        """On a rank of the 'wavelength' axis, the plan of _prd_window_J:
+        the union U of the PRD lines' window rows, this rank's rows of U
+        (as rows of its block), every rank's count of them and each line's
+        first position in U; None without a wavelength group."""
+        cfg = self.cfg
+        if cfg.lamGroup is None:
+            return None
+        active = np.zeros(cfg.Nlam, bool)
+        for ai, ti, a, t in prdLines:
+            active[t.Nblue:t.Nred] = True
+        U = np.nonzero(active)[0]
+        own = U[(U >= cfg.lamLo) & (U < cfg.lamHi)] - cfg.lamLo
+        sizes = [int(np.count_nonzero((U >= lo) & (U < hi)))
+                 for lo, hi in (lambda_block(cfg.Nlam, r, self._place.nLam)
+                                for r in range(self._place.nLam))]
+        starts = [(int(np.searchsorted(U, t.Nblue)), t.W)
+                  for ai, ti, a, t in prdLines]
+        return torch.as_tensor(own, device=cfg.device), sizes, starts
+
+    def _prd_window_J(self):
+        """Per PRD line the J [W, Nk] of its window, which its scattering
+        integral reads: on a rank of the 'wavelength' axis J's rows of
+        every PRD window, gathered over the axis in one all_gather (each
+        rank its rows of their union); None where the flat Context's own
+        J or JRest serves (no wavelength group, or hybrid PRD once JRest,
+        whole on every rank, exists)."""
+        if self._prdWindows is None or (self.cfg.hprd
+                                        and self.JRest is not None):
+            return None
+        own, sizes, starts = self._prdWindows
+        JU = all_gather_cat(self.params['J'][own], self.cfg.lamGroup, 0,
+                            sizes)
+        return [JU[s0:s0 + W] for s0, W in starts]
 
     def iterate(self, Nscatter: int = 3, NmaxIter: int = 500,
                 JTol: float = 5e-3, popsTol: float = 1e-3,
@@ -520,13 +560,18 @@ class ColumnBatch:
         return NmaxIter
 
     # ------------------------------------------------------------------
+    def _reduce(self, x: float, op: str, group) -> float:
+        """x reduced over the ranks of ``group`` (x itself without one)."""
+        if group is None:
+            return x
+        t = torch.tensor([x], dtype=torch.float64, device=self.cfg.device)
+        return float(all_reduce(t, group, op)[0])
+
     def _col_reduce(self, x: float, op: str) -> float:
         """x reduced over the 'columns' axis of the mesh (x itself on one
         device)."""
-        if self._place is None:
-            return x
-        t = torch.tensor([x], dtype=torch.float64, device=self.cfg.device)
-        return float(all_reduce(t, self._place.colGroup, op)[0])
+        return self._reduce(x, op, None if self._place is None
+                            else self._place.colGroup)
 
     def _columns_numpy(self, x: torch.Tensor) -> np.ndarray:
         """[Ncol, ...] of this rank's columns as numpy [C, ...] of all C

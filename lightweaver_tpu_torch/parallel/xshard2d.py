@@ -20,6 +20,11 @@ group:
   neighbours' edge columns, which are the previous plane's I halos of the
   next plane; no lagged halo.
 
+The Stokes synthesis sweep (ops/stokes2d.py) is sharded the same way
+(sweep_stokes_rays_2d_xsharded): one halo exchange of chi7, S4 and the
+start plane, and per plane one all_gather of the 4 x 4 matrix scan's
+edges (_ring_solve_sharded_mat).
+
 Each ray is swept in its dj = +1 frame (ops/formal_solver2d.py:
 flip_geometry): for a ray with dj = -1 the ranks' order along the ring is
 reversed, so each rank's place in the ring is per ray (shard_ray_group's
@@ -31,6 +36,8 @@ import torch.distributed as dist
 
 from ..ops import formal_solver2d as fs2d
 from ..ops.collectives import all_gather
+from ..ops.linalg import batched_solve
+from ..ops.stokes2d import _plane_step_stokes, affine_scan_mat
 from .multihost import rank_device
 
 # the columns of a neighbour's block a rank's stencils read on each side
@@ -145,6 +152,14 @@ def _exchange(shard: XShard, *tensors):
     return out
 
 
+def _edges(x, dim):
+    """x's HALO first and HALO last entries along ``dim``, concatenated
+    (slices: an index list would be copied from the host on each call)."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 0, HALO), x.narrow(dim, n - HALO, HALO)],
+                     dim=dim)
+
+
 def _pick(T, idx):
     """T [p, NL, R, ...] at each ray's entry idx [R] of the first axis:
     [NL, R, ...]."""
@@ -165,9 +180,8 @@ def _ring_solve_sharded(A, b, group, shard: XShard):
     the closure I_end = b_tot / (1 - A_tot): every rank then has each
     block's entry value, so its own I and its neighbours' edge columns."""
     Ac, bc = fs2d.affine_scan(A, b)
-    n = A.shape[-1]
-    e = [0, 1, n - 2, n - 1]
-    G = shard.gather(torch.stack([Ac[..., e], bc[..., e]]))  # [p, 2, .., 4]
+    G = shard.gather(torch.stack([_edges(Ac, -1), _edges(bc, -1)]))
+    # [p, 2, .., 4]
     if group['anyFlip']:
         # ring order: the ranks reversed for the rays with dj = -1
         G = torch.where(group['flip'][:, None], G.flip(0), G)
@@ -302,3 +316,110 @@ def formal_sol_2d_xsharded(chi, S, geom, Iupw, mesh, axisName='x',
         S=S[:, None, :, blk], Ibc=None if Ibc is None else Ibc[:, None],
         interp=interp, alongRay=alongRay)
     return I[:, 0], Psi[:, 0], Ieff[:, 0]
+
+
+def _ring_solve_sharded_mat(A, b, group, shard: XShard):
+    """_ring_solve_sharded for the 4-vector ring of the Stokes sweep
+    (ops/stokes2d.py:_ring_affine_solve_mat): A [NL, R, Nx / p, 4, 4], b
+    [NL, R, Nx / p, 4] this rank's block in each ray's frame.  Returns I
+    on the block widened by the HALO columns of the ring-previous and
+    ring-next blocks [NL, R, Nx / p + 2 HALO, 4].  One all_gather of
+    every block's scan at its HALO first and last columns, the p-step
+    composition of the totals in ring order and the closure (1 - A_tot)
+    I_end = b_tot solved per ray and row."""
+    Ac, bc = affine_scan_mat(A, b)
+    NL, R = A.shape[:2]
+    sizes = (NL * R * 4 * 16, NL * R * 4 * 4)
+    G = shard.gather(torch.cat([_edges(Ac, 2).reshape(-1),
+                                _edges(bc, 2).reshape(-1)]))
+    GA = G[:, :sizes[0]].view(shard.p, NL, R, 4, 4, 4)
+    Gb = G[:, sizes[0]:].view(shard.p, NL, R, 4, 4)
+    if group['anyFlip']:
+        # ring order: the ranks reversed for the rays with dj = -1
+        flip = group['flip']
+        GA = torch.where(flip[:, None, None, None], GA.flip(0), GA)
+        Gb = torch.where(flip[:, None, None], Gb.flip(0), Gb)
+    eye = torch.eye(4, dtype=A.dtype, device=A.device)
+    Aacc = eye.expand(NL, R, 4, 4)
+    bacc = torch.zeros_like(Gb[0, :, :, 3])
+    cums = []
+    for f in range(shard.p):
+        At, bt = GA[f, :, :, 3], Gb[f, :, :, 3]
+        Aacc, bacc = At @ Aacc, (At @ bacc[..., None])[..., 0] + bt
+        cums.append((Aacc, bacc))
+    Iend = batched_solve((eye - Aacc).reshape(-1, 4, 4),
+                         bacc.reshape(-1, 4)).view(NL, R, 4)
+    # the entry value of each block in ring order
+    E = torch.stack([Iend] + [(Acf @ Iend[..., None])[..., 0] + bcf
+                              for Acf, bcf in cums[:-1]])
+
+    def apply(Am, bv, x):
+        """Am [NL, R, c, 4, 4] x [NL, R, 4] + bv [NL, R, c, 4]."""
+        return (Am @ x[:, :, None, :, None])[..., 0] + bv
+    fpos = group['fpos']
+    fprev, fnext = (fpos - 1) % shard.p, (fpos + 1) % shard.p
+    I = apply(Ac, bc, _pick(E, fpos))
+    left = apply(_pick(GA[:, :, :, HALO:], fprev),
+                 _pick(Gb[:, :, :, HALO:], fprev), _pick(E, fprev))
+    right = apply(_pick(GA[:, :, :, :HALO], fnext),
+                  _pick(Gb[:, :, :, :HALO], fnext), _pick(E, fnext))
+    return torch.cat([left, I, right], dim=-2)
+
+
+def sweep_stokes_rays_2d_xsharded(chi7, S4, group, Iupw, shard: XShard,
+                                  Ibc=None):
+    """ops/stokes2d.py:sweep_stokes_rays_2d on this rank's block of x
+    columns: chi7 [NL, R, Nz, Nx / p, 7], S4 [NL, R, Nz, Nx / p, 4] and
+    Iupw [NL, R, Nx / p, 4] in natural order, ``group`` from
+    shard_ray_group, Ibc [NL, R, Nz] (the fixed column's Stokes-I inflow,
+    on whichever rank holds it).  One halo exchange of chi7, S4 and Iupw
+    (no rank holds more than its block and the halos), then the plane
+    loop of _plane_step_stokes on the widened block with the distributed
+    ring solve.  Returns I of the block [NL, R, Nz, Nx / p, 4]."""
+    NL, R, Nz, Nxl, _ = chi7.shape
+    halos = _exchange(shard, chi7.movedim(-1, -2), S4.movedim(-1, -2),
+                      Iupw.movedim(-1, -2))
+    (c7L, c7R), (s4L, s4R), (IL, IR) = (
+        (lft.movedim(-1, -2), rgt.movedim(-1, -2)) for lft, rgt in halos)
+    own = slice(HALO, HALO + Nxl)
+    sweepZ = group['sweepZ']
+    flip = group['anyFlip']
+    xIdx, xIdxOwn = group['xIdx'][:, None, :], group['xIdxOwn'][:, None, :]
+
+    def frame(x):
+        """The widened natural block [NL, R, W, c] in each ray's frame."""
+        return (fs2d._take_x(x.movedim(-1, -2), xIdx).movedim(-2, -1)
+                if flip else x)
+
+    def back(x):
+        """The block's own columns of x [NL, R, W, c], natural order."""
+        x = x[:, :, own]
+        return (fs2d._take_x(x.movedim(-1, -2), xIdxOwn).movedim(-2, -1)
+                if flip else x)
+
+    def plane(k):
+        return (frame(torch.cat([c7L[:, :, k], chi7[:, :, k], c7R[:, :, k]],
+                                dim=-2)),
+                frame(torch.cat([s4L[:, :, k], S4[:, :, k], s4R[:, :, k]],
+                                dim=-2)))
+
+    def ring(A, b):
+        return _ring_solve_sharded_mat(A[:, :, own], b[:, :, own], group,
+                                       shard)
+
+    fixedIbc = None
+    if group['anyFixed']:
+        fixedIbc = Ibc if Ibc is not None else chi7.new_zeros((NL, R, Nz))
+    Iout = torch.empty_like(S4)
+    Iout[:, :, sweepZ[0]] = Iupw
+    Iprev = frame(torch.cat([IL, Iupw, IR], dim=-2))
+    chi7P, S4P = plane(sweepZ[0])
+    for m in range(1, Nz):
+        k = sweepZ[m]
+        chi7C, S4C = plane(k)
+        IbcP = None if fixedIbc is None else fixedIbc[:, :, k]
+        Iprev = _plane_step_stokes(chi7P, chi7C, S4P, S4C, Iprev, m, group,
+                                   IbcP, ring=ring)
+        Iout[:, :, k] = back(Iprev)
+        chi7P, S4P = chi7C, S4C
+    return Iout

@@ -456,12 +456,13 @@ def slab_2d(Nz: int = 30, Nx: int = 8, dx: float = 40e3,
             dtype=None, formalSolver: str = None,
             interpFn2d: str = 'interp_linear_2d',
             refBugCompat: bool = False, roll: int = 0,
-            **ctxKwargs) -> Context:
-    """H 6-level + Ca II with Ca II active on slab_2d_atmos(Nz, Nx, dx,
-    periodic, quadrature, refBugCompat, roll), from LTE, with the 2D
-    ``formalSolver`` (Context's default: 'piecewise_linear_2d') and
-    ``interpFn2d``, on ``device`` (the card unless 'cpu') in the working
-    ``dtype``; ``ctxKwargs`` go to the Context.
+            activeSpecies=('Ca',), **ctxKwargs) -> Context:
+    """H 6-level + Ca II with ``activeSpecies`` active (Ca II by default)
+    on slab_2d_atmos(Nz, Nx, dx, periodic, quadrature, refBugCompat,
+    roll), from LTE, with the 2D ``formalSolver`` (Context's default:
+    'piecewise_linear_2d') and ``interpFn2d``, on ``device`` (the card
+    unless 'cpu') in the working ``dtype``; ``ctxKwargs`` go to the
+    Context.
 
     - slab_2d(30, 8, periodic=False, formalSolver='piecewise_linear_2d',
       refBugCompat=True) is the golden linear 2D problem
@@ -474,7 +475,7 @@ def slab_2d(Nz: int = 30, Nx: int = 8, dx: float = 40e3,
     atmos = slab_2d_atmos(Nz, Nx, dx, periodic, quadrature, refBugCompat,
                           roll)
     rs = RadiativeSet([H_6_atom(), CaII_atom()])
-    rs.set_active('Ca')
+    rs.set_active(*activeSpecies)
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, formalSolver=formalSolver,

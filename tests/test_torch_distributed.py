@@ -24,8 +24,14 @@ while this process computes the references, then waits for them.
   JAX package's bars; against the JAX package's wavelength-sharded step
   the bars of the port's single Context against the JAX one
   (tests/test_torch_slice.py: J per wavelength and Gamma 1e-10).  Three
-  steps with stat_equil against the unsharded port (1e-9), and PRD on the
-  axis refused.
+  steps with stat_equil against the unsharded port (1e-9).
+- PRD on the wavelength axis (tests/test_column_batch.py:139-186's H 6
+  PRD batch with Ca II active too, 2 columns of 24 depths: 1046
+  wavelengths, which the JAX mesh splits) on a (1, 2) mesh, under each scheme
+  and hybrid PRD (column_vlos_ramps' outflows) under the default one:
+  four rounds of a MALI step, stat_equil and prd_redistribute(maxIter=2)
+  in lockstep with the unsharded batch, and free-running against the JAX
+  package's make_mesh(1, 2) batch.  Rank 1's block holds no PRD row.
 - Multihost (tests/test_multihost.py, multihost_worker.py): the one-rank
   group on an in-process store, global_mesh's shapes and refusal,
   local_column_slice, make_global_array's round trip and two ranks' batch
@@ -241,8 +247,85 @@ def test_wavelength_steps_with_stat_equil(wavelength):
     assert _rel(out['steps3']['J'], ref['steps3']['J']) < 1e-9
 
 
-def test_wavelength_axis_refuses_prd(wavelength):
-    assert "'wavelength' axis" in wavelength[0]['prd']
+# ---- PRD on the wavelength axis -------------------------------------------
+def _jax_lambda_prd(hprd):
+    """The JAX package's batch of tc.lambda_prd_batch on its
+    make_mesh(1, 2): LAMBDA_PRD_ROUNDS rounds of a MALI step, stat_equil
+    and prd_redistribute(maxIter=2); rho [C, W, Nk] per PRD line, the
+    populations."""
+    mesh = j_make_mesh(1, 2, devices=jax.devices()[:2])
+    jb = JColumnBatch.from_stacked(
+        *tc.lambda_prd_arrays(hprd), _jax_models, ('H', 'Ca'), Nrays=3,
+        hprd=hprd, accelerateScattering=True, mesh=mesh)
+    for _ in range(tc.LAMBDA_PRD_ROUNDS):
+        jb.formal_sol_gamma_matrices()
+        jb.stat_equil()
+        jb.prd_redistribute(maxIter=2)
+    lines = [(ai, ti) for ai, a in enumerate(jb.cfg.activeAtoms)
+             for ti, t in enumerate(a.trans) if t.isLine and t.isPrd]
+    return {'rho': [np.asarray(jb.params['rhoPrd'][ai][ti])
+                    for ai, ti in lines],
+            'pops': np.asarray(jb.params['pops'][0])}
+
+
+@pytest.fixture(scope='module')
+def lambda_prd(tmp_path_factory):
+    return tc.spawn_ranks(tc.lambda_prd_case, 2,
+                          tmp_path_factory.mktemp('lambda_prd')).result()
+
+
+@pytest.fixture(scope='module')
+def lambda_prd_jax():
+    return {hprd: _jax_lambda_prd(hprd) for hprd in (False, True)}
+
+
+LAMBDA_PRD_NAMES = [c[0] for c in tc.LAMBDA_PRD_CASES]
+
+
+@pytest.mark.parametrize('name', LAMBDA_PRD_NAMES)
+def test_wavelength_axis_prd_lockstep(lambda_prd, name):
+    """Each round of the (1, 2) mesh against the unsharded batch's round
+    from the same state: rho per row of its window, J per wavelength,
+    and the PRD rates within 1e-10, the populations, the emergent I and
+    JRest per row within 1e-9 (the populations 1.8e-10 measured: the
+    lambda split reassociates Gamma's sums, ~4e-16, which the first
+    stat_equil of Ca II amplify, as in the columns' (2, 2) run above).
+    The unsharded round itself moves by as
+    much when its input populations move by 1e-16 (far from convergence
+    drho is ~6e3: rho - 1 is a difference of near-equal terms), so the
+    bars are per row, as J's are in tests/test_torch_2d_context.py;
+    elementwise, rho near a row's minimum differs by up to ~1e-8 either
+    way."""
+    res = lambda_prd[name]
+    # rank 1's block holds no PRD row: it solves no subset row and joins
+    # every collective
+    (lo0, hi0, n0), (lo1, hi1, n1) = res['rows']
+    assert lo0 == 0 and hi0 == lo1 and n0 > 0 and n1 == 0
+    assert len(res['errs']) == tc.LAMBDA_PRD_ROUNDS
+    for k, e in enumerate(res['errs']):
+        for key in ('rho', 'J', 'rates'):
+            assert e[key] < 1e-10, (k, key, e[key])
+        for key in ('pops', 'I', 'JRest'):
+            assert e.get(key, 0.0) < 1e-9, (k, key, e[key])
+    assert ('JRest' in res['errs'][0]) == name.startswith('hprd')
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize('name', LAMBDA_PRD_NAMES)
+def test_wavelength_axis_prd_matches_jax(lambda_prd, lambda_prd_jax, name):
+    """The free-running (1, 2) mesh run against the JAX package's batch on
+    its make_mesh(1, 2) (the default scheme's; its schemes compute the
+    same step): rho within 1e-9 of each line's maximum and the
+    populations within 1e-9, the bars of tests/test_torch_columns_prd.py
+    on one device.  Slow: the two JAX programs take ~160 s to build and
+    run on the CPU."""
+    res, j = lambda_prd[name], lambda_prd_jax[name.startswith('hprd')]
+    C, Nk = tc.LAMBDA_PRD_C, tc.LAMBDA_PRD_NK
+    for rho, jr in zip(res['rho'], j['rho']):
+        rho = rho.reshape(-1, C, Nk).transpose(1, 0, 2)
+        assert np.abs(rho - jr).max() / np.abs(jr).max() < 1e-9
+        assert np.abs(jr - 1.0).max() > 1.0                 # real PRD
+    assert relerr(res['pops'], j['pops']) < 1e-9
 
 
 # ---- multihost ----------------------------------------------------------

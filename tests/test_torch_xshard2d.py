@@ -207,11 +207,10 @@ def test_context_matches_jax_sharded(runs, case):
     assert row_err(res['I'], j['I']) < 1e-9
 
 
-@pytest.mark.parametrize('case', ['one_d', 'divisible', 'iterate_on_device'])
+@pytest.mark.parametrize('case', ['one_d', 'divisible'])
 def test_context_mesh_refusals(runs, case):
     """A 1D atmosphere with mesh= and Nx = 6 over 4 ranks raise
-    ValueError (test_context_2d_xsharded.py:127-145), and so does
-    iterate_on_device on the x-sharded Context."""
+    ValueError (test_context_2d_xsharded.py:127-145)."""
     _, (out, _) = runs
     msg = out['raises'][case]
     assert msg and not msg.startswith('wrong message')

@@ -225,7 +225,7 @@ def falc24_arrays():
 def wavelength_case(rank, world):
     """One MALI step of the 24-depth column on a (1, 2) mesh under each
     scheme: J, dJ, Gamma and the rates; then two more steps with
-    stat_equil under the default scheme; and PRD on the axis refused."""
+    stat_equil under the default scheme."""
     from lightweaver_tpu_torch.parallel import ColumnBatch, make_mesh
     mesh = make_mesh(1, 2, device='cpu')
     out = {}
@@ -245,7 +245,130 @@ def wavelength_case(rank, world):
                 b.formal_sol_gamma_matrices()
                 b.stat_equil()
             out['steps3'] = {'pops': b.pops[0][0], 'J': b.J[0]}
-            out['prd'] = _raises(b.prd_redistribute, "'wavelength' axis")
+    return out
+
+
+LAMBDA_PRD_C, LAMBDA_PRD_NK, LAMBDA_PRD_ROUNDS = 2, 24, 4
+# the PRD variants of lambda_prd_case: (name, scheme, hprd)
+LAMBDA_PRD_CASES = tuple((f'prd-{s}', s, False) for s in LAMBDA_SCHEMES) \
+    + (('hprd', LAMBDA_SCHEMES[0], True),)
+
+
+def lambda_prd_arrays(hprd):
+    """tests/test_column_batch.py:139-186's atmosphere at LAMBDA_PRD_C
+    columns: FAL-C at 24 depths, identical columns, static, or under
+    hybrid PRD the outflows of problems.column_vlos_ramps."""
+    from lightweaver_tpu_torch.problems import (column_vlos_ramps,
+                                                stacked_falc)
+    h, T, v, vt, ne, nH = stacked_falc(LAMBDA_PRD_C, LAMBDA_PRD_NK,
+                                       spread=0.0)
+    vlos = (column_vlos_ramps(h, LAMBDA_PRD_C) if hprd
+            else np.zeros_like(T))
+    return h, T, vlos, vt, ne, nH
+
+
+def lambda_prd_batch(scheme, hprd, mesh=None, device='cpu'):
+    """The H 6 PRD batch of tests/test_column_batch.py:139-186 (Ly-alpha
+    and Ly-beta in PRD) with Ca II active too, 3 rays,
+    accelerateScattering: H 6 alone has 501 wavelengths, which the JAX
+    package's make_mesh(1, 2) does not split; with Ca II 1046, and the
+    second block (from 397 nm) holds no PRD row."""
+    from lightweaver_tpu_torch.parallel import ColumnBatch
+    return ColumnBatch.from_stacked(
+        *lambda_prd_arrays(hprd), models, ('H', 'Ca'), Nrays=3, mesh=mesh,
+        device=device, fsIterScheme=scheme, hprd=hprd,
+        accelerateScattering=True)
+
+
+def batch_state(b):
+    """A batch's J of the whole grid and its populations, rho and JRest
+    (whole on every rank of a wavelength axis of one column rank)."""
+    return {'J': b._lam_rows(b.params['J'], 0).clone(),
+            'pops': [p.clone() for p in b.params['pops']],
+            'rho': [[None if r is None else r.clone() for r in rs]
+                    for rs in b.params['rhoPrd']],
+            'JRest': None if b.JRest is None else b.JRest.clone()}
+
+
+def set_batch_state(b, st):
+    """Put batch_state ``st`` into the unsharded batch b (rho in place:
+    the params' rho is the flat Context's)."""
+    b.params['J'] = st['J'].clone()
+    b.params['pops'] = [p.clone() for p in st['pops']]
+    for ai, rs in enumerate(st['rho']):
+        for ti, r in enumerate(rs):
+            if r is not None:
+                b.params['rhoPrd'][ai][ti] = r.clone()
+    b.JRest = None if st['JRest'] is None else st['JRest'].clone()
+
+
+def prd_round(b):
+    """One round: a MALI step, stat_equil, prd_redistribute(maxIter=2)."""
+    b.formal_sol_gamma_matrices()
+    b.stat_equil()
+    b.prd_redistribute(maxIter=2)
+
+
+def round_errors(b, u, J, I):
+    """The difference of the sharded batch b (J and the emergent I of the
+    whole grid) from the unsharded u after the same round: per row (the
+    largest difference in a row over the row's largest value) for rho
+    (rows of its window), J and I (per wavelength) and JRest; elementwise
+    (relative) for the populations and the PRD lines' rates."""
+    def rel(x, y):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        return float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-300)))
+
+    def rows(x, y):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        x, y = x.reshape(len(x), -1), y.reshape(len(y), -1)
+        return float((np.abs(x - y).max(axis=1)
+                      / np.abs(y).max(axis=1)).max())
+    lines = u.flatCtx._prd_lines()
+    err = {'rho': max(rows(b.params['rhoPrd'][ai][ti],
+                           u.params['rhoPrd'][ai][ti])
+                      for ai, ti, a, t in lines),
+           'J': rows(J, u.params['J']),
+           'I': rows(I.transpose(0, 1), u._I.transpose(0, 1)),
+           'pops': max(rel(p, q) for p, q in zip(b.params['pops'],
+                                                  u.params['pops'])),
+           'rates': max(max(rel(b._Rij[ai][ti], u._Rij[ai][ti]),
+                            rel(b._Rji[ai][ti], u._Rji[ai][ti]))
+                        for ai, ti, a, t in lines)}
+    if u.JRest is not None:
+        err['JRest'] = rows(b.JRest, u.JRest)
+    return err
+
+
+def lambda_prd_case(rank, world):
+    """Each LAMBDA_PRD_CASES variant on a (1, 2) mesh, LAMBDA_PRD_ROUNDS
+    rounds (prd_round): in lockstep, rank 0 runs each round of the
+    unsharded batch from the sharded batch's state before it and records
+    round_errors; the free-running sharded rho and populations; the rows
+    of each rank's block and of its PRD subset solve."""
+    from lightweaver_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(1, world, device='cpu')
+    out = {}
+    for name, scheme, hprd in LAMBDA_PRD_CASES:
+        b = lambda_prd_batch(scheme, hprd, mesh)
+        u = lambda_prd_batch(scheme, hprd) if rank == 0 else None
+        errs = []
+        for _ in range(LAMBDA_PRD_ROUNDS):
+            st = batch_state(b)
+            prd_round(b)
+            J, I = b._lam_rows(b.params['J'], 0), b._lam_rows(b._I, 1)
+            if u is not None:
+                set_batch_state(u, st)
+                prd_round(u)
+                errs.append(round_errors(b, u, J, I))
+        lines = b.flatCtx._prd_lines()
+        out[name] = {
+            'errs': errs,
+            'rho': [b.params['rhoPrd'][ai][ti].numpy()
+                    for ai, ti, a, t in lines],
+            'pops': b.pops[0],
+            'rows': dist_gather_obj((b.cfg.lamLo, b.cfg.lamHi,
+                                     len(b._prd_fs.rows)))}
     return out
 
 
@@ -418,12 +541,14 @@ class FixedXBc:
 
 
 def context_2d(Nz=CTX_NZ, Nx=CTX_NX, mesh=None, xBcData=None,
-               device='cpu', **ctxKw):
+               device='cpu', active=('Ca',), field=False, **ctxKw):
     """tests/test_context_2d_xsharded.py:_make on the port, on the CPU:
     FAL-C at Nz depths, Nx columns 200 km apart with a 10% sinusoidal
-    temperature perturbation along x, H 6 + Ca II (Ca active), 3 rays."""
+    temperature perturbation along x, H 6 + Ca II (``active`` active; Ca
+    by default), 3 rays; ``field``: in problems.magnetise's field."""
     from lightweaver_tpu_torch import Atmosphere, Falc82, RadiativeSet
     from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.problems import magnetise
     full = Falc82()
     idx = np.unique(np.linspace(0, 81, Nz).astype(int))
     Nz = len(idx)
@@ -443,8 +568,10 @@ def context_2d(Nz=CTX_NZ, Nx=CTX_NX, mesh=None, xBcData=None,
         vturb=bc(full.vturb[idx]), ne=bc(full.ne[idx]),
         nHTot=bc(full.nHTot[idx]), **kw)
     atmos.quadrature(3)
+    if field:
+        magnetise(atmos)
     rs = RadiativeSet(models())
-    rs.set_active('Ca')
+    rs.set_active(*active)
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, mesh=mesh, device=device, **ctxKw)
@@ -485,8 +612,8 @@ def context_converge(ctx, maxIter=400):
 def context_2d_case(rank, world, xBcData, converge=False, device='cpu'):
     """The x-sharded 2D Context on a 4-rank x mesh: CTX_STEPS MALI steps
     (converge: to convergence) of each CTX_CASES entry, with the gathered
-    pops, J and I; and the refusals of a 1D atmosphere, of an Nx the
-    ranks do not divide and of iterate_on_device."""
+    pops, J and I; and the refusals of a 1D atmosphere and of an Nx the
+    ranks do not divide."""
     from lightweaver_tpu_torch.parallel.xshard2d import make_x_mesh
     mesh = make_x_mesh(device=device)
     out = {}
@@ -531,11 +658,144 @@ def context_2d_case(rank, world, xBcData, converge=False, device='cpu'):
         out['raises'] = {
             'one_d': _raises(one_d, 'only supported for 2D'),
             'divisible': _raises(lambda: context_2d(Nx=6, mesh=mesh),
-                                 'divisible'),
-            'iterate_on_device': _raises(
-                lambda: ctx.iterate_on_device(NmaxIter=1),
-                'iterate_on_device is not ported to the x-sharded')}
+                                 'divisible')}
     return out
+
+
+# ---- the x-sharded Context's options (tests/test_torch_xshard2d_options.py)
+XO_STEPS = 4
+# the x-sharded Context's options, each a case of xshard_option_run
+XO_FEATURES = ('ng', 'escape', 'charge', 'prd', 'hprd', 'update_deps',
+               'state_dict', 'compute_rays', 'stokes', 'iterate_on_device',
+               'od_prd')
+# Ng of the 'ng' case: the first extrapolation at the third iterate
+XO_NG = (2, 3, 3)
+# Ng of the 'iterate_on_device' case (tests/test_torch_on_device.py's:
+# an extrapolation as early as XO_NG's makes the slab's populations
+# explode), and the loops' JTol = popsTol: the slab converges in 33
+# iterations (202 at the default 5e-3 / 1e-3, which Ng does not shorten)
+XO_OD_NG, XO_OD_TOL = (2, 5, 8), 0.1
+# the loops' cap
+XO_OD_MAX = 100
+
+
+def xshard_option_context(feature, mesh=None, device='cpu'):
+    """context_2d (the 16 x 8 slab) configured for ``feature``: Ng
+    XO_NG; the escape-probability start; H 6 active with conserveCharge;
+    H 6 active with PRD lines (hybrid PRD for 'hprd'); a magnetised slab
+    for 'stokes'."""
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+    from lightweaver_tpu_torch.utils import InitialSolution
+    kw = {}
+    if feature == 'ng':
+        kw['ngOptions'] = NgOptions(*XO_NG)
+    elif feature == 'escape':
+        kw['initSol'] = InitialSolution.EscapeProbability
+    elif feature == 'iterate_on_device' and mesh is None:
+        # the host loop the on-device one is held to
+        kw['ngOptions'] = NgOptions(*XO_OD_NG)
+    elif feature == 'charge':
+        kw.update(active=('H',), conserveCharge=True)
+    elif feature in ('prd', 'hprd', 'od_prd'):
+        kw.update(active=('H',), hprd=feature == 'hprd')
+    elif feature == 'stokes':
+        kw['field'] = True
+    return context_2d(mesh=mesh, device=device, **kw)
+
+
+def xo_host_loop(ctx, NmaxIter=XO_OD_MAX, tol=XO_OD_TOL):
+    """The host MALI loop of tests/test_torch_on_device.py (stat_equil
+    past the 3-step warm-up) to dJ and dPops < tol: its iteration
+    count."""
+    for it in range(NmaxIter):
+        ju = ctx.formal_sol_gamma_matrices()
+        if it < 3:
+            continue
+        pu = ctx.stat_equil()
+        if float(ju.dJMax) < tol and pu.dPopsMax < tol:
+            break
+    return it + 1
+
+
+def xshard_option_run(feature, ctx):
+    """``feature``'s protocol on ctx (x-sharded or not; every rank of an
+    x group runs it): the whole grid's populations and J after it, and
+    its own numbers."""
+    import pickle
+    from lightweaver_tpu_torch.ops.ng import NgOptions
+
+    def whole(x):
+        return ctx.gather_x(x).cpu().numpy()
+    out = {}
+    if feature in ('ng', 'charge'):
+        out['steps'], out['accelerated'] = [], []
+        for _ in range(XO_STEPS):
+            ju = ctx.formal_sol_gamma_matrices()
+            pu = ctx.stat_equil()
+            out['steps'].append((float(ju.dJMax), pu.dPopsMax))
+            out['accelerated'].append(pu.ngAccelerated)
+        out['ne'] = np.asarray(ctx.atmos.ne).copy()
+    elif feature == 'escape':
+        out['start'] = whole(ctx.popsState[0]['n'])
+        out['nStar'] = whole(ctx.popsState[0]['nStar'])
+        out['steps'] = context_steps(ctx, 2)
+    elif feature in ('prd', 'hprd'):
+        out['steps'] = []
+        for _ in range(XO_STEPS):
+            ju = ctx.formal_sol_gamma_matrices()
+            ctx.stat_equil()
+            u = ctx.prd_redistribute(maxIter=2)
+            out['steps'].append((float(ju.dJMax), max(u.dRho)))
+        out['rho'] = [whole(ctx.rhoPrd[ai][ti])
+                      for ai, ti, a, t in ctx._prd_lines()]
+    elif feature == 'update_deps':
+        context_steps(ctx, 2)
+        ctx.atmos.temperature *= 1.01
+        ctx.update_deps()
+        out['bg'] = [whole(x) for x in (ctx.bgChi, ctx.bgEta, ctx.bgSca,
+                                        ctx.temperature,
+                                        ctx.popsState[0]['nStar'])]
+        out['steps'] = context_steps(ctx, 2)
+    elif feature == 'state_dict':
+        context_steps(ctx, 2)
+        st = ctx.state_dict()
+        out['state'] = {k: st[k] for k in ('J', 'I', 'pops', 'nStar')}
+        out['kwargs'] = st['kwargs']
+        back = pickle.loads(pickle.dumps(ctx))
+        out['pickled'] = {'sharded': back.cfg.xShard is not None,
+                          'Nx': back.cfg.Nx, 'J': back.J.numpy(),
+                          'I': back.I.numpy(),
+                          'pops': back.popsState[0]['n'].numpy()}
+    elif feature == 'compute_rays':
+        context_steps(ctx, 2)
+        out['rays'] = ctx.compute_rays(mus=[1.0])
+    elif feature == 'stokes':
+        context_steps(ctx, 1)
+        ctx.single_stokes_fs()
+        out['I'], out['Quv'] = whole(ctx.I), whole(ctx.Quv)
+    elif feature == 'iterate_on_device':
+        if ctx.cfg.xShard is None:
+            out['nIter'] = xo_host_loop(ctx)
+        else:
+            out['nIter'], out['dJ'], out['dPops'] = ctx.iterate_on_device(
+                NmaxIter=XO_OD_MAX, JTol=XO_OD_TOL, popsTol=XO_OD_TOL,
+                ngOptions=NgOptions(*XO_OD_NG))
+    elif feature == 'od_prd':
+        out['raises'] = _raises(
+            lambda: ctx.iterate_on_device(NmaxIter=1, prd=True),
+            'on-device PRD needs a 1D atmosphere')
+    out['pops'] = whole(ctx.popsState[0]['n'])
+    out['J'] = whole(ctx.J)
+    return out
+
+
+def xshard_options_case(rank, world, features=XO_FEATURES):
+    """xshard_option_run of each feature on a 4-rank x mesh (2 columns
+    each)."""
+    from lightweaver_tpu_torch.parallel.xshard2d import make_x_mesh
+    mesh = make_x_mesh(device='cpu')
+    return {f: xshard_option_run(f, xshard_option_context(f, mesh))
+            for f in features}
 
 
 # ---- on the card (tests/test_torch_distributed_card.py) -----------------
