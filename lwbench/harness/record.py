@@ -1,0 +1,54 @@
+"""What a run hands to the metric readers (lwbench/metrics/<name>.py).
+
+A reader takes a Record and returns its metric's value, or None where
+the run has nothing for it to read (an untraced run for a traced metric);
+the harness then leaves the metric out of the line.
+"""
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from .work import formal_solution_work
+
+
+@dataclass
+class Record:
+    kind: str                 # the configuration's kind
+    dtype: str                # the working precision the run used
+    Nlam: int
+    Nmu: int                  # rays per direction
+    Nk: int                   # points: columns x depths, or Nz x Nx
+    setup_s: float
+    window_s: float
+    steps: int                # MALI steps in the window
+    column_iterations: int    # MALI steps of columns not yet converged
+    spans: Dict[str, List[float]] = field(default_factory=dict)
+    trace: Optional[dict] = None
+    window_peak_bytes: Optional[int] = None
+
+    def span_ms_per_step(self, *names) -> Optional[float]:
+        """The spans' seconds summed over the window, per MALI step, in
+        ms; None without them."""
+        if not all(self.spans.get(n) for n in names):
+            return None
+        return sum(sum(self.spans[n]) for n in names) / self.steps * 1e3
+
+    def device_s_per_step(self, *patterns) -> Optional[float]:
+        """The traced device seconds per step of the operations whose
+        name holds one of ``patterns``; None untraced or where none ran."""
+        if self.trace is None:
+            return None
+        s = sum(t for name, t in self.trace['ops']
+                if any(p in name for p in patterns))
+        return s / self.trace['steps'] if s > 0 else None
+
+    def stage_busy_s_per_step(self, *stages) -> Optional[float]:
+        """The traced device's busy seconds per step inside the stages;
+        None untraced or where none was busy."""
+        if self.trace is None:
+            return None
+        s = sum(self.trace['busy_by_stage'].get(n, 0.0) for n in stages)
+        return s / self.trace['steps'] if s > 0 else None
+
+    def formal_solution_least_s(self) -> float:
+        return formal_solution_work(self.Nlam, self.Nmu, self.Nk,
+                                    self.dtype)['least_s']
