@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from . import constants as Const
+from . import tracing
 from .atmosphere import Atmosphere, PeriodicRadiation, ThermalisedRadiation
 from .atomic_model import (AtomicLine, AtomicModel, LineProfileState,
                            LineType)
@@ -308,15 +309,13 @@ class IterConfig:
 
     def tensor(self, x):
         """A copy of x in the working dtype on the device."""
-        return torch.tensor(np.asarray(x), dtype=self.dtype,
-                            device=self.device)
+        return tracing.to_device(x, self.dtype, self.device)
 
     def state(self, x):
         """A copy of x in the state dtype (float64) on the device: never a
         view of the host array, on the CPU either (the populations, nStar
         and ne arrays of eqPops and the atmosphere change in place)."""
-        return torch.tensor(np.asarray(x), dtype=STATE_DTYPE,
-                            device=self.device)
+        return tracing.to_device(x, STATE_DTYPE, self.device)
 
     @property
     def allAtoms(self):
@@ -588,7 +587,7 @@ def _x_inflow(cfg: IterConfig, params, d: int):
                          'boundaries whose compute_bc returns [Nlam, Nmu, '
                          '2, Nz] data')
     sgn = 1.0 if d == 1 else -1.0
-    fromLower = torch.as_tensor(sgn * cfg.mux >= 0, device=cfg.device)
+    fromLower = tracing.to_device(sgn * cfg.mux >= 0, None, cfg.device)
     return torch.where(fromLower[None, :, None], lower[:, :, d],
                        upper[:, :, d])
 
@@ -622,22 +621,25 @@ def formal_solve_2d(cfg: IterConfig, params, chiTot, srcNum):
         chi = chiTot[d].view(shape)
         thermalised = cfg.lowerThermalised if d == 1 else cfg.upperThermalised
         i0, i1 = (Nz - 1, Nz - 2) if d == 1 else (0, 1)
-        if thermalised:
-            Iupw = start(chi[:, :, i0], chi[:, :, i1], T2[i0], T2[i1],
-                         cfg.wavelengthT, group)
-        else:
-            Iupw = chiTot.new_zeros((NL, Nmu, Nx))
-        Ibc = None
-        if group['anyFixed']:
-            # the boundary column keeps its x-BC value on the start plane
-            # too (the reference pre-fills the whole column before the
-            # z-BC plane loop, which skips it)
-            Ibc = _x_inflow(cfg, params, d)
-            Iupw = torch.where(group['fixedNat'], Ibc[:, :, i0, None], Iupw)
-        sweep(chi, group, Iupw, srcNum=srcNum[d].view(shape), Ibc=Ibc,
-              interp=interp, alongRay=alongRay,
-              out=(I[d].view(shape), Psi[d].view(shape),
-                   IeffBase[d].view(shape)))
+        with tracing.span('lw.fs2d.start'):
+            if thermalised:
+                Iupw = start(chi[:, :, i0], chi[:, :, i1], T2[i0], T2[i1],
+                             cfg.wavelengthT, group)
+            else:
+                Iupw = chiTot.new_zeros((NL, Nmu, Nx))
+            Ibc = None
+            if group['anyFixed']:
+                # the boundary column keeps its x-BC value on the start
+                # plane too (the reference pre-fills the whole column
+                # before the z-BC plane loop, which skips it)
+                Ibc = _x_inflow(cfg, params, d)
+                Iupw = torch.where(group['fixedNat'], Ibc[:, :, i0, None],
+                                   Iupw)
+        with tracing.span('lw.fs2d.sweep'):
+            sweep(chi, group, Iupw, srcNum=srcNum[d].view(shape), Ibc=Ibc,
+                  interp=interp, alongRay=alongRay,
+                  out=(I[d].view(shape), Psi[d].view(shape),
+                       IeffBase[d].view(shape)))
     return I, Psi, IeffBase, angular_moments(I, Psi, IeffBase, srcNum,
                                              cfg.wmuT)
 
@@ -1009,8 +1011,8 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
     def sum_lmd(x, wlaA):
         return _sum_lmd_split(x, wlaA, wmu2, wmu2w, adt, blockedAcc)
 
-    GammaOut, RijOut, RjiOut = [], [], []
-    for ai, a in enumerate(cfg.activeAtoms):
+    def atom_terms(ai, a):
+        """Gamma and the rates of active atom ``a``."""
         lt = None if lineTerms is None else lineTerms[ai]
 
         def fn_on(fn, t2i, lo, hi):
@@ -1216,6 +1218,12 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
         Gamma = Gamma * (1.0 - eye)
         colSum = torch.sum(Gamma, dim=0)
         Gamma = Gamma - eye * colSum[None, :, :]
+        return Gamma, Rij, Rji
+
+    GammaOut, RijOut, RjiOut = [], [], []
+    for ai, a in enumerate(cfg.activeAtoms):
+        with tracing.span('lw.gamma_rates.' + a.model.element.name):
+            Gamma, Rij, Rji = atom_terms(ai, a)
         GammaOut.append(Gamma)
         RijOut.append(Rij)
         RjiOut.append(Rji)
@@ -1414,17 +1422,21 @@ def build_iteration_fn(cfg: IterConfig, restFrame=None):
         scaJ = _sca_j(cfg, params)
         chiTot = srcNum = srcRowsA = lineTerms = None
         if scheme == SCHEME_FUSED:
-            I, Psi, IeffBase, moments, srcRowsA = fused_stage(
-                cfg, params, scaJ, packed)
+            with tracing.span('lw.fused_stage'):
+                I, Psi, IeffBase, moments, srcRowsA = fused_stage(
+                    cfg, params, scaJ, packed)
         else:
-            chiTot, srcNum = gather(cfg, params, scaJ)
-            I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot,
-                                                     srcNum)
+            with tracing.span('lw.gather'):
+                chiTot, srcNum = gather(cfg, params, scaJ)
+            with tracing.span('lw.formal_solve'):
+                I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot,
+                                                         srcNum)
         if lambdaIterate:
             I, Psi, IeffBase, moments = lambda_operator(I, Psi, moments)
         if scheme == SCHEME_PALLAS and packed is not None:
-            lineTerms = line_kernel_stage(cfg, params, I, Psi, IeffBase,
-                                          srcNum, packed)
+            with tracing.span('lw.line_kernel_stage'):
+                lineTerms = line_kernel_stage(cfg, params, I, Psi, IeffBase,
+                                              srcNum, packed)
         # the kernels sum J in float64; accumDtype=float32 keeps it so
         Jnew = moments['J'].to(cfg.accumDtype)
         if cfg.accelerateScattering:
@@ -1433,8 +1445,10 @@ def build_iteration_fn(cfg: IterConfig, restFrame=None):
             Jnew = _accelerate_scattering(Jnew, Jdag, moments['PsiBar'],
                                           params['bgSca'], cfg.accumDtype)
         dJ = _dJ(cfg, Jdag, Jnew)
-        Gamma, Rij, Rji = gamma_rates(cfg, params, I, Psi, IeffBase, srcNum,
-                                      moments, lineTerms, srcRowsA)
+        with tracing.span('lw.gamma_rates'):
+            Gamma, Rij, Rji = gamma_rates(cfg, params, I, Psi, IeffBase,
+                                          srcNum, moments, lineTerms,
+                                          srcRowsA)
         out = {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
                'I': _emergent(cfg, I), 'dJ': dJ}
         if cfg.hprd:
@@ -1841,8 +1855,8 @@ class DeviceLoop:
         all_reduce before the read), so that every rank goes on or stops
         together."""
         self.reads += 1
-        return bool(self.ctx._x_reduce_tensor(flag.to(STATE_DTYPE)[None],
-                                              'max')[0] > 0)
+        return bool(tracing.to_host(self.ctx._x_reduce_tensor(
+            flag.to(STATE_DTYPE)[None], 'max'))[0] > 0)
 
     def start(self) -> Dict:
         """The loop state from the Context's J, populations, rho and
@@ -2702,24 +2716,30 @@ class Context:
         Gamma-matrix and rate accumulation; with ``lambdaIterate`` without
         the approximate operator (Psi = 0, the Lambda iteration).
         ref: Source/LwMiddleLayer.pyx:3152"""
-        crswVal = self.crswCallback() if self.crswCallback is not None else 1.0
-        self.crswDone = crswVal == 1.0
-        self.compute_collisions()
-        if self._params is None:
-            self._params = self.build_params(crswVal)
-        p = self._params
-        p['J'] = self.J
-        p['pops'] = [st['n'] for st in self.popsState]
-        # charge conservation and update_deps move nStar (the continua's
-        # gij read it)
-        p['nStar'] = [st['nStar'] for st in self.popsState]
-        p['detNStar'] = [st['nStar'] for st in self.detailedPops]
-        p['C'] = self._deviceC()
-        p['crsw'] = float(crswVal)
-        p['rhoPrd'] = self.rhoPrd
-        # a callable BC may change between steps (the PRD subset solve
-        # reads these rows from self._params too)
-        p.update(self._boundary_data())
+        with tracing.span('lw.formal_sol_gamma_matrices'):
+            return self._formal_sol_gamma_matrices(lambdaIterate)
+
+    def _formal_sol_gamma_matrices(self, lambdaIterate: bool):
+        with tracing.span('lw.params'):
+            crswVal = (self.crswCallback() if self.crswCallback is not None
+                       else 1.0)
+            self.crswDone = crswVal == 1.0
+            self.compute_collisions()
+            if self._params is None:
+                self._params = self.build_params(crswVal)
+            p = self._params
+            p['J'] = self.J
+            p['pops'] = [st['n'] for st in self.popsState]
+            # charge conservation and update_deps move nStar (the
+            # continua's gij read it)
+            p['nStar'] = [st['nStar'] for st in self.popsState]
+            p['detNStar'] = [st['nStar'] for st in self.detailedPops]
+            p['C'] = self._deviceC()
+            p['crsw'] = float(crswVal)
+            p['rhoPrd'] = self.rhoPrd
+            # a callable BC may change between steps (the PRD subset solve
+            # reads these rows from self._params too)
+            p.update(self._boundary_data())
         out = self._iter_fn(p, lambdaIterate=lambdaIterate,
                             storeDepthData=self.depthData.fill)
         if self.cfg.xShard is not None:
@@ -2827,7 +2847,8 @@ class Context:
             return []
         flat = self.gather_x(torch.cat([st['n'] for st in self.popsState]))
         Nk = flat.shape[-1]
-        flat = flat.reshape(-1).cpu().numpy()
+        with tracing.span('lw.host.pops_to_host'):
+            flat = tracing.to_host(flat.reshape(-1)).numpy()
         out, off = [], 0
         for st in self.popsState:
             size = st['n'].shape[0] * Nk
@@ -2853,11 +2874,16 @@ class Context:
         ref: Source/LwMiddleLayer.pyx:3461-3560"""
         if self._Gamma is None:
             raise ValueError('Call formal_sol_gamma_matrices first')
-        for ai, a in enumerate(self.cfg.activeAtoms):
-            st = self.popsState[ai]
-            nTotal = self.cfg.state(self._x_local(
-                self.eqPops.atomicPops[a.model.element].nTotal))
-            st['n'] = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
+        with tracing.span('lw.stat_equil'):
+            return self._stat_equil()
+
+    def _stat_equil(self) -> IterationUpdate:
+        with tracing.span('lw.se.solve'):
+            for ai, a in enumerate(self.cfg.activeAtoms):
+                st = self.popsState[ai]
+                nTotal = self.cfg.state(self._x_local(
+                    self.eqPops.atomicPops[a.model.element].nTotal))
+                st['n'] = _stat_eq_solve(self._Gamma[ai], st['n'], nTotal)
 
         dNeMax = None
         if self.conserveCharge:
@@ -2872,10 +2898,12 @@ class Context:
                 if not np.all(np.isfinite(nHost)):
                     self._raise_non_finite(ai)
                 st = self.popsState[ai]
-                accel, sol = self.ngs[ai].accelerate(nHost)
+                with tracing.span('lw.host.ng'):
+                    accel, sol = self.ngs[ai].accelerate(nHost)
                 if accel:
-                    st['n'] = self.cfg.state(self._x_local(
-                        sol.reshape(nHost.shape)))
+                    with tracing.span('lw.host.pops_to_device'):
+                        st['n'] = self.cfg.state(self._x_local(
+                            sol.reshape(nHost.shape)))
                     accelerated = True
                 dPops.append(self.ngs[ai].max_change())
         else:
@@ -2900,11 +2928,12 @@ class Context:
             if self.cfg.xShard is not None:
                 # the largest change and the least finite flag of the grid
                 from .ops.collectives import all_reduce
-                sgn = torch.tensor([1.0, -1.0], dtype=torch.float64,
-                                   device=self.device).repeat(len(flags) // 2)
+                sgn = tracing.to_device([1.0, -1.0], torch.float64,
+                                        self.device).repeat(len(flags) // 2)
                 vals = sgn * all_reduce(sgn * vals, self.cfg.xShard.group,
                                         'max')
-            vals = vals.cpu().numpy()
+            with tracing.span('lw.host.flags_to_host'):
+                vals = tracing.to_host(vals).numpy()
             for ai in range(len(self.popsState)):
                 if vals[2 * ai + 1] == 0.0:
                     self._raise_non_finite(ai)
@@ -3032,7 +3061,7 @@ class Context:
         for ai, nNew in zip(atomIdx, newNs):
             self.popsState[ai]['n'] = nNew
         neStart = np.asarray(self.atmos.ne).copy()
-        neNew = self.gather_x(newNe).cpu().numpy()
+        neNew = tracing.to_host(self.gather_x(newNe)).numpy()
         self.atmos.ne[:] = neNew
 
         # refresh the LTE populations and H- for the new ne, and nStar on
@@ -3227,7 +3256,7 @@ class Context:
             kept = self._rhoHost.get((ai, ti))
             if kept is not None and kept[0] is rho:
                 return kept[1]
-        return self.gather_x(rho).cpu().numpy().ravel()
+        return tracing.to_host(self.gather_x(rho)).numpy().ravel()
 
     def _scatter_rho(self, li: int, Jw=None) -> torch.Tensor:
         """The new rho [W, Nk] of PRD line ``li`` of _prd_lines() from the

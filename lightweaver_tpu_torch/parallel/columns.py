@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..atmosphere import Atmosphere
 from ..atomic_set import RadiativeSet
 from ..context import (Context, _stat_eq_solve, build_iteration_fn,
@@ -295,8 +296,9 @@ class ColumnBatch:
 
     def _frozen_depths(self):
         """[Ncol NkCol] bool tensor, True on the converged columns."""
-        return torch.as_tensor(np.repeat(self.converged, self.NkCol),
-                               device=self.cfg.device)
+        with tracing.span('lw.host.frozen_mask'):
+            return tracing.to_device(np.repeat(self.converged, self.NkCol),
+                                     None, self.cfg.device)
 
     # ------------------------------------------------------------------
     def formal_sol_gamma_matrices(self, lambdaIterate: bool = False) \
@@ -304,6 +306,10 @@ class ColumnBatch:
         """One MALI step of every column (one launch of each kernel of the
         scheme); converged columns keep their J (and JRest).  dJMax is the
         largest of the unconverged columns' dJCol [C]."""
+        with tracing.span('lw.formal_sol_gamma_matrices'):
+            return self._formal_sol_gamma_matrices(lambdaIterate)
+
+    def _formal_sol_gamma_matrices(self, lambdaIterate: bool):
         out = self._iter_fn(self.params, lambdaIterate=lambdaIterate)
         if self.flatCtx is not None and self.converged.any():
             frozen = self._frozen_depths()[None, :]
@@ -320,7 +326,8 @@ class ColumnBatch:
         self._Rij = out['Rij']
         self._Rji = out['Rji']
         self._I = out['I']
-        self.dJCol = out['dJ'].cpu().numpy()               # [C]
+        with tracing.span('lw.host.dj_to_host'):
+            self.dJCol = tracing.to_host(out['dJ']).numpy()    # [C]
         if self.flatCtx is not None:
             dJ = float(np.max(np.where(self.converged, 0.0, self.dJCol)))
         else:
@@ -333,16 +340,17 @@ class ColumnBatch:
         with its charge conservation, for from_stacked batches)."""
         if self._Gamma is None:
             raise ValueError('Call formal_sol_gamma_matrices first')
-        if self.flatCtx is not None:
-            return self._stat_equil_flat()
-        dPops = []
-        for ai in range(len(self.cfg.activeAtoms)):
-            n = self.params['pops'][ai]
-            nNew = _stat_eq_solve(self._Gamma[ai], n, self._nTotal[ai])
-            dPops.append(self._col_reduce(
-                float(torch.max(torch.abs(1.0 - n / nNew))), 'max'))
-            self.params['pops'][ai] = nNew
-        return IterationUpdate(self, updatedPops=True, dPops=dPops)
+        with tracing.span('lw.batch.stat_equil'):
+            if self.flatCtx is not None:
+                return self._stat_equil_flat()
+            dPops = []
+            for ai in range(len(self.cfg.activeAtoms)):
+                n = self.params['pops'][ai]
+                nNew = _stat_eq_solve(self._Gamma[ai], n, self._nTotal[ai])
+                dPops.append(self._col_reduce(float(tracing.to_host(
+                    torch.max(torch.abs(1.0 - n / nNew)))), 'max'))
+                self.params['pops'][ai] = nNew
+            return IterationUpdate(self, updatedPops=True, dPops=dPops)
 
     def _push_state(self):
         """Hand the batch's J, JRest, Gamma, rates and populations to the
@@ -380,10 +388,13 @@ class ColumnBatch:
         dPops = []
         frozen = self.converged
         for ai, nHost in enumerate(fc._pops_on_host()):
-            _, sol = self.ngs[ai].accelerate(self._by_column(nHost),
-                                             freeze=frozen)
-            dPops.append(self.ngs[ai].max_change())          # [C]
-            n = self.cfg.state(self._from_columns(sol, nHost.shape[:-1]))
+            with tracing.span('lw.host.ng'):
+                _, sol = self.ngs[ai].accelerate(self._by_column(nHost),
+                                                 freeze=frozen)
+                dPops.append(self.ngs[ai].max_change())      # [C]
+            with tracing.span('lw.host.pops_to_device'):
+                n = self.cfg.state(self._from_columns(sol,
+                                                      nHost.shape[:-1]))
             self.params['pops'][ai] = n
             fc.popsState[ai]['n'] = n
 
@@ -438,7 +449,7 @@ class ColumnBatch:
             self._prdWindows = self._prd_window_plan(prdLines)
 
         frozenK = self._frozen_depths()
-        frozenC = torch.as_tensor(self.converged, device=dev)
+        frozenC = tracing.to_device(self.converged, None, dev)
         subT = self._prdSubT
         self._Rij = [list(r) for r in self._Rij]
         self._Rji = [list(r) for r in self._Rji]
@@ -476,7 +487,7 @@ class ColumnBatch:
                                                 out['Rij'][li])
                 self._Rji[ai][ti] = torch.where(frozenK, self._Rji[ai][ti],
                                                 out['Rji'][li])
-            dRhoCol = dRho.cpu().numpy()
+            dRhoCol = tracing.to_host(dRho).numpy()
             dRhoMax = self._col_reduce(self._reduce(
                 float(np.max(np.where(self.converged, 0.0, dRhoCol))),
                 'max', self.cfg.lamGroup), 'max')
@@ -564,8 +575,8 @@ class ColumnBatch:
         """x reduced over the ranks of ``group`` (x itself without one)."""
         if group is None:
             return x
-        t = torch.tensor([x], dtype=torch.float64, device=self.cfg.device)
-        return float(all_reduce(t, group, op)[0])
+        t = tracing.to_device([x], torch.float64, self.cfg.device)
+        return float(tracing.to_host(all_reduce(t, group, op))[0])
 
     def _col_reduce(self, x: float, op: str) -> float:
         """x reduced over the 'columns' axis of the mesh (x itself on one
