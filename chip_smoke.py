@@ -156,8 +156,9 @@ result):
    Contexts (rho and populations 1e-8).
 14. 2D (problems.slab_2d: FAL-C with a +-5% temperature perturbation and
    a 1 km/s shear flow along x, H 6-level + Ca II with Ca II active), in
-   float64 unless stated; the plane sweep is torch ops, as the JAX
-   package leaves it to XLA, and every run must launch no csrc/ kernel.
+   float64 unless stated; the plane sweep is csrc/sweep2d.cu (the JAX
+   package leaves it to XLA), and every run must launch it and no other
+   csrc/ kernel.
    (a) The golden 2D problem (30 x 8, callable x boundaries, 6 rays)
    converged through iterate_ctx_se under piecewise_linear_2d with the
    compat x-lower boundary (tests/golden/falc2d_ca_ref.npz: 154
@@ -171,7 +172,14 @@ result):
    scripts/torch_profile.py; two steps until phase 18 needed the time);
    the same slab rolled by 64 columns: J and
    the populations after 3 steps equal the unrolled ones, rolled (1e-10;
-   populations relative to each level's maximum).  (c) On the golden
+   populations relative to each level's maximum).  The 2D kernel on the
+   slab's inputs, float64 and float32 (a float32 slab, one MALI step):
+   for each direction the gathered chi and srcNum, the ray group and the
+   boundary data that formal_solve_2d hands sweep_rays_2d, the kernel
+   against sweep_rays_2d_plain (I, Psi and IeffBase within 1e-12 of each
+   output's maximum in float64, by phase 10's rule in float32), the
+   kernel's device time and the plain loop's per call, and the launches
+   of the slab's own MALI steps.  (c) On the golden
    atmosphere: 3 float32 MALI steps, card against CPU by phase 10's rule;
    single_stokes_fs on the slab in phase 12's field and
    compute_rays(mus=[0.7, 1.0]), card against CPU (1e-9 of each
@@ -264,15 +272,15 @@ plain versions' are CUDA events around their calls.  The kernels' JSON record ho
 instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
 and times and (c)'s launch counts for the sweep's linear and BESSER
-instances, and the probes'; phase 15's, phase 17's ((a), (c) and
+instances, phase 14 (b)'s slab errors, times and launches for the 2D
+kernel's float64 and float32 instances, and the probes'; phase 15's, phase 17's ((a), (c) and
 (d)'s on-device runs) and phase 18 (a)'s sweep launches on the
 wavelength blocks are added to each instance's count; each
 with the
 least time the card could take for its inputs (bound_ms) and, where one
 PyTorch call computes the same function, that call's time.  The last four
 lines are the total wall time, the card's name and power limit as
-nvidia-smi prints them, the kernels' JSON record and the ok line (the 2D
-path adds no kernel to the record).
+nvidia-smi prints them, the kernels' JSON record and the ok line.
 """
 import dataclasses
 import json
@@ -373,7 +381,7 @@ def kernel_device_ms(fn, pattern, reps=20, rounds=2):
 
 # kernel symbols, as the profiler names them
 SYMBOLS = {'sweep': 'sweep_kernel', 'gamma': 'line_gamma_kernel',
-           'fused': 'fused_kernel'}
+           'fused': 'fused_kernel', 'sweep2d': 'sweep2d_kernel'}
 
 
 def environment():
@@ -396,7 +404,8 @@ def counters():
     """Kernel name -> (wrapper, its launch-count attribute): each instance
     of a wrapper (float64 and float32; the sweep's three solvers) keeps
     its own count."""
-    from lightweaver_tpu_torch.ops import fused, gamma, probe, sweep
+    from lightweaver_tpu_torch.ops import formal_solver2d, fused, gamma
+    from lightweaver_tpu_torch.ops import probe, sweep
     out = {'sweep': (sweep.sweep_cuda, 'launches'),
            'gamma': (gamma.line_gamma_rates_cuda, 'launches'),
            'fused': (fused.fused_cuda, 'launches'),
@@ -404,7 +413,9 @@ def counters():
            'gamma_f32': (gamma.line_gamma_rates_cuda, 'launches_f32'),
            'fused_f32': (fused.fused_cuda, 'launches_f32'),
            'probe_elementwise': (probe.elementwise_cuda, 'launches'),
-           'probe_recurrence': (probe.recurrence_cuda, 'launches')}
+           'probe_recurrence': (probe.recurrence_cuda, 'launches'),
+           'sweep2d': (formal_solver2d.sweep2d_cuda, 'launches'),
+           'sweep2d_f32': (formal_solver2d.sweep2d_cuda, 'launches_f32')}
     # the sweep's linear and BESSER instances
     for solver in ('piecewise_linear_1d', 'piecewise_besser_1d'):
         for dtype in (torch.float64, torch.float32):
@@ -425,7 +436,9 @@ def read_counts():
 def build_kernels():
     """Build the four libraries at once (one nvcc each, in threads: the
     compiler runs outside the interpreter lock) and print ptxas's
-    registers and spills, also for a cached build."""
+    registers and spills, also for a cached build.  The 2D sweep's
+    instances build at their first use (ops/formal_solver2d.py:
+    instance_flags)."""
     from lightweaver_tpu_torch.ops import _build, fused, gamma, probe, sweep
     phase('build the CUDA kernels from csrc/ (nvcc, sm_90a)')
     mods = {'probe': probe, 'sweep': sweep, 'gamma': gamma, 'fused': fused}
@@ -2980,11 +2993,24 @@ CARD_CPU_2D_TOL = 1e-9
 
 
 def no_kernel_launched(label, counts):
-    """The 2D path runs torch ops only (the JAX package leaves it to XLA):
-    any launch of a csrc/ kernel is a path gone astray."""
+    """The x-sharded 2D path (parallel/xshard2d.py) sweeps in torch ops,
+    its ring split over ranks: any launch of a csrc/ kernel is a path
+    gone astray."""
     if any(counts.values()):
         raise AssertionError(f'{label} launched csrc/ kernels: '
                              f'{ {k: v for k, v in counts.items() if v} }')
+
+
+def only_2d_sweep_launched(label, counts):
+    """The 2D path's one csrc/ kernel is the plane sweep (csrc/sweep2d.cu;
+    the JAX package leaves it to XLA): no launch of it, or a launch of
+    another kernel, is a path gone astray."""
+    other = {k: v for k, v in counts.items()
+             if v and not k.startswith('sweep2d')}
+    if other or not counts['sweep2d'] + counts['sweep2d_f32']:
+        raise AssertionError(f'{label} launched csrc/ kernels '
+                             f'{ {k: v for k, v in counts.items() if v} }; '
+                             'the 2D sweep kernel alone was expected')
 
 
 def golden_2d(solver, refName, compat, bar, nSteps=None):
@@ -3012,7 +3038,7 @@ def golden_2d(solver, refName, compat, bar, nSteps=None):
                 ctx.stat_equil()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        no_kernel_launched(solver, read_counts())
+        only_2d_sweep_launched(solver, read_counts())
         print(f'  {nSteps} MALI steps, {wall / nSteps * 1e3:.3f} ms/iter; dJ '
               f'{dJ[4]:.3e} at step 5, {dJ[-1]:.3e} at the last')
         if not (np.isfinite(dJ).all() and dJ[-1] < dJ[4]
@@ -3022,7 +3048,7 @@ def golden_2d(solver, refName, compat, bar, nSteps=None):
     nIter = iterate_ctx_se(ctx, NmaxIter=500, quiet=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    no_kernel_launched(solver, read_counts())
+    only_2d_sweep_launched(solver, read_counts())
     nRef = int(ref['out_niter'][0])
     errs = {'pops': relerr(ctx.popsState[0]['n'].cpu(), ref['out_pops_a0']),
             'J': relerr(ctx.J.cpu(), ref['out_J']),
@@ -3086,7 +3112,8 @@ def slab_2d_real():
           f'Context built in {build:.1f} s')
     reset_counts()
     dJ, sPerStep, snap = slab_2d_steps(ctx, SLAB_2D_STEPS, SLAB_2D_ROLL_STEPS)
-    no_kernel_launched('the 2D slab', read_counts())
+    counts = read_counts()
+    only_2d_sweep_launched('the 2D slab', counts)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = bool(torch.isfinite(ctx.I).all() and torch.isfinite(ctx.J).all()
                   and torch.isfinite(ctx.popsState[0]['n']).all())
@@ -3105,6 +3132,8 @@ def slab_2d_real():
     prof = profile_problem(f'slab_2d({Nz}, {Nx}), {solver}, '
                            'formal_sol_gamma_matrices + stat_equil', ctx,
                            mali, iters=SLAB_2D_PROFILED)
+    kernels = {'sweep2d': dict(slab_sweep2d_check(ctx),
+                               launches=counts['sweep2d'])}
     del ctx, it, params
     torch.cuda.empty_cache()
 
@@ -3128,9 +3157,123 @@ def slab_2d_real():
         raise AssertionError(f'the 2D roll check: J {errJ}, pops {errN}')
     del rolled, snap, J0, n0
     torch.cuda.empty_cache()
+    ctx32 = slab_2d(Nz, Nx, periodic=True, quadrature=nq, device='cuda',
+                    dtype=F32, formalSolver=solver)
+    reset_counts()
+    ctx32.formal_sol_gamma_matrices()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    only_2d_sweep_launched('the float32 2D slab', counts)
+    kernels['sweep2d_f32'] = dict(slab_sweep2d_check(ctx32),
+                                  launches=counts['sweep2d_f32'])
+    del ctx32
+    torch.cuda.empty_cache()
     return {'ms_per_step': sPerStep * 1e3, 'peak_gib': peak, 'J3': snapJ,
             'stages_ms': {k: v * 1e3 for k, v in stages.items()},
-            'profile': prof}
+            'profile': prof, 'kernels': kernels}
+
+
+# the 2D kernel against its plain version on the slab's inputs (float64):
+# the kernel rounds each operation as the torch ops do; only the ring
+# scan associates otherwise
+SWEEP2D_TOL = 1e-12
+# floating-point operations per (ray, point) of the 2D plane step
+# (csrc/sweep2d.cu's header)
+SWEEP2D_FLOPS = 150
+SWEEP2D_NAMES = ('I', 'Psi', 'IeffBase')
+# the ray group's arrays that the 2D kernel reads
+SWEEP2D_GROUP = ('axisZ', 'w', 'ds', 'dwAxisZ', 'dwW', 'dwDs', 'dwZero',
+                 'fixed', 'flip')
+
+
+def slab_sweep_calls(ctx):
+    """[(args, kwargs)] of the sweep_rays_2d calls of one formal solution
+    of the Context's state, one per direction: chi and srcNum from the
+    gather, the ray group, the boundary data and the schemes as
+    formal_solve_2d hands them over (its output tensors left out)."""
+    from lightweaver_tpu_torch.ops import formal_solver2d as fs2d
+    it = ctx._iter_fn
+    params = ctx.build_params()
+    chiTot, srcNum = it.gather(params, it.scaJ(params))
+    calls, real = [], fs2d.sweep_rays_2d
+
+    def keep(*args, **kw):
+        calls.append((args, {k: v for k, v in kw.items() if k != 'out'}))
+        return real(*args, **kw)
+    fs2d.sweep_rays_2d = keep
+    try:
+        it.formal_solve(params, chiTot, srcNum)
+    finally:
+        fs2d.sweep_rays_2d = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def sweep2d_bound(args, kw, out):
+    """chi, the source, the boundary data and the group's rows read once,
+    I, Psi and IeffBase written once."""
+    chi, group = args[0], args[1]
+    ins = [chi, args[2], kw.get('S'), kw.get('srcNum'), kw.get('Ibc')]
+    ins += [group[k] for k in SWEEP2D_GROUP]
+    return bound(nbytes(ins + list(out)), SWEEP2D_FLOPS * chi.numel(),
+                 chi.dtype)
+
+
+def slab_sweep2d_check(ctx):
+    """The 2D kernel on the slab's inputs (slab_sweep_calls), each
+    direction: against sweep_rays_2d_plain (float64 within SWEEP2D_TOL of
+    each output's maximum; float32 by f32_rule against the plain loop in
+    float64 on the same inputs), the kernel's device time and the plain
+    loop's per call (float32: also the float64 instance on the upcast
+    inputs).  Returns the record, each time the mean over the
+    directions."""
+    from lightweaver_tpu_torch.ops import formal_solver2d as fs2d
+    f32 = ctx.cfg.dtype == F32
+    rows = []
+    for d, (args, kw) in enumerate(slab_sweep_calls(ctx)):
+        label = (f'2D kernel, direction {d}, {"float32" if f32 else "float64"}'
+                 f' {list(args[0].shape)}')
+        kern = fs2d.sweep2d_cuda(*args, **kw)
+        plain = fs2d.sweep_rays_2d_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bnd = sweep2d_bound(args, kw, kern)
+        if f32:
+            args64 = (args[0].double(), fs2d.group_as(args[1], torch.float64),
+                      args[2].double())
+            kw64 = {k: v.double() if torch.is_tensor(v) else v
+                    for k, v in kw.items()}
+            ref = fs2d.sweep_rays_2d_plain(*args64, **kw64)
+            absErr = f32_rule(label, SWEEP2D_NAMES, kern, plain, ref)
+            del ref
+            ms, plainMs, ms64 = timed_instances(
+                f'{label}, per call', lambda: fs2d.sweep2d_cuda(*args, **kw),
+                lambda: fs2d.sweep_rays_2d_plain(*args, **kw),
+                lambda: fs2d.sweep2d_cuda(*args64, **kw64), bnd,
+                SYMBOLS['sweep2d'])
+            del args64, kw64
+        else:
+            rel, absErr = compare_outputs(label, SWEEP2D_NAMES, kern, plain,
+                                          SWEEP2D_TOL)
+            print(f'  {label}: max|kernel-plain|/max|plain| = {rel:.3e} '
+                  f'(bar {SWEEP2D_TOL}), max abs {absErr:.3e}')
+            ms, plainMs = timed_pair(
+                f'{label}, per call', lambda: fs2d.sweep2d_cuda(*args, **kw),
+                lambda: fs2d.sweep_rays_2d_plain(*args, **kw),
+                SYMBOLS['sweep2d'], bnd=bnd)
+            ms64 = None
+        rows.append(dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs,
+                         f64_ms=ms64, **bnd))
+        del kern, plain
+    torch.cuda.empty_cache()
+
+    def mean(k):
+        return float(np.mean([r[k] for r in rows]))
+    record = dict(max_abs_err=max(r['max_abs_err'] for r in rows),
+                  ms=mean('ms'), plain_ms=mean('plain_ms'),
+                  bound_ms=mean('bound_ms'), bound_by=rows[0]['bound_by'])
+    if f32:
+        record['f64_ms'] = mean('f64_ms')
+    return record
 
 
 def params_to(params, device):
@@ -3208,7 +3351,7 @@ def card_cpu_2d():
     rays = ctx.compute_rays(mus=[0.7, 1.0])
     torch.cuda.synchronize()
     raysMs = (time.perf_counter() - t0) * 1e3
-    no_kernel_launched('2D synthesis', read_counts())
+    only_2d_sweep_launched('2D synthesis', read_counts())
     raysRef = twin.compute_rays(mus=[0.7, 1.0])
     errR = float((np.abs(rays - raysRef).reshape(len(rays), -1).max(axis=1)
                   / np.abs(raysRef).reshape(len(rays), -1).max(axis=1)).max())
@@ -4922,6 +5065,12 @@ KERNELS = {
                           'scripts/pallas_probe.py:28'),
     'probe_recurrence': ('lightweaver_tpu_torch/csrc/probe.cu',
                          'scripts/pallas_probe.py:57'),
+    'sweep2d': ('lightweaver_tpu_torch/csrc/sweep2d.cu',
+                'none: lightweaver_tpu/ops/formal_solver2d.py leaves the '
+                'plane sweep to XLA'),
+    'sweep2d_f32': ('lightweaver_tpu_torch/csrc/sweep2d.cu',
+                    'none: lightweaver_tpu/ops/formal_solver2d.py leaves '
+                    'the plane sweep to XLA'),
 }
 SCHEMES = ('mali_full_precond', PALLAS, FUSED)
 
@@ -4978,8 +5127,8 @@ def main():
     batch_kernel_check()
     batchRef = batch_schemes(batch_converged())
     batch_prd()
-    # phase 14, 2D: torch ops only (the JAX package runs no Pallas kernel
-    # there), each run checked to launch no csrc/ kernel
+    # phase 14, 2D: the plane sweep kernel (the JAX package runs no Pallas
+    # kernel there), each run checked to launch it and no other csrc/ one
     golden2dMs = [golden_2d(*g) for g in GOLDEN_2D]
     slab = slab_2d_real()
     syn2d = card_cpu_2d()
@@ -5006,6 +5155,7 @@ def main():
                     for name in F32_NAMES})
     records.update({name: dict(solverKern[name], launches=n)
                     for name, n in solverLaunches.items()})
+    records.update(slab['kernels'])
     records.update(probes)
     for name, n in list(options['launches'].items()) + list(
             odLaunches.items()) + [('sweep', blockPrd['launches'])]:

@@ -617,8 +617,11 @@ def formal_solve_2d(cfg: IterConfig, params, chiTot, srcNum):
         start = partial(xshard2d.thermalised_start_xsharded, shard=xs)
         sweep = partial(xshard2d.sweep_rays_2d_xsharded, shard=xs)
     for d in range(2):
-        group = cfg.rays2d[d] if xs is None else cfg.rays2dX[d]
         chi = chiTot[d].view(shape)
+        # the sweep runs in chi's dtype, also where params of another
+        # precision than cfg's make chi (and the boundary data) another
+        group = fs2d.group_as(cfg.rays2d[d] if xs is None else cfg.rays2dX[d],
+                              chi.dtype)
         thermalised = cfg.lowerThermalised if d == 1 else cfg.upperThermalised
         i0, i1 = (Nz - 1, Nz - 2) if d == 1 else (0, 1)
         with tracing.span('lw.fs2d.start'):
@@ -635,6 +638,8 @@ def formal_solve_2d(cfg: IterConfig, params, chiTot, srcNum):
                 Ibc = _x_inflow(cfg, params, d)
                 Iupw = torch.where(group['fixedNat'], Ibc[:, :, i0, None],
                                    Iupw)
+        Iupw = Iupw.to(chi.dtype)
+        Ibc = None if Ibc is None else Ibc.to(chi.dtype)
         with tracing.span('lw.fs2d.sweep'):
             sweep(chi, group, Iupw, srcNum=srcNum[d].view(shape), Ibc=Ibc,
                   interp=interp, alongRay=alongRay,

@@ -28,7 +28,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
-# name -> (ctypes library, path of its nvcc log); one load per process
+# (name, flags) -> (ctypes library, path of its nvcc log); one load per
+# process
 _LOADED = {}
 
 
@@ -46,27 +47,30 @@ def _source_bytes(path: Path, seen=None) -> bytes:
     return b'\n'.join(out)
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def load(name: str, signatures: dict, flags=()) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` (once per hash) and load it.
 
     signatures: {C function name: list of ctypes argtypes}; every function
-    returns a CUDA error code as ``c_int``.  Raises RuntimeError when
-    nvcc is missing or fails."""
-    if name in _LOADED:
-        return _LOADED[name][0]
+    returns a CUDA error code as ``c_int``.  flags: nvcc flags of this
+    library after NVCC_FLAGS.  Raises RuntimeError when nvcc is missing
+    or fails."""
+    key = (name, tuple(flags))
+    if key in _LOADED:
+        return _LOADED[key][0]
     src = CSRC / f'{name}.cu'
     nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     if not os.path.exists(nvcc):
         raise RuntimeError(f'nvcc not found: the CUDA kernel {src.name} is '
                            'built from source at first use')
+    cmd = [*NVCC_FLAGS, *flags]
     tag = hashlib.sha256(_source_bytes(src)
-                         + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + ' '.join(cmd).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f'{name}_{tag}.so'
     log = so.with_suffix('.log')
     if not so.exists():
         tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-        res = subprocess.run([nvcc, *NVCC_FLAGS, '-o', str(tmp), str(src)],
+        res = subprocess.run([nvcc, *cmd, '-o', str(tmp), str(src)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f'nvcc failed on {src}:\n'
@@ -78,20 +82,22 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
-    _LOADED[name] = (lib, log)
+    _LOADED[key] = (lib, log)
     return lib
 
 
-def library_path(name: str) -> str:
-    """The path of the loaded library ``name``."""
-    return _LOADED[name][0]._name
+def library_path(name: str, flags=()) -> str:
+    """The path of the loaded library ``name`` built with ``flags``."""
+    return _LOADED[(name, tuple(flags))][0]._name
 
 
-def build_log(name: str) -> str:
-    """nvcc's output for the loaded library ``name`` ('' if not loaded)."""
-    if name not in _LOADED:
+def build_log(name: str, flags=()) -> str:
+    """nvcc's output for the loaded library ``name`` built with ``flags``
+    ('' if not loaded)."""
+    key = (name, tuple(flags))
+    if key not in _LOADED:
         return ''
-    log = _LOADED[name][1]
+    log = _LOADED[key][1]
     return log.read_text() if log.exists() else ''
 
 

@@ -2,8 +2,10 @@
 stratified), in PyTorch.
 
 Port of lightweaver_tpu/ops/formal_solver2d.py.  The JAX package leaves
-the plane sweep to XLA (no Pallas kernel), so here it is plain torch ops
-on the tensors' device, with no kernel of its own.
+the plane sweep to XLA (no Pallas kernel); here a CUDA tensor runs it in
+the kernel csrc/sweep2d.cu (sweep2d_cuda, one launch per ray group) and a
+CPU tensor in plain torch ops (sweep_rays_2d_plain), the function the
+kernel is held to.
 
 - build_geometry_2d: the upwind, start-plane downwind and interior
   downwind intersections of one ray direction, host numpy (the same
@@ -13,19 +15,23 @@ on the tensors' device, with no kernel of its own.
   maps over x closed with I_last = b_tot / (1 - A_tot): 3 log2(Nx) ops per
   ring, not Nx.
 - sweep_rays_2d: the z-plane sweep of a GROUP of rays of one direction
-  (every mu of a (mu, toObs) set) in one Python loop over the Nz - 1
-  planes, batched over wavelength and ray.  The rays whose x step is
-  negative are swept in the x-reversed frame (flip_geometry), where every
-  ray steps with dj = +1 and its fixed x column (non-periodic mode) is
-  column 0; planes are read into that frame and written back out of it.
+  (every mu of a (mu, toObs) set), batched over wavelength and ray: the
+  kernel for a CUDA tensor, else sweep_rays_2d_plain, one Python loop
+  over the Nz - 1 planes.  The rays whose x step is negative are swept in
+  the x-reversed frame (flip_geometry), where every ray steps with
+  dj = +1 and its fixed x column (non-periodic mode) is column 0; planes
+  are read into that frame and written back out of it.
 - formal_sol_2d: the JAX package's per-ray function (one geometry), a
   group of one ray.
 
 ref: Source/FormalScalar2d.cpp:434-706 (sweep), :1188-1327 (intersections)
 """
+import ctypes
+
 import numpy as np
 import torch
 
+from . import _build
 from .formal_solver import besser_coeffs, besser_control_point, w2
 from .planck import planck_nu
 
@@ -235,6 +241,15 @@ def ray_group(geoms, periodic, device, dtype):
     return out
 
 
+def group_as(group, dtype):
+    """The ray group with its real arrays in ``dtype``; the group itself
+    where they are already (the sweep kernel takes one dtype)."""
+    if group['w'].dtype == dtype:
+        return group
+    return {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+            else v for k, v in group.items()}
+
+
 def _take_x(x, idx):
     """x [..., R, Nx] with each ray's columns taken at idx [R, n]."""
     return torch.gather(x, -1, idx.expand(*x.shape[:-1], idx.shape[-1]))
@@ -369,10 +384,18 @@ def _plane_step(planes, Iprev, Iprev2, m, group, IbcP, interp, alongRay,
     return Icur, Psi, Ieffb
 
 
+def _check_schemes(interp, alongRay, S, srcNum):
+    if interp not in INTERP_2D or alongRay not in ALONG_RAY_2D:
+        raise ValueError(f'unknown 2D scheme interp={interp!r}, '
+                         f'alongRay={alongRay!r}; available: {INTERP_2D}')
+    if (S is None) == (srcNum is None):
+        raise ValueError('give exactly one of S and srcNum')
+
+
 def sweep_rays_2d(chi, group, Iupw, S=None, srcNum=None, Ibc=None,
                   interp='linear', alongRay='linear', out=None):
     """2D formal solution of a group of rays of one direction over a
-    [Nz, Nx] grid, in one loop over the Nz - 1 planes.
+    [Nz, Nx] grid.
 
     chi: [NL, R, Nz, Nx] (natural z order, index 0 = top; natural x);
     S, or srcNum (S = srcNum / chi is formed plane by plane): the same
@@ -383,12 +406,27 @@ def sweep_rays_2d(chi, group, Iupw, S=None, srcNum=None, Ibc=None,
     'besser' (the JAX package's _sweep_2d).  Returns (I, Psi, IeffBase)
     [NL, R, Nz, Nx] in natural order, Psi divided by chi (IeffBase = I -
     Psi S from the compensated split), written into ``out`` (three tensors
-    of that shape) when given."""
-    if interp not in INTERP_2D or alongRay not in ALONG_RAY_2D:
-        raise ValueError(f'unknown 2D scheme interp={interp!r}, '
-                         f'alongRay={alongRay!r}; available: {INTERP_2D}')
-    if (S is None) == (srcNum is None):
-        raise ValueError('give exactly one of S and srcNum')
+    of that shape) when given.
+
+    On a CUDA device one launch of csrc/sweep2d.cu (sweep2d_cuda), which
+    raises on what it cannot take; on the CPU the plain loop
+    (sweep_rays_2d_plain)."""
+    args = (chi, group, Iupw)
+    kw = dict(S=S, srcNum=srcNum, Ibc=Ibc, interp=interp, alongRay=alongRay,
+              out=out)
+    if chi.device.type == 'cuda':
+        return sweep2d_cuda(*args, **kw)
+    if chi.device.type != 'cpu':
+        raise RuntimeError(f'no 2D sweep kernel for device {chi.device}')
+    return sweep_rays_2d_plain(*args, **kw)
+
+
+def sweep_rays_2d_plain(chi, group, Iupw, S=None, srcNum=None, Ibc=None,
+                        interp='linear', alongRay='linear', out=None):
+    """Plain PyTorch version of the 2D sweep kernel (sweep_rays_2d's
+    arguments and result): one Python loop over the Nz - 1 planes, each
+    plane _plane_step's torch ops, batched over wavelength and ray."""
+    _check_schemes(interp, alongRay, S, srcNum)
     NL, R, Nz, Nx = chi.shape
     sweepZ = group['sweepZ']
     if out is None:
@@ -439,6 +477,160 @@ def sweep_rays_2d(chi, group, Iupw, S=None, srcNum=None, Ibc=None,
         SP2, SP, SC = SP, SC, SN
         Iprev, Iprev2 = Icur, Iprev
     return Iout, PsiOut, IeffOut
+
+
+# rows up to NARROW_COLUMNS x 256 columns (csrc/sweep2d.cu: kMaxThreads,
+# which refuses a wider block) take the narrow kernel, NARROW_COLUMNS to a
+# thread (its fastest at the main path's Nx = 256), wider rows the wide
+# kernel, which keeps WIDE_WORK_ROWS rows of [Nx] per (lambda, ray) row in
+# a work array (csrc/sweep2d.cu: kWideFields, which it checks)
+NARROW_COLUMNS = 2
+NARROW_MAX_NX = NARROW_COLUMNS * 256
+WIDE_WORK_ROWS = 7
+# csrc/sweep2d.cu's name of each scheme (enum Scheme)
+SCHEME_NAMES_2D = {'linear': 'kLinear', 'besser': 'kBesser'}
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def wide_kernel(Nx):
+    """Whether rows of Nx columns take the wide kernel."""
+    return Nx > NARROW_MAX_NX
+
+
+def _sweep_order(Nz, Nx, sweepZ):
+    """(z0, dz): the sweep's first plane and step; ValueError where the
+    grid has no plane to sweep to or no ring."""
+    if Nz < 2 or Nx < 2:
+        raise ValueError(f'the 2D sweep kernel takes Nz >= 2 and Nx >= 2, '
+                         f'got Nz={Nz}, Nx={Nx}')
+    if list(sweepZ) == list(range(Nz)):
+        return 0, 1
+    if list(sweepZ) == list(range(Nz - 1, -1, -1)):
+        return Nz - 1, -1
+    raise ValueError(f'sweepZ must run over the {Nz} planes in order, '
+                     f'either way, got {sweepZ}')
+
+
+def sweep2d_cuda(chi, group, Iupw, S=None, srcNum=None, Ibc=None,
+                 interp='linear', alongRay='linear', out=None):
+    """Launch csrc/sweep2d.cu on sweep_rays_2d's arguments: one launch for
+    the group, on the current stream, with nothing read back to the host,
+    through the operator torch.ops.lightweaver.sweep2d (so that the
+    profiler links the kernel to an operation).  Counts its launches in
+    ``sweep2d_cuda.launches`` (float64) and ``sweep2d_cuda.launches_f32``.
+    Raises TypeError on a dtype the kernel is not instantiated for and
+    ValueError on a shape, a tensor that is not contiguous or not on chi's
+    CUDA device, or a grid the kernel refuses."""
+    _check_schemes(interp, alongRay, S, srcNum)
+    if chi.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f'the 2D sweep kernel is instantiated for float64 '
+                        f'and float32, got {chi.dtype}')
+    if chi.dim() != 4:
+        raise ValueError(f'chi must be [NL, R, Nz, Nx], got '
+                         f'{tuple(chi.shape)}')
+    NL, R, Nz, Nx = chi.shape
+    z0, dz = _sweep_order(Nz, Nx, group['sweepZ'])
+    src = S if S is not None else srcNum
+    if out is None:
+        out = tuple(torch.empty_like(chi) for _ in range(3))
+    rows = (Nz - 1, R, Nx)
+    real, flag = chi.dtype, torch.bool
+    # name: (tensor or None, shape, dtype), in lw_sweep2d's order
+    tensors = {'chi': (chi, chi.shape, real),
+               'S' if S is not None else 'srcNum': (src, chi.shape, real),
+               'Iupw': (Iupw, (NL, R, Nx), real),
+               'Ibc': (Ibc, (NL, R, Nz), real),
+               'axisZ': (group['axisZ'], rows, flag),
+               'w': (group['w'], rows, real), 'ds': (group['ds'], rows, real),
+               'dwAxisZ': (group['dwAxisZ'], rows, flag),
+               'dwW': (group['dwW'], rows, real),
+               'dwDs': (group['dwDs'], rows, real),
+               'dwZero': (group['dwZero'], rows, flag),
+               'fixed': (group['fixed'], (R, Nx), flag),
+               'flip': (group['flip'], (R,), flag),
+               'out[0]': (out[0], chi.shape, real),
+               'out[1]': (out[1], chi.shape, real),
+               'out[2]': (out[2], chi.shape, real)}
+    for name, (x, shape, dtype) in tensors.items():
+        if x is None:
+            continue
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f'{name} must be {tuple(shape)}, got '
+                             f'{tuple(x.shape)}')
+        if x.dtype != dtype:
+            raise TypeError(f'{name} is {x.dtype}, the kernel takes {dtype} '
+                            f'beside chi {chi.dtype}')
+        if not x.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+        if x.device != chi.device:
+            raise ValueError(f'{name} is on {x.device}, chi on {chi.device}')
+    if not chi.is_cuda:
+        raise ValueError(f'sweep2d_cuda takes CUDA tensors, got {chi.device}')
+    work = (torch.empty((NL, R, WIDE_WORK_ROWS, Nx), dtype=real,
+                        device=chi.device) if wide_kernel(Nx) else None)
+    ins = [x for x, _, _ in tensors.values()][:13]
+    torch.ops.lightweaver.sweep2d(ins, list(out), work, z0, dz, S is None,
+                                  interp, alongRay)
+    attr = 'launches_f32' if chi.dtype == torch.float32 else 'launches'
+    setattr(sweep2d_cuda, attr, getattr(sweep2d_cuda, attr) + 1)
+    return out
+
+
+sweep2d_cuda.launches = 0
+sweep2d_cuda.launches_f32 = 0
+
+
+def _sweep2d_launch(ins, outs, work, z0, dz, srcIsNum, interp, alongRay):
+    """The launch of lw_sweep2d on sweep2d_cuda's checked tensors (ins in
+    its order up to flip; outs I, Psi, IeffBase), the CUDA kernel of the
+    operator lightweaver::sweep2d."""
+    chi = ins[0]
+    NL, R, Nz, Nx = chi.shape
+    lib = load_library(chi.dtype, interp, alongRay, Nx)
+    ptrs = [None if x is None else x.data_ptr() for x in [*ins, *outs]]
+    err = lib.lw_sweep2d(*ptrs, None if work is None else work.data_ptr(),
+                         0 if work is None else work.numel(), NL, R, Nz, Nx,
+                         z0, dz, int(srcIsNum), _build.cuda_stream(chi))
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f'the 2D sweep kernel refused the grid NL={NL}, '
+                         f'R={R}, Nz={Nz}, Nx={Nx} (csrc/sweep2d.cu: '
+                         'launch)')
+    _build.check_launch(err, '2D sweep')
+
+
+# the operator, registered through torch.library.Library: custom_op's
+# first call imports torch._dynamo, seconds of a run's set-up
+_OPS = torch.library.Library('lightweaver', 'DEF')
+_OPS.define('sweep2d(Tensor?[] ins, Tensor(a!)[] outs, Tensor(b!)? work, '
+            'int z0, int dz, bool srcIsNum, str interp, str alongRay) -> ()')
+_OPS.impl('sweep2d', _sweep2d_launch, 'CUDA')
+
+
+# no multiply-add contraction: the kernel rounds each operation as the
+# plain version's separate torch ops do (csrc/sweep2d.cu)
+NVCC_FLAGS_2D = ('-fmad=false',)
+
+
+def instance_flags(dtype, interp, alongRay, Nx):
+    """The nvcc flags that build the instance of csrc/sweep2d.cu for the
+    working dtype, the two schemes and rows of Nx columns (the narrow
+    kernel or the wide one): one kernel a library, so that a scheme's
+    first use builds one kernel."""
+    real = 'float' if dtype == torch.float32 else 'double'
+    cols = 0 if wide_kernel(Nx) else NARROW_COLUMNS
+    return NVCC_FLAGS_2D + (f'-DLW_SWEEP2D_REAL={real}',
+                            f'-DLW_SWEEP2D_INTERP={SCHEME_NAMES_2D[interp]}',
+                            f'-DLW_SWEEP2D_ALONG={SCHEME_NAMES_2D[alongRay]}',
+                            f'-DLW_SWEEP2D_COLS={cols}')
+
+
+def load_library(dtype, interp, alongRay, Nx):
+    """Build csrc/sweep2d.cu's instance (instance_flags) with nvcc, once
+    per source hash and flags, and load it."""
+    sig = ([_build.PTR] * 17 + [ctypes.c_longlong] + [_build.INT] * 7
+           + [_build.PTR])
+    return _build.load('sweep2d', {'lw_sweep2d': sig},
+                       flags=instance_flags(dtype, interp, alongRay, Nx))
 
 
 def formal_sol_2d(chi, S, geom, Iupw, interp='linear', periodic=True,

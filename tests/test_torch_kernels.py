@@ -1,6 +1,6 @@
 """The kernel wrappers of lightweaver_tpu_torch and their CUDA kernels:
-the depth sweep, the line Gamma kernel, the fused lambda step and the two
-toolchain probes.
+the depth sweep, the line Gamma kernel, the fused lambda step, the 2D
+plane sweep and the two toolchain probes.
 
 No jax here, so the file also runs where only torch is installed; on a
 machine with an NVIDIA GPU each kernel is compared with its plain version:
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightweaver_tpu_torch.ops import formal_solver2d as tfs2d
 from lightweaver_tpu_torch.ops import fused as tfused
 from lightweaver_tpu_torch.ops import gamma as tgamma
 from lightweaver_tpu_torch.ops import probe as tprobe
@@ -1272,3 +1273,288 @@ def test_depth_data_on_cuda_matches_cpu(scheme):
         + dd.chi.numpy() * dd.I.numpy(), np.asarray(cpu.atmos.wmu))
     err = np.abs(loss - ref).max(axis=1) / np.abs(chiSI).max(axis=1)
     assert err.max() < 1e-9
+
+
+# ---- the 2D plane sweep (ops/formal_solver2d.py, csrc/sweep2d.cu) --------
+SCHEMES_2D = [(i, a) for i in tfs2d.INTERP_2D for a in tfs2d.ALONG_RAY_2D]
+
+
+def _sweep2d_case(Nx, Nz=12, toObs=True, NL=3, device='cpu',
+                  dtype=torch.float64, seed=0):
+    """sweep_rays_2d's arguments for one direction of six rays: mux of
+    both signs (so flip set and not), a vertical ray, periodic rays and
+    rays with a fixed x column fed by Ibc in one group; chi over three
+    decades and S over four, random per point, on a non-uniform x grid."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 4e5, Nx))
+    x[0], x[-1] = 0.0, 4e5    # distinct ends: Nx = 2 has a spacing too
+    z = np.sort(rng.uniform(0.0, 2e6, Nz))[::-1].copy()
+    muxs = [0.7, -0.7, 0.3, -0.05, 0.0, 0.9]
+    muzs = [0.5, 0.5, 0.9, 0.95, 1.0, 0.3]
+    periodic = [True, False, False, True, True, False]
+    sgn = 1.0 if toObs else -1.0
+    geoms = [tfs2d.build_geometry_2d(x, z, sgn * m, sgn * u, toObs,
+                                     periodic=p)
+             for m, u, p in zip(muxs, muzs, periodic)]
+    group = tfs2d.ray_group(geoms, periodic, device, dtype)
+    R = len(muxs)
+
+    def t_(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+    return {'chi': t_(10 ** rng.uniform(-8, -5, (NL, R, Nz, Nx))),
+            'S': t_(10 ** rng.uniform(-2, 2, (NL, R, Nz, Nx))),
+            'Iupw': t_(rng.uniform(0, 1, (NL, R, Nx))),
+            'Ibc': t_(rng.uniform(0, 1, (NL, R, Nz))), 'group': group}
+
+
+def _sweep2d_args(c, srcNum):
+    """(args, kwargs) of sweep_rays_2d for a case, with S or srcNum."""
+    kw = {'Ibc': c['Ibc']}
+    if srcNum:
+        kw['srcNum'] = c['S'] * c['chi']
+    else:
+        kw['S'] = c['S']
+    return (c['chi'], c['group'], c['Iupw']), kw
+
+
+@pytest.mark.parametrize('interp,alongRay', SCHEMES_2D)
+def test_sweep_2d_cpu_takes_the_plain_loop(interp, alongRay):
+    """A CPU tensor takes the plain loop, bit for bit, with S and with
+    srcNum, and launches nothing."""
+    c = _sweep2d_case(9, Nz=6, seed=2)
+    before = (tfs2d.sweep2d_cuda.launches, tfs2d.sweep2d_cuda.launches_f32)
+    for srcNum in (False, True):
+        args, kw = _sweep2d_args(c, srcNum)
+        out = tfs2d.sweep_rays_2d(*args, interp=interp, alongRay=alongRay,
+                                  **kw)
+        ref = tfs2d.sweep_rays_2d_plain(*args, interp=interp,
+                                        alongRay=alongRay, **kw)
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r)
+    assert (tfs2d.sweep2d_cuda.launches,
+            tfs2d.sweep2d_cuda.launches_f32) == before
+
+
+def test_sweep_2d_dispatch_never_falls_back():
+    """Only a CPU tensor takes the plain loop: another device raises, and
+    the CUDA route refuses tensors that are not on a card rather than
+    computing on the CPU."""
+    c = _sweep2d_case(8, Nz=5)
+    args, kw = _sweep2d_args(c, False)
+    meta = {k: v.to('meta') for k, v in c.items() if torch.is_tensor(v)}
+    with pytest.raises(RuntimeError, match='no 2D sweep kernel'):
+        tfs2d.sweep_rays_2d(meta['chi'], c['group'], meta['Iupw'],
+                            S=meta['S'])
+    before = (tfs2d.sweep2d_cuda.launches, tfs2d.sweep2d_cuda.launches_f32)
+    with pytest.raises(ValueError, match='CUDA'):
+        tfs2d.sweep2d_cuda(*args, **kw)
+    c32 = _sweep2d_case(8, Nz=5, dtype=torch.float32)
+    args32, kw32 = _sweep2d_args(c32, True)
+    with pytest.raises(ValueError, match='CUDA'):
+        tfs2d.sweep2d_cuda(*args32, interp='besser', **kw32)
+    assert (tfs2d.sweep2d_cuda.launches,
+            tfs2d.sweep2d_cuda.launches_f32) == before
+
+
+def test_sweep_2d_kernel_checks_inputs():
+    """The kernel's wrapper raises on a dtype it has no instance for, on
+    mixed dtypes, a wrong shape, a tensor that is not contiguous and a
+    grid with one plane or one column, before anything is launched; the
+    narrow kernel up to NARROW_MAX_NX columns, the wide one past it."""
+    c = _sweep2d_case(8, Nz=5)
+    (chi, group, Iupw), kw = _sweep2d_args(c, False)
+    S = kw['S']
+    before = (tfs2d.sweep2d_cuda.launches, tfs2d.sweep2d_cuda.launches_f32)
+    with pytest.raises(TypeError, match='float64 and float32'):
+        tfs2d.sweep2d_cuda(chi.half(), group, Iupw.half(), S=S.half())
+    with pytest.raises(TypeError, match='S is torch.float32'):
+        tfs2d.sweep2d_cuda(chi, group, Iupw, S=S.float())
+    with pytest.raises(ValueError, match='Iupw must be'):
+        tfs2d.sweep2d_cuda(chi, group, Iupw[:, :, :-1], S=S)
+    with pytest.raises(ValueError, match='Ibc must be'):
+        tfs2d.sweep2d_cuda(chi, group, Iupw, S=S, Ibc=c['Ibc'][:, :1])
+    with pytest.raises(ValueError, match='chi must be'):
+        tfs2d.sweep2d_cuda(chi[0], group, Iupw, S=S)
+    strided = chi.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert strided.shape == chi.shape
+    with pytest.raises(ValueError, match='chi must be contiguous'):
+        tfs2d.sweep2d_cuda(strided, group, Iupw, S=S)
+    out = tuple(torch.empty_like(chi) for _ in range(2)) + (strided,)
+    with pytest.raises(ValueError, match=r'out\[2\] must be contiguous'):
+        tfs2d.sweep2d_cuda(chi, group, Iupw, S=S, out=out)
+    with pytest.raises(ValueError, match='exactly one'):
+        tfs2d.sweep2d_cuda(chi, group, Iupw, S=S, srcNum=S)
+    with pytest.raises(ValueError, match='unknown 2D scheme'):
+        tfs2d.sweep2d_cuda(chi, group, Iupw, S=S, interp='cubic')
+    with pytest.raises(ValueError, match='sweepZ'):
+        tfs2d.sweep2d_cuda(chi, {**group, 'sweepZ': [0, 2, 1, 3, 4]}, Iupw,
+                           S=S)
+    for Nz, Nx in ((1, 8), (5, 1)):
+        with pytest.raises(ValueError, match='Nz >= 2 and Nx >= 2'):
+            tfs2d._sweep_order(Nz, Nx, list(range(Nz)))
+    assert (tfs2d.sweep2d_cuda.launches,
+            tfs2d.sweep2d_cuda.launches_f32) == before
+    assert [tfs2d.wide_kernel(n) for n in (2, 37, 256, 512, 513, 1500,
+                                           4096)] == [False] * 4 + [True] * 3
+    flags = tfs2d.instance_flags(torch.float32, 'besser', 'linear', 4096)
+    assert flags[1:] == ('-DLW_SWEEP2D_REAL=float',
+                         '-DLW_SWEEP2D_INTERP=kBesser',
+                         '-DLW_SWEEP2D_ALONG=kLinear', '-DLW_SWEEP2D_COLS=0')
+    assert tfs2d.instance_flags(torch.float64, 'linear', 'besser', 256)[-1] \
+        == f'-DLW_SWEEP2D_COLS={tfs2d.NARROW_COLUMNS}'
+
+
+def _rel_max(a, b):
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max()).item()
+
+
+# the narrow kernel's widths, then the wide kernel's (a last tile in part,
+# whole tiles)
+SWEEP2D_NX = [2, 37, 256, 1500, 4096]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('toObs', [True, False], ids=['up', 'down'])
+@pytest.mark.parametrize('Nx', SWEEP2D_NX)
+def test_sweep_2d_kernel_matches_plain(Nx, toObs):
+    """csrc/sweep2d.cu against the plain loop on the card (the narrow
+    kernel to Nx = 512, the wide one past it), for the four
+    (interp, alongRay) pairs, with S and with srcNum, on a group of
+    periodic, fixed-column and flipped rays (_sweep2d_case): float64 to
+    1e-12 of each output's maximum (the kernel rounds each operation as
+    the torch ops do; only the ring scan associates otherwise), float32
+    by the rule of _f32_rule against the float64 plain loop; each call
+    one launch of its precision's instance."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    NL = 2 if Nx > 2048 else 4 if Nx > 256 else 16
+    c = _sweep2d_case(Nx, Nz=12, toObs=toObs, NL=NL, device='cuda',
+                      seed=Nx)
+    c32 = _sweep2d_case(Nx, Nz=12, toObs=toObs, NL=NL, device='cuda',
+                        dtype=torch.float32, seed=Nx)
+    c64 = _f32_args(c32)[1]
+    c64['group'] = _f32_args(c32['group'])[1]
+    for interp, alongRay in SCHEMES_2D:
+        for srcNum in (False, True):
+            kw = {'interp': interp, 'alongRay': alongRay}
+            args, akw = _sweep2d_args(c, srcNum)
+            plain = tfs2d.sweep_rays_2d_plain(*args, **akw, **kw)
+            before = (tfs2d.sweep2d_cuda.launches,
+                      tfs2d.sweep2d_cuda.launches_f32)
+            kern = tfs2d.sweep_rays_2d(*args, **akw, **kw)
+            torch.cuda.synchronize()
+            assert (tfs2d.sweep2d_cuda.launches,
+                    tfs2d.sweep2d_cuda.launches_f32) == (before[0] + 1,
+                                                         before[1])
+            for name, a, b in zip(('I', 'Psi', 'IeffBase'), kern, plain):
+                assert torch.isfinite(a).all(), name
+                err = _rel_max(a, b)
+                assert err < 1e-12, (interp, alongRay, srcNum, name, err)
+            args32, akw32 = _sweep2d_args(c32, srcNum)
+            args64, akw64 = _sweep2d_args(c64, srcNum)
+            kern32 = tfs2d.sweep_rays_2d(*args32, **akw32, **kw)
+            torch.cuda.synchronize()
+            assert tfs2d.sweep2d_cuda.launches_f32 == before[1] + 1
+            _f32_rule(kern32,
+                      tfs2d.sweep_rays_2d_plain(*args32, **akw32, **kw),
+                      tfs2d.sweep_rays_2d_plain(*args64, **akw64, **kw))
+
+
+@pytest.mark.gpu
+def test_sweep_2d_kernel_synchronises_nothing():
+    """After a warm-up call, a call of sweep_rays_2d on the card under
+    torch.cuda.set_sync_debug_mode('error') (an operation that waits for
+    the card raises there), into given outputs as formal_solve_2d calls
+    it; its result equals the warm-up's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    c = _sweep2d_case(256, Nz=20, NL=8, device='cuda', seed=9)
+    args, kw = _sweep2d_args(c, True)
+    kw.update(interp='linear', alongRay='besser')
+    ref = tfs2d.sweep_rays_2d(*args, **kw)
+    torch.cuda.synchronize()
+    out = tuple(torch.empty_like(c['chi']) for _ in range(3))
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = tfs2d.sweep_rays_2d(*args, out=out, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(g is o for g, o in zip(got, out))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+def test_sweep_2d_kernel_is_linked_to_its_operation():
+    """Under torch.profiler the kernel's device time belongs to the
+    operation lightweaver::sweep2d that launched it, so that a reader
+    summing the device time of the operations inside a range counts it."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    c = _sweep2d_case(256, Nz=8, NL=4, device='cuda', seed=4)
+    args, kw = _sweep2d_args(c, False)
+    tfs2d.sweep_rays_2d(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tfs2d.sweep_rays_2d(*args, **kw)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CPU
+           and e.name == 'lightweaver::sweep2d']
+    assert len(ops) == 1
+    assert [k for k in ops[0].kernels if 'sweep2d_kernel' in k.name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('periodic', [True, False],
+                         ids=['periodic', 'callable'])
+def test_2d_context_on_cuda_goes_through_the_sweep_kernel(periodic,
+                                                          monkeypatch):
+    """Two MALI steps with stat_equil of a small 2D Context on the card
+    (problems.slab_2d(20, 8), BESSER along the ray, periodic x or callable
+    x boundaries): each step launches the 2D sweep kernel once per
+    direction and no 1D sweep.  Against the same Context on the card with
+    the plain loop (the kernel differs from it at rounding level): J of
+    each step within 1e-10 of each wavelength's maximum, the populations
+    within 1e-9.  Against the CPU: the first step's J within 1e-9 (the
+    card's exp, carried along the planes and through the ring closure).
+    Then a float32 Context's step launches the float32 instance twice."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from lightweaver_tpu_torch.problems import slab_2d
+
+    def run(device, dtype=None, steps=2):
+        ctx = slab_2d(20, 8, periodic=periodic, device=device, dtype=dtype,
+                      formalSolver='piecewise_besser_2d')
+        Js = []
+        for _ in range(steps):
+            ctx.formal_sol_gamma_matrices()
+            Js.append(ctx.J.cpu().clone())
+            ctx.stat_equil()
+        return ctx, Js
+    before = (tfs2d.sweep2d_cuda.launches, tfs2d.sweep2d_cuda.launches_f32,
+              tsweep.sweep_cuda.launches)
+    gpu, Jk = run('cuda')
+    torch.cuda.synchronize()
+    after = (before[0] + 4, before[1], before[2])
+    assert (tfs2d.sweep2d_cuda.launches, tfs2d.sweep2d_cuda.launches_f32,
+            tsweep.sweep_cuda.launches) == after
+    with monkeypatch.context() as m:
+        m.setattr(tfs2d, 'sweep_rays_2d', tfs2d.sweep_rays_2d_plain)
+        plain, Jp = run('cuda')
+    assert (tfs2d.sweep2d_cuda.launches, tfs2d.sweep2d_cuda.launches_f32,
+            tsweep.sweep_cuda.launches) == after
+    for a, b in zip(Jk, Jp):
+        assert _row_err(a, b) < 1e-10
+    for g, c in zip(gpu.popsState, plain.popsState):
+        assert _floor_rel(g['n'].cpu(), c['n'].cpu()) < 1e-9
+    _, Jc = run('cpu', steps=1)
+    assert _row_err(Jk[0], Jc[0]) < 1e-9
+    f32, _ = run('cuda', torch.float32, steps=1)
+    torch.cuda.synchronize()
+    assert tfs2d.sweep2d_cuda.launches_f32 == before[1] + 2
+    assert torch.isfinite(f32.J).all()
