@@ -1,33 +1,35 @@
 """The comparison that decides ``correct``.
 
-The reference (lwbench/reference: ``mali``, the MALI step written from
-the published method, on ``problem``'s inputs) runs in float64 on the
-run's device, once the window has closed and the program's state is
-freed.  It works out the inputs of each compared unit (a column of the
-batch drawn from the seed, or the whole slab) from the seed's atmosphere
-itself, and follows the program twice per unit:
+The reference (lwbench/reference, plain float64 torch written from the
+published method) runs on the run's device once the window has closed
+and the program's state is freed.  Per compared unit (the kind's
+``check_units``: a column of the batch drawn from the seed, or the whole
+slab) the kind's ``reference`` works out the unit's inputs from the
+seed's inputs itself, and the check follows the program twice:
 
-- first: from its own LTE start, the set-up's steps (Nscatter formal
-  solutions and one MALI step), against the program's state after its
-  warm-up, which ran through the same calls at the same sizes;
-- last: from the state the program's last MALI step started from (J and
-  the populations, kept before each step), that one step, against the
+- first: from the reference's own start, the set-up's steps (Nscatter
+  formal solutions and one MALI step), against the program's state after
+  its warm-up, which ran through the same calls at the same sizes;
+- last: from the state the program's last MALI step started from (the
+  state its system kept before each step: J and the populations, and
+  whatever else the kind's step starts from), that one step, against the
   program's state after it.
 
-Three numbers, each the worst over both and over the units:
+Each of the kind's ``NUMBERS`` (a name: the state's array or list of
+arrays of that name, with the function comparing one array with the
+reference's) is the worst over both and over the units.  The MALI
+step's three (MALI_NUMBERS):
 
 - J: per wavelength, the largest |J - J_ref| over the points over the
   largest |J_ref| (J spans decades across the grid);
 - pops: the largest |n - n_ref| / n_ref over levels and points;
 - Gamma: per point, the largest |Gamma - Gamma_ref| over the largest
   |Gamma_ref| of the point's matrix.
+
+The cell's ``limits`` name the numbers it holds: a number without a
+limit, or a limit without a number, is no correct run.
 """
 import numpy as np
-import torch
-
-from ..reference import mali, problem
-
-NAMES = ('J', 'pops', 'Gamma')
 
 
 def rel_rows(x, ref):
@@ -47,66 +49,57 @@ def rel_matrices(x, ref):
                   / np.where(scale > 0, scale, 1.0)).max())
 
 
-def compare(state: dict, ref: dict) -> dict:
-    """The three numbers of one program state against the reference's;
-    a shape that differs reads inf."""
-    def worst(fn, xs, rs):
-        if len(xs) != len(rs) or any(x.shape != r.shape
-                                     for x, r in zip(xs, rs)):
-            return float('inf')
-        return max(fn(x, r) for x, r in zip(xs, rs))
-    return {'J': worst(rel_rows, [state['J']], [ref['J']]),
-            'pops': worst(rel_elems, state['pops'], ref['pops']),
-            'Gamma': worst(rel_matrices, state['Gamma'], ref['Gamma'])}
+MALI_NUMBERS = {'J': rel_rows, 'pops': rel_elems, 'Gamma': rel_matrices}
 
 
-def _numpy(J, pops, Gammas) -> dict:
-    return {'J': J.cpu().numpy(), 'pops': [n.cpu().numpy() for n in pops],
-            'Gamma': [G.cpu().numpy() for G in Gammas]}
+def compare(numbers: dict, state: dict, ref: dict) -> dict:
+    """Each number of one program state against the reference's, the
+    worst over a list's arrays; a state or shape that differs reads inf."""
+    out = {}
+    for name, fn in numbers.items():
+        xs, rs = state.get(name), ref.get(name)
+        if not isinstance(xs, list):
+            xs, rs = [xs], [rs]
+        if (not isinstance(rs, list) or len(xs) != len(rs)
+                or any(x is None or r is None or x.shape != r.shape
+                       for x, r in zip(xs, rs))):
+            out[name] = float('inf')
+        else:
+            out[name] = max(fn(x, r) for x, r in zip(xs, rs))
+    return out
 
 
-def _mali_step(p, J, pops):
-    """One MALI step of the reference: (J, all atoms' populations, the
-    rate matrices the step formed)."""
-    J, Gammas = mali.formal_sol_gamma(p, J, pops)
-    return J, mali.stat_equil(p, Gammas, pops), Gammas
-
-
-def reference_numbers(config: dict, traffic: dict, inputs: dict, checkCols,
-                      first, last, device) -> dict:
-    """The worst of each number over the units; ``first`` the program's
-    states after its warm-up, ``last`` its (before, after) states of the
-    last step, one per unit."""
-    out = dict.fromkeys(NAMES, 0.0)
+def reference_numbers(kind, config: dict, traffic: dict, inputs: dict,
+                      units, first, last, device) -> dict:
+    """The worst of each of the kind's numbers over the compared units;
+    ``first`` the program's states after its warm-up, ``last`` its
+    (before, after) states of the last step, one per unit."""
+    out = dict.fromkeys(kind.NUMBERS, 0.0)
     for u, (firstState, (before, after)) in enumerate(zip(first, last)):
-        p = problem.unit_problem(config, inputs, u, checkCols, device)
-        active = [a.active for a in p.atoms]
-
-        def act(pops):
-            return [n for n, on in zip(pops, active) if on]
-        pops = [a.n0 for a in p.atoms]
-        J = torch.zeros((p.Nlam, p.Nk), dtype=torch.float64,
-                        device=p.wavelength.device)
+        ref = kind.reference(config, inputs, u, units, device)
+        state = ref.start()
         for _ in range(traffic['nscatter']):
-            J, _ = mali.formal_sol_gamma(p, J, pops)
-        J, pops, Gammas = _mali_step(p, J, pops)
-        got = [compare(firstState, _numpy(J, act(pops), Gammas))]
-        given = iter(before['pops'])
-        pops = [torch.as_tensor(next(given), dtype=torch.float64,
-                                device=J.device) if on else a.n0
-                for a, on in zip(p.atoms, active)]
-        J, pops, Gammas = _mali_step(
-            p, torch.as_tensor(before['J'], dtype=torch.float64,
-                               device=J.device), pops)
-        got.append(compare(after, _numpy(J, act(pops), Gammas)))
+            state = ref.scatter(state)
+        got = [compare(kind.NUMBERS, firstState,
+                       ref.compared(ref.step(state)))]
+        got.append(compare(kind.NUMBERS, after,
+                           ref.compared(ref.step(ref.resume(before)))))
         for g in got:
-            for k in NAMES:
+            for k in kind.NUMBERS:
                 out[k] = max(out[k], g[k]) if np.isfinite(g[k]) else g[k]
-        del p
+        del ref, state
     return out
 
 
 def verdict(numbers: dict, limits: dict) -> bool:
-    """Every number finite and within its limit."""
-    return all(np.isfinite(numbers[k]) and numbers[k] <= limits[k]
-               for k in NAMES)
+    """The numbers are those the limits name, each finite and within its
+    limit."""
+    return set(numbers) == set(limits) and all(
+        np.isfinite(numbers[k]) and numbers[k] <= limits[k] for k in numbers)
+
+
+def readout(numbers: dict, limits: dict) -> dict:
+    """Each number beside its limit, the numbers first; None where one has
+    none."""
+    return {k: {'value': numbers.get(k), 'limit': limits.get(k)}
+            for k in [*numbers, *(k for k in limits if k not in numbers)]}

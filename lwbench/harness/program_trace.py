@@ -13,9 +13,12 @@ device trace's idle time split over the spans that it overlaps.
   innermost ``lw.*`` range covering each part of it, a part under none
   going to ``OUTSIDE``;
 - ``readings``: the per-layer numbers these give, and ``table`` the span
-  table, one row per path, all per step.
+  table, one row per path, all per step;
+- ``measure``: both kinds of steps and what they give, as a traced run
+  keeps them in its Record (harness/record.py: ``program``).
 
-``lwbench/span_table.py`` runs them on a cell.
+A traced run (harness/runner.py) measures them after its profiled steps;
+``lwbench/span_table.py`` runs them on a cell with the tracer's cost.
 """
 import time
 from collections import defaultdict
@@ -174,6 +177,17 @@ def table(tracer: dict, ov: dict, profSteps: int) -> list:
             'launches': d['launches'] / profSteps if d else None,
             'idle_ms': d['idle_s'] / profSteps * 1e3 if d else None})
     return rows
+
+
+def measure(step, steps: int, cuda: bool, sync) -> dict:
+    """``steps`` tracer steps, then ``steps`` profiled steps; returns the
+    span table, the readings, the steps and the seconds both took."""
+    t0 = time.perf_counter()
+    tracer = tracer_steps(step, steps, sync)
+    ov, _ = overlap(profiled_steps(step, steps, cuda, sync), cuda)
+    return {'table': table(tracer, ov, steps),
+            'readings': readings(tracer, ov, steps), 'steps': steps,
+            'seconds': time.perf_counter() - t0}
 
 
 def format_table(rows: list) -> str:

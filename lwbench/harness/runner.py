@@ -1,5 +1,8 @@
 """One run of one cell: set-up, the measured window, the traced steps,
-the check against the reference, and the result line.
+the check against the reference, and the result line.  What differs by
+the configuration's kind (the inputs, the system, the compared units,
+the shapes, the harness spans it opens, the reference and its numbers)
+comes from its module lwbench/kinds/<kind>.py (manifest.kind_path).
 
 Set-up (``setup_s``, from process start): the inputs from the seed, the
 program's system built on the device, and the warm-up with the cell's
@@ -7,7 +10,10 @@ own shapes only: the Nscatter formal solutions and one MALI step (the
 first run of a checkout also builds the kernels then).  The window then
 runs MALI steps until ``seconds`` have passed; where every column (or
 the slab) has converged, the system goes back to its LTE start, without
-repeating the set-up, and its Nscatter steps count in the window.
+repeating the set-up, and its Nscatter steps count in the window.  A
+traced run then profiles ``trace_steps`` steps with the harness's spans
+(harness/trace.py), and after them runs as many steps twice more with the
+program's own tracer on (harness/program_trace.py:measure), untimed.
 """
 import gc
 import subprocess
@@ -15,14 +21,12 @@ import sys
 import time
 from contextlib import nullcontext
 
-import numpy as np
 import torch
 
-from . import check, inputs as inputsMod, manifest, trace as traceMod
+from . import check, manifest, program_trace, trace as traceMod
 from .record import Record
 from .spans import Spans, stages_wrapped
-from ..reference.problem import wavelength_count
-from .systems import DTYPES, SYSTEMS
+from .systems import DTYPES
 
 JAX_NAMES = ('jax', 'jaxlib', 'flax', 'lightweaver_tpu')
 
@@ -37,27 +41,6 @@ def jax_modules() -> list:
     lightweaver_tpu_torch is not lightweaver_tpu)."""
     return sorted(m for m in list(sys.modules)
                   if m.split('.', 1)[0] in JAX_NAMES)
-
-
-def check_columns(config: dict, settings: dict, seed: int) -> list:
-    """The batch's columns the check compares, drawn from the seed."""
-    if config['kind'] != 'column_batch':
-        return []
-    rng = np.random.default_rng([seed, 1])
-    return sorted(int(c) for c in rng.choice(
-        config['columns'], settings['check_columns'], replace=False))
-
-
-def shapes(config: dict) -> dict:
-    """Nlam, Nmu (rays per direction) and Nk from the configuration, the
-    wavelength grid by the reference's own model layer."""
-    Nlam = wavelength_count(config)
-    depths = len(np.unique(np.linspace(0, 81, config['depths']).astype(int)))
-    if config['kind'] == 'column_batch':
-        return {'Nlam': Nlam, 'Nmu': config['rays'],
-                'Nk': config['columns'] * depths}
-    return {'Nlam': Nlam, 'Nmu': 2 * config['quadrature'],
-            'Nk': config['x_columns'] * depths}
 
 
 def card() -> dict:
@@ -84,17 +67,18 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     t0 = time.perf_counter() if t0 is None else t0
     cell = manifest.load_cell(name, root)
     config, traffic, settings = cell.config, cell.traffic, cell.settings
+    kind = cell.kind
     dtypeName = dtype or config['precision']
     dev = torch.device(device)
     cuda = dev.type == 'cuda'
     about = card() if cuda else {'platform': 'cpu', 'kind': 'cpu',
                                  'count': 1}
 
-    inputs = inputsMod.make(config, seed)
-    cols = check_columns(config, settings, seed)
+    inputs = kind.make_inputs(config, seed)
+    units = kind.check_units(config, settings, seed)
     spans = Spans(dev)
-    system = SYSTEMS[config['kind']](config, traffic, inputs, dev,
-                                     DTYPES[dtypeName], cols)
+    system = kind.System(config, traffic, inputs, dev, DTYPES[dtypeName],
+                         units)
     log(t0, f'{name}: seed {seed}, {dtypeName}, system built')
     if fault is not None:
         fault(system)
@@ -125,14 +109,20 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
         window = time.perf_counter() - tw
         spans.mode = 'off'
         windowPeak = torch.cuda.max_memory_allocated(dev) if cuda else None
-        prof = None
+        prof = program = None
         if traced:
             def step():
                 nonlocal kept
                 kept = system.keep()
                 system.mali_step(spans)
-            prof = traceMod.profile_steps(step, settings['trace_steps'],
-                                          spans)
+            prof = traceMod.profile_steps(
+                step, settings['trace_steps'], spans,
+                traceMod.SPAN_NAMES + tuple(kind.SPANS))
+            program = program_trace.measure(step, settings['trace_steps'],
+                                            cuda, spans.sync)
+            log(t0, f"program's spans: {2 * program['steps']} steps in "
+                f"{program['seconds']:.3f} s, per step:\n"
+                + program_trace.format_table(program['table']))
     last = system.units(kept)
     log(t0, f'window over: {steps} MALI steps in {window:.3f} s')
     if cuda:
@@ -141,7 +131,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     rec = Record(kind=config['kind'], dtype=dtypeName, setup_s=setup,
                  window_s=window, steps=steps, column_iterations=colIters,
                  spans=dict(spans.seconds), trace=prof,
-                 window_peak_bytes=windowPeak, **shapes(config))
+                 window_peak_bytes=windowPeak, program=program,
+                 **kind.shapes(config))
     metrics = {}
     for m in cell.metrics(perLayer=traced):
         value = manifest.load_reader(m['name'], root)(rec)
@@ -152,8 +143,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    numbers = check.reference_numbers(config, traffic, inputs, cols, first,
-                                      last, dev)
+    numbers = check.reference_numbers(kind, config, traffic, inputs, units,
+                                      first, last, dev)
     log(t0, 'reference over')
     limits = settings['limits']
     about['memory_peak_bytes'] = int(peak)
@@ -164,6 +155,5 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
            'failed': 0, 'metrics': metrics, 'device': about}
     if prof is not None:
         out['breakdown'] = traceMod.breakdown(prof)
-    out['check'] = {k: {'value': numbers[k], 'limit': limits[k]}
-                    for k in check.NAMES}
+    out['check'] = check.readout(numbers, limits)
     return out

@@ -1,6 +1,8 @@
 """The device trace of a traced run: a few MALI steps under
-torch.profiler, with the stage spans as record_function ranges and no
-synchronisation inside them.
+torch.profiler, with the harness's spans as record_function ranges and
+no synchronisation inside them.  The harness's spans are SPAN_NAMES (the
+program's stages and stat_equil) and the spans the cell's kind opens
+(its ``SPANS``); a run passes them all as ``names``.
 
 From the trace: every device operation (kernels, copies, fills) with its
 name and duration; the device's busy seconds (the union of their
@@ -24,15 +26,15 @@ OUTSIDE = 'outside_stages'
 TOP = 10
 
 
-def _device_ops(events, cuda: bool):
-    """The device operations; on the CPU (the tests) the innermost aten
-    operations stand in for them."""
+def _device_ops(events, cuda: bool, names=SPAN_NAMES):
+    """The device operations (not the harness's ranges ``names``); on the
+    CPU (the tests) the innermost aten operations stand in for them."""
     if not cuda:
         return [e for e in events if e.device_type == DeviceType.CPU
                 and e.name.startswith('aten::') and not e.cpu_children]
     return [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, 'is_user_annotation', False)
-            and e.name not in SPAN_NAMES]
+            and e.name not in names]
 
 
 def _union(intervals):
@@ -54,17 +56,17 @@ def _label(t, host):
     return OUTSIDE if best is None else best[2]
 
 
-def _stage(e):
-    """The innermost stage range holding host event e (e itself
+def _stage(e, names):
+    """The innermost range of ``names`` holding host event e (e itself
     included), or None."""
     while e is not None:
-        if e.name in SPAN_NAMES:
+        if e.name in names:
             return e.name
         e = e.cpu_parent
     return None
 
 
-def _stage_busy(events, ops, cuda: bool) -> dict:
+def _stage_busy(events, ops, cuda: bool, names) -> dict:
     """The device's busy seconds per stage: the device time of every host
     operation inside the stage's range (on the card, the kernels, copies
     and fills the profiler links to the operation that launched them,
@@ -74,21 +76,22 @@ def _stage_busy(events, ops, cuda: bool) -> dict:
     if cuda:
         for e in events:
             if e.device_type == DeviceType.CPU and e.kernels:
-                name = _stage(e)
+                name = _stage(e, names)
                 if name is not None:
                     busy[name] += sum(k.duration for k in e.kernels) * 1e-6
     else:
         for op in ops:
-            name = _stage(op)
+            name = _stage(op, names)
             if name is not None:
                 busy[name] += op.time_range.elapsed_us() * 1e-6
     return dict(busy)
 
 
-def profile_steps(step, steps: int, spans) -> dict:
+def profile_steps(step, steps: int, spans, names=SPAN_NAMES) -> dict:
     """Run step() ``steps`` times under the profiler; returns the device
     operations [(name, seconds)], busy_s, window_s, the idle seconds by
-    host span, the busy seconds by stage, and the step count."""
+    host span, the busy seconds by span, and the step count.  ``names``:
+    the harness's spans."""
     from torch.profiler import ProfilerActivity, profile
     cuda = spans.device.type == 'cuda'
     spans.mode = 'annotated'
@@ -102,20 +105,21 @@ def profile_steps(step, steps: int, spans) -> dict:
         window = time.perf_counter() - t0
     spans.mode = 'off'
     events = prof.events()
-    ops = _device_ops(events, cuda)
+    ops = _device_ops(events, cuda, names)
     if not ops:
         raise RuntimeError('the profiler recorded no device operation')
     intervals = [(e.time_range.start, e.time_range.end) for e in ops]
     busy = _union(intervals)
     host = [(e.name, e.time_range.start, e.time_range.end) for e in events
-            if e.device_type == DeviceType.CPU and e.name in SPAN_NAMES]
+            if e.device_type == DeviceType.CPU and e.name in names]
     idle = defaultdict(float)
     for (_, end), (start, _) in zip(busy[:-1], busy[1:]):
         idle[_label(start - 1, host)] += (start - end) * 1e-6
     return {'ops': [(e.name, e.time_range.elapsed_us() * 1e-6) for e in ops],
             'busy_s': sum(e - s for s, e in busy) * 1e-6,
             'window_s': window, 'idle_by_span': dict(idle),
-            'busy_by_stage': _stage_busy(events, ops, cuda), 'steps': steps}
+            'busy_by_stage': _stage_busy(events, ops, cuda, names),
+            'steps': steps}
 
 
 def breakdown(trace: dict) -> dict:

@@ -1,5 +1,5 @@
 """The inputs of the reference's MALI step for one compared unit (one
-column of the batch, or the whole slab), worked out from the run's
+column of a batch, or a whole slab), worked out from the run's
 atmosphere arrays.
 
 The model layer (the atmosphere, the atomic models and their LTE
@@ -25,8 +25,9 @@ continua's cross-sections and the rate coefficients, is its own:
 - the integration weight of the rates is wlambda wphi 4 pi / (hc) for a
   line, wlambda / lambda 4 pi / h for a continuum.
 
-Every line is in complete redistribution: the cells run no PRD
-iterations, so a line the atom marks PRD keeps the emission profile phi.
+Every line is in complete redistribution here (crd.py drives it): a
+line the atom marks PRD keeps the emission profile phi.  A kind whose
+step runs PRD iterations brings its own reference beside this one.
 """
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -225,17 +226,6 @@ def build(config: dict, atmos, device) -> Problem:
         bgSca=t_(bg.sca), atoms=atoms,
         formalSolver=config['formal_solver'],
         interp2d=config.get('interp_2d'))
-
-
-def unit_problem(config: dict, inputs: dict, unit: int, checkCols,
-                 device) -> Problem:
-    """The Problem of compared unit ``unit``: column ``checkCols[unit]``
-    of the batch, or the slab."""
-    if config['kind'] == 'column_batch':
-        atmos = column_atmosphere(config, inputs, checkCols[unit])
-    else:
-        atmos = slab_atmosphere(config, inputs)
-    return build(config, atmos, device)
 
 
 def wavelength_count(config: dict) -> int:

@@ -52,8 +52,10 @@ def main(argv=None) -> int:
     if bad:
         print(f'JAX modules loaded in the run: {bad}', file=sys.stderr)
         return 3
+    def num(x):
+        return 'none' if x is None else f'{x:.6g}'
     for k, v in out['check'].items():
-        print(f"check {k} {v['value']:.6g} limit {v['limit']:.6g}",
+        print(f"check {k} {num(v['value'])} limit {num(v['limit'])}",
               file=sys.stderr)
     print(json.dumps(out), flush=True)
     return 0

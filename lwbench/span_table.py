@@ -31,17 +31,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def end_labels(events, cuda: bool) -> dict:
+def end_labels(events, cuda: bool, names) -> dict:
     """The idle seconds between device operations, each gap named by the
-    harness range that held its end (harness/trace.py:profile_steps's
-    attribution, on the same events)."""
+    harness range of ``names`` that held its end (harness/trace.py:
+    profile_steps's attribution, on the same events)."""
     from torch.autograd import DeviceType
-    from lwbench.harness.trace import SPAN_NAMES, _device_ops, _label, _union
-    ops = [e for e in _device_ops(events, cuda)
+    from lwbench.harness.trace import _device_ops, _label, _union
+    ops = [e for e in _device_ops(events, cuda, names)
            if not e.name.startswith('lw.')]
     busy = _union([(e.time_range.start, e.time_range.end) for e in ops])
     host = [(e.name, e.time_range.start, e.time_range.end) for e in events
-            if e.device_type == DeviceType.CPU and e.name in SPAN_NAMES]
+            if e.device_type == DeviceType.CPU and e.name in names]
     idle = defaultdict(float)
     for (_, end), (start, _) in zip(busy[:-1], busy[1:]):
         idle[_label(start - 1, host)] += (start - end) * 1e-6
@@ -53,11 +53,12 @@ def run(name: str, seed: int, seconds: float, rounds: int, steps: int,
     """The span table's run of cell ``name`` (see the module docstring);
     returns the result dict."""
     import torch
-    from lwbench.harness import inputs as inputsMod, manifest
+    from lwbench.harness import manifest
     from lwbench.harness import program_trace as pt
-    from lwbench.harness.runner import card, check_columns
+    from lwbench.harness.runner import card
     from lwbench.harness.spans import Spans, stages_wrapped
-    from lwbench.harness.systems import DTYPES, SYSTEMS
+    from lwbench.harness.systems import DTYPES
+    from lwbench.harness.trace import SPAN_NAMES
 
     t0 = time.perf_counter()
     log = log or (lambda what: None)
@@ -66,9 +67,10 @@ def run(name: str, seed: int, seconds: float, rounds: int, steps: int,
     dev = torch.device(device)
     cuda = dev.type == 'cuda'
     spans = Spans(dev)
-    system = SYSTEMS[config['kind']](
-        config, traffic, inputsMod.make(config, seed), dev,
-        DTYPES[config['precision']], check_columns(config, settings, seed))
+    kind = cell.kind
+    system = kind.System(
+        config, traffic, kind.make_inputs(config, seed), dev,
+        DTYPES[config['precision']], kind.check_units(config, settings, seed))
     system.scatter_steps()
     system.mali_step(spans)
     spans.sync()
@@ -129,7 +131,8 @@ def run(name: str, seed: int, seconds: float, rounds: int, steps: int,
             'unlinked_ops': unlinked,
             'readings': pt.readings(tracer, ov, profSteps),
             'idle_by_overlap_s': {p: r['idle_s'] for p, r in ov.items()},
-            'idle_by_end_label_s': end_labels(events, cuda),
+            'idle_by_end_label_s': end_labels(
+                events, cuda, SPAN_NAMES + tuple(kind.SPANS)),
             'table': rows, 'device': about}
 
 

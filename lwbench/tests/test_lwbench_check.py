@@ -1,19 +1,31 @@
 """The harness against the reference (lwbench/reference: the MALI step
 written from the method) at a size the CPU holds (4 columns of 20
-depths; a 20 x 8 slab): a sound run is correct and reads at rounding
-(J 3e-11, pops 2.5e-10 and 1.5e-9, Gamma 1.7e-12 here: the reference
-and the program compute the same step), the control (the program's
-float32 path) is not correct, and neither is a run
+depths, under the default and the fused scheme; a 20 x 8 slab): a sound
+run is correct and reads at rounding (J 3e-11, pops 2.5e-10 to 1.5e-9,
+Gamma 1.7e-12 here: the reference and the program compute the same
+step), the control (the program's float32 path) is not correct, and
+neither is a run
 whose timed path is broken underneath in each way the cells can break:
 a step that returns its state unchanged, half of the batch (or slab)
 left out, an answer altered where it is produced.  One cell has one chip,
-so no exchange between chips can be left out."""
+so no exchange between chips can be left out.  A traced run reports
+every per-layer metric that BENCHMARK.json lists for its cell and that a
+CPU run can read."""
+import json
+import math
+
 import pytest
 import torch
 
 from lightweaver_tpu_torch import context as program_context
 from lwbench.harness import runner
-from lwbench.tests.tiny import COLS, SLAB, tiny_root
+from lwbench.harness.manifest import ROOT
+from lwbench.tests.tiny import COLS, FUSED, SLAB, tiny_root
+
+CELLS = [COLS, SLAB, FUSED]
+# read from the card alone: kernels by name, the card's memory
+CARD_ONLY = {'formal_solve_roofline.cols', 'formal_solve_roofline.fused',
+             'peak_mem_gib.cols', 'peak_mem_gib.2d', 'peak_mem_gib.fused'}
 
 SEED = 2 ** 31 + 5
 
@@ -98,7 +110,7 @@ def half_left_out(system):
     prog.stat_equil = se_
 
 
-@pytest.mark.parametrize('cell', [COLS, SLAB])
+@pytest.mark.parametrize('cell', CELLS)
 def test_sound_run_is_correct(root, cell):
     out = run(root, cell)
     assert out['correct'], out['check']
@@ -106,45 +118,48 @@ def test_sound_run_is_correct(root, cell):
     assert out['attempted'] >= 1 and out['metrics']['setup_s']['value'] > 0
 
 
-@pytest.mark.parametrize('cell', [COLS, SLAB])
+@pytest.mark.parametrize('cell', CELLS)
 def test_control_float32_is_not_correct(root, cell):
     out = run(root, cell, dtype='float32')
     assert not out['correct'], out['check']
 
 
-@pytest.mark.parametrize('cell', [COLS, SLAB])
+@pytest.mark.parametrize('cell', CELLS)
 @pytest.mark.parametrize('fault', [unchanged, half_left_out])
 def test_broken_step_is_not_correct(root, cell, fault):
     out = run(root, cell, fault=fault)
     assert not out['correct'], (fault.__name__, out['check'])
 
 
-@pytest.mark.parametrize('cell', [COLS, SLAB])
-def test_altered_answer_is_not_correct(root, cell, monkeypatch):
+@pytest.mark.parametrize('cell,stage', [(COLS, 'formal_solve'),
+                                        (SLAB, 'formal_solve'),
+                                        (FUSED, 'fused_stage')])
+def test_altered_answer_is_not_correct(root, cell, stage, monkeypatch):
     """One wavelength row of J altered by 1e-5 where the formal solution
-    produces it."""
-    solve = program_context.formal_solve
+    (the fused scheme's: its fused stage) produces it."""
+    solve = getattr(program_context, stage)
 
     def altered(*args, **kwargs):
-        I, Psi, IeffBase, moments = solve(*args, **kwargs)
+        I, Psi, IeffBase, moments, *rest = solve(*args, **kwargs)
         J = moments['J'].clone()
         J[J.shape[0] // 2] *= 1.0 + 1e-5
-        return I, Psi, IeffBase, dict(moments, J=J)
-    monkeypatch.setattr(program_context, 'formal_solve', altered)
+        return (I, Psi, IeffBase, dict(moments, J=J), *rest)
+    monkeypatch.setattr(program_context, stage, altered)
     out = run(root, cell)
     assert not out['correct'], out['check']
     assert numbers(out)['J'] > 1e-6
 
 
-@pytest.mark.parametrize('cell', [COLS, SLAB])
+@pytest.mark.parametrize('cell', CELLS)
 def test_traced_run_reports_its_layers(root, cell):
     out = runner.run_cell(cell, SEED, 0.5, True, root=root, device='cpu')
     assert out['correct'], out['check']
-    names = set(out['metrics'])
-    sfx = 'cols' if cell == COLS else '2d'
-    for m in ('stat_equil_ms', 'formal_solve_ms', 'gamma_rates_ms',
-              'idle_share', 'launches_per_step'):
-        assert f'{m}.{sfx}' in names
+    bench = json.loads((ROOT / 'BENCHMARK.json').read_text())
+    listed = {m['name'] for m in bench['per_layer']
+              if cell in m['workloads']}
+    assert set(out['metrics']) == listed - CARD_ONLY
+    assert all(math.isfinite(v['value']) and v['value'] >= 0
+               for v in out['metrics'].values()), out['metrics']
     spans = {n for n, _ in out['breakdown']['idle_gaps']}
     assert spans <= {'gather', 'formal_solve', 'gamma_rates', 'stat_equil',
                      'outside_stages'}
@@ -157,7 +172,7 @@ def test_traced_run_reports_its_layers(root, cell):
 def test_tiny_cells_correct_on_the_card(root):
     if not torch.cuda.is_available():
         pytest.skip('no CUDA device')
-    for cell in (COLS, SLAB):
+    for cell in CELLS:
         out = runner.run_cell(cell, SEED, 0.5, True, root=root,
                               device='cuda')
         assert out['correct'], out['check']

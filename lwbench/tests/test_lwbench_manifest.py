@@ -61,8 +61,8 @@ def test_metric_keys_and_moves():
 def test_every_cell_loads_with_its_files(workload):
     cell = manifest.load_cell(workload)
     assert cell.chips == 1
-    assert cell.config['kind'] in ('column_batch', 'context_2d')
-    assert set(cell.settings['limits']) == {'J', 'pops', 'Gamma'}
+    assert manifest.kind_path(cell.config['kind']).is_file()
+    assert set(cell.settings['limits']) == set(cell.kind.NUMBERS)
     e2e = [m['name'] for m in cell.metrics(perLayer=False)]
     assert 'setup_s' in e2e and len(e2e) >= 2
     layer = cell.metrics(perLayer=True)
@@ -128,3 +128,17 @@ def test_suffixed_metric_falls_back_to_its_quantity(tmp_path):
     assert manifest.load_reader('q_ms', tmp_path)(None) == 1.0
     assert manifest.reader_path('formal_solve_roofline.2d').name == \
         'formal_solve_roofline.2d.py'
+
+
+def test_unknown_kind_raises_listing_the_kinds(tmp_path):
+    with pytest.raises(KeyError, match='column_batch.*context_2d'):
+        manifest.load_kind('no_such_kind')
+    shutil.copy(ROOT / 'BENCHMARK.json', tmp_path)
+    shutil.copytree(ROOT / 'lwbench', tmp_path / 'lwbench',
+                    ignore=shutil.ignore_patterns('reference', 'tests',
+                                                  '__pycache__'))
+    cfg = tmp_path / 'lwbench' / 'configs' / 'falc_h6ca_cols512.json'
+    cfg.write_text(json.dumps(dict(json.loads(cfg.read_text()),
+                                   kind='no_such_kind')))
+    with pytest.raises(KeyError, match="no kind 'no_such_kind'"):
+        manifest.load_cell('cols512_default', tmp_path)

@@ -14,13 +14,16 @@ SCRIPT = textwrap.dedent("""
     sys.path.insert(0, sys.argv[1])
     import runpy
     runpy.run_path(sys.argv[1] + '/lwbench/run.py', run_name='lwbench_run')
-    from lwbench.harness import (check, inputs, manifest, record, runner,
-                                 spans, systems, trace, work)
+    from lwbench.harness import (check, inputs, manifest, program_trace,
+                                 record, runner, spans, systems, trace,
+                                 work)
     import lightweaver_tpu_torch.parallel
     from lightweaver_tpu_torch import atmosphere, atomic_set, context
     from lightweaver_tpu_torch import rh_atoms
-    from lwbench.reference import mali, problem
+    from lwbench.reference import crd, mali, problem
     import lwbench.readings
+    for kind in ('column_batch', 'context_2d'):
+        manifest.load_kind(kind)
     print('LOADED', runner.jax_modules())
 """)
 

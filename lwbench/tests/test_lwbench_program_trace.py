@@ -16,9 +16,9 @@ from torch.autograd import DeviceType
 
 from lightweaver_tpu_torch import tracing
 from lwbench import span_table
-from lwbench.harness import inputs as inputsMod, manifest
+from lwbench.harness import manifest
 from lwbench.harness import program_trace as pt
-from lwbench.harness.systems import DTYPES, SYSTEMS
+from lwbench.harness.systems import DTYPES
 from lwbench.tests.tiny import COLS, SLAB, tiny_root
 
 SEED = 2 ** 31 + 11
@@ -101,8 +101,8 @@ def test_tiny_span_table_gives_every_reading(root, cell):
 def _tiny_program(root, cell, device):
     """The program object of a tiny cell after its warm-up."""
     c = manifest.load_cell(cell, root)
-    system = SYSTEMS[c.config['kind']](
-        c.config, c.traffic, inputsMod.make(c.config, SEED),
+    system = c.kind.System(
+        c.config, c.traffic, c.kind.make_inputs(c.config, SEED),
         torch.device(device), DTYPES[c.config['precision']],
         list(range(c.settings['check_columns'])))
     system.scatter_steps()

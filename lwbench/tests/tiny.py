@@ -9,7 +9,7 @@ from lwbench.harness.manifest import ROOT
 
 TINY = {'falc_h6ca_cols512': {'columns': 4, 'depths': 20},
         'slab2d_h6ca_82x256': {'depths': 20, 'x_columns': 8}}
-COLS, SLAB = 'cols512_default', 'slab2d_besser'
+COLS, SLAB, FUSED = 'cols512_default', 'slab2d_besser', 'cols512_fused'
 
 
 def edit_json(path: Path, **changes):
@@ -19,13 +19,15 @@ def edit_json(path: Path, **changes):
 
 
 def tiny_root(tmp: Path) -> Path:
-    """``tmp`` holding BENCHMARK.json and lwbench/ (its data files and
-    readers; the harness itself is imported from the repository) with
-    the tiny sizes."""
+    """``tmp`` holding BENCHMARK.json and lwbench/ (its data files, kinds
+    and readers; the harness itself is imported from the repository)
+    with the tiny sizes."""
     shutil.copy(ROOT / 'BENCHMARK.json', tmp)
     shutil.copytree(ROOT / 'lwbench', tmp / 'lwbench', ignore=(
         shutil.ignore_patterns('reference', 'tests', '__pycache__')))
     for name, changes in TINY.items():
         edit_json(tmp / 'lwbench' / 'configs' / f'{name}.json', **changes)
-    edit_json(tmp / 'lwbench' / 'cells' / f'{COLS}.json', check_columns=4)
+    for cell in (COLS, FUSED):
+        edit_json(tmp / 'lwbench' / 'cells' / f'{cell}.json',
+                  check_columns=4)
     return tmp
