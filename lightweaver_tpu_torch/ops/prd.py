@@ -6,7 +6,8 @@ the same dense formulation: the scattering integral of one line is one
 [Nk, W, NFINE] tensor with a static fine-grid length and masked
 quadrature weights, and gII is recomputed on the fly
 (ref: Source/Prd.cpp:33-645).  The JAX package leaves all of it to XLA,
-so it is plain torch here too, batched over depth with no Python loop.
+so it is plain torch here too, batched over depth with no Python loop
+within a block of depths (BLOCK_ELEMENTS).
 
 ``interp`` reproduces ``jnp.interp`` (its default, constant ends) on
 batched rows, so that the rest-frame mean intensity of hybrid PRD and the
@@ -26,6 +27,11 @@ PrdDQ = 0.15
 # static fine-grid size: max integration range / DQ + 1
 # (ref max_fine_grid_size: Source/Prd.cpp:126-129)
 NFINE = int(max(2 * PrdQWing + PrdQSpread, 2 * PrdQSpread) / PrdDQ) + 2
+
+# the elements of each [depths, W, NFINE] temporary of one block of the
+# scattering integral (prd_scatter_rho): 2^26, 537 MB in float64, so that
+# the temporaries alive at once stay near 7 GB at any grid size
+BLOCK_ELEMENTS = 1 << 26
 
 # jnp.interp's threshold below which an interval counts as empty
 _DX_EPS = float(np.spacing(np.finfo(np.float64).eps))
@@ -118,8 +124,27 @@ def prd_scatter_rho(qWave, aDamp, Jw, gammaPrefactor, Jbar):
     aDamp: [Nk]; Jw: [W, Nk] mean intensity on the line window;
     gammaPrefactor: [Nk] = (n_i/n_j) Bij / (Pj+Qj); Jbar: [Nk] = Rij/Bij.
     Returns rho [W, Nk].
+
+    The integral is pointwise in depth, so it runs over blocks of depths
+    whose [depths, W, NFINE] temporaries hold at most BLOCK_ELEMENTS
+    elements each (one block where the whole grid fits): each depth's
+    arithmetic is the same in any block, so the result is the unblocked
+    one bit for bit.
     ref: Source/Prd.cpp:468-645
     """
+    W, Nk = qWave.shape
+    step = max(1, BLOCK_ELEMENTS // (W * NFINE))
+    if step >= Nk:
+        return _scatter_rho_block(qWave, aDamp, Jw, gammaPrefactor, Jbar)
+    return torch.cat([_scatter_rho_block(
+        qWave[:, k:k + step], aDamp[k:k + step], Jw[:, k:k + step],
+        gammaPrefactor[k:k + step], Jbar[k:k + step])
+        for k in range(0, Nk, step)], dim=1)
+
+
+def _scatter_rho_block(qWave, aDamp, Jw, gammaPrefactor, Jbar):
+    """prd_scatter_rho on one block of depths, as one dense [Nk, W,
+    NFINE] evaluation."""
     W, Nk = qWave.shape
     dt, dev = qWave.dtype, qWave.device
     qW = qWave.T                                  # [Nk, W]

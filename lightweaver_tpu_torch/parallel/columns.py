@@ -424,6 +424,10 @@ class ColumnBatch:
         maxIter.  Converged columns keep their rho, J, JRest, I and PRD
         rates.
         ref schedule: Source/PrdTemplates.hpp:176-351"""
+        with tracing.span('lw.prd.redistribute'):
+            return self._prd_redistribute(maxIter, tol)
+
+    def _prd_redistribute(self, maxIter: int, tol: float) -> IterationUpdate:
         from ..context import build_prd_subset_fn
 
         fc = self.flatCtx
@@ -434,7 +438,7 @@ class ColumnBatch:
             return IterationUpdate(self)
         if self._Rij is None:
             raise ValueError('Call formal_sol_gamma_matrices first')
-        C, Nc = self.Ncol, self.NkCol
+        C = self.Ncol
         dev = self.cfg.device
 
         if self._prd_fs is None:
@@ -449,48 +453,17 @@ class ColumnBatch:
             self._prdWindows = self._prd_window_plan(prdLines)
 
         frozenK = self._frozen_depths()
-        frozenC = tracing.to_device(self.converged, None, dev)
-        subT = self._prdSubT
+        with tracing.span('lw.host.frozen_mask'):
+            frozenC = tracing.to_device(self.converged, None, dev)
         self._Rij = [list(r) for r in self._Rij]
         self._Rji = [list(r) for r in self._Rji]
         dRhoCol = np.zeros(C)
         nSub = 0
         for _ in range(maxIter):
             nSub += 1
-            self._push_state()
-            Jw = self._prd_window_J()
-            dRho = torch.zeros(C, dtype=torch.float64, device=dev)
-            for li, (ai, ti, a, t) in enumerate(prdLines):
-                rOld = self.params['rhoPrd'][ai][ti]
-                rNew = torch.where(frozenK[None, :], rOld, fc._scatter_rho(
-                    li, None if Jw is None else Jw[li]))
-                rel = torch.abs(torch.where(rNew != 0.0,
-                                            (rNew - rOld) / rNew, 0.0))
-                dRho = torch.maximum(dRho, torch.amax(
-                    rel.view(-1, C, Nc), dim=(0, 2)))
-                # params['rhoPrd'] is the flat Context's rhoPrd
-                self.params['rhoPrd'][ai][ti] = rNew
-
-            out = self._prd_fs(self.params)
-            Jsub = self.params['J'][subT]
-            self.params['J'] = self.params['J'].index_copy(
-                0, subT, torch.where(frozenK[None, :], Jsub,
-                                     out['J'].to(Jsub.dtype)))
-            if 'JRest' in out and self.JRest is not None:
-                self.JRest = torch.where(frozenK[None, :], self.JRest,
-                                         out['JRest'])
-            Isub = self._I[:, subT]
-            self._I = self._I.index_copy(1, subT, torch.where(
-                frozenC[:, None, None], Isub, out['I'].to(Isub.dtype)))
-            for li, (ai, ti, a, t) in enumerate(prdLines):
-                self._Rij[ai][ti] = torch.where(frozenK, self._Rij[ai][ti],
-                                                out['Rij'][li])
-                self._Rji[ai][ti] = torch.where(frozenK, self._Rji[ai][ti],
-                                                out['Rji'][li])
-            dRhoCol = tracing.to_host(dRho).numpy()
-            dRhoMax = self._col_reduce(self._reduce(
-                float(np.max(np.where(self.converged, 0.0, dRhoCol))),
-                'max', self.cfg.lamGroup), 'max')
+            with tracing.span('lw.prd.subiter'):
+                dRhoCol, dRhoMax = self._prd_subiter(prdLines, frozenK,
+                                                     frozenC)
             if dRhoMax < tol:
                 break
 
@@ -499,6 +472,52 @@ class ColumnBatch:
                               NprdSubIter=nSub)
         upd.updatedJ = True
         return upd
+
+    def _prd_subiter(self, prdLines, frozenK, frozenC):
+        """One PRD sub-iteration: each line's rho from its scattering
+        integral, then the PRD-subset formal solution; returns the
+        columns' drho [C] and the largest of the unconverged ones'."""
+        fc = self.flatCtx
+        C, Nc = self.Ncol, self.NkCol
+        subT = self._prdSubT
+        self._push_state()
+        Jw = self._prd_window_J()
+        dRho = torch.zeros(C, dtype=torch.float64, device=self.cfg.device)
+        for li, (ai, ti, a, t) in enumerate(prdLines):
+            rOld = self.params['rhoPrd'][ai][ti]
+            with tracing.span('lw.prd.scatter_rho'):
+                rNew = torch.where(frozenK[None, :], rOld, fc._scatter_rho(
+                    li, None if Jw is None else Jw[li]))
+            rel = torch.abs(torch.where(rNew != 0.0,
+                                        (rNew - rOld) / rNew, 0.0))
+            dRho = torch.maximum(dRho, torch.amax(
+                rel.view(-1, C, Nc), dim=(0, 2)))
+            # params['rhoPrd'] is the flat Context's rhoPrd
+            self.params['rhoPrd'][ai][ti] = rNew
+
+        with tracing.span('lw.prd.subset_solve'):
+            out = self._prd_fs(self.params)
+        Jsub = self.params['J'][subT]
+        self.params['J'] = self.params['J'].index_copy(
+            0, subT, torch.where(frozenK[None, :], Jsub,
+                                 out['J'].to(Jsub.dtype)))
+        if 'JRest' in out and self.JRest is not None:
+            self.JRest = torch.where(frozenK[None, :], self.JRest,
+                                     out['JRest'])
+        Isub = self._I[:, subT]
+        self._I = self._I.index_copy(1, subT, torch.where(
+            frozenC[:, None, None], Isub, out['I'].to(Isub.dtype)))
+        for li, (ai, ti, a, t) in enumerate(prdLines):
+            self._Rij[ai][ti] = torch.where(frozenK, self._Rij[ai][ti],
+                                            out['Rij'][li])
+            self._Rji[ai][ti] = torch.where(frozenK, self._Rji[ai][ti],
+                                            out['Rji'][li])
+        with tracing.span('lw.host.drho_to_host'):
+            dRhoCol = tracing.to_host(dRho).numpy()
+        dRhoMax = self._col_reduce(self._reduce(
+            float(np.max(np.where(self.converged, 0.0, dRhoCol))),
+            'max', self.cfg.lamGroup), 'max')
+        return dRhoCol, dRhoMax
 
     def _prd_window_plan(self, prdLines):
         """On a rank of the 'wavelength' axis, the plan of _prd_window_J:
