@@ -6,7 +6,7 @@ Phases (each prints its lines; any failure exits non-zero and prints no
 result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit;
-   then the four kernel libraries are built from csrc/ at once, one nvcc
+   then the five kernel libraries are built from csrc/ at once, one nvcc
    each, with ptxas's registers and spills per instance (the float64 line
    Gamma kernel, whose K = 4 path is the widest, must not spill; the
    sweep and fused instances' registers and spills printed), and the
@@ -43,7 +43,14 @@ result):
    steps and one prd_redistribute, so rho != 1: the line Gamma kernel on
    every group (Mg II's four-line group among them), the fused kernel
    with its three rho-scaled slots and the sweep on the PRD subset rows,
-   each against its plain version; times.
+   each against its plain version; times.  (b) The PRD scattering kernel
+   (csrc/prd_scatter.cu) at the hybrid-PRD column batch's shapes: each
+   of the four PRD lines' integral inputs (windows of 101 / 51 / 250 /
+   219 rows) tiled over PRD_BATCH_COLUMNS = 512 columns (41,984 depths),
+   each column's qWave and J scaled by its own factor: rho against the
+   plain version (PRD_SCATTER_TOL = 1e-12 of its maximum), the kernel's
+   device time, the plain version's and the least time
+   (lwbench/harness/prd_work.py), launches, ptxas registers and spills.
 8. falc_h6mg PRD converged under the default scheme through
    iterate_ctx_se(prd=True), and its hybrid-PRD variant (0-5 km/s
    outflow), against their golden runs
@@ -269,7 +276,8 @@ Kernel times are device times from torch.profiler (the mean CUDA
 duration of the kernel's launches, one per call, kernel_device_ms); the
 plain versions' are CUDA events around their calls.  The kernels' JSON record holds phase
 7's errors and times and phase 8's launch counts for the float64
-instances (the PRD path), phase 10 (a)'s falc_h6ca errors and times and
+instances (the PRD path; 7 (b)'s for the PRD scattering kernel, its times
+and bound summed over the four lines), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
 and times and (c)'s launch counts for the sweep's linear and BESSER
 instances, phase 14 (b)'s slab errors, times and launches for the 2D
@@ -381,7 +389,8 @@ def kernel_device_ms(fn, pattern, reps=20, rounds=2):
 
 # kernel symbols, as the profiler names them
 SYMBOLS = {'sweep': 'sweep_kernel', 'gamma': 'line_gamma_kernel',
-           'fused': 'fused_kernel', 'sweep2d': 'sweep2d_kernel'}
+           'fused': 'fused_kernel', 'sweep2d': 'sweep2d_kernel',
+           'prd_scatter': 'prd_scatter_kernel'}
 
 
 def environment():
@@ -405,7 +414,7 @@ def counters():
     of a wrapper (float64 and float32; the sweep's three solvers) keeps
     its own count."""
     from lightweaver_tpu_torch.ops import formal_solver2d, fused, gamma
-    from lightweaver_tpu_torch.ops import probe, sweep
+    from lightweaver_tpu_torch.ops import prd, probe, sweep
     out = {'sweep': (sweep.sweep_cuda, 'launches'),
            'gamma': (gamma.line_gamma_rates_cuda, 'launches'),
            'fused': (fused.fused_cuda, 'launches'),
@@ -415,7 +424,8 @@ def counters():
            'probe_elementwise': (probe.elementwise_cuda, 'launches'),
            'probe_recurrence': (probe.recurrence_cuda, 'launches'),
            'sweep2d': (formal_solver2d.sweep2d_cuda, 'launches'),
-           'sweep2d_f32': (formal_solver2d.sweep2d_cuda, 'launches_f32')}
+           'sweep2d_f32': (formal_solver2d.sweep2d_cuda, 'launches_f32'),
+           'prd_scatter': (prd.prd_scatter_cuda, 'launches')}
     # the sweep's linear and BESSER instances
     for solver in ('piecewise_linear_1d', 'piecewise_besser_1d'):
         for dtype in (torch.float64, torch.float32):
@@ -434,14 +444,16 @@ def read_counts():
 
 
 def build_kernels():
-    """Build the four libraries at once (one nvcc each, in threads: the
+    """Build the five libraries at once (one nvcc each, in threads: the
     compiler runs outside the interpreter lock) and print ptxas's
     registers and spills, also for a cached build.  The 2D sweep's
     instances build at their first use (ops/formal_solver2d.py:
     instance_flags)."""
-    from lightweaver_tpu_torch.ops import _build, fused, gamma, probe, sweep
+    from lightweaver_tpu_torch.ops import _build, fused, gamma, prd, probe
+    from lightweaver_tpu_torch.ops import sweep
     phase('build the CUDA kernels from csrc/ (nvcc, sm_90a)')
-    mods = {'probe': probe, 'sweep': sweep, 'gamma': gamma, 'fused': fused}
+    mods = {'probe': probe, 'sweep': sweep, 'gamma': gamma, 'fused': fused,
+            'prd_scatter': prd}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:
         list(ex.map(lambda m: m.load_library(), mods.values()))
@@ -955,9 +967,103 @@ def prd_kernel_check():
                                 SYMBOLS['sweep']))
     print(f'  PRD subset sweep, float32 instance: kernel {ms32:.4f} ms'
           f'{bound_text(bnd32)}')
-    del ctx, params, rays, args, args32, plain, kern
+    del params, rays, args, args32, plain, kern
+    result['prd_scatter'] = prd_scatter_check(ctx)
+    del ctx
     torch.cuda.empty_cache()
     return result
+
+
+# phase 7 (b): the hybrid-PRD column batch's depths, PRD_BATCH_COLUMNS
+# columns of falc_h6mg's 82 (its four PRD windows are the batch's)
+PRD_BATCH_COLUMNS = 512
+# max |kernel - plain| / max |plain| of rho (tests/test_torch_prd_kernel.py)
+PRD_SCATTER_TOL = 1e-12
+
+
+def prd_line_inputs(ctx, li, C, seed):
+    """The arguments of PRD line li's scattering integral on the falc_h6mg
+    Context ``ctx`` (context.scatter_rho's call of prd_scatter_rho), tiled
+    over C columns, each column's qWave and J scaled by its own factor in
+    U(0.95, 1.05)."""
+    from lightweaver_tpu_torch import context
+    from lightweaver_tpu_torch.ops import prd
+    got = []
+
+    def capture(*args):
+        got.append(args)
+        return prd.prd_scatter_rho(*args)
+    orig, context.prd_scatter_rho = context.prd_scatter_rho, capture
+    try:
+        ctx._scatter_rho(li)
+    finally:
+        context.prd_scatter_rho = orig
+    qWave, aDamp, Jw, gammaPre, Jbar = got[0]
+    rng = np.random.default_rng(seed)
+    Nk = qWave.shape[1]
+
+    def scale():
+        return torch.tensor(rng.uniform(0.95, 1.05, C), dtype=torch.float64,
+                            device=qWave.device).repeat_interleave(Nk)
+    return ((qWave.repeat(1, C) * scale()).contiguous(), aDamp.repeat(C),
+            (Jw.repeat(1, C) * scale()).contiguous(), gammaPre.repeat(C),
+            Jbar.repeat(C))
+
+
+def prd_scatter_check(ctx):
+    """Phase 7 (b): the PRD scattering kernel against its plain version at
+    the hybrid-PRD column batch's shapes, line by line, with times, the
+    least time and launches; returns the record of the four lines (one
+    sub-iteration's integrals: times and bounds summed)."""
+    from lightweaver_tpu_torch.ops import _build, prd
+    from lwbench.harness import prd_work
+    phase(f'PRD scattering kernel: falc_h6mg\'s PRD lines over '
+          f'{PRD_BATCH_COLUMNS} columns (f64)')
+    log = _build.build_log('prd_scatter')
+    print(f'  ptxas: {list(ptxas_registers(log).values())} registers, '
+          f'spill stores / loads {list(ptxas_spills(log).values())} bytes')
+    rec = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0,
+               bound_ms=0.0)
+    n0 = prd.prd_scatter_cuda.launches
+    for li, (ai, ti, a, t) in enumerate(ctx._prd_lines()):
+        args = prd_line_inputs(ctx, li, PRD_BATCH_COLUMNS, seed=li)
+        W, Nk = args[0].shape
+        plain = prd.prd_scatter_rho_plain(*args)
+        kern = prd.prd_scatter_rho(*args)
+        torch.cuda.synchronize()
+        absErr = (kern - plain).abs().max().item()
+        rel = absErr / plain.abs().max().item()
+        work = prd_work.scatter_work([W], Nk)
+        bnd = {'bound_ms': work['least_s'] * 1e3,
+               'bound_by': work['bound_by']}
+        # the plain version once more (0.1-0.5 s a call), the kernel in two
+        # profiled rounds
+        plainMs = cuda_ms(lambda: prd.prd_scatter_rho_plain(*args), 1)
+        k1, k2 = kernel_device_ms(lambda: prd.prd_scatter_cuda(*args),
+                                  SYMBOLS['prd_scatter'], reps=10)
+        ms = min(k1, k2)
+        print(f'  line {li} (levels {t.i}-{t.j} of atom {ai}, W = {W}, Nk = '
+              f'{Nk}), per call: kernel {k1:.4f} / {k2:.4f} ms, plain '
+              f'{plainMs:.2f} ms{bound_text(bnd)}')
+        print(f'    max|kernel-plain|/max|plain| = {rel:.3e} (bar '
+              f'{PRD_SCATTER_TOL}), max abs {absErr:.3e}; plain / kernel '
+              f'{plainMs / ms:.1f}x, {100 * bnd["bound_ms"] / ms:.2f} % of '
+              'the least time')
+        if not (rel <= PRD_SCATTER_TOL and torch.isfinite(kern).all()):
+            raise AssertionError(f'PRD scattering kernel, line {li}: '
+                                 f'{rel} > {PRD_SCATTER_TOL}')
+        rec['max_abs_err'] = max(rec['max_abs_err'], absErr)
+        rec['max_rel_err'] = max(rec['max_rel_err'], rel)
+        rec['ms'] += ms
+        rec['plain_ms'] += plainMs
+        rec['bound_ms'] += bnd['bound_ms']
+        rec['bound_by'] = bnd['bound_by']
+        del args, plain, kern
+    print(f'  the four lines (one sub-iteration): kernel {rec["ms"]:.3f} ms, '
+          f'plain {rec["plain_ms"]:.1f} ms, least {rec["bound_ms"]:.4f} ms '
+          f'by {rec["bound_by"]}; {prd.prd_scatter_cuda.launches - n0} '
+          'launches')
+    return rec
 
 
 def converge_falc_h6ca(scheme, nSteps=None, ref=None, snap=None):
@@ -1230,6 +1336,8 @@ def converge_h6mg(scheme, hprd=False, nSteps=None, ref=None, snap=None):
         'mali_full_precond': dict(sweep=nIter + nSub, gamma=0, fused=0),
         PALLAS: dict(sweep=nIter + nSub, gamma=nIter, fused=0),
         FUSED: dict(sweep=nSub, gamma=0, fused=nIter)}[scheme]
+    # one scattering integral per PRD line and sub-iteration
+    expected['prd_scatter'] = len(ctx._prd_lines()) * nSub
     got = {k: counts[k] for k in expected}
     if got != expected or nSub < 1:
         raise AssertionError(f'launches {got}, expected {expected}')
@@ -1275,7 +1383,7 @@ def prd_paths():
     converged under the default scheme (the kernel schemes refuse it);
     then the stage breakdown of one PRD iteration on the default scheme's
     converged Context."""
-    launches = dict.fromkeys(('sweep', 'gamma', 'fused'), 0)
+    launches = dict.fromkeys(('sweep', 'gamma', 'fused', 'prd_scatter'), 0)
     snap = []
     breakdownCtx, counts = converge_h6mg(
         'mali_full_precond', snap=(PRD_SCHEME_STEPS, snap))
@@ -5071,6 +5179,9 @@ KERNELS = {
     'sweep2d_f32': ('lightweaver_tpu_torch/csrc/sweep2d.cu',
                     'none: lightweaver_tpu/ops/formal_solver2d.py leaves '
                     'the plane sweep to XLA'),
+    'prd_scatter': ('lightweaver_tpu_torch/csrc/prd_scatter.cu',
+                    'none: lightweaver_tpu/ops/prd.py leaves the PRD '
+                    'scattering integral to XLA'),
 }
 SCHEMES = ('mali_full_precond', PALLAS, FUSED)
 
@@ -5150,7 +5261,7 @@ def main():
     # path (phase (c)'s launches, phase (a)'s inputs), the probes; phase
     # 15's launches added to each instance's
     records = {name: dict(prdKern[name], launches=launches[name])
-               for name in ('sweep', 'gamma', 'fused')}
+               for name in ('sweep', 'gamma', 'fused', 'prd_scatter')}
     records.update({name: dict(f32Kern[name], launches=f32Launches[name])
                     for name in F32_NAMES})
     records.update({name: dict(solverKern[name], launches=n)

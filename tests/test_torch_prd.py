@@ -83,10 +83,12 @@ def _ulps(ours, ref, fp):
             / np.spacing(np.maximum(np.abs(ref), np.abs(fp).max()))).max()
 
 
-@pytest.mark.parametrize('case', ['nodes', 'ties', 'outside', 'random'])
+@pytest.mark.parametrize('case', ['nodes', 'ties', 'outside', 'random',
+                                  'single'])
 def test_interp_matches_jnp(case):
     """jnp.interp's formula, on the nodes, on repeated nodes (dx = 0),
-    left of xp[0] and right of xp[-1], and at random points: equal to
+    left of xp[0] and right of xp[-1], at random points, and on a single
+    node (its value everywhere): equal to
     1 ulp (XLA contracts fp[i-1] + t df into an FMA, as the port does
     with addcmul; the two agree bit for bit here)."""
     rng = np.random.default_rng(3)
@@ -103,6 +105,9 @@ def test_interp_matches_jnp(case):
         x = np.concatenate([xp[0] - rng.uniform(0, 1, 10),
                             xp[-1] + rng.uniform(1e-12, 1, 10),
                             [xp[0], xp[-1]]])
+    elif case == 'single':
+        xp, fp = xp[12:13], fp[12:13]
+        x = np.concatenate([xp, rng.uniform(-0.2, 1.2, 20)])
     else:
         x = rng.uniform(-0.2, 1.2, 200)
     ours = tprd.interp(T(x), T(xp), T(fp))

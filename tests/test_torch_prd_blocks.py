@@ -1,8 +1,9 @@
-"""The PRD work in blocks: ops/prd.py:prd_scatter_rho over blocks of
-depths and Context._prd_subset_idxs over blocks of the Doppler factors
+"""The PRD work in blocks: ops/prd.py:prd_scatter_rho_plain over blocks
+of depths and Context._prd_subset_idxs over blocks of the Doppler factors
 give the unblocked result bit for bit, at several block sizes (one of
 them not a divisor of the depths or of the factors); on the card, the
-blocked integral equals the unblocked one at a column batch's size.
+plain version's blocked integral equals its unblocked one at a column
+batch's size (prd_scatter_rho launches the kernel there, in one launch).
 
 No jax here."""
 import numpy as np
@@ -22,10 +23,11 @@ UNBLOCKED = 1 << 62
 
 
 def scatter_rho(args, blockElements):
-    """prd_scatter_rho with the block budget ``blockElements``."""
+    """The plain prd_scatter_rho (on a card too, where prd_scatter_rho
+    launches the kernel) with the block budget ``blockElements``."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(prd, 'BLOCK_ELEMENTS', blockElements)
-        return prd.prd_scatter_rho(*args)
+        return prd.prd_scatter_rho_plain(*args)
 
 
 def random_line(W: int, Nk: int, seed: int, device='cpu'):
@@ -115,7 +117,8 @@ def test_blocked_subset_is_unblocked(hprd_batch, monkeypatch):
 @pytest.mark.gpu
 def test_blocked_scatter_rho_on_the_card():
     """At 64 columns' depths and the Mg II k window's 250 rows, in blocks of
-    each size, the card's result equals its unblocked one."""
+    each size, the plain version's result on the card equals its unblocked
+    one."""
     if not torch.cuda.is_available():
         pytest.skip('no CUDA device')
     W, Nk = 250, 64 * 82
@@ -124,4 +127,4 @@ def test_blocked_scatter_rho_on_the_card():
     for depths in (1000, 777, 64 * 82 - 1):
         assert torch.equal(scatter_rho(args, depths * W * prd.NFINE), ref), \
             depths
-    assert torch.equal(prd.prd_scatter_rho(*args), ref)
+    assert torch.equal(prd.prd_scatter_rho_plain(*args), ref)
