@@ -59,11 +59,13 @@ on a CUDA device (on a 2D atmosphere the plane sweep, torch ops as the
 JAX package leaves it to XLA: one loop over the planes per direction for
 every wavelength and ray of the direction); the other stages are plain
 torch ops on the chosen device, as the JAX package leaves them to XLA.
-PRD lines carry their emission-profile ratio rho (params['rhoPrd']) into
-every stage through _uv; between MALI steps prd_redistribute refreshes
-rho (ops/prd.py) and re-solves the PRD-active wavelengths
-(build_prd_subset_fn, again through ops/sweep.py; on a 2D atmosphere the
-full-grid MALI step).
+The stages read each transition's terms on its window from one table per
+step (transition_terms over _uv), formed by the first stage that reads
+them.  PRD lines carry their emission-profile ratio rho
+(params['rhoPrd']) into every stage through _uv; between MALI steps
+prd_redistribute refreshes rho (ops/prd.py) and re-solves the PRD-active
+wavelengths (build_prd_subset_fn, again through ops/sweep.py; on a 2D
+atmosphere the full-grid MALI step).
 
 Two iteration schemes (Context.set_fs_iter_scheme) put a further kernel
 behind a stage:
@@ -81,7 +83,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from functools import partial
 from types import SimpleNamespace
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -474,36 +476,48 @@ def _wla(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic):
     return w[:, None].expand(t.W, cfg.Nk)
 
 
-def chi_eta_w(cfg, params, ai, ti, lo, hi):
-    """(chi_t, eta_t) of transition (ai, ti) on rows [lo, hi)."""
-    t = cfg.allAtoms[ai].trans[ti]
+def _chi_eta(params, ai: int, t: TransStatic, uv):
+    """(chi, eta) of transition t of atom ai from its _uv terms ``uv``:
+    chi = n_i Vij - n_j Vji, eta = n_j Uji."""
+    Uji, Vij, Vji = uv
     n = params['allPops'][ai]
-    Uji, Vij, Vji = _uv(cfg, params, ai, ti, t, lo, hi)
     return n[t.i] * Vij - n[t.j] * Vji, n[t.j] * Uji
 
 
-def chiW(cfg, params, ai, ti, lo, hi):
-    return chi_eta_w(cfg, params, ai, ti, lo, hi)[0]
+class Terms(NamedTuple):
+    """One transition's terms on its whole window (transition_terms)."""
+    Uji: torch.Tensor
+    Vij: torch.Tensor
+    Vji: torch.Tensor
+    chi: torch.Tensor
+    eta: torch.Tensor
 
 
-def etaW(cfg, params, ai, ti, lo, hi):
-    return chi_eta_w(cfg, params, ai, ti, lo, hi)[1]
-
-
-def UjiW(cfg, params, ai, ti, lo, hi):
-    t = cfg.allAtoms[ai].trans[ti]
-    return _uv(cfg, params, ai, ti, t, lo, hi)[0]
+def transition_terms(cfg: IterConfig, params, ai: int, ti: int) -> Terms:
+    """Uji, Vij, Vji, chi and eta of transition (ai, ti) of cfg.allAtoms on
+    its whole window, formed by the first stage that asks for them and
+    kept in the working params' table (_working_params: one per MALI
+    step).  Every operation of _uv and _chi_eta is elementwise per row, so
+    rows [lo, hi) of an entry are bit for bit _uv(..., lo, hi)'s."""
+    table = params['terms']
+    if (ai, ti) not in table:
+        t = cfg.allAtoms[ai].trans[ti]
+        uv = _uv(cfg, params, ai, ti, t)
+        table[(ai, ti)] = Terms(*uv, *_chi_eta(params, ai, t, uv))
+    return table[(ai, ti)]
 
 
 def _working_params(cfg: IterConfig, params):
     """params with everything the ray-tensor math reads in the working
-    dtype, plus 'allPops'/'allNStar' (active then detailed atoms): the
-    populations, background, thermodynamics, profiles, rho and hybrid
-    PRD's vlos mu and interpolation fractions are cast (no copy in
-    float64); J stays in accumDtype, C in float64."""
+    dtype, plus 'allPops'/'allNStar' (active then detailed atoms) and an
+    empty table 'terms' of transition_terms: the populations, background,
+    thermodynamics, profiles, rho and hybrid PRD's vlos mu and
+    interpolation fractions are cast (no copy in float64); J stays in
+    accumDtype, C in float64."""
     def cast(x):
         return None if x is None else x.to(cfg.dtype)
     params = dict(params)
+    params['terms'] = {}
     params['allPops'] = [cast(n) for n in
                          list(params['pops']) + list(params['detPops'])]
     params['allNStar'] = [cast(n) for n in
@@ -522,29 +536,21 @@ def _working_params(cfg: IterConfig, params):
 def gather(cfg: IterConfig, params, scaJ):
     """chiTot and srcNum = etaTot + sca*J as [2, Nlam, Nmu, Nk].
 
-    The grid is cut at every window edge; between two edges the covering
-    transition set is fixed, so each segment is background + covering
-    windows (+ scaJ last, the order of srcNum = etaTot + scaJ) and every
-    element is written once by the final concatenation."""
-    Nlam, Nmu, Nk = cfg.Nlam, cfg.Nmu, cfg.Nk
-    spans = [(t.Nblue, t.Nred, ai, ti)
-             for ai, a in enumerate(cfg.allAtoms)
-             for ti, t in enumerate(a.trans)]
-    edges = sorted({0, Nlam, *(s[0] for s in spans), *(s[1] for s in spans)})
-    segsChi, segsSrc = [], []
-    for s0, s1 in zip(edges[:-1], edges[1:]):
-        segChi = params['bgChi'][s0:s1][None, :, None, :]
-        segEta = params['bgEta'][s0:s1][None, :, None, :]
-        for (nb, nr, ai, ti) in spans:
-            if nb <= s0 and s1 <= nr:
-                c, e = chi_eta_w(cfg, params, ai, ti, s0, s1)
-                segChi = segChi + c
-                segEta = segEta + e
-        segEta = segEta + scaJ[s0:s1][None, :, None, :]
-        shape = (2, s1 - s0, Nmu, Nk)
-        segsChi.append(segChi.expand(shape))
-        segsSrc.append(segEta.expand(shape))
-    return torch.cat(segsChi, dim=1), torch.cat(segsSrc, dim=1)
+    The background rows broadcast over (up/down, mu), then each
+    transition's chi and eta (transition_terms, formed here) added over
+    its window in allAtoms order, then scaJ (the order of srcNum = etaTot
+    + scaJ): every element sums background, covering transitions and
+    scaJ in that order, in place."""
+    shape = (2, cfg.Nlam, cfg.Nmu, cfg.Nk)
+    chiTot = params['bgChi'][None, :, None, :].expand(shape).contiguous()
+    srcNum = params['bgEta'][None, :, None, :].expand(shape).contiguous()
+    for ai, a in enumerate(cfg.allAtoms):
+        for ti, t in enumerate(a.trans):
+            terms = transition_terms(cfg, params, ai, ti)
+            chiTot[:, t.Nblue:t.Nred] += terms.chi
+            srcNum[:, t.Nblue:t.Nred] += terms.eta
+    srcNum += scaJ[None, :, None, :]
+    return chiTot, srcNum
 
 
 # ---- stage 2: formal solution + angular moments -------------------------
@@ -784,9 +790,9 @@ def fused_inputs(cfg: IterConfig, params, scaJ, pack):
         for ti, t in enumerate(a.trans):
             if t.isLine:
                 continue
-            c, e = chi_eta_w(cfg, params, ai, ti, t.Nblue, t.Nred)
-            contChi[t.Nblue:t.Nred] += c[0, :, 0, :]
-            contEtaA[ai][t.Nblue:t.Nred] += e[0, :, 0, :]
+            terms = transition_terms(cfg, params, ai, ti)
+            contChi[t.Nblue:t.Nred] += terms.chi[0, :, 0, :]
+            contEtaA[ai][t.Nblue:t.Nred] += terms.eta[0, :, 0, :]
     contEta = contEtaA[0]
     for e in contEtaA[1:]:
         contEta = contEta + e
@@ -903,12 +909,11 @@ def line_inputs(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, table):
             if t.isLine:
                 continue
             sl = slice(t.Nblue, t.Nred)
-            c, e = chi_eta_w(cfg, params, ai, ti, t.Nblue, t.Nred)
-            etaC[ai, sl] += e[0, :, 0, :]
-            chiCL[off + t.i, sl] += c[0, :, 0, :]
-            chiCL[off + t.j, sl] -= c[0, :, 0, :]
-            UCL[off + t.j, sl] += UjiW(cfg, params, ai, ti, t.Nblue,
-                                       t.Nred)[0, :, 0, :]
+            terms = transition_terms(cfg, params, ai, ti)
+            etaC[ai, sl] += terms.eta[0, :, 0, :]
+            chiCL[off + t.i, sl] += terms.chi[0, :, 0, :]
+            chiCL[off + t.j, sl] -= terms.chi[0, :, 0, :]
+            UCL[off + t.j, sl] += terms.Uji[0, :, 0, :]
     n = torch.cat([params['allPops'][ai]
                    for ai in range(len(cfg.activeAtoms))])
     for gi, g in enumerate(table.groups):
@@ -985,6 +990,12 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
     non-cancelling terms in the working dtype before any cast (the JAX
     package's non-factored branch, lightweaver_tpu/context.py:1299-1310).
 
+    Every transition's Uji, Vij, Vji, chi and eta come from the step's
+    table (transition_terms): the level sums, the atom's eta, the cross
+    terms and the continuum rows are slices and sums of its entries, which
+    the gather has formed (under the fused scheme the lines' entries are
+    formed here, at their first read).
+
     Gamma, Rij and Rji come out in accumDtype.  The ray-tensor integrands
     are in the working dtype; the moments are cast to accumDtype and every
     lambda contraction runs in it (_sum_lmd_split, lam_sum), the JAX
@@ -1020,79 +1031,51 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
         """Gamma and the rates of active atom ``a``."""
         lt = None if lineTerms is None else lineTerms[ai]
 
-        def fn_on(fn, t2i, lo, hi):
-            return fn(cfg, params, ai, t2i, lo, hi)
+        def rows_of(aj, tj, key, lo, hi):
+            """Rows [lo, hi) of term ``key`` of transition (aj, tj), from
+            the step's table."""
+            t2 = cfg.allAtoms[aj].trans[tj]
+            x = getattr(transition_terms(cfg, params, aj, tj), key)
+            return x[:, lo - t2.Nblue:hi - t2.Nblue]
 
         def kernel_rows(t2i, key, lo, hi):
             """Rows [lo, hi) of the line kernel's [Wu, Nk] row ``key``."""
             pl = lt['line'][t2i]
             return pl[key][lo - pl['row0']:hi - pl['row0']]
 
-        def level_sum_on_window(t, items, fn, signed):
-            """Level-list sum over t's window [2, W, Nmu, Nk], members
-            recomputed on the overlap rows via ``fn``."""
-            out = zeros(2, t.W, Nmu, Nk)
-            for item in items:
-                t2i, sign = item if signed else (item, 1)
-                t2 = a.trans[t2i]
+        def window_sum(t, members, key, cont=False):
+            """The sum of term ``key`` of ``members`` ((aj, tj, sign), in
+            order) over t's window, each on its overlap rows: [2, W, Nmu,
+            Nk], or with ``cont`` the continuum members' [W, Nk] in cdt."""
+            out = (zeros(t.W, Nk, dtype=cdt) if cont
+                   else zeros(2, t.W, Nmu, Nk))
+            for aj, tj, sign in members:
+                t2 = cfg.allAtoms[aj].trans[tj]
                 lo, hi = max(t.Nblue, t2.Nblue), min(t.Nred, t2.Nred)
-                if hi <= lo:
+                if hi <= lo or (cont and t2.isLine):
                     continue
-                out[:, lo - t.Nblue:hi - t.Nblue] += sign * fn_on(fn, t2i,
-                                                                  lo, hi)
+                x = rows_of(aj, tj, key, lo, hi)
+                out.narrow(0 if cont else 1, lo - t.Nblue, hi - lo).add_(
+                    x[0, :, 0, :].to(cdt) if cont else x, alpha=sign)
             return out
 
-        def eta_atom_on_window(lo, hi):
-            """Atom's total eta restricted to [lo, hi) as [2, hi-lo, ...]."""
-            out = zeros(2, hi - lo, Nmu, Nk)
-            for t2i, t2 in enumerate(a.trans):
-                l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
-                if h2 <= l2:
-                    continue
-                out[:, l2 - lo:h2 - lo] += fn_on(etaW, t2i, l2, h2)
-            return out
+        def level(key, lv):
+            """The atom's members of term ``key`` at level lv: chi signed
+            (chiLists), U unsigned (ULists)."""
+            if key == 'chi':
+                return [(ai, tj, sign) for tj, sign in a.chiLists[lv]]
+            return [(ai, tj, 1) for tj in a.ULists[lv]]
 
-        def eta_lines_other_on_window(lo, hi):
-            """The OTHER atoms' line eta on [lo, hi): with srcRowsA it
-            completes srcNum - etaAtom as a sum of positive terms."""
-            out = zeros(2, hi - lo, Nmu, Nk)
-            for aj, a2 in enumerate(cfg.allAtoms):
-                if aj == ai:
-                    continue
-                for tj, t2 in enumerate(a2.trans):
-                    l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
-                    if not t2.isLine or h2 <= l2:
-                        continue
-                    out[:, l2 - lo:h2 - lo] += etaW(cfg, params, aj, tj, l2,
-                                                    h2)
-            return out
-
-        def cont_part_on(fn, items, signed, lo, hi):
-            """[hi-lo, Nk] sum of the continuum members of a level list
-            restricted to [lo, hi), in cdt."""
-            out = zeros(hi - lo, Nk, dtype=cdt)
-            for item in items:
-                t2i, sign = item if signed else (item, 1)
-                t2 = a.trans[t2i]
-                if t2.isLine:
-                    continue
-                l2, h2 = max(lo, t2.Nblue), min(hi, t2.Nred)
-                if h2 <= l2:
-                    continue
-                out[l2 - lo:h2 - lo] += sign * fn_on(
-                    fn, t2i, l2, h2)[0, :, 0, :].to(cdt)
-            return out
-
-        def cross_bar(t, listX, listU, wlaA):
-            """[Nk] = sum over t's window of wla * wmu2 * Psi * chiLevel
-            * ULevel (continuum x continuum through PsiBar, line terms
-            over their overlap rows)."""
+        def cross_bar(t, li, lj, wlaA):
+            """[Nk] = sum over t's window of wla * wmu2 * Psi * chi of
+            level li * U of level lj (continuum x continuum through PsiBar,
+            line terms over their overlap rows)."""
             lo, hi = t.Nblue, t.Nred
-            XC = cont_part_on(chiW, listX, True, lo, hi)
-            UC = cont_part_on(UjiW, listU, False, lo, hi)
+            XC = window_sum(t, level('chi', li), 'chi', cont=True)
+            UC = window_sum(t, level('Uji', lj), 'Uji', cont=True)
             total = lam_sum(XC * UC * wlaA.to(cdt) * PsiBar[lo:hi].to(cdt))
             # line(chi) x continuum(U) and line x line terms
-            for t2i, sign in listX:
+            for t2i, sign in a.chiLists[li]:
                 t2 = a.trans[t2i]
                 if not t2.isLine:
                     continue
@@ -1106,11 +1089,10 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                         kernel_rows(t2i, 'chiPsiBar', l2, h2).to(adt)
                         * UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo], dim=0)
                 else:
-                    chiSub = fn_on(chiW, t2i, l2, h2)
                     total = total + sign * sum_lmd(
-                        chiSub * Psi[:, l2:h2],
+                        rows_of(ai, t2i, 'chi', l2, h2) * Psi[:, l2:h2],
                         UC[l2 - lo:h2 - lo] * wlaA[l2 - lo:h2 - lo])
-                for t3i in listU:
+                for t3i in a.ULists[lj]:
                     t3 = a.trans[t3i]
                     if not t3.isLine:
                         continue
@@ -1126,10 +1108,11 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                             * wlaA[l3 - lo:h3 - lo], dim=0)
                         continue
                     total = total + sign * sum_lmd(
-                        fn_on(chiW, t2i, l3, h3) * fn_on(UjiW, t3i, l3, h3)
+                        rows_of(ai, t2i, 'chi', l3, h3)
+                        * rows_of(ai, t3i, 'Uji', l3, h3)
                         * Psi[:, l3:h3], wlaA[l3 - lo:h3 - lo])
             # continuum(chi) x line(U) terms
-            for t3i in listU:
+            for t3i in a.ULists[lj]:
                 t3 = a.trans[t3i]
                 if not t3.isLine:
                     continue
@@ -1142,7 +1125,7 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                         * XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo], dim=0)
                     continue
                 total = total + sum_lmd(
-                    fn_on(UjiW, t3i, l3, h3) * Psi[:, l3:h3],
+                    rows_of(ai, t3i, 'Uji', l3, h3) * Psi[:, l3:h3],
                     XC[l3 - lo:h3 - lo] * wlaA[l3 - lo:h3 - lo])
             return total
 
@@ -1157,7 +1140,7 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                 PsiEtaBar[sl] += kernel_rows(ti, 'etaPsiBar', t.Nblue,
                                              t.Nred).to(adt)
                 continue
-            eta = fn_on(etaW, ti, t.Nblue, t.Nred)
+            eta = transition_terms(cfg, params, ai, ti).eta
             if t.isLine:
                 PsiEtaBar[sl] += _sum_mu(eta * Psi[:, sl], wmu2w).to(adt)
             else:
@@ -1175,7 +1158,7 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                 Rij.append(torch.sum(G4[2], dim=0))
                 Rji.append(torch.sum(G4[3], dim=0))
                 continue
-            Uji, Vij, Vji = _uv(cfg, params, ai, ti, t)
+            Uji, Vij, Vji = transition_terms(cfg, params, ai, ti)[:3]
             wlaA = _wla(cfg, params, ai, ti, t).to(adt)  # [W, Nk]
 
             if factored and not t.isLine:
@@ -1185,9 +1168,9 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
                 oneBarC = oneBar.to(cdt)
                 Ieff_b = IeffBarA[sl].to(cdt)
                 Gij = (lam_sum((UjiC * oneBarC + VjiC * Ieff_b) * wlaB)
-                       - cross_bar(t, a.chiLists[t.i], a.ULists[t.j], wlaA))
+                       - cross_bar(t, t.i, t.j, wlaA))
                 Gji = (lam_sum(VijC * Ieff_b * wlaB)
-                       - cross_bar(t, a.chiLists[t.j], a.ULists[t.i], wlaA))
+                       - cross_bar(t, t.j, t.i, wlaA))
                 Gamma[t.i, t.j] += Gij
                 Gamma[t.j, t.i] += Gji
                 IBar_w = IBar[sl].to(cdt)
@@ -1201,16 +1184,21 @@ def gamma_rates(cfg: IterConfig, params, I, Psi, IeffBase, srcNum, moments,
             Psi_w = Psi[:, sl]
             I_w = I[:, sl]
             if srcNum is None:
-                srcO = (srcRowsA[ai][sl][None, :, None, :]
-                        + eta_lines_other_on_window(t.Nblue, t.Nred))
+                # the OTHER atoms' line eta completes srcNum - etaAtom as a
+                # sum of positive terms
+                srcO = (srcRowsA[ai][sl][None, :, None, :] + window_sum(
+                    t, [(aj, tj, 1) for aj, a2 in enumerate(cfg.allAtoms)
+                        if aj != ai for tj, t2 in enumerate(a2.trans)
+                        if t2.isLine], 'eta'))
                 Ieff_w = IeffBase[:, sl] + Psi_w * srcO
             else:
-                etaA_w = eta_atom_on_window(t.Nblue, t.Nred)
+                etaA_w = window_sum(t, [(ai, tj, 1) for tj in
+                                        range(len(a.trans))], 'eta')
                 Ieff_w = IeffBase[:, sl] + Psi_w * (srcNum[:, sl] - etaA_w)
-            chi_i = level_sum_on_window(t, a.chiLists[t.i], chiW, True)
-            chi_j = level_sum_on_window(t, a.chiLists[t.j], chiW, True)
-            U_i = level_sum_on_window(t, a.ULists[t.i], UjiW, False)
-            U_j = level_sum_on_window(t, a.ULists[t.j], UjiW, False)
+            chi_i, chi_j = (window_sum(t, level('chi', lv), 'chi')
+                            for lv in (t.i, t.j))
+            U_i, U_j = (window_sum(t, level('Uji', lv), 'Uji')
+                        for lv in (t.i, t.j))
             integ_ij = (Uji + Vji * Ieff_w) - Psi_w * chi_i * U_j
             integ_ji = (Vij * Ieff_w) - Psi_w * chi_j * U_i
             Gamma[t.i, t.j] += sum_lmd(integ_ij, wlaA)
@@ -1436,6 +1424,9 @@ def build_iteration_fn(cfg: IterConfig, restFrame=None):
             with tracing.span('lw.formal_solve'):
                 I, Psi, IeffBase, moments = formal_solve(cfg, params, chiTot,
                                                          srcNum)
+            if not storeDepthData:
+                # read no more: its memory goes to gamma_rates' transients
+                chiTot = None
         if lambdaIterate:
             I, Psi, IeffBase, moments = lambda_operator(I, Psi, moments)
         if scheme == SCHEME_PALLAS and packed is not None:
@@ -1456,13 +1447,16 @@ def build_iteration_fn(cfg: IterConfig, restFrame=None):
                                           srcRowsA)
         out = {'Gamma': Gamma, 'Rij': Rij, 'Rji': Rji, 'J': Jnew,
                'I': _emergent(cfg, I), 'dJ': dJ}
+        if storeDepthData:
+            out.update(depth_data(cfg, params, scaJ, chiTot, srcNum, I))
+        # the step's terms are read no more: free them before rest-frame
+        # J's transients
+        params['terms'].clear()
         if cfg.hprd:
             with tracing.span('lw.hprd.rest_frame_j'):
                 out['JRest'] = (restFrame(params, I) if restFrame is not None
                                 else rest_frame_J(cfg, params,
                                                   cfg.wavelengthT, I))
-        if storeDepthData:
-            out.update(depth_data(cfg, params, scaJ, chiTot, srcNum, I))
         return out
 
     iteration.pack = pack
@@ -1503,8 +1497,8 @@ def depth_data(cfg: IterConfig, params, scaJ, chiTot, srcNum, I):
     [Nlam, Nmu, 2, Nk] in the working dtype, on the device.  The sweep
     path recovers eta from srcNum = eta + sca J, as the JAX package's
     sweep-kernel path does (lightweaver_tpu/context.py:1537-1544); the
-    fused scheme never forms chi or eta, so they are rebuilt by gather
-    (with a zero scattering term), in this call only."""
+    fused scheme never forms chiTot or eta, so gather assembles them from
+    the step's table (with a zero scattering term), in this call only."""
     if chiTot is None:
         chiTot, eta = gather(cfg, params, torch.zeros_like(scaJ))
     else:
@@ -1659,7 +1653,8 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
         chiSub = params['bgChi'][subT][None, :, None, :].expand(shape).clone()
         etaSub = params['bgEta'][subT][None, :, None, :].expand(shape).clone()
         for ai, ti, p0, p1, r0, r1, sel in spans:
-            c, e = chi_eta_w(cfg, params, ai, ti, r0, r1)
+            t = cfg.allAtoms[ai].trans[ti]
+            c, e = _chi_eta(params, ai, t, _uv(cfg, params, ai, ti, t, r0, r1))
             chiSub[:, p0:p1] += c[:, sel]
             etaSub[:, p0:p1] += e[:, sel]
 

@@ -26,6 +26,7 @@ from lightweaver_tpu.ops.pallas_gamma import aligned_window as j_aligned_window
 from lightweaver_tpu.ops.pallas_gamma import \
     group_gamma_rates as j_group_gamma_rates
 from lightweaver_tpu.ops.pallas_gamma import line_groups as j_line_groups
+from lightweaver_tpu_torch import context as tcontext
 from lightweaver_tpu_torch.context import build_iteration_fn, line_pack
 from lightweaver_tpu_torch.convert import params_from_numpy
 from lightweaver_tpu_torch.ops import gamma as tgamma
@@ -373,3 +374,48 @@ def test_packed_line_plain_matches_groups_and_jax(problem, ctx, prd_ctx):
         assert len(Ks) == 13
     else:
         assert max(Ks) == 4 and rhoDev > 0.0
+
+
+@pytest.mark.parametrize('case', ['default', 'fused', 'pallas', 'hprd'])
+def test_step_forms_each_transition_once(case, monkeypatch):
+    """One MALI step after a warm-up (falc at 20 depths: H 6 + Ca II under
+    the three schemes, H 6 + Mg II under hybrid PRD with rho != 1)
+    evaluates _uv at most once per transition: every stage reads the
+    step's table (context.transition_terms).  Rows [lo, hi) of each entry
+    are bit for bit the row-range _uv and its chi and eta, on the whole
+    window and on sub-ranges at its ends and inside it."""
+    if case == 'hprd':
+        c = h6mg_context(falc_interpolated(20), 5, hprd=True, device='cpu')
+    else:
+        c = h6ca_context(falc_interpolated(20), 5, device='cpu')
+        if case != 'default':
+            c.set_fs_iter_scheme('mali_full_precond_' + case)
+    c.formal_sol_gamma_matrices()
+    c.stat_equil()
+    if case == 'hprd':
+        c.prd_redistribute(maxIter=1)
+
+    counts = {}
+    uv = tcontext._uv
+
+    def counting(cfg, params, ai, ti, t, lo=None, hi=None):
+        counts[(ai, ti)] = counts.get((ai, ti), 0) + 1
+        return uv(cfg, params, ai, ti, t, lo, hi)
+    monkeypatch.setattr(tcontext, '_uv', counting)
+    c.formal_sol_gamma_matrices()
+    monkeypatch.undo()
+    assert counts and max(counts.values()) == 1, counts
+
+    cfg = c.cfg
+    params = tcontext._working_params(cfg, c.build_params())
+    for ai, a in enumerate(cfg.allAtoms):
+        for ti, t in enumerate(a.trans):
+            terms = tcontext.transition_terms(cfg, params, ai, ti)
+            assert tcontext.transition_terms(cfg, params, ai, ti) is terms
+            W, b = t.W, t.Nblue
+            for lo, hi in ((0, W), (0, 1), (W // 3, 2 * W // 3 + 1),
+                           (W - 2, W)):
+                part = tcontext._uv(cfg, params, ai, ti, t, b + lo, b + hi)
+                part = (*part, *tcontext._chi_eta(params, ai, t, part))
+                for x, y in zip(terms, part):
+                    assert torch.equal(x[:, lo:hi], y), (ai, ti, lo, hi)
