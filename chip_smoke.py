@@ -51,11 +51,20 @@ result):
    plain version (PRD_SCATTER_TOL = 1e-12 of its maximum), the kernel's
    device time, the plain version's and the least time
    (lwbench/harness/prd_work.py), launches, ptxas registers and spills.
+   (c) The PRD subset kernel (csrc/prd_subset.cu) at the same batch's
+   shapes: the hybrid-PRD subset solve's held terms and lines of
+   falc_h6mg with a 10 km/s outflow (428 rows, four PRD lines) tiled over
+   PRD_BATCH_COLUMNS columns: against the sweep kernel on the plain
+   assembly (PRD_SUBSET_TOL = 0: the same bits) and against the plain
+   version (KERNEL_TOL), the kernel's device time beside the plain
+   version's and the least time, ptxas registers and spills, the float32
+   instance's time.
 8. falc_h6mg PRD converged under the default scheme through
    iterate_ctx_se(prd=True), and its hybrid-PRD variant (0-5 km/s
    outflow), against their golden runs
    (tests/golden/falc_h6mg_{prd,hprd}_ref.npz), with iterations, PRD
-   sub-iterations, wall time and launch counts; the kernel schemes for
+   sub-iterations, wall time and launch counts (a sweep per MALI step, a
+   PRD subset kernel per sub-iteration); the kernel schemes for
    PRD_SCHEME_STEPS = 10 MALI steps against the default scheme's state
    after as many (populations and rho within GOLDEN_RTOL; converged
    against golden until phase 13 needed the time, 40 steps until phase
@@ -195,8 +204,8 @@ result):
    checked against the CPU or the card's own other path.  (a) falc_h6mg
    with hybrid PRD in float32 (0-5 km/s outflow): 10 MALI steps with
    prd_redistribute(maxIter=3), ms per outer iteration, the float32
-   sweep's launches on the full grid and on the PRD subset rows (both
-   above 0); from that state one MALI iteration and one prd_redistribute,
+   sweep's launches on the full grid and the float32 PRD subset kernel's
+   on the subset rows (both above 0); from that state one MALI iteration and one prd_redistribute,
    card against CPU by phase 10's rule against a float64 twin.  (b)
    falc_h6ca with dense Gamma, float64 and float32, 3 MALI steps deep:
    dense against factored (1e-12 and 3e-5 of each array's maximum,
@@ -277,7 +286,7 @@ duration of the kernel's launches, one per call, kernel_device_ms); the
 plain versions' are CUDA events around their calls.  The kernels' JSON record holds phase
 7's errors and times and phase 8's launch counts for the float64
 instances (the PRD path; 7 (b)'s for the PRD scattering kernel, its times
-and bound summed over the four lines), phase 10 (a)'s falc_h6ca errors and times and
+and bound summed over the four lines; 7 (c)'s for the PRD subset kernel), phase 10 (a)'s falc_h6ca errors and times and
 (c)'s launch counts for the float32 ones, phase 12 (b)'s falc_h6ca errors
 and times and (c)'s launch counts for the sweep's linear and BESSER
 instances, phase 14 (b)'s slab errors, times and launches for the 2D
@@ -390,7 +399,8 @@ def kernel_device_ms(fn, pattern, reps=20, rounds=2):
 # kernel symbols, as the profiler names them
 SYMBOLS = {'sweep': 'sweep_kernel', 'gamma': 'line_gamma_kernel',
            'fused': 'fused_kernel', 'sweep2d': 'sweep2d_kernel',
-           'prd_scatter': 'prd_scatter_kernel'}
+           'prd_scatter': 'prd_scatter_kernel',
+           'prd_subset': 'prd_subset_kernel'}
 
 
 def environment():
@@ -414,7 +424,7 @@ def counters():
     of a wrapper (float64 and float32; the sweep's three solvers) keeps
     its own count."""
     from lightweaver_tpu_torch.ops import formal_solver2d, fused, gamma
-    from lightweaver_tpu_torch.ops import prd, probe, sweep
+    from lightweaver_tpu_torch.ops import prd, prd_subset, probe, sweep
     out = {'sweep': (sweep.sweep_cuda, 'launches'),
            'gamma': (gamma.line_gamma_rates_cuda, 'launches'),
            'fused': (fused.fused_cuda, 'launches'),
@@ -425,7 +435,9 @@ def counters():
            'probe_recurrence': (probe.recurrence_cuda, 'launches'),
            'sweep2d': (formal_solver2d.sweep2d_cuda, 'launches'),
            'sweep2d_f32': (formal_solver2d.sweep2d_cuda, 'launches_f32'),
-           'prd_scatter': (prd.prd_scatter_cuda, 'launches')}
+           'prd_scatter': (prd.prd_scatter_cuda, 'launches'),
+           'prd_subset': (prd_subset.prd_subset_cuda, 'launches'),
+           'prd_subset_f32': (prd_subset.prd_subset_cuda, 'launches_f32')}
     # the sweep's linear and BESSER instances
     for solver in ('piecewise_linear_1d', 'piecewise_besser_1d'):
         for dtype in (torch.float64, torch.float32):
@@ -450,10 +462,10 @@ def build_kernels():
     instances build at their first use (ops/formal_solver2d.py:
     instance_flags)."""
     from lightweaver_tpu_torch.ops import _build, fused, gamma, prd, probe
-    from lightweaver_tpu_torch.ops import sweep
+    from lightweaver_tpu_torch.ops import prd_subset, sweep
     phase('build the CUDA kernels from csrc/ (nvcc, sm_90a)')
     mods = {'probe': probe, 'sweep': sweep, 'gamma': gamma, 'fused': fused,
-            'prd_scatter': prd}
+            'prd_scatter': prd, 'prd_subset': prd_subset}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:
         list(ex.map(lambda m: m.load_library(), mods.values()))
@@ -971,6 +983,7 @@ def prd_kernel_check():
     result['prd_scatter'] = prd_scatter_check(ctx)
     del ctx
     torch.cuda.empty_cache()
+    result['prd_subset'] = prd_subset_check()
     return result
 
 
@@ -1333,11 +1346,13 @@ def converge_h6mg(scheme, hprd=False, nSteps=None, ref=None, snap=None):
         print(f'line kernel: one launch per MALI step for {len(sizes)} '
               f'groups, K = {sizes}')
     expected = {
-        'mali_full_precond': dict(sweep=nIter + nSub, gamma=0, fused=0),
-        PALLAS: dict(sweep=nIter + nSub, gamma=nIter, fused=0),
-        FUSED: dict(sweep=nSub, gamma=0, fused=nIter)}[scheme]
-    # one scattering integral per PRD line and sub-iteration
+        'mali_full_precond': dict(sweep=nIter, gamma=0, fused=0),
+        PALLAS: dict(sweep=nIter, gamma=nIter, fused=0),
+        FUSED: dict(sweep=0, gamma=0, fused=nIter)}[scheme]
+    # one scattering integral per PRD line and sub-iteration, one subset
+    # kernel per sub-iteration (csrc/prd_subset.cu)
     expected['prd_scatter'] = len(ctx._prd_lines()) * nSub
+    expected['prd_subset'] = nSub
     got = {k: counts[k] for k in expected}
     if got != expected or nSub < 1:
         raise AssertionError(f'launches {got}, expected {expected}')
@@ -1383,7 +1398,8 @@ def prd_paths():
     converged under the default scheme (the kernel schemes refuse it);
     then the stage breakdown of one PRD iteration on the default scheme's
     converged Context."""
-    launches = dict.fromkeys(('sweep', 'gamma', 'fused', 'prd_scatter'), 0)
+    launches = dict.fromkeys(('sweep', 'gamma', 'fused', 'prd_scatter',
+                              'prd_subset'), 0)
     snap = []
     breakdownCtx, counts = converge_h6mg(
         'mali_full_precond', snap=(PRD_SCHEME_STEPS, snap))
@@ -1993,6 +2009,140 @@ def check_fused_f32_args(label, args):
         lambda: fused.fused_lambda_step(*args64), bnd, SYMBOLS['fused'])
     return dict(max_abs_err=absErr, ms=ms, plain_ms=plainMs, f64_ms=ms64,
                 C=C, **bnd)
+
+
+# max |kernel - other| / max |other| of the PRD subset kernel's outputs
+# against the sweep kernel on the plain assembly: none, the assembly
+# rounded as the plain version's and the same warp scan
+# (tests/test_torch_prd_subset_kernel.py); against the plain version
+# KERNEL_TOL, the sweep kernel's bar
+PRD_SUBSET_TOL = 0.0
+
+
+def prd_subset_inputs(C, dtype=torch.float64, seed=5, device='cuda'):
+    """prd_subset_sweep's arguments at the hybrid-PRD column batch's
+    shapes: falc_h6mg in hybrid PRD (a 10 km/s ramp) after three MALI
+    steps and a prd_redistribute, its subset solve's held terms and this
+    sub-iteration's lines (context.py:build_prd_subset_fn), tiled over C
+    columns, each column's chiFix, etaFix and scaJ scaled by its own
+    factor in U(0.95, 1.05)."""
+    from lightweaver_tpu_torch import H_6_atom, MgII_atom, RadiativeSet
+    from lightweaver_tpu_torch.context import Context
+    from lightweaver_tpu_torch.problems import Falc82, vlos_ramp
+    atmos = vlos_ramp(Falc82(), 1e4)
+    atmos.quadrature(5)
+    rs = RadiativeSet([H_6_atom(), MgII_atom()])
+    rs.set_active('H', 'Mg')
+    ctx = Context(atmos, rs.compute_wavelength_grid(),
+                  rs.compute_eq_pops(atmos), hprd=True, device=device)
+    for _ in range(3):
+        ctx.formal_sol_gamma_matrices()
+        ctx.stat_equil()
+    ctx.prd_redistribute()
+    fs = ctx._prd_subset_fn()
+    params = ctx.build_params()
+    chiFix, etaFix, scaJ, lines, height, muz, wmu, upper, lower, solver = \
+        fs.kernel_args(params, fs.subset_terms(params))
+    rng = np.random.default_rng(seed)
+    Nk = ctx.cfg.Nk
+
+    def scale():
+        return torch.tensor(rng.uniform(0.95, 1.05, C), dtype=torch.float64,
+                            device=device).repeat_interleave(Nk)
+
+    def tile(x, f=None):
+        if x is None:
+            return None
+        y = x.repeat(*([1] * (x.dim() - 1)), C)
+        if f is not None:
+            y = y * f
+        return (y.to(dtype) if y.is_floating_point() else y).contiguous()
+
+    def bc(b):
+        kind, rows = b
+        if kind == 'data':
+            rows = rows[..., None].expand(*rows.shape, C)
+        elif kind == 'therm':
+            rows = rows[:, None, :].expand(rows.shape[0], C, 2)
+        return kind, None if rows is None else rows.to(dtype).contiguous()
+    lines = [L._replace(Vij=tile(L.Vij), nj=tile(L.nj), rho=tile(L.rho),
+                        i0=tile(L.i0), frac=tile(L.frac)) for L in lines]
+    return (tile(chiFix, scale()), tile(etaFix, scale()), tile(scaJ, scale()),
+            lines, height.to(dtype).repeat(C, 1).contiguous(), muz.to(dtype),
+            wmu.to(dtype), bc(upper), bc(lower), solver)
+
+
+def prd_subset_check():
+    """Phase 7 (c): the PRD subset kernel (csrc/prd_subset.cu) against the
+    sweep kernel on the plain assembly and against the plain version at
+    the hybrid-PRD column batch's shapes (PRD_BATCH_COLUMNS columns of
+    falc_h6mg in hybrid PRD), with the kernel's and the plain version's
+    times, the least time (bytes read and written once at 3.35 TB/s),
+    ptxas' registers and spills, the launches, and the float32
+    instance's time."""
+    from lightweaver_tpu_torch.ops import _build, prd_subset
+    from lightweaver_tpu_torch.ops import sweep
+    phase(f'PRD subset kernel: falc_h6mg hybrid PRD\'s subset rows over '
+          f'{PRD_BATCH_COLUMNS} columns (f64)')
+    log = _build.build_log('prd_subset')
+    regs, spills = ptxas_registers(log), ptxas_spills(log)
+    for fn in sorted(regs):
+        print(f'  ptxas {instance_of(fn)}: {regs[fn]} registers, spill '
+              f'stores / loads {spills.get(fn, (0, 0))} bytes')
+    args = prd_subset_inputs(PRD_BATCH_COLUMNS)
+    chiFix, lines = args[0], args[3]
+    n0 = prd_subset.prd_subset_cuda.launches
+    kern = prd_subset.prd_subset_sweep(*args)
+    torch.cuda.synchronize()
+    if prd_subset.prd_subset_cuda.launches != n0 + 1:
+        raise AssertionError('the PRD subset solve did not launch its kernel')
+    names = ('I', 'J', 'PsiBar', 'IeffSrcBar')
+
+    def outs(I, m):
+        return [I] + [m[k] for k in names[1:]]
+    sw = sweep.formal_solve_sweep(*prd_subset.sweep_args(*args[:9]))
+    plain = prd_subset.prd_subset_sweep_plain(*args)
+    relSw, _ = compare_outputs('PRD subset vs sweep kernel', names,
+                               outs(*kern), outs(sw[0], sw[3]),
+                               PRD_SUBSET_TOL)
+    rel, absErr = compare_outputs('PRD subset vs plain', names, outs(*kern),
+                                  outs(*plain), KERNEL_TOL)
+    cover = torch.zeros(chiFix.shape[1], dtype=torch.int64)
+    for L in lines:
+        cover[L.s0:L.s0 + L.Vij.shape[1]] += 1
+    print(f'  {chiFix.shape[1]} subset rows x {chiFix.shape[2]} rays x '
+          f'{chiFix.shape[3]} depths, {len(lines)} PRD lines (rows covered '
+          f'by two: {int((cover == 2).sum())}): max|kernel-sweep|/max|sweep| '
+          f'= {relSw:.3e} (bar {PRD_SUBSET_TOL}), max|kernel-plain|/'
+          f'max|plain| = {rel:.3e} (bar {KERNEL_TOL}), max abs {absErr:.3e}')
+    del sw, plain
+    ins = [x for x in args if torch.is_tensor(x)] + [
+        x for L in lines for x in (L.Vij, L.rho, L.i0, L.frac, L.nj)] + [
+        b[1] for b in args[7:9]]
+    I, m = kern
+    bnd = bound(nbytes(ins + [I] + [m[k] for k in names[1:]]),
+                SWEEP_FLOPS * chiFix.numel(), chiFix.dtype)
+    ms, plainMs = timed_pair('PRD subset kernel, per call',
+                             lambda: prd_subset.prd_subset_sweep(*args),
+                             lambda: prd_subset.prd_subset_sweep_plain(*args),
+                             SYMBOLS['prd_subset'], reps=5, bnd=bnd)
+    share = 100 * bnd['bound_ms'] / ms
+    print(f'  plain / kernel {plainMs / ms:.1f}x, {share:.2f} % of the '
+          'least time')
+    del kern, I, m
+    args32 = prd_subset_inputs(PRD_BATCH_COLUMNS, torch.float32)
+    ms32 = min(kernel_device_ms(lambda: prd_subset.prd_subset_sweep(*args32),
+                                SYMBOLS['prd_subset'], reps=5))
+    I32, m32 = prd_subset.prd_subset_sweep(*args32)
+    bnd32 = bound(nbytes([x for x in args32 if torch.is_tensor(x)] + [
+        x for L in args32[3] for x in (L.Vij, L.rho, L.i0, L.frac, L.nj)]
+        + [b[1] for b in args32[7:9]] + [I32] + list(m32.values())),
+        SWEEP_FLOPS * I32.numel(), torch.float32)
+    print(f'  float32 instance: kernel {ms32:.4f} ms{bound_text(bnd32)}')
+    del args, args32, I32, m32
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=absErr, max_rel_err=rel, ms=ms,
+                plain_ms=plainMs, ms_f32=ms32, **bnd)
 
 
 def prd_state(dtype):
@@ -3065,9 +3215,11 @@ def batch_prd():
     if not worst < BATCH_PRD_TOL:
         raise AssertionError(f'PRD batch differs from single Contexts: '
                              f'{worst:.3e} > {BATCH_PRD_TOL}')
-    if counts.get('sweep', 0) != BATCH_PRD_STEPS + nSub:
+    if (counts.get('sweep', 0) != BATCH_PRD_STEPS
+            or counts.get('prd_subset', 0) != nSub):
         raise AssertionError(f'PRD batch launches {counts}: one sweep per '
-                             'MALI step and PRD sub-iteration expected')
+                             'MALI step and one subset kernel per PRD '
+                             'sub-iteration expected')
     del b, singles
     torch.cuda.empty_cache()
 
@@ -3565,21 +3717,22 @@ def options_hprd_f32():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(OPTIONS_HPRD_STEPS):
-        c0 = read_counts()['sweep_f32']
+        c0 = read_counts()
         u = ctx.formal_sol_gamma_matrices()
         ctx.stat_equil()
-        c1 = read_counts()['sweep_f32']
+        c1 = read_counts()
         ur = ctx.prd_redistribute(maxIter=3)
-        full += c1 - c0
-        sub += read_counts()['sweep_f32'] - c1
+        full += c1['sweep_f32'] - c0['sweep_f32']
+        sub += read_counts()['prd_subset_f32'] - c1['prd_subset_f32']
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_HPRD_STEPS
     counts = read_counts()
     dJ, dRho = float(u.dJMax), max(ur.dRho)
-    print(f'  {ms:.1f} ms per outer iteration; sweep_f32 launches: {full} '
-          f'on the full grid, {sub} on the PRD subset rows; last dJ '
+    print(f'  {ms:.1f} ms per outer iteration; float32 launches: sweep '
+          f'{full} on the full grid, PRD subset {sub} on its rows; last dJ '
           f'{dJ:.3e}, dRho {dRho:.3e}; JRest {ctx.JRest.dtype}')
     if not (full > 0 and sub > 0 and counts['sweep'] == 0
+            and counts['prd_subset'] == 0
             and np.isfinite(dJ) and np.isfinite(dRho)
             and ctx.JRest.dtype == torch.float64):
         raise AssertionError(f'hybrid PRD in float32: launches {counts}, '
@@ -4330,8 +4483,11 @@ def od_prd(hprd):
         raise AssertionError(f'on-device {name} off the host loop')
     if hprd and not torch.isfinite(ctxD.JRest).all():
         raise AssertionError('non-finite JRest')
-    if counts['sweep'] < 2 * nDev:
-        raise AssertionError(f'sweep launched {counts["sweep"]} times')
+    # a sweep per MALI step, a subset kernel per PRD sub-iteration
+    if (counts['sweep'] + counts['prd_subset'] < 2 * nDev
+            or not counts['prd_subset']):
+        raise AssertionError(f'sweep launched {counts["sweep"]} times, the '
+                             f'subset kernel {counts["prd_subset"]}')
     return counts
 
 
@@ -5182,6 +5338,9 @@ KERNELS = {
     'prd_scatter': ('lightweaver_tpu_torch/csrc/prd_scatter.cu',
                     'none: lightweaver_tpu/ops/prd.py leaves the PRD '
                     'scattering integral to XLA'),
+    'prd_subset': ('lightweaver_tpu_torch/csrc/prd_subset.cu',
+                   'none: lightweaver_tpu/context.py assembles the PRD '
+                   'subset rows in XLA before its sweep kernel'),
 }
 SCHEMES = ('mali_full_precond', PALLAS, FUSED)
 
@@ -5261,7 +5420,8 @@ def main():
     # path (phase (c)'s launches, phase (a)'s inputs), the probes; phase
     # 15's launches added to each instance's
     records = {name: dict(prdKern[name], launches=launches[name])
-               for name in ('sweep', 'gamma', 'fused', 'prd_scatter')}
+               for name in ('sweep', 'gamma', 'fused', 'prd_scatter',
+                            'prd_subset')}
     records.update({name: dict(f32Kern[name], launches=f32Launches[name])
                     for name in F32_NAMES})
     records.update({name: dict(solverKern[name], launches=n)

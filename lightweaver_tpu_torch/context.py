@@ -64,8 +64,10 @@ step (transition_terms over _uv), formed by the first stage that reads
 them.  PRD lines carry their emission-profile ratio rho
 (params['rhoPrd']) into every stage through _uv; between MALI steps
 prd_redistribute refreshes rho (ops/prd.py) and re-solves the PRD-active
-wavelengths (build_prd_subset_fn, again through ops/sweep.py; on a 2D
-atmosphere the full-grid MALI step).
+wavelengths (build_prd_subset_fn: on a CUDA device the rho-free terms
+once per redistribution and ops/prd_subset.py's kernel each
+sub-iteration, elsewhere through ops/sweep.py; on a 2D atmosphere the
+full-grid MALI step).
 
 Two iteration schemes (Context.set_fs_iter_scheme) put a further kernel
 behind a stage:
@@ -109,9 +111,12 @@ from .ops.ng import (Ng, NgOptions, device_ng_accelerate,
                      device_ng_init)
 from .ops.planck import planck_nu
 from .ops.prd import BLOCK_ELEMENTS, _DX_EPS, prd_scatter_rho
+from .ops.prd_subset import (MAX_LINES, SubsetLine, comoving_rho,
+                             line_rho_rows, prd_subset_sweep)
 from .ops.stokes import delo_bezier_stokes
 from .ops.stokes2d import sweep_stokes_rays_2d
-from .ops.sweep import BEZIER3, angular_moments, formal_solve_sweep
+from .ops.sweep import (BEZIER3, SOLVER_CODES, angular_moments,
+                        formal_solve_sweep)
 from .utils import ExplodingMatrixError, InitialSolution
 
 DEFAULT_DTYPE = torch.float64
@@ -430,23 +435,16 @@ def _uv(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic,
     sl = slice(lo - t.Nblue, hi - t.Nblue)
     lam = t.wavelengthT[sl]
     if t.isLine:
-        phi = params['phi'][ai][ti][:, sl]
-        hnu_4pi = Const.HC_FOURPI * (t.lambda0 / lam)
-        Vij = hnu_4pi[None, :, None, None] * t.Bij * phi
+        Vij = _line_vij(params, ai, ti, t, lo, hi)
         Vji = (t.Bji / t.Bij) * Vij
         rho = line_rho(params, ai, ti, t)
         if rho is not None:
-            i0s = params.get('hprdI0')
-            if cfg.hprd and i0s is not None and i0s[ai][ti] is not None:
+            i0, frac = _hprd_coeffs(cfg, params, ai, ti)
+            if i0 is not None:
                 # comoving-frame rho: linear interpolation at the
                 # Doppler-shifted window position per (d, mu, k); rho
                 # stays full-window (shifts cross rows), i0/frac slice
-                # (ref: Source/LwTransition.hpp:118-126)
-                i0 = i0s[ai][ti][:, sl]
-                frac = params['hprdFrac'][ai][ti][:, sl]
-                kIdx = torch.arange(rho.shape[1], device=rho.device)
-                Vji = Vji * ((1.0 - frac) * rho[i0, kIdx]
-                             + frac * rho[i0 + 1, kIdx])
+                Vji = Vji * comoving_rho(rho, i0[:, sl], frac[:, sl])
             else:
                 # emission profile psi = rho phi: scales Vji and Uji
                 # (ref: Source/LwAtom.hpp:119-123)
@@ -463,6 +461,23 @@ def _uv(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic,
         twohc = Const.TwoHC / lam ** 3
         Uji = twohc[None, :, None, None] * Vji
     return Uji, Vij, Vji
+
+
+def _line_vij(params, ai: int, ti: int, t: TransStatic, lo: int, hi: int):
+    """Vij [2, w, Nmu, Nk] of line (ai, ti) on the GLOBAL wavelength rows
+    [lo, hi) of its window: (hc/4pi)(lambda0/lambda) Bij phi."""
+    sl = slice(lo - t.Nblue, hi - t.Nblue)
+    hnu_4pi = Const.HC_FOURPI * (t.lambda0 / t.wavelengthT[sl])
+    return hnu_4pi[None, :, None, None] * t.Bij * params['phi'][ai][ti][:, sl]
+
+
+def _hprd_coeffs(cfg: IterConfig, params, ai: int, ti: int):
+    """(i0, frac) [2, W, Nmu, Nk] of line (ai, ti)'s comoving-frame rho
+    under hybrid PRD, else (None, None)."""
+    i0s = params.get('hprdI0')
+    if cfg.hprd and i0s is not None and i0s[ai][ti] is not None:
+        return i0s[ai][ti], params['hprdFrac'][ai][ti]
+    return None, None
 
 
 def _wla(cfg: IterConfig, params, ai: int, ti: int, t: TransStatic):
@@ -735,19 +750,22 @@ def _upwind_columns(cfg: IterConfig, params, chiTot, lam, rows=None):
 
 
 # ---- scheme 'mali_full_precond_fused': stages 1 and 2 in one kernel ----
-def _boundary(cfg, params, key, thermalised, k0, k1):
-    """One end's boundary for ops/fused.py: caller data, the Planck rows at
-    depths (k0, k1) of a thermalised end, or zero.  Over columns k0, k1
-    index each column's depths: the data rows go to every column
-    ([Nlam, Nmu, Ncol]) and the Planck rows are [Nlam, Ncol, 2]."""
+def _boundary(cfg, params, key, thermalised, k0, k1, rows=None, lam=None):
+    """One end's boundary for ops/fused.py (and ops/prd_subset.py): caller
+    data, the Planck rows at depths (k0, k1) of a thermalised end, or
+    zero, on the grid's rows, or on the global rows ``rows`` whose
+    wavelengths are ``lam``.  Over columns k0, k1 index each column's
+    depths: the data rows go to every column ([Nlam, Nmu, Ncol]) and the
+    Planck rows are [Nlam, Ncol, 2]."""
     C = cfg.Ncol
     if params.get(key) is not None:
-        x = params[key]
+        x = params[key] if rows is None else params[key][rows]
         if C > 1 and x.dim() == 2:
             x = x[..., None].expand(*x.shape, C)
         return 'data', x.contiguous()
     if thermalised:
-        T, lam = params['temperature'], cfg.wavelengthT
+        T = params['temperature']
+        lam = cfg.wavelengthT if lam is None else lam
         if C == 1:
             return 'therm', torch.stack([planck_nu(T[k0], lam),
                                          planck_nu(T[k1], lam)], dim=1)
@@ -1574,6 +1592,17 @@ def _hprd_rows(cfg: IterConfig):
     return kept[1], kept[2]
 
 
+def prd_subset_kernel_covers(cfg: IterConfig, nLines: int) -> bool:
+    """Whether the PRD subset solve runs csrc/prd_subset.cu
+    (ops/prd_subset.py) for ``nLines`` PRD lines: a CUDA device, a 1D
+    atmosphere, a formal solver the sweep kernel has an instance for,
+    float64 or float32 rays and at most MAX_LINES lines."""
+    return (cfg.device.type == 'cuda' and cfg.Ndim == 1
+            and cfg.formalSolver in SOLVER_CODES
+            and cfg.dtype in (torch.float64, torch.float32)
+            and nLines <= MAX_LINES)
+
+
 def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
                         prdLines: List[tuple]):
     """Formal solution restricted to the PRD-active wavelength subset.
@@ -1583,17 +1612,34 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
     build_prd_subset_fn: solve I only at the ``subIdxs`` rows of the
     global grid, update J (and JRest under hybrid PRD) there, and
     accumulate Rij/Rji for the PRD lines alone; Gamma and all other
-    transitions' rates are untouched.  The sweep is ops/sweep.py's, the
-    CUDA kernel on a CUDA device, over the Nsub rows.
+    transitions' rates are untouched.
 
     ``subIdxs`` is a sorted index array; each PRD line's window must be
     contained in it.  ``prdLines`` is a list of (ai, ti) into
-    cfg.activeAtoms.  Returns prd_subset_stage(params) -> {'J' [Nsub, Nk],
-    'I' [Nsub, Nmu] (up sweep at k = 0), 'dJ', 'Rij', 'Rji' (per PRD
-    line, [Nk])}, plus 'JRest' [Nprd, Nk] under cfg.hprd; over cfg.Ncol >
-    1 columns each column has its own boundaries, 'I' is [Ncol, Nsub,
-    Nmu] and 'dJ' [Ncol].  cfg.accelerateScattering accelerates J as the
-    MALI step does, with the subset's PsiBar.
+    cfg.activeAtoms.  Returns prd_subset_stage(params, held=None) -> {'J'
+    [Nsub, Nk], 'I' [Nsub, Nmu] (up sweep at k = 0), 'dJ', 'Rij', 'Rji'
+    (per PRD line, [Nk])}, plus 'JRest' [Nprd, Nk] under cfg.hprd; over
+    cfg.Ncol > 1 columns each column has its own boundaries, 'I' is
+    [Ncol, Nsub, Nmu] and 'dJ' [Ncol].  cfg.accelerateScattering
+    accelerates J as the MALI step does, with the subset's PsiBar.
+
+    Two paths, picked from the configuration (prd_subset_kernel_covers;
+    the stage's attribute ``hoisted``):
+
+    - hoisted (a CUDA device, 1D, a solver of the sweep kernel): within a
+      redistribution only the PRD lines' rho and J change, so the rays'
+      rho-free part (subset_terms: chiFix, etaFix, each PRD line's Vij on
+      its rows, the boundaries, the rates' weights) is formed once, in the
+      span lw.prd.subset_terms, into the dict ``held`` that the caller
+      keeps for the redistribution (a stage called without one forms it
+      for the call), and each call is one launch of csrc/prd_subset.cu
+      (ops/prd_subset.py:prd_subset_sweep, span lw.prd.subset_kernel),
+      which assembles chi and srcNum per lane and sweeps; no
+      [2, Nsub, Nmu, Nk] chi, eta or srcNum is formed.  The PRD rates read
+      the held Vij and form each line's rho once.
+    - otherwise (the CPU, another device): every call forms chi and srcNum
+      of the rows in torch (sweep_inputs) and runs ops/sweep.py; ``held``
+      is not read.
 
     On a rank of a wavelength group (cfg.lamGroup; params['J'] then holds
     the rows [lamLo, lamHi)) the stage solves the subset rows of its block
@@ -1646,6 +1692,11 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
         a, b = max(t.Nblue, lo), min(t.Nred, hi)
         b = max(a, b)
         lineRows.append((int(np.searchsorted(rows, a)), a, b))
+    prdSet = set(prdLines)
+    # the PRD lines with rows here, (ai, ti, s0, a, b): the kernel's
+    # lines, in this order
+    kernelLines = [(ai, ti, s0, a, b) for (ai, ti), (s0, a, b)
+                   in zip(prdLines, lineRows) if b > a]
 
     def sweep_inputs(params):
         """The arguments of formal_solve_sweep on the subset rows."""
@@ -1665,13 +1716,97 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
         return (chiSub, srcSub, _heights(cfg, params), cfg.muzT, Iupw_d,
                 Iupw_u, cfg.wmuT)
 
-    def prd_subset_stage(params):
+    def subset_terms(params):
+        """The rho-free part of the subset rows' rays, formed once per
+        redistribution (the populations do not change within one):
+        chiFix = bgChi + every other transition's chi + each PRD line's
+        n_i Vij, etaFix = bgEta + every other transition's eta, in the
+        order of the transitions; per PRD line with rows here its Vij on
+        them, n_j and its rates' weights; and the two boundaries."""
+        shape = (2, Nsub, Nmu, Nk)
+        chiFix = params['bgChi'][subT][None, :, None, :].expand(shape).clone()
+        etaFix = params['bgEta'][subT][None, :, None, :].expand(shape).clone()
+        Vij = {}
+        for ai, ti, p0, p1, r0, r1, sel in spans:
+            t = cfg.allAtoms[ai].trans[ti]
+            if (ai, ti) in prdSet:
+                # the window's rows here are contiguous: sel is whole
+                Vij[(ai, ti)] = _line_vij(params, ai, ti, t, r0, r1)
+                n = params['allPops'][ai]
+                chiFix[:, p0:p1] += n[t.i] * Vij[(ai, ti)]
+                continue
+            c, e = _chi_eta(params, ai, t, _uv(cfg, params, ai, ti, t, r0, r1))
+            chiFix[:, p0:p1] += c[:, sel]
+            etaFix[:, p0:p1] += e[:, sel]
+        lines = {}
+        for ai, ti, s0, a, b in kernelLines:
+            t = cfg.activeAtoms[ai].trans[ti]
+            wla = _wla(cfg, params, ai, ti, t)[a - t.Nblue:b - t.Nblue] \
+                .to(cfg.accumDtype)
+            # the rates' weights folded into Vij where the working dtype is
+            # the accumulation's (_sum_lmd_split's single pass)
+            VijW = None
+            if cfg.dtype == cfg.accumDtype:
+                VijW = (Vij[(ai, ti)] * wla[None, :, None, :]
+                        * (0.5 * cfg.wmuT)[None, None, :, None])
+            lines[(ai, ti)] = (Vij[(ai, ti)],
+                               params['allPops'][ai][t.j].contiguous(), wla,
+                               VijW)
+        Nc = cfg.NkCol
+        return {'chiFix': chiFix, 'etaFix': etaFix, 'lines': lines,
+                'upper': _boundary(cfg, params, 'upperBcData',
+                                   cfg.upperThermalised, 0, 1, subT,
+                                   lamSub),
+                'lower': _boundary(cfg, params, 'lowerBcData',
+                                   cfg.lowerThermalised, Nc - 1, Nc - 2,
+                                   subT, lamSub)}
+
+    def kernel_args(params, terms):
+        """The arguments of ops/prd_subset.py:prd_subset_sweep: the held
+        terms, scaJ of the rows and each PRD line's SubsetLine with this
+        call's rho."""
+        lines = []
+        for ai, ti, s0, a, b in kernelLines:
+            t = cfg.activeAtoms[ai].trans[ti]
+            Vij, nj = terms['lines'][(ai, ti)][:2]
+            i0, frac = _hprd_coeffs(cfg, params, ai, ti)
+            lines.append(SubsetLine(
+                s0, Vij, nj, t.Bji / t.Bij, t.Aji / t.Bji,
+                params['rhoPrd'][ai][ti].contiguous(), a - t.Nblue,
+                None if i0 is None else i0.contiguous(),
+                None if frac is None else frac.contiguous()))
+        scaJ = params['bgSca'][subT] * params['J'][jRows].to(cfg.dtype)
+        return (terms['chiFix'], terms['etaFix'], scaJ, lines,
+                _heights(cfg, params), cfg.muzT, cfg.wmuT, terms['upper'],
+                terms['lower'], cfg.formalSolver)
+
+    def held_terms(params, held):
+        """subset_terms of the redistribution that ``held`` belongs to,
+        formed at its first call (for this call alone without one)."""
+        if held is not None and 'terms' in held:
+            return held['terms']
+        with tracing.span('lw.prd.subset_terms'):
+            terms = subset_terms(params)
+        if held is not None:
+            held['terms'] = terms
+        return terms
+
+    def prd_subset_stage(params, held=None):
         params = _working_params(cfg, params)
         adt = cfg.accumDtype
         Jdag = params['J'][jRows].to(adt)
-        if Nsub:
+        hoisted = prd_subset_stage.hoisted and Nsub > 0
+        if hoisted:
+            terms = held_terms(params, held)
+            args = kernel_args(params, terms)
+            with tracing.span('lw.prd.subset_kernel'):
+                I, moments = prd_subset_sweep(*args)
+            subLines = {(ai, ti): L for (ai, ti, *_), L
+                        in zip(kernelLines, args[3])}
+        elif Nsub:
             I, Psi, IeffBase, moments = formal_solve_sweep(
                 *sweep_inputs(params), solver=cfg.formalSolver)
+        if Nsub:
             Jnew = moments['J'].to(adt)
             if cfg.accelerateScattering:
                 Jnew = _accelerate_scattering(Jnew, Jdag, moments['PsiBar'],
@@ -1692,9 +1827,25 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
                 RjiOut.append(Jdag.new_zeros(Nk))
                 continue
             I_w = I[:, s0:s0 + b - a]
-            Uji, Vij, Vji = _uv(cfg, params, ai, ti, t, a, b)
-            wlaA = _wla(cfg, params, ai, ti, t)[a - t.Nblue:b - t.Nblue] \
-                .to(adt)
+            if hoisted:
+                # the held Vij and weights; the line's rho formed once
+                L = subLines[(ai, ti)]
+                _, _, wlaA, VijW = terms['lines'][(ai, ti)]
+                if VijW is not None:
+                    # Rij = sum I Vij w, Rji = sum (Uji + I Vji) w = gS
+                    # sum (uS + I) rho Vij w, w = wla wmu/2 held in VijW
+                    rc = rates_rho(L)
+                    RijOut.append(torch.sum(I_w * VijW, dim=(0, 1, 2)))
+                    RjiOut.append(L.gS * torch.sum((I_w + L.uS) * rc * VijW,
+                                                   dim=(0, 1, 2)))
+                    continue
+                Vij = L.Vij
+                Vji = (L.gS * Vij) * line_rho_rows(L)
+                Uji = L.uS * Vji
+            else:
+                Uji, Vij, Vji = _uv(cfg, params, ai, ti, t, a, b)
+                wlaA = _wla(cfg, params, ai, ti, t)[a - t.Nblue:b - t.Nblue] \
+                    .to(adt)
             RijOut.append(_sum_lmd_split(I_w * Vij, wlaA, wmu2, wmu2w, adt))
             RjiOut.append(_sum_lmd_split(Uji + I_w * Vji, wlaA, wmu2, wmu2w,
                                          adt))
@@ -1712,10 +1863,30 @@ def build_prd_subset_fn(cfg: IterConfig, subIdxs: np.ndarray,
             out['JRest'] = JRest[0]
         return out
 
+    prd_subset_stage.hoisted = prd_subset_kernel_covers(
+        cfg, len(kernelLines))
     prd_subset_stage.sweep_inputs = lambda params: sweep_inputs(
         _working_params(cfg, params))
+    prd_subset_stage.subset_terms = lambda params: subset_terms(
+        _working_params(cfg, params))
+    prd_subset_stage.kernel_args = lambda params, terms: kernel_args(
+        _working_params(cfg, params), terms)
     prd_subset_stage.rows = rows
     return prd_subset_stage
+
+
+def rates_rho(line: SubsetLine):
+    """line_rho_rows for the PRD rates: the comoving interpolation as one
+    torch.lerp in place of the assembly's four operations (the rates need
+    not round as the kernel's assembly does; 14.5 ms of device time a
+    MALI step of the 512-column hybrid-PRD batch on an H100)."""
+    if line.i0 is None:
+        return line_rho_rows(line)
+    rows = slice(line.off, line.off + line.Vij.shape[1])
+    i0 = line.i0[:, rows]
+    kIdx = torch.arange(line.rho.shape[1], device=line.rho.device)
+    return torch.lerp(line.rho[i0, kIdx], line.rho[1:][i0, kIdx],
+                      line.frac[:, rows])
 
 
 def prd_window_J(cfg: IterConfig, t: TransStatic, prd0, J, JRest):
@@ -1917,20 +2088,23 @@ class DeviceLoop:
     def prd_subloop(self, rho, J, JRest, Rij, Rji, pops, more):
         """Up to maxPrdSubIter PRD sub-iterations while drho >= prdTol
         (the first always runs), on the step's own rates and the
-        post-solve populations; returns (rho, J, JRest)."""
+        post-solve populations; returns (rho, J, JRest).  The subset
+        solve's rho-free terms are formed once for them (``held``)."""
+        held = {}
         for si in range(self.maxPrdSubIter):
             rho, J, JRest, Rij, Rji, drho = self.prd_substep(
-                rho, J, JRest, Rij, Rji, pops)
+                rho, J, JRest, Rij, Rji, pops, held)
             if si + 1 < self.maxPrdSubIter and not more(drho >= self.prdTol):
                 break
         return rho, J, JRest
 
-    def prd_substep(self, rho, J, JRest, Rij, Rji, pops):
+    def prd_substep(self, rho, J, JRest, Rij, Rji, pops, held=None):
         """rho of every PRD line (scatter_rho), then the subset solve with
-        it: J's subset rows (not I) and the PRD lines' rates are replaced,
-        and JRest under hybrid PRD.  drho is the largest |(rNew - rOld) /
-        rNew| over rNew != 0, the tracking-only Ng's max change of the
-        host prd_redistribute."""
+        it (``held``: its terms of the sub-iterations of this population
+        update): J's subset rows (not I) and the PRD lines' rates are
+        replaced, and JRest under hybrid PRD.  drho is the largest |(rNew
+        - rOld) / rNew| over rNew != 0, the tracking-only Ng's max change
+        of the host prd_redistribute."""
         cfg = self.cfg
         drho = self.zero
         rhoNew = [list(r) for r in rho]
@@ -1942,7 +2116,8 @@ class DeviceLoop:
             rel = torch.where(nz, (rNew - rho[ai][ti]) / rNew, 0.0)
             drho = torch.maximum(drho, torch.max(torch.abs(rel)))
             rhoNew[ai][ti] = rNew
-        out = self.subsetFn(dict(self.base, J=J, pops=pops, rhoPrd=rhoNew))
+        out = self.subsetFn(dict(self.base, J=J, pops=pops, rhoPrd=rhoNew),
+                            held)
         J = J.index_copy(0, self.subT, out['J'].to(J.dtype))
         Rij, Rji = [list(r) for r in Rij], [list(r) for r in Rji]
         for li, (ai, ti, a, t) in enumerate(self.prdLines):
@@ -3222,17 +3397,18 @@ class Context:
                 self.cfg, self._prdSubIdxs, prdLines)
         return self._prd_fs_fn
 
-    def _prd_subset_fs(self):
+    def _prd_subset_fs(self, held=None):
         """Subset formal solution for PRD sub-iterations: refresh J (and
         JRest) and the PRD lines' radiative rates at the PRD-active
         wavelengths only, leaving Gamma and every other rate untouched
-        (ref: FsMode::PrdOnly, PrdTemplates.hpp:19-113).  Returns dJ on
-        the subset (0-d tensor)."""
+        (ref: FsMode::PrdOnly, PrdTemplates.hpp:19-113); ``held`` keeps
+        its rho-free terms across one redistribution's sub-iterations.
+        Returns dJ on the subset (0-d tensor)."""
         p = self._params
         p['J'] = self.J
         p['pops'] = [st['n'] for st in self.popsState]
         p['rhoPrd'] = self.rhoPrd
-        out = self._prd_subset_fn()(p)
+        out = self._prd_subset_fn()(p, held)
         sub = self._prdSubIdxsT
         self.J = self.J.index_copy(0, sub, out['J'])
         self.I = self.I.index_copy(0, sub, out['I'])
@@ -3333,10 +3509,13 @@ class Context:
 
         dRho = [0.0] * len(prdLines)
         nIter = 0
+        # the subset solve's rho-free terms, formed once for the
+        # sub-iterations of this call
+        held = {}
         for it in range(maxIter):
             nIter += 1
             with tracing.span('lw.prd.subiter'):
-                dRhoMax = self._prd_subiter(prdLines, ngs, dRho)
+                dRhoMax = self._prd_subiter(prdLines, ngs, dRho, held)
             if dRhoMax < tol:
                 break
 
@@ -3345,10 +3524,11 @@ class Context:
         upd.updatedJ = True
         return upd
 
-    def _prd_subiter(self, prdLines, ngs, dRho) -> float:
+    def _prd_subiter(self, prdLines, ngs, dRho, held) -> float:
         """One PRD sub-iteration: each line's rho from its scattering
         integral (its drho by the line's Ng, in ``dRho``), then the
-        refresh of J and the rates; returns the largest drho."""
+        refresh of J and the rates (the subset solve's terms in
+        ``held``); returns the largest drho."""
         dRhoMax = 0.0
         for li, (ai, ti, a, t) in enumerate(prdLines):
             with tracing.span('lw.prd.scatter_rho'):
@@ -3375,7 +3555,7 @@ class Context:
                 and not self.depthData.fill
                 and self._params is not None):
             with tracing.span('lw.prd.subset_solve'):
-                self._prd_subset_fs()
+                self._prd_subset_fs(held)
         else:
             # freeze the CRSW schedule across sub-iterations
             cur = self._crswVal

@@ -1,9 +1,10 @@
 // One lambda row of one column per block: the sweep of its 2 Nmu rays by
 // the solver S (linear, Bezier-3 or BESSER), a warp per ray
 // (bezier3.cuh:warp_ray), and their angular moments, in one pass.  Shared
-// by the depth-sweep kernel (sweep.cu, rays read from chi and srcNum) and
+// by the depth-sweep kernel (sweep.cu, rays read from chi and srcNum),
 // the fused lambda-step kernel (fused.cu, Bezier-3, rays assembled from
-// line slots); each supplies a Rays type with
+// line slots) and the PRD subset kernel (prd_subset.cu, rays assembled
+// from the rho-free part and the PRD lines); each supplies a Rays type with
 //
 //   load(rayOff, rowOff, chi, srcNum)
 //                                  chi and srcNum of one point: rayOff its
@@ -79,8 +80,10 @@ size_t smem_bytes(int Nmu, int N) {
 
 // Block (l, c) = (blockIdx.x, blockIdx.y), blockDim.x = 32
 // rays_per_pass(Nmu).  iBarOut is written by the float instance only (the
-// double one's IBar is J).
-template <int S, typename T, typename Rays>
+// double one's IBar is J).  kRayOps = false stores I alone of the three
+// ray outputs (psiOut and ieffbOut are then not read and may be null);
+// the moments are the same either way.
+template <int S, typename T, typename Rays, bool kRayOps = true>
 __device__ __forceinline__ void sweep_row(
     const Rays& rays, const T* __restrict__ dh,  // [Ncol, N-1]
     const T* __restrict__ muz, const T* __restrict__ wmuHalf,  // [Nmu]
@@ -112,8 +115,8 @@ __device__ __forceinline__ void sweep_row(
         const size_t ray = (static_cast<size_t>(dir) * NL + l) * Nmu + imu;
         const size_t rayBase = ray * NT + colOff;
         T* IR = Iout + rayBase;
-        T* psiR = psiOut + rayBase;
-        T* ieffbR = ieffbOut + rayBase;
+        T* psiR = kRayOps ? psiOut + rayBase : nullptr;
+        T* ieffbR = kRayOps ? ieffbOut + rayBase : nullptr;
         const T w = wmuHalf[imu];
         const T mu = muz[imu];
 
@@ -128,8 +131,10 @@ __device__ __forceinline__ void sweep_row(
                               T srcv) {
             if (valid && active) {
                 IR[k] = I;
-                psiR[k] = psi;
-                ieffbR[k] = ieffb;
+                if constexpr (kRayOps) {
+                    psiR[k] = psi;
+                    ieffbR[k] = ieffb;
+                }
             }
             T* tile = tiles + (barrier & 1) * kNQ * R * 32;
             tile[(0 * R + warp) * 32 + lane] = w * I;

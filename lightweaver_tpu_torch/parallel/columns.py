@@ -459,11 +459,14 @@ class ColumnBatch:
         self._Rji = [list(r) for r in self._Rji]
         dRhoCol = np.zeros(C)
         nSub = 0
+        # the subset solve's rho-free terms, formed once for the
+        # sub-iterations of this call
+        held = {}
         for _ in range(maxIter):
             nSub += 1
             with tracing.span('lw.prd.subiter'):
                 dRhoCol, dRhoMax = self._prd_subiter(prdLines, frozenK,
-                                                     frozenC)
+                                                     frozenC, held)
             if dRhoMax < tol:
                 break
 
@@ -473,10 +476,11 @@ class ColumnBatch:
         upd.updatedJ = True
         return upd
 
-    def _prd_subiter(self, prdLines, frozenK, frozenC):
+    def _prd_subiter(self, prdLines, frozenK, frozenC, held):
         """One PRD sub-iteration: each line's rho from its scattering
-        integral, then the PRD-subset formal solution; returns the
-        columns' drho [C] and the largest of the unconverged ones'."""
+        integral, then the PRD-subset formal solution (its terms of this
+        redistribution in ``held``); returns the columns' drho [C] and the
+        largest of the unconverged ones'."""
         fc = self.flatCtx
         C, Nc = self.Ncol, self.NkCol
         subT = self._prdSubT
@@ -496,7 +500,7 @@ class ColumnBatch:
             self.params['rhoPrd'][ai][ti] = rNew
 
         with tracing.span('lw.prd.subset_solve'):
-            out = self._prd_fs(self.params)
+            out = self._prd_fs(self.params, held)
         Jsub = self.params['J'][subT]
         self.params['J'] = self.params['J'].index_copy(
             0, subT, torch.where(frozenK[None, :], Jsub,

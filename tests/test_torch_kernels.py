@@ -17,6 +17,7 @@ import torch
 from lightweaver_tpu_torch.ops import formal_solver2d as tfs2d
 from lightweaver_tpu_torch.ops import fused as tfused
 from lightweaver_tpu_torch.ops import gamma as tgamma
+from lightweaver_tpu_torch.ops import prd_subset as tsubset
 from lightweaver_tpu_torch.ops import probe as tprobe
 from lightweaver_tpu_torch.ops import sweep as tsweep
 from lightweaver_tpu_torch.problems import (random_boundaries,
@@ -483,21 +484,20 @@ def test_prd_on_cuda_goes_through_its_kernels(scheme):
     """falc_h6mg (20 depths, 3 rays) under each scheme on the card: the
     MALI step launches the scheme's kernels (the line kernel once for all
     groups), each PRD sub-iteration's
-    subset solve launches the sweep once, and J and rho after a MALI step
-    and a prd_redistribute agree with the CPU's to 1e-9."""
+    subset solve launches the PRD subset kernel once, and J and rho after
+    a MALI step and a prd_redistribute agree with the CPU's to 1e-9."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     counts = (tsweep.sweep_cuda, tgamma.line_gamma_rates_cuda,
-              tfused.fused_cuda)
+              tfused.fused_cuda, tsubset.prd_subset_cuda)
     before = [fn.launches for fn in counts]
     gpu = _h6mg_after_redistribution('cuda', scheme)
     torch.cuda.synchronize()
-    sweeps, lines, fused = (fn.launches - b for fn, b in zip(counts,
-                                                              before))
-    expected = {'mali_full_precond': (2, 0, 0),
-                'mali_full_precond_pallas': (2, 1, 0),
-                'mali_full_precond_fused': (1, 0, 1)}[scheme]
-    assert (sweeps, lines, fused) == expected
+    got = tuple(fn.launches - b for fn, b in zip(counts, before))
+    expected = {'mali_full_precond': (1, 0, 0, 1),
+                'mali_full_precond_pallas': (1, 1, 0, 1),
+                'mali_full_precond_fused': (0, 0, 1, 1)}[scheme]
+    assert got == expected
     cpu = _h6mg_after_redistribution('cpu', scheme)
     J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
     err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
@@ -743,7 +743,8 @@ def test_twenty_rays_on_cuda_under_each_scheme(scheme):
     """falc_h6mg (20 depths) with 20 rays, past one pass of the sweep and
     fused kernels: a MALI step, stat_equil and one prd_redistribute on
     the card go through the scheme's kernels (the PRD subset solve
-    through the sweep), and J and rho agree with the CPU's to 1e-9."""
+    through the PRD subset kernel), and J and rho agree with the CPU's
+    to 1e-9."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     from lightweaver_tpu_torch.problems import falc_interpolated, h6mg_context
@@ -756,15 +757,15 @@ def test_twenty_rays_on_cuda_under_each_scheme(scheme):
         ctx.prd_redistribute(maxIter=1)
         return ctx
     counts = (tsweep.sweep_cuda, tgamma.line_gamma_rates_cuda,
-              tfused.fused_cuda)
+              tfused.fused_cuda, tsubset.prd_subset_cuda)
     before = [fn.launches for fn in counts]
     gpu = run('cuda')
     torch.cuda.synchronize()
     assert gpu.cfg.Nmu == 20
     got = tuple(fn.launches - b for fn, b in zip(counts, before))
-    assert got == {'mali_full_precond': (2, 0, 0),
-                   'mali_full_precond_pallas': (2, 1, 0),
-                   'mali_full_precond_fused': (1, 0, 1)}[scheme]
+    assert got == {'mali_full_precond': (1, 0, 0, 1),
+                   'mali_full_precond_pallas': (1, 1, 0, 1),
+                   'mali_full_precond_fused': (0, 0, 1, 1)}[scheme]
     cpu = run('cpu')
     J, Jref = gpu.J.cpu().numpy(), cpu.J.numpy()
     err = np.abs(J - Jref).max(axis=1) / np.abs(Jref).max(axis=1)
@@ -1093,9 +1094,10 @@ def test_pickled_card_context_resumes_on_the_card():
 def test_compute_rays_refine_prd_on_cuda_matches_cpu():
     """compute_rays(refinePrd=True) of falc_h6mg (FAL-C at 20 depths, 3
     rays, PRD) from one state on the card and on the CPU: the ray
-    Context's MALI step, prd_redistribute and formal_sol go through the
-    sweep kernel (the PRD subset solve included), and the spectrum agrees
-    with the CPU's to 1e-9 of each wavelength's maximum."""
+    Context's MALI step and formal_sol go through the sweep kernel and
+    its prd_redistribute's subset solve through the PRD subset kernel,
+    and the spectrum agrees with the CPU's to 1e-9 of each wavelength's
+    maximum."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
     from lightweaver_tpu_torch.context import Context
@@ -1110,8 +1112,10 @@ def test_compute_rays_refine_prd_on_cuda_matches_cpu():
         dict(state, kwargs=dict(state['kwargs'], device='cuda')))
     lam = np.linspace(279.4, 280.5, 40)
     before = tsweep.sweep_cuda.launches
+    subsets = tsubset.prd_subset_cuda.launches
     rays = gpu.compute_rays(lam, refinePrd=True)
-    assert tsweep.sweep_cuda.launches - before >= 3
+    assert tsweep.sweep_cuda.launches - before >= 2
+    assert tsubset.prd_subset_cuda.launches - subsets >= 1
     assert np.isfinite(rays).all()
     assert _row_err(rays, cpu.compute_rays(lam, refinePrd=True)) < 1e-9
 
@@ -1199,8 +1203,9 @@ def test_context_option_on_cuda_matches_cpu(option):
 def test_hprd_f32_on_cuda_by_the_rule():
     """Hybrid PRD in float32 on the card (the small H 6 problem of
     tests/test_torch_prd_context.py with its outflow): two MALI steps with
-    prd_redistribute launch the float32 sweep on the full grid and on the
-    PRD subset rows; then one MALI iteration on the card and on the CPU
+    prd_redistribute launch the float32 sweep on the full grid and the
+    float32 PRD subset kernel on the subset rows; then one MALI iteration
+    on the card and on the CPU
     from the same params, each held to the float64 iteration by
     err(card) <= 2 err(CPU) + 1e-6 (Gamma of its maximum; J, I, JRest per
     wavelength, each row against the larger of its CPU distance and the
@@ -1220,10 +1225,10 @@ def test_hprd_f32_on_cuda_by_the_rule():
         n0 = tsweep.sweep_cuda.launches_f32
         card.formal_sol_gamma_matrices()
         card.stat_equil()
-        n1 = tsweep.sweep_cuda.launches_f32
+        full += tsweep.sweep_cuda.launches_f32 - n0
+        n1 = tsubset.prd_subset_cuda.launches_f32
         card.prd_redistribute(maxIter=2)
-        full += n1 - n0
-        sub += tsweep.sweep_cuda.launches_f32 - n1
+        sub += tsubset.prd_subset_cuda.launches_f32 - n1
     assert full == 2 and sub > 0
     params = card.build_params()
     out = card._iter_fn(params)
